@@ -1,0 +1,50 @@
+"""Logical operator -> physical operator construction (port of
+``arroyo_tpu.engine.build``).  Builders take the resolved device so
+device-state operators place their tensors there."""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+from ..connectors.registry import make_sink, make_source
+from ..device import DeviceLike
+from ..graph.logical import LogicalOperator, OpKind
+from .operator import Operator
+from .operators_basic import (
+    ExpressionOperator,
+    KeyByOperator,
+    UdfOperator,
+    WatermarkOperator,
+)
+
+Builder = Callable[[LogicalOperator, DeviceLike], Operator]
+_BUILDERS: Dict[OpKind, Builder] = {}
+
+
+def register_builder(kind: OpKind):
+    def deco(fn: Builder) -> Builder:
+        _BUILDERS[kind] = fn
+        return fn
+    return deco
+
+
+def build_operator(op: LogicalOperator, device: DeviceLike) -> Operator:
+    from . import operators_window  # noqa: F401  (registers its builders)
+
+    builder = _BUILDERS.get(op.kind)
+    if builder is None:
+        raise NotImplementedError(f"no physical operator for {op.kind}")
+    return builder(op, device)
+
+
+_BUILDERS[OpKind.CONNECTOR_SOURCE] = lambda op, dev: make_source(
+    op.spec.connector, op.spec.config)
+_BUILDERS[OpKind.CONNECTOR_SINK] = lambda op, dev: make_sink(
+    op.spec.connector, op.spec.config)
+_BUILDERS[OpKind.EXPRESSION] = lambda op, dev: ExpressionOperator(op.name,
+                                                                  op.expr)
+_BUILDERS[OpKind.UDF] = lambda op, dev: UdfOperator(op.name, op.expr)
+_BUILDERS[OpKind.WATERMARK] = lambda op, dev: WatermarkOperator(op.name,
+                                                                op.spec)
+_BUILDERS[OpKind.KEY_BY] = lambda op, dev: KeyByOperator(op.name,
+                                                         op.key_cols)

@@ -1,0 +1,101 @@
+"""StateStore — the typed state facade operators use (port of
+``arroyo_tpu.state.store``).  Tables are registered by descriptor; the
+store snapshots every table at a barrier and restores them from the
+backing store, filtered by the task's key range."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+from ..types import SubtaskCheckpointMetadata, TaskInfo
+from .backend import BackingStore, TableSnapshot
+from .tables import (
+    TABLE_CLASSES,
+    BatchBuffer,
+    DeviceTable,
+    GlobalKeyedState,
+    TableDescriptor,
+    TableType,
+)
+
+
+class StateStore:
+    def __init__(self, task_info: TaskInfo, backend: BackingStore,
+                 restore_epoch: Optional[int] = None):
+        self.task_info = task_info
+        self.backend = backend
+        self.restore_epoch = restore_epoch
+        self.descriptors: Dict[str, TableDescriptor] = {}
+        self.tables: Dict[str, Any] = {}
+
+    # -- registration -----------------------------------------------------------
+
+    def register(self, descriptor: TableDescriptor) -> Any:
+        name = descriptor.name
+        if name in self.tables:
+            return self.tables[name]
+        if descriptor.table_type == TableType.DEVICE:
+            raise ValueError("register device tables via register_device()")
+        self.descriptors[name] = descriptor
+        table = TABLE_CLASSES[descriptor.table_type]()
+        self.tables[name] = table
+        snap = self._restored_snapshot(name)
+        if snap is not None:
+            if isinstance(table, BatchBuffer):
+                if snap.batch is not None:
+                    table.restore_batch(snap.batch)
+            elif snap.entries:
+                table.restore(snap.entries)
+        return table
+
+    def register_device(self, descriptor: TableDescriptor,
+                        device_table: DeviceTable) -> None:
+        """Register device-resident state, restoring it when this store
+        restores an epoch."""
+        self.descriptors[descriptor.name] = descriptor
+        self.tables[descriptor.name] = device_table
+        snap = self._restored_snapshot(descriptor.name)
+        if snap is not None and snap.arrays:
+            device_table.restore(snap.arrays)
+
+    def get_global_keyed_state(self, name: str, desc: str = ""
+                               ) -> GlobalKeyedState:
+        return self.register(TableDescriptor(name, TableType.GLOBAL, desc))
+
+    def get_batch_buffer(self, name: str, desc: str = "",
+                         retention_micros: int = 0) -> BatchBuffer:
+        return self.register(TableDescriptor(name, TableType.BATCH_BUFFER,
+                                             desc, retention_micros))
+
+    # -- restore ------------------------------------------------------------------
+
+    def _restored_snapshot(self, name: str) -> Optional[TableSnapshot]:
+        if self.restore_epoch is None:
+            return None
+        snaps = self.backend.restore_subtask(self.task_info, self.restore_epoch,
+                                             [self.descriptors[name]])
+        return snaps.get(name)
+
+    def restore_watermark(self) -> Optional[int]:
+        if self.restore_epoch is None:
+            return None
+        return self.backend.restore_watermark(self.task_info,
+                                              self.restore_epoch)
+
+    # -- checkpoint ----------------------------------------------------------------
+
+    def checkpoint(self, epoch: int,
+                   watermark: Optional[int]) -> SubtaskCheckpointMetadata:
+        """Snapshot every registered table and persist it; device tables
+        copy their planes to the host here, at the barrier."""
+        snaps: Dict[str, TableSnapshot] = {}
+        for name, table in self.tables.items():
+            desc = self.descriptors[name]
+            if isinstance(table, DeviceTable):
+                snaps[name] = TableSnapshot(desc, arrays=table.snapshot())
+            elif isinstance(table, BatchBuffer):
+                snaps[name] = TableSnapshot(desc, batch=table.snapshot_batch())
+            else:
+                snaps[name] = TableSnapshot(desc, entries=table.snapshot())
+        return self.backend.write_subtask_checkpoint(
+            self.task_info, epoch, snaps, watermark)

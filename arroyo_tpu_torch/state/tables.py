@@ -1,0 +1,140 @@
+"""State tables — the port of ``arroyo_tpu.state.tables`` for the tables
+the q5 path uses: :class:`GlobalKeyedState` (source offsets and timers),
+:class:`BatchBuffer` (window candidate rows) and :class:`DeviceTable`
+(device-resident operator state that checkpoints through
+snapshot()/restore() of numpy arrays).  The time-key and keyed tables
+arrive with the operators that use them."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from enum import Enum
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+
+from ..types import Batch
+
+
+class TableType(Enum):
+    GLOBAL = "global"
+    BATCH_BUFFER = "batch_buffer"
+    DEVICE = "device"
+
+
+@dataclass
+class TableDescriptor:
+    name: str
+    table_type: TableType
+    description: str = ""
+    retention_micros: int = 0
+
+
+def global_table(name: str, description: str = "") -> TableDescriptor:
+    return TableDescriptor(name, TableType.GLOBAL, description)
+
+
+class GlobalKeyedState:
+    """kv state visible across all subtasks (source offsets, timers).  Entries
+    carry a strictly monotonic per-key insert version and restore is
+    newest-version-wins, so a stale copy re-persisted by a peer can never
+    win over the owner's entry."""
+
+    def __init__(self) -> None:
+        self._data: Dict[Any, Any] = {}
+        self._version: Dict[Any, int] = {}
+
+    def insert(self, key: Any, value: Any) -> None:
+        from ..types import now_micros
+
+        v = now_micros()
+        prev = self._version.get(key, -1)
+        self._version[key] = v if v > prev else prev + 1
+        self._data[key] = value
+
+    def get(self, key: Any) -> Any:
+        return self._data.get(key)
+
+    def snapshot(self) -> List[Tuple[int, Any, Any]]:
+        return [(self._version.get(k, 0), k, v)
+                for k, v in self._data.items()]
+
+    def restore(self, entries: Iterable[Tuple[int, Any, Any]]) -> None:
+        for t, k, v in entries:
+            if int(t) >= self._version.get(k, -1):
+                self._version[k] = int(t)
+                self._data[k] = v
+
+
+class BatchBuffer:
+    """Columnar buffered rows for window operators: batches are appended
+    O(1) and consolidated lazily; range query and eviction are
+    vectorized over the merged batch."""
+
+    def __init__(self) -> None:
+        self._pending: List[Batch] = []
+        self._merged: Optional[Batch] = None
+
+    def append(self, batch: Batch) -> None:
+        if len(batch):
+            self._pending.append(batch)
+
+    def _consolidate(self) -> Optional[Batch]:
+        if self._pending:
+            parts = ([self._merged] if self._merged is not None else []) \
+                + self._pending
+            self._merged = Batch.concat(parts)
+            self._pending.clear()
+        return self._merged
+
+    def query_range(self, start: int, end: int) -> Optional[Batch]:
+        """Rows with start <= timestamp < end."""
+        m = self._consolidate()
+        if m is None or len(m) == 0:
+            return None
+        mask = (m.timestamp >= start) & (m.timestamp < end)
+        if not mask.any():
+            return None
+        return m.select(mask)
+
+    def evict_before(self, time: int) -> None:
+        m = self._consolidate()
+        if m is None:
+            return
+        mask = m.timestamp >= time
+        if not mask.all():
+            self._merged = m.select(mask)
+
+    def __len__(self) -> int:
+        m = self._consolidate()
+        return len(m) if m is not None else 0
+
+    def snapshot_batch(self) -> Optional[Batch]:
+        return self._consolidate()
+
+    def restore_batch(self, batch: Optional[Batch]) -> None:
+        self._merged = batch
+        self._pending.clear()
+
+
+class DeviceTable:
+    """Operator-owned device-resident state that participates in
+    checkpoints through snapshot() -> dict[str, ndarray] and restore(dict);
+    the snapshot copies device planes to the host at the barrier."""
+
+    def __init__(self, snapshot_fn: Callable[[], Dict[str, np.ndarray]],
+                 restore_fn: Callable[[Dict[str, np.ndarray]], None]):
+        self.snapshot_fn = snapshot_fn
+        self.restore_fn = restore_fn
+
+    def snapshot(self) -> Dict[str, np.ndarray]:
+        return self.snapshot_fn()
+
+    def restore(self, arrays: Dict[str, np.ndarray]) -> None:
+        self.restore_fn(arrays)
+
+
+TABLE_CLASSES = {
+    TableType.GLOBAL: GlobalKeyedState,
+    TableType.BATCH_BUFFER: BatchBuffer,
+}

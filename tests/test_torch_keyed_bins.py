@@ -1,0 +1,145 @@
+"""The port's KeyedBinState (device="cpu") against arroyo_tpu's
+KeyedBinState on the same random out-of-order streams: identical fires
+(keys, aggregate columns, window ends, counts, in order) on the argmax and
+dense branches, through late rows, key-capacity growth, ring growth and
+i32->i64 counts promotion; identical canonical snapshots; and snapshots
+that restore across the two packages in both directions.
+
+The JAX state is built directly (conftest's 8 CPU devices would make
+``make_bin_state`` pick the mesh state) and runs with its numpy host
+helpers — the port's only path — so both assign key slots in the same
+order."""
+
+import numpy as np
+import pytest
+
+import arroyo_tpu.native as jax_native
+from arroyo_tpu.graph.logical import AggKind as JAggKind
+from arroyo_tpu.graph.logical import AggSpec as JAggSpec
+from arroyo_tpu.ops.keyed_bins import KeyedBinState as JaxState
+from arroyo_tpu_torch.graph.logical import AggKind, AggSpec
+from arroyo_tpu_torch.ops.keyed_bins import KeyedBinState as PortState
+
+SLIDE, WIDTH = 1_000, 3_000  # W = 3 bins per window, ring B = 16
+
+DENSE_AGGS = [("count", None, "n"), ("sum", "price", "total"),
+              ("min", "price", "lo"), ("max", "price", "hi"),
+              ("avg", "price", "mean"), ("count", "price", "cp")]
+
+
+@pytest.fixture
+def numpy_host_helpers(monkeypatch):
+    """Run the JAX state with its numpy host helpers (as the port does)."""
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "HAVE_NATIVE", False)
+
+
+def _pair(aggs, argmax, capacity=8):
+    j = JaxState(tuple(JAggSpec(JAggKind(k), c, o) for k, c, o in aggs),
+                 SLIDE, WIDTH, capacity=capacity)
+    p = PortState(tuple(AggSpec(AggKind(k), c, o) for k, c, o in aggs),
+                  SLIDE, WIDTH, capacity=capacity, device="cpu")
+    if argmax:
+        j.set_argmax_local(aggs[0][2], argmax)
+        p.set_argmax_local(aggs[0][2], argmax)
+    return j, p
+
+
+def _stream(seed, n_batches=14):
+    """Batches of (key hashes, timestamps, price, watermark) whose event
+    time moves forward with out-of-order jitter, periodic late rows far
+    behind the watermark, one far-future burst that forces ring growth
+    and a key space that outgrows capacity 8."""
+    rng = np.random.default_rng(seed)
+    out = []
+    now = 20_000
+    for i in range(n_batches):
+        n = int(rng.integers(50, 300))
+        keys = rng.integers(0, 20 + 12 * i, n).astype(np.uint64) * np.uint64(
+            0x9E3779B97F4A7C15)
+        ts = now + rng.integers(-2_500, 1_500, n)
+        if i % 4 == 3:
+            ts[: n // 5] -= 9_000  # late rows
+        if i == 6:
+            ts[: 10] += 25_000  # spans more bins than the ring holds
+        price = rng.normal(50, 20, n)
+        price[rng.random(n) < 0.1] = np.nan  # SQL NULLs
+        out.append((keys, ts.astype(np.int64), price, now - 3_000))
+        now += int(rng.integers(500, 2_500))
+    return out
+
+
+def _feed(state, batch):
+    keys, ts, price, watermark = batch
+    state.update(keys, ts, {"price": price})
+    return state.fire_panes(watermark)
+
+
+def _assert_fires_equal(a, b):
+    if a is None or b is None:
+        assert a is None and b is None
+        return
+    (ka, ca, wa, na), (kb, cb, wb, nb) = a, b
+    np.testing.assert_array_equal(ka, kb)
+    np.testing.assert_array_equal(wa, wb)
+    np.testing.assert_array_equal(na, nb)
+    assert ca.keys() == cb.keys()
+    for name in ca:
+        np.testing.assert_allclose(ca[name], cb[name], rtol=1e-12,
+                                   equal_nan=True)
+
+
+def _assert_snapshots_equal(a, b):
+    assert a.keys() == b.keys()
+    for name in a:
+        np.testing.assert_array_equal(np.asarray(a[name]),
+                                      np.asarray(b[name]), err_msg=name)
+
+
+@pytest.mark.parametrize("aggs,argmax,promote", [
+    ([("count", None, "__agg0")], "max", False),
+    ([("count", None, "__agg0")], "min", True),
+    (DENSE_AGGS, None, False),
+    (DENSE_AGGS, None, True),
+])
+def test_state_matches_jax_with_cross_restore(numpy_host_helpers,
+                                              monkeypatch, aggs, argmax,
+                                              promote):
+    """(d) fires identical on every batch; at the midpoint the canonical
+    snapshots are identical and each package restores the other's
+    snapshot, after which all four states fire identically."""
+    if promote:  # exercise the i32 -> i64 counts promotion mid-stream
+        monkeypatch.setattr(JaxState, "_i32_promote", 1500)
+        monkeypatch.setattr(PortState, "_i32_promote", 1500)
+    batches = _stream(seed=len(aggs) + (argmax == "min"))
+    j, p = _pair(aggs, argmax)
+    half = len(batches) // 2
+    for batch in batches[:half]:
+        _assert_fires_equal(_feed(j, batch), _feed(p, batch))
+    assert p.C > 8 and p.B > 16  # key-capacity and ring growth happened
+    snap_j, snap_p = j.snapshot(), p.snapshot()
+    _assert_snapshots_equal(snap_j, snap_p)
+    j2, p2 = _pair(aggs, argmax)
+    j2.restore(snap_p)  # port snapshot -> JAX
+    p2.restore(snap_j)  # JAX snapshot -> port
+    for batch in batches[half:]:
+        fires = [_feed(s, batch) for s in (j, p, j2, p2)]
+        for f in fires[1:]:
+            _assert_fires_equal(fires[0], f)
+    if promote:
+        assert str(p.counts.dtype) == "torch.int64"
+    finals = [s.fire_panes(0, final=True) for s in (j, p, j2, p2)]
+    for f in finals[1:]:
+        _assert_fires_equal(finals[0], f)
+    _assert_snapshots_equal(j.snapshot(), p.snapshot())
+
+
+def test_ring_mode_on_is_refused(monkeypatch):
+    """The ring-parallel emission branch is not ported: forcing it raises
+    instead of silently taking another branch."""
+    p = PortState((AggSpec(AggKind.COUNT, None, "n"),), SLIDE, WIDTH,
+                  device="cpu")
+    p.update(np.arange(4, dtype=np.uint64), np.arange(4) * 1000, {})
+    monkeypatch.setenv("ARROYO_RING", "on")
+    with pytest.raises(NotImplementedError):
+        p.fire_panes(10_000)
