@@ -96,21 +96,25 @@ class Engine:
                         group = [OutQueue(queue_for((op_id, idx, dst, j)))
                                  for j in range(dst_par)]
                     edge_groups.append(group)
+                # (side, queue) per upstream subtask: shuffle-join edges
+                # feed their side of a two-input operator
                 inputs: List[Tuple[int, asyncio.Queue]] = []
                 for src, _, edge in prog.graph.in_edges(op_id):
                     src_par = prog.node(src).parallelism
+                    side = edge.typ.join_side or 0
                     if edge.typ == EdgeType.FORWARD and par > src_par:
-                        inputs.append((0, queue_for(
+                        inputs.append((side, queue_for(
                             (src, idx % src_par, op_id, idx))))
                     else:
                         for j in range(src_par):
                             if (edge.typ != EdgeType.FORWARD
                                     or j % par == idx):
-                                inputs.append((0, queue_for(
+                                inputs.append((side, queue_for(
                                     (src, j, op_id, idx))))
                 info = TaskInfo(self.job_id, op_id, node.operator.name, idx,
                                 par)
-                store = StateStore(info, self.backend, self.restore_epoch)
+                store = StateStore(info, self.backend, self.restore_epoch,
+                                   self.device)
                 operator = build_operator(node.operator, self.device)
                 ctx = Context(info, Collector(edge_groups),
                               n_inputs=len(inputs), state_store=store,

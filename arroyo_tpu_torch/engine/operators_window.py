@@ -7,19 +7,32 @@
   emitted on watermark advance by one device pass over all pending panes.
 * :class:`WindowArgmaxOperator` — the fused per-window argmax stage that
   consumes the aggregate's (pre-filtered) panes and settles the global
-  answer."""
+  answer;
+* :class:`WindowJoinOperator` — the windowed stream-stream equi-join over
+  partition-adaptive join state (``state/join_state.py``), whose hot
+  partitions live on the device."""
 
 from __future__ import annotations
 
 import asyncio
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..device import DeviceLike
-from ..graph.logical import AggSpec, ColumnExpr, LogicalOperator, OpKind
+from ..graph.logical import (
+    AggSpec,
+    ColumnExpr,
+    InstantWindow,
+    JoinType,
+    LogicalOperator,
+    OpKind,
+    SlidingWindow,
+    TumblingWindow,
+)
 from ..ops.expr import CompiledExpr, eval_record_expr
 from ..ops.keyed_bins import KeyedBinState, filter_canonical_snapshot
+from ..state.join_state import PartitionedJoinBuffer
 from ..state.tables import DeviceTable, TableDescriptor, TableType
 from ..types import MAX_TIMESTAMP, Batch, Message, Watermark
 from .build import register_builder
@@ -224,6 +237,309 @@ class WindowArgmaxOperator(Operator):
                          ctx)
 
 
+# -- window join ----------------------------------------------------------------------
+
+
+def _window_params(typ) -> Tuple[int, int]:
+    """(width, slide) micros for uniform window types."""
+    if isinstance(typ, TumblingWindow):
+        return typ.width_micros, typ.width_micros
+    if isinstance(typ, SlidingWindow):
+        return typ.width_micros, typ.slide_micros
+    if isinstance(typ, InstantWindow):
+        return 1, 1
+    raise TypeError(f"not a uniform window: {typ}")
+
+
+def _null_column(n: int, like: Optional[np.ndarray] = None,
+                 kind: str = "") -> np.ndarray:
+    """A NULL-filled column: None for object/string columns, NaN (f64)
+    for everything else — the engine's null conventions."""
+    stringy = (kind == "s" if like is None
+               else (like.dtype == object or like.dtype.kind in "US"))
+    if stringy:
+        return np.full(n, None, dtype=object)
+    return np.full(n, np.nan, dtype=np.float64)
+
+
+def _join_name_maps(l_names, r_names
+                    ) -> Tuple[Dict[str, str], Dict[str, str]]:
+    """Column-name mapping for a join output: left names win, colliding
+    right names get the ``r_`` prefix."""
+    lmap = {c: c for c in l_names}
+    rmap: Dict[str, str] = {}
+    taken = set(lmap.values())
+    for c in r_names:
+        name = c
+        if name in taken:
+            name = "r_" + name
+        rmap[c] = name
+        taken.add(name)
+    return lmap, rmap
+
+
+def _internal_join_col(name: str) -> bool:
+    """Planner-internal join key columns: ``__jk<i>`` + ``__jknonce``."""
+    return name.startswith("__jk")
+
+
+def _drop_null_keyed(batch: Batch) -> Optional[Batch]:
+    """Strip rows whose ``__jknonce`` is nonzero — SQL-NULL join keys
+    hashed to a unique nonce can never match any row.  Returns None when
+    nothing survives."""
+    nonce = batch.columns.get("__jknonce")
+    if nonce is None:
+        return batch
+    keep = np.asarray(nonce) == 0
+    if keep.all():
+        return batch
+    if not keep.any():
+        return None
+    return batch.select(keep)
+
+
+def _stable_join_part(left_cols: Dict[str, np.ndarray],
+                      right_cols: Dict[str, np.ndarray], n: int,
+                      key_names: Sequence[str]) -> Dict[str, np.ndarray]:
+    """One joined-output column layout per join, whichever side a row
+    came from: the right role never carries internal join-key columns;
+    the left role always does (filled with same-dtype zeros when the
+    left role is itself a pad), keys first and ``__jknonce`` last."""
+    witness = {c: v for c, v in right_cols.items()
+               if _internal_join_col(c)}
+    right_cols = {c: v for c, v in right_cols.items()
+                  if not _internal_join_col(c)}
+
+    def _key_fill(c: str) -> np.ndarray:
+        w = witness.get(c)
+        if w is not None:
+            return np.zeros(n, dtype=w.dtype)
+        return _null_column(n)
+
+    ordered: Dict[str, Optional[np.ndarray]] = {}
+    for c in key_names:
+        if c != "__jknonce":
+            ordered[c] = left_cols.get(c)
+    for c, v in left_cols.items():
+        if c not in ordered and c != "__jknonce":
+            ordered[c] = v
+    if "__jknonce" in key_names:
+        ordered["__jknonce"] = left_cols.get("__jknonce")
+    cols = {c: (v if v is not None else _key_fill(c))
+            for c, v in ordered.items()}
+    lmap, rmap = _join_name_maps(list(cols), list(right_cols))
+    out = {lmap[c]: v for c, v in cols.items()}
+    for c, v in right_cols.items():
+        out[rmap[c]] = v
+    return out
+
+
+class _SideTemplate:
+    """Column template for null-padding one side of an outer join: the
+    dtypes of batches seen on that side, else the planner's (name, kind)
+    schema."""
+
+    def __init__(self, spec_cols: Tuple[Tuple[str, str], ...]):
+        self.spec_cols = tuple(spec_cols)
+        self.seen: Optional[Dict[str, np.dtype]] = None
+
+    def observe(self, batch: Batch) -> None:
+        self.seen = {c: v.dtype for c, v in batch.columns.items()}
+
+    def null_cols(self, n: int) -> Dict[str, np.ndarray]:
+        if self.seen is not None:
+            return {c: _null_column(n, like=np.empty(0, dtype=dt))
+                    for c, dt in self.seen.items()}
+        return {c: _null_column(n, kind=k) for c, k in self.spec_cols}
+
+
+def _empty_like_side(tmpl: _SideTemplate, other: Batch) -> Batch:
+    """A 0-row batch shaped like one join side (for windows where that
+    side saw no data)."""
+    cols = {c: v[:0] for c, v in tmpl.null_cols(0).items()}
+    return Batch(np.zeros(0, dtype=np.int64), cols,
+                 np.zeros(0, dtype=np.uint64), other.key_cols)
+
+
+def _concat_col(parts: List[np.ndarray]) -> np.ndarray:
+    """Concatenate column fragments, promoting to object when any
+    fragment is (None-padded rows mix with typed rows); int64 fragments
+    mixed with NaN pads promote to float64, the engine's nullable-int
+    convention."""
+    if any(p.dtype == object for p in parts):
+        out = np.empty(sum(len(p) for p in parts), dtype=object)
+        at = 0
+        for p in parts:
+            out[at:at + len(p)] = p
+            at += len(p)
+        return out
+    return np.concatenate(parts)
+
+
+def _assemble_join_output(l_rows: Batch, r_rows: Batch,
+                          l_un: Optional[Batch], r_un: Optional[Batch],
+                          end: int, how: JoinType, key_cols,
+                          tmpl: Tuple[_SideTemplate, _SideTemplate]
+                          ) -> Batch:
+    """One join-output batch from aligned matched rows plus each side's
+    unmatched rows; every part shares one column layout."""
+    key_names = tuple(key_cols)
+    parts: List[Tuple[Dict[str, np.ndarray], np.ndarray]] = []  # (cols, kh)
+    parts.append((_stable_join_part(
+        dict(l_rows.columns), dict(r_rows.columns), len(l_rows),
+        key_names), l_rows.key_hash))
+    if how in (JoinType.LEFT, JoinType.FULL) and l_un is not None \
+            and len(l_un):
+        parts.append((_stable_join_part(
+            dict(l_un.columns), tmpl[1].null_cols(len(l_un)), len(l_un),
+            key_names), l_un.key_hash))
+    if how in (JoinType.RIGHT, JoinType.FULL) and r_un is not None \
+            and len(r_un):
+        parts.append((_stable_join_part(
+            tmpl[0].null_cols(len(r_un)), dict(r_un.columns), len(r_un),
+            key_names), r_un.key_hash))
+    if len(parts) == 1:
+        cols, kh = parts[0]
+        return Batch(np.full(len(kh), end - 1, dtype=np.int64), cols, kh,
+                     key_names)
+    names = list(parts[0][0])
+    out_cols = {c: _concat_col([p[0][c] for p in parts]) for c in names}
+    kh = np.concatenate([p[1] for p in parts])
+    return Batch(np.full(len(kh), end - 1, dtype=np.int64), out_cols, kh,
+                 key_names)
+
+
+def join_batches(l: Batch, r: Batch, end: int, how: JoinType,
+                 tmpl: Tuple[_SideTemplate, _SideTemplate]) -> Batch:
+    """The legacy layout's fire (CPU only): sort both sides' key hashes,
+    equi-join them on the host, null-pad the unmatched rows."""
+    from ..ops.join import _host_pairs
+    from ..state.join_state import _count_gather
+
+    lo = np.argsort(l.key_hash, kind="stable")
+    ro = np.argsort(r.key_hash, kind="stable")
+    lidx, ridx, counts = _host_pairs(l.key_hash[lo], r.key_hash[ro])
+    l_rows = l.select(lo[lidx])
+    r_rows = r.select(ro[ridx])
+    l_un = (l.select(lo[counts == 0])
+            if how in (JoinType.LEFT, JoinType.FULL) else None)
+    r_un = None
+    if how in (JoinType.RIGHT, JoinType.FULL):
+        r_matched = np.zeros(len(r.key_hash), dtype=bool)
+        r_matched[ro[ridx]] = True
+        r_un = r.select(~r_matched)
+    _count_gather(0, len(l_rows) + len(r_rows)
+                  + (len(l_un) if l_un is not None else 0)
+                  + (len(r_un) if r_un is not None else 0))
+    return _assemble_join_output(l_rows, r_rows, l_un, r_un, end, how,
+                                 l.key_cols, tmpl)
+
+
+class WindowJoinOperator(Operator):
+    """Windowed stream-stream hash join: both sides buffered, joined per
+    fired window.  On the partitioned layout a fire mask-compresses each
+    partition's sorted run to the window (no sort), merge-probes the two
+    sides on the host mirror and gathers the matched rows — from the
+    device rings of hot partitions.  Outer kinds null-pad the unmatched
+    side per fired window (append-only: each window fires once)."""
+
+    def __init__(self, name: str, typ, join_type: JoinType = JoinType.INNER,
+                 left_cols: Tuple[Tuple[str, str], ...] = (),
+                 right_cols: Tuple[Tuple[str, str], ...] = ()):
+        super().__init__(name)
+        self.typ = typ
+        self.join_type = join_type
+        self.width, self.slide = _window_params(typ)
+        self._tmpl = (_SideTemplate(left_cols), _SideTemplate(right_cols))
+
+    async def on_start(self, ctx: Context) -> None:
+        self.left = ctx.state.get_join_buffer("l", "left buffer", self.width)
+        self.right = ctx.state.get_join_buffer("r", "right buffer",
+                                               self.width)
+        self._partitioned = isinstance(self.left, PartitionedJoinBuffer)
+
+    def _drop_never_emitting(self, batch: Batch,
+                             side: int) -> Optional[Batch]:
+        """Null-keyed rows stay only when this side's unmatched rows
+        null-pad at fire; otherwise they can never emit."""
+        padded = self.join_type in (
+            (JoinType.LEFT, JoinType.FULL) if side == 0
+            else (JoinType.RIGHT, JoinType.FULL))
+        return batch if padded else _drop_null_keyed(batch)
+
+    async def process_batch(self, batch: Batch, ctx: Context,
+                            side: int = 0) -> None:
+        if batch.key_hash is None:
+            raise ValueError(f"{self.name} requires keyed inputs")
+        self._tmpl[side].observe(batch)
+        buffered = self._drop_never_emitting(batch, side)
+        if buffered is not None and len(buffered):
+            (self.left if side == 0 else self.right).append(buffered)
+        first_end = (batch.timestamp // self.slide + 1) * self.slide
+        if isinstance(self.typ, SlidingWindow):
+            ends = np.unique(np.concatenate([
+                first_end + i * self.slide
+                for i in range(self.width // self.slide)]))
+        else:
+            ends = np.unique(first_end - self.slide + self.width)
+        for e in ends.tolist():
+            ctx.timers.schedule(int(e), ("wj", int(e)))
+
+    async def handle_timer(self, time: int, key: Any, payload: Any,
+                           ctx: Context) -> None:
+        end = key[1]
+        start = end - self.width
+        out = (self._fire_partitioned(start, end) if self._partitioned
+               else self._fire_legacy(start, end))
+        if out is not None and len(out):
+            await ctx.collect(out)
+        evict_to = end - self.width + self.slide
+        self.left.evict_before(evict_to)
+        self.right.evict_before(evict_to)
+
+    def _fires(self, have_l: bool, have_r: bool) -> bool:
+        how = self.join_type
+        return ((have_l and have_r)
+                or (have_l and how in (JoinType.LEFT, JoinType.FULL))
+                or (have_r and how in (JoinType.RIGHT, JoinType.FULL)))
+
+    def _fire_partitioned(self, start: int, end: int) -> Optional[Batch]:
+        how = self.join_type
+        lg, rg, lu, ru = self.left.range_join(self.right, start, end)
+        if not self._fires(bool(len(lg) or len(lu)),
+                           bool(len(rg) or len(ru))):
+            return None
+        l_rows = self.left.gather(lg)
+        r_rows = self.right.gather(rg)
+        if not len(l_rows.columns):
+            l_rows = _empty_like_side(self._tmpl[0], r_rows)
+        if not len(r_rows.columns):
+            r_rows = _empty_like_side(self._tmpl[1], l_rows)
+        key_cols = (self.left.key_cols or self.right.key_cols
+                    or l_rows.key_cols)
+        # unmatched rows only materialize on the side that pads them
+        l_un = (self.left.gather(lu)
+                if how in (JoinType.LEFT, JoinType.FULL) else None)
+        r_un = (self.right.gather(ru)
+                if how in (JoinType.RIGHT, JoinType.FULL) else None)
+        return _assemble_join_output(l_rows, r_rows, l_un, r_un, end, how,
+                                     key_cols, self._tmpl)
+
+    def _fire_legacy(self, start: int, end: int) -> Optional[Batch]:
+        l = self.left.query_range(start, end)
+        r = self.right.query_range(start, end)
+        have_l = l is not None and len(l) > 0
+        have_r = r is not None and len(r) > 0
+        if not self._fires(have_l, have_r):
+            return None
+        if not have_l:
+            l = _empty_like_side(self._tmpl[0], r)
+        if not have_r:
+            r = _empty_like_side(self._tmpl[1], l)
+        return join_batches(l, r, end, self.join_type, self._tmpl)
+
+
+
 # -- builder registration -----------------------------------------------------------
 
 
@@ -249,3 +565,10 @@ def _build_window_argmax(op: LogicalOperator, device: DeviceLike
     s = op.spec
     return WindowArgmaxOperator(op.name, s.value_col, s.minmax, s.synth_cols,
                                 s.width_micros)
+
+
+@register_builder(OpKind.WINDOW_JOIN)
+def _build_window_join(op: LogicalOperator, device: DeviceLike) -> Operator:
+    s = op.spec
+    return WindowJoinOperator(op.name, s.typ, s.join_type, s.left_cols,
+                              s.right_cols)

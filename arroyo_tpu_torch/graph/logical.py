@@ -27,6 +27,12 @@ class SlidingWindow:
     slide_micros: int
 
 
+@dataclass(frozen=True)
+class InstantWindow:
+    """Rows of one event-time instant (a window join over aggregate rows
+    that already carry their window, stamped at window end - 1)."""
+
+
 # -- aggregates & expressions -----------------------------------------------------
 
 
@@ -75,6 +81,14 @@ class OpKind(Enum):
     SLIDING_WINDOW_AGGREGATOR = "sliding_window_aggregator"
     TUMBLING_WINDOW_AGGREGATOR = "tumbling_window_aggregator"
     WINDOW_ARGMAX = "window_argmax"  # fused self-join-on-window-max
+    WINDOW_JOIN = "window_join"  # windowed stream-stream equi-join
+
+
+class JoinType(Enum):
+    INNER = "inner"
+    LEFT = "left"
+    RIGHT = "right"
+    FULL = "full"
 
 
 @dataclass
@@ -123,6 +137,18 @@ class WindowArgmaxSpec:
 
 
 @dataclass
+class WindowJoinSpec:
+    """Windowed stream-stream hash join; outer kinds null-pad the
+    unmatched side per fired window.  ``left_cols``/``right_cols`` are
+    (name, kind) schemas for pads before a side has seen a batch."""
+
+    typ: Any  # TumblingWindow | SlidingWindow | InstantWindow
+    join_type: JoinType = JoinType.INNER
+    left_cols: Tuple[Tuple[str, str], ...] = ()
+    right_cols: Tuple[Tuple[str, str], ...] = ()
+
+
+@dataclass
 class ConnectorOpSpec:
     connector: str  # registry name, e.g. 'nexmark', 'memory'
     config: Dict[str, Any] = field(default_factory=dict)
@@ -143,6 +169,15 @@ class LogicalOperator:
 class EdgeType(Enum):
     FORWARD = "forward"
     SHUFFLE = "shuffle"
+    SHUFFLE_JOIN_LEFT = "shuffle_join_0"
+    SHUFFLE_JOIN_RIGHT = "shuffle_join_1"
+
+    @property
+    def join_side(self) -> Optional[int]:
+        """Input-side index carried by shuffle_join_N edges, else None."""
+        if self.value.startswith("shuffle_join_"):
+            return int(self.value.rsplit("_", 1)[1])
+        return None
 
 
 @dataclass
@@ -243,6 +278,7 @@ class Program:
     WINDOWED_KINDS = {
         OpKind.SLIDING_WINDOW_AGGREGATOR,
         OpKind.TUMBLING_WINDOW_AGGREGATOR,
+        OpKind.WINDOW_JOIN,
     }
 
     def validate(self) -> List[str]:
@@ -363,6 +399,30 @@ class Stream:
                                 width_micros, agg_out)
         op = LogicalOperator(OpKind.WINDOW_ARGMAX, name, spec=spec)
         return self._chain(op, parallelism, EdgeType.SHUFFLE)
+
+    # -- joins -------------------------------------------------------------------
+
+    def window_join(self, other: "Stream", window: Any,
+                    join_type: JoinType = JoinType.INNER,
+                    left_cols: Tuple[Tuple[str, str], ...] = (),
+                    right_cols: Tuple[Tuple[str, str], ...] = (),
+                    name: str = "window_join",
+                    parallelism: Optional[int] = None) -> "Stream":
+        """Join this stream (left, side 0) with ``other`` (right, side 1)
+        per window; both must be keyed by the join key."""
+        if self.program is not other.program:
+            raise ValueError("join streams must share a Program")
+        spec = WindowJoinSpec(window, join_type, tuple(left_cols),
+                              tuple(right_cols))
+        op = LogicalOperator(OpKind.WINDOW_JOIN, name, spec=spec)
+        par = parallelism or self.program.node(self.tail).parallelism
+        nid = self.program.add_node(op, par)
+        ks = ",".join(self.keyed) if self.keyed else "()"
+        self.program.add_edge(self.tail, nid, EdgeType.SHUFFLE_JOIN_LEFT,
+                              key_schema=ks)
+        self.program.add_edge(other.tail, nid, EdgeType.SHUFFLE_JOIN_RIGHT,
+                              key_schema=ks)
+        return Stream(self.program, nid, self.keyed)
 
     # -- sinks -----------------------------------------------------------------
 

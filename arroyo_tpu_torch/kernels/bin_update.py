@@ -28,6 +28,18 @@ import torch
 from . import build
 
 KIND_CODES = {"sum": 0, "avg": 0, "count": 0, "min": 1, "max": 2}
+F64_MAX = float(torch.finfo(torch.float64).max)
+
+
+def channel_identity(kind: str) -> float:
+    """Aggregation identity of a channel kind: +/- the f64 maximum for
+    min/max (f32 extremes would clip values beyond 3.4e38), 0 for the
+    additive kinds."""
+    if kind == "min":
+        return F64_MAX
+    if kind == "max":
+        return -F64_MAX
+    return 0.0
 
 
 def channel_sources(n_ch: int, dup: Sequence[int]) -> np.ndarray:

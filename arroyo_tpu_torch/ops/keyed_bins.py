@@ -13,8 +13,9 @@
 * pane emission on watermark advance runs one device pass over all
   pending panes: the q5 argmax branch through
   :func:`~arroyo_tpu_torch.kernels.argmax_fire`, every other fire through
-  the dense branch in plain torch;
-* eviction resets expired ring columns on the device.
+  the dense branch, :func:`~arroyo_tpu_torch.kernels.pane_emit`;
+* eviction resets expired ring columns on the device through
+  :func:`~arroyo_tpu_torch.kernels.bin_evict`.
 
 Snapshots use the canonical, topology-independent numpy format of the
 JAX package, so a checkpoint taken by either package restores in the
@@ -33,24 +34,22 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..graph.logical import AggKind, AggSpec
 from ..kernels.argmax_fire import argmax_fire
-from ..kernels.bin_update import bin_update
+from ..kernels.bin_evict import bin_evict
+from ..kernels.bin_update import bin_update, channel_identity
+from ..kernels.pane_emit import pane_emit
 from ..native import assign_bins
 
 # f64 extremes: the accumulation channels are float64, so f32 extremes
 # would clip MIN/MAX values beyond +/-3.4e38
-NEG_INF = float(torch.finfo(torch.float64).min)
-POS_INF = float(torch.finfo(torch.float64).max)
+NEG_INF = channel_identity("max")
+POS_INF = channel_identity("min")
 
 # every channel accumulates in f64: int64 SUM/COUNT stay exact to 2^53
 ACC_DTYPE = np.float64
 
 
 def _init_value(kind: AggKind) -> float:
-    if kind == AggKind.MIN:
-        return POS_INF
-    if kind == AggKind.MAX:
-        return NEG_INF
-    return 0.0
+    return channel_identity(kind.value)
 
 
 def _bucket(n: int, floor: int = 8) -> int:
@@ -524,13 +523,12 @@ class KeyedBinState:
 
     def _evict(self, ring_cols: np.ndarray) -> None:
         """Reset expired ring columns to each channel's identity and zero
-        their counts, in place."""
-        mask = torch.zeros(self.B, dtype=torch.bool, device=self.device)
-        mask[_to_device(ring_cols.astype(np.int64), self.device)] = True
-        self.counts.masked_fill_(mask[None, :], 0)
-        for j, kind in enumerate(self._ch_kinds):
-            self.values[j].masked_fill_(mask[None, :],
-                                        _init_value(AggKind(kind)))
+        their counts, in place, in one device call."""
+        from ..obs import perf
+
+        perf.timed_device(bin_evict, self.values, self.counts,
+                          _to_device(ring_cols.astype(np.int32), self.device),
+                          self._ch_kinds)
 
     def _c_slice(self) -> int:
         """Occupied-key rows read back by a dense fire."""
@@ -540,28 +538,17 @@ class KeyedBinState:
 
     def _read_dense(self, ring: np.ndarray, bin_ok: np.ndarray, k: int
                     ) -> Tuple[np.ndarray, np.ndarray]:
-        """Dense pane read in plain torch on the device: gather [C, k, W]
-        per channel, reduce to per-pane sum/min/max, read back the
-        occupied keys and real panes."""
-        c_slice = self._c_slice()
-        ring_t = _to_device(ring[:k].astype(np.int64), self.device)
-        ok = _to_device(bin_ok[:k], self.device)[None]  # [1, k, W]
-        counts = self.counts[:c_slice]
-        cnts = torch.where(ok, counts[:, ring_t], 0).sum(
-            -1, dtype=counts.dtype)
-        outs = []
-        for i in self._xfer_ch:
-            g = self.values[i, :c_slice][:, ring_t]  # [c_slice, k, W]
-            kind = self._ch_kinds[i]
-            if kind == "min":
-                outs.append(torch.where(ok, g, POS_INF).amin(-1))
-            elif kind == "max":
-                outs.append(torch.where(ok, g, NEG_INF).amax(-1))
-            else:
-                outs.append(torch.where(ok, g, 0.0).sum(-1))
-        outs_np = (torch.stack(outs).cpu().numpy() if outs
-                   else np.zeros((0, c_slice, k)))
-        return outs_np, cnts.cpu().numpy()
+        """Dense pane read: one device call computes the occupied keys'
+        counts and transferred channels for the real panes, then both
+        are read back."""
+        from ..obs import perf
+
+        outs, cnts = perf.timed_device(
+            pane_emit, self.values, self.counts,
+            _to_device(ring[:k], self.device),
+            _to_device(bin_ok[:k], self.device), self._ch_kinds,
+            self._xfer_ch, self._c_slice())
+        return outs.cpu().numpy(), cnts.cpu().numpy()
 
     def _flatten_dense(self, outs: np.ndarray, cnts: np.ndarray, k: int
                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,

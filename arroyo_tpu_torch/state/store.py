@@ -1,12 +1,14 @@
 """StateStore — the typed state facade operators use (port of
 ``arroyo_tpu.state.store``).  Tables are registered by descriptor; the
 store snapshots every table at a barrier and restores them from the
-backing store, filtered by the task's key range."""
+backing store, filtered by the task's key range.  Join-side buffers
+live on the store's device, the runner's."""
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+from ..device import DeviceLike
 from ..types import SubtaskCheckpointMetadata, TaskInfo
 from .backend import BackingStore, TableSnapshot
 from .tables import (
@@ -21,23 +23,29 @@ from .tables import (
 
 class StateStore:
     def __init__(self, task_info: TaskInfo, backend: BackingStore,
-                 restore_epoch: Optional[int] = None):
+                 restore_epoch: Optional[int] = None,
+                 device: DeviceLike = None):
         self.task_info = task_info
         self.backend = backend
         self.restore_epoch = restore_epoch
+        self.device = device
         self.descriptors: Dict[str, TableDescriptor] = {}
         self.tables: Dict[str, Any] = {}
 
     # -- registration -----------------------------------------------------------
 
-    def register(self, descriptor: TableDescriptor) -> Any:
+    def register(self, descriptor: TableDescriptor,
+                 table: Any = None) -> Any:
+        """The table of ``descriptor`` (made from its type unless given),
+        restored when this store restores an epoch."""
         name = descriptor.name
         if name in self.tables:
             return self.tables[name]
         if descriptor.table_type == TableType.DEVICE:
             raise ValueError("register device tables via register_device()")
         self.descriptors[name] = descriptor
-        table = TABLE_CLASSES[descriptor.table_type]()
+        if table is None:
+            table = TABLE_CLASSES[descriptor.table_type]()
         self.tables[name] = table
         snap = self._restored_snapshot(name)
         if snap is not None:
@@ -66,6 +74,19 @@ class StateStore:
                          retention_micros: int = 0) -> BatchBuffer:
         return self.register(TableDescriptor(name, TableType.BATCH_BUFFER,
                                              desc, retention_micros))
+
+    def get_join_buffer(self, name: str, desc: str = "",
+                        retention_micros: int = 0) -> BatchBuffer:
+        """Join-side buffer on the store's device: partition-adaptive
+        sorted-run state (state/join_state.py) unless
+        ARROYO_JOIN_STATE=legacy.  Both layouts checkpoint as the same
+        BATCH_BUFFER table form, so epochs restore across layouts."""
+        from .join_state import make_join_buffer
+
+        return self.register(
+            TableDescriptor(name, TableType.BATCH_BUFFER, desc,
+                            retention_micros),
+            make_join_buffer(self.device))
 
     # -- restore ------------------------------------------------------------------
 

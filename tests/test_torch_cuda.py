@@ -11,7 +11,11 @@ import pytest
 import torch
 
 from arroyo_tpu_torch.kernels.argmax_fire import argmax_fire, argmax_fire_reference
+from arroyo_tpu_torch.kernels.bin_evict import bin_evict, bin_evict_reference
 from arroyo_tpu_torch.kernels.bin_update import bin_update, bin_update_reference
+from arroyo_tpu_torch.kernels.pane_emit import pane_emit, pane_emit_reference
+from arroyo_tpu_torch.kernels.ring_gather import ring_gather, ring_gather_reference
+from arroyo_tpu_torch.kernels.ring_merge import ring_merge, ring_merge_reference
 
 F64_MAX = torch.finfo(torch.float64).max
 
@@ -83,4 +87,111 @@ def test_argmax_fire_cuda_matches_plain(cuda_device, kpad, minmax, cdt):
     ok = torch.tensor(ok_np, device=cuda_device)
     got = argmax_fire(counts, ring, ok, minmax)
     want = argmax_fire_reference(counts, ring, ok, minmax)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _planes(rng, dev, kinds, C, B, cdt):
+    values = rng.normal(size=(len(kinds), C, B)) * 100
+    for j, k in enumerate(kinds):
+        if k in ("min", "max"):
+            values[j][rng.random((C, B)) < 0.5] = F64_MAX * (
+                1 if k == "min" else -1)
+    counts = torch.tensor(rng.integers(0, 50, (C, B)), dtype=cdt, device=dev)
+    return torch.tensor(values, device=dev), counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kinds,xfer,W,k", [
+    (("count",), (), 1, 1),  # q8's tumbling COUNT(*) fire
+    (("count", "sum", "sum", "count", "min", "max", "sum", "sum"),
+     (1, 2, 3, 4, 5, 6, 7), 5, 8)])
+@pytest.mark.parametrize("cdt", [torch.int32, torch.int64])
+def test_pane_emit_cuda_matches_plain(cuda_device, kinds, xfer, W, k, cdt):
+    """Exact for counts, min and max; rtol 1e-12 for f64 pane sums."""
+    rng = np.random.default_rng(13)
+    C, B, c_slice = 65536, 16, 60000
+    values, counts = _planes(rng, cuda_device, kinds, C, B, cdt)
+    ring = torch.tensor(rng.integers(0, B, (k, W)).astype(np.int32),
+                        device=cuda_device)
+    ok = torch.tensor(rng.random((k, W)) < 0.8, device=cuda_device)
+    before = pane_emit.launches
+    got = pane_emit(values, counts, ring, ok, kinds, xfer, c_slice)
+    want = pane_emit_reference(values, counts, ring, ok, kinds, xfer,
+                               c_slice)
+    torch.cuda.synchronize()
+    assert pane_emit.launches == before + 1
+    assert torch.equal(got[1], want[1])
+    for r, j in enumerate(xfer):
+        if kinds[j] in ("min", "max"):
+            assert torch.equal(got[0][r], want[0][r])
+        else:
+            torch.testing.assert_close(got[0][r], want[0][r], rtol=1e-12,
+                                       atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.int32, torch.int64])
+def test_bin_evict_cuda_matches_plain(cuda_device, cdt):
+    """Exact, with a repeated and an out-of-ring column."""
+    rng = np.random.default_rng(19)
+    kinds = ("count", "sum", "min", "max")
+    values, counts = _planes(rng, cuda_device, kinds, 65536, 16, cdt)
+    cols = torch.tensor([3, 9, 3, 16], dtype=torch.int32, device=cuda_device)
+    v_ref, c_ref = values.clone(), counts.clone()
+    bin_evict(values, counts, cols, kinds)
+    bin_evict_reference(v_ref, c_ref, cols, kinds)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, c_ref) and torch.equal(values, v_ref)
+
+
+def _merge_inputs(rng, dev, cap, n_res, m, nf, ni):
+    """Positions as the join state computes them: a permutation of
+    [0, n_res + m) split between resident and delta entries, padding at
+    and beyond cap."""
+    perm = rng.permutation(n_res + m)
+    res_pos = np.full(cap, cap, np.int64)
+    res_pos[:n_res] = np.sort(perm[:n_res])
+    db = 1 << max(int(m - 1).bit_length(), 3)
+    delta_pos = np.full(db, cap + 3, np.int64)
+    delta_pos[:m] = np.sort(perm[n_res:])
+    t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+    i32 = lambda n: rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)  # noqa: E731
+    stacks = (None,) * 4
+    if nf or ni:
+        stacks = (t(rng.normal(size=(nf, cap))),
+                  t(rng.integers(-2**62, 2**62, (ni, cap))),
+                  t(rng.normal(size=(nf, db))),
+                  t(rng.integers(-2**62, 2**62, (ni, db))))
+    return (t(i32(cap)), t(i32(cap)), stacks[0], stacks[1], t(res_pos),
+            t(i32(db)), t(i32(db)), stacks[2], stacks[3], t(delta_pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nf,ni", [(0, 0), (2, 6)])
+def test_ring_merge_cuda_matches_plain(cuda_device, nf, ni):
+    """Bit-exact, keys-only and with payload stacks."""
+    rng = np.random.default_rng(37)
+    args = _merge_inputs(rng, cuda_device, 65536, 40000, 9000, nf, ni)
+    before = ring_merge.launches
+    got = ring_merge(*args)
+    want = ring_merge_reference(*args)
+    torch.cuda.synchronize()
+    assert ring_merge.launches == before + 1
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_ring_gather_cuda_matches_plain(cuda_device):
+    """Bit-exact at sorted-run positions with repeats."""
+    rng = np.random.default_rng(39)
+    cap = 65536
+    f = torch.tensor(rng.normal(size=(2, cap)), device=cuda_device)
+    i = torch.tensor(rng.integers(-2**62, 2**62, (6, cap)),
+                     device=cuda_device)
+    idx = torch.tensor(np.sort(rng.integers(0, cap, 5000)),
+                       device=cuda_device)
+    got = ring_gather(idx, f, i)
+    want = ring_gather_reference(idx, f, i)
+    torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
