@@ -27,6 +27,7 @@ from .graph.logical import (  # noqa: F401
     AggKind,
     AggSpec,
     Program,
+    SessionWindow,
     SlidingWindow,
     Stream,
     TumblingWindow,

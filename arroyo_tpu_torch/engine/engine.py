@@ -179,6 +179,11 @@ class RunningEngine:
                 done.add((resp.operator_id, resp.task_index))
         return True
 
+    async def commit(self, epoch: int) -> None:
+        """Second phase of checkpoint ``epoch``: a no-op, because none of
+        the port's sinks is two-phase (the JAX package's commit only
+        reaches two-phase committer sinks)."""
+
     async def join(self) -> List[ControlResp]:
         """Wait for all subtasks to finish; return the control responses,
         raising if any task failed."""
@@ -209,8 +214,32 @@ class LocalRunner:
                              else InMemoryBackend(),
                              restore_epoch, device)
 
-    def run(self) -> List[ControlResp]:
-        async def main():
-            return await self.engine.start().join()
+    async def run_async(self, checkpoint_interval_secs: Optional[float] = None
+                        ) -> List[ControlResp]:
+        """Run to completion; with ``checkpoint_interval_secs`` a ticker
+        checkpoints every that many seconds (epochs 1, 2, ... after the
+        restored one) and commits each epoch once every subtask sealed
+        it."""
+        running = self.engine.start()
+        epoch = [self.engine.restore_epoch or 0]
+        ticker: Optional[asyncio.Task] = None
+        if checkpoint_interval_secs:
+            async def tick():
+                while True:
+                    await asyncio.sleep(checkpoint_interval_secs)
+                    epoch[0] += 1
+                    e = epoch[0]
+                    await running.checkpoint(e)
+                    if await running.wait_for_checkpoint(e):
+                        await running.commit(e)
 
-        return asyncio.run(main())
+            ticker = asyncio.ensure_future(tick())
+        try:
+            return await running.join()
+        finally:
+            if ticker:
+                ticker.cancel()
+
+    def run(self, checkpoint_interval_secs: Optional[float] = None
+            ) -> List[ControlResp]:
+        return asyncio.run(self.run_async(checkpoint_interval_secs))

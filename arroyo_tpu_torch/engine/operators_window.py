@@ -10,7 +10,10 @@
   answer;
 * :class:`WindowJoinOperator` — the windowed stream-stream equi-join over
   partition-adaptive join state (``state/join_state.py``), whose hot
-  partitions live on the device."""
+  partitions live on the device;
+* :class:`SessionWindowOperator` — session windows over interval-run
+  state (``state/session_state.py``), aggregated per fired session by
+  ``ops/segment.py``."""
 
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..device import DeviceLike
+from ..device import DeviceLike, resolve_device
 from ..graph.logical import (
     AggSpec,
     ColumnExpr,
@@ -27,17 +30,22 @@ from ..graph.logical import (
     JoinType,
     LogicalOperator,
     OpKind,
+    SessionWindow,
     SlidingWindow,
     TumblingWindow,
 )
 from ..ops.expr import CompiledExpr, eval_record_expr
 from ..ops.keyed_bins import KeyedBinState, filter_canonical_snapshot
+from ..ops.segment import segment_aggregate
 from ..state.join_state import PartitionedJoinBuffer
+from ..state.session_state import SessionRunState, _count_merge
 from ..state.tables import DeviceTable, TableDescriptor, TableType
 from ..types import MAX_TIMESTAMP, Batch, Message, Watermark
 from .build import register_builder
 from .context import Context
 from .operator import Operator
+
+MAX_SESSION_SIZE_MICROS = 24 * 3600 * 1_000_000  # the longest session
 
 
 class _SlotKeyValues:
@@ -539,6 +547,315 @@ class WindowJoinOperator(Operator):
         return join_batches(l, r, end, self.join_type, self._tmpl)
 
 
+# -- session windows ------------------------------------------------------------------
+
+
+class SessionWindowOperator(Operator):
+    """Session windows with gap merging.  Sessions live in the state's
+    interval runs (state/session_state.py: one ``session_union`` dispatch
+    per batch on the device) or, under ARROYO_SESSION_STATE=legacy, in
+    per-key lists; buffered rows are aggregated per fired session by
+    ``segment_aggregate`` (the ``segment_agg`` kernel on the device)."""
+
+    def __init__(self, name: str, gap_micros: int, aggs: Tuple[AggSpec, ...],
+                 flatten: bool, projection=None, device: DeviceLike = None):
+        super().__init__(name)
+        self.device = resolve_device(device)
+        self.gap = gap_micros
+        self.aggs = aggs
+        self.flatten = flatten or not aggs
+        self.projection = (CompiledExpr(projection.name, projection.fn)
+                           if projection else None)
+        self._pending_fires: List[Tuple[int, int, int]] = []
+        self._min_end: Optional[int] = None  # no-fire fast-path bound
+
+    def tables(self) -> List[TableDescriptor]:
+        return [
+            TableDescriptor("s", TableType.BATCH_BUFFER, "session data"),
+            TableDescriptor("v", TableType.KEYED, "session windows per key"),
+        ]
+
+    async def on_start(self, ctx: Context) -> None:
+        self.buffer = ctx.state.get_batch_buffer("s")
+        # partition-adaptive sorted interval runs unless
+        # ARROYO_SESSION_STATE=legacy; both layouts speak the KeyedState
+        # interface, so the per-key clamp path below runs unchanged
+        self.windows = ctx.state.get_session_state("v")
+        self._device_state = isinstance(self.windows, SessionRunState)
+
+    def _merge_key(self, kh: int, times: np.ndarray, ctx: Context) -> None:
+        """handle_event extend/merge/create (windows.rs:232-302)."""
+        sessions: List[Tuple[int, int]] = list(self.windows.get(kh) or [])
+        for t in np.sort(times).tolist():
+            placed = False
+            for i, (s, e) in enumerate(sessions):
+                if s - self.gap <= t < e:
+                    ns, ne = min(s, t), max(e, t + self.gap)
+                    if ne - ns > MAX_SESSION_SIZE_MICROS:
+                        ne = ns + MAX_SESSION_SIZE_MICROS
+                    sessions[i] = (ns, ne)
+                    placed = True
+                    break
+            if not placed:
+                sessions.append((t, t + self.gap))
+            # merge overlapping sessions
+            sessions.sort()
+            merged: List[Tuple[int, int]] = []
+            for s, e in sessions:
+                if merged and s <= merged[-1][1]:
+                    ps, pe = merged[-1]
+                    merged[-1] = (ps, max(pe, e))
+                else:
+                    merged.append((s, e))
+            sessions = merged
+        self.windows.insert(int(times.max()), kh, sessions)
+        if sessions:
+            me = min(e for _, e in sessions)
+            if self._min_end is not None and me < self._min_end:
+                self._min_end = me
+
+    async def process_batch(self, batch: Batch, ctx: Context, side: int = 0) -> None:
+        if batch.key_hash is None:
+            raise ValueError(f"{self.name} requires keyed input")
+        self.buffer.append(batch)
+        # collapse events -> candidate session intervals for the WHOLE
+        # batch in three vector ops (events within gap of their
+        # predecessor merge, so a burst becomes ONE interval): the
+        # per-key python work then scales with interval count, not event
+        # count (windows.rs:232-302 semantics)
+        order = np.lexsort((batch.timestamp, batch.key_hash))
+        kh = batch.key_hash[order]
+        ts = batch.timestamp[order]
+        n = len(kh)
+        newkey = np.empty(n, dtype=bool)
+        newkey[0] = True
+        newkey[1:] = kh[1:] != kh[:-1]
+        brk = newkey.copy()
+        brk[1:] |= (ts[1:] - ts[:-1]) > self.gap
+        ist = ts[brk]                      # interval starts
+        ien = ts[np.append(brk[1:], True)] + self.gap  # last of group + gap
+        ikh = kh[brk]
+        kb = newkey[brk].nonzero()[0]      # key boundaries among intervals
+        kb = np.append(kb, len(ikh))
+        span_ok = (ien - ist) <= MAX_SESSION_SIZE_MICROS
+        key_starts = np.append(newkey.nonzero()[0], n)
+        if self._device_state:
+            await self._merge_batch_device(kh, ts, ikh, ist, ien, kb,
+                                           span_ok, key_starts, ctx)
+            return
+        _count_merge(0, n)  # legacy layout: every event merges on host
+        for i in range(len(kb) - 1):
+            k = int(ikh[kb[i]])
+            lo, hi = kb[i], kb[i + 1]
+            if not span_ok[lo:hi].all() or not self._merge_key_intervals(
+                    k, ist[lo:hi].tolist(), ien[lo:hi].tolist(),
+                    int(ts[key_starts[i + 1] - 1]), ctx):
+                # a burst longer than MAX_SESSION_SIZE, or a merge that
+                # would clamp-truncate past an incoming interval's end
+                # (events beyond the clamp must START a new session, and
+                # only the per-event path knows their positions): rare —
+                # the incremental-clamp-splitting path is authoritative
+                self._merge_key(k, ts[key_starts[i]:key_starts[i + 1]],
+                                ctx)
+
+    async def _merge_batch_device(self, kh, ts, ikh, ist, ien, kb,
+                                  span_ok, key_starts, ctx: Context) -> None:
+        """Device-state merge: ONE vectorized interval-union dispatch
+        covers every in-bounds key; keys the clamp touches (overlong
+        bursts, or merged spans crossing MAX_SESSION_SIZE) re-run the
+        authoritative per-key path against the same state object — the
+        device/host row split is counted."""
+        nkeys = len(kb) - 1
+        # per-interval key ordinal + per-key last event time (the KEYED
+        # snapshot time column, matching the legacy insert(max_t, ...))
+        key_maxt = ts[key_starts[1:] - 1]
+        counts = np.diff(kb)
+        itm = np.repeat(key_maxt, counts)
+        # keys with an overlong burst go straight to the per-event path:
+        # only it knows the event positions past the clamp
+        key_ord = np.repeat(np.arange(nkeys), counts)
+        bad = np.unique(key_ord[~span_ok])
+        good_iv = ~np.isin(key_ord, bad)
+        flagged = self.windows.merge_intervals(
+            ikh[good_iv], ist[good_iv], ien[good_iv], itm[good_iv])
+        if len(bad) or len(flagged):
+            keys_arr = ikh[kb[:-1]]  # sorted ascending (lexsort by key)
+            fb = set(bad.tolist())
+            if len(flagged):
+                fb.update(np.searchsorted(keys_arr, flagged).tolist())
+            host_events = 0
+            for i in sorted(fb):
+                lo, hi = key_starts[i], key_starts[i + 1]
+                host_events += int(hi - lo)
+                self._merge_key(int(keys_arr[i]), ts[lo:hi], ctx)
+            _count_merge(0, host_events)
+        # exact no-fire bound straight off the runs (cheap: P partition
+        # minima), replacing the legacy conservative tracking
+        self._min_end = self.windows.min_end()
+
+    def _merge_key_intervals(self, kh: int, ists: List[int],
+                             iens: List[int], max_t: int,
+                             ctx: Context) -> bool:
+        """Union sorted candidate intervals into the key's sorted session
+        list — linear two-pointer sweep with the same touching-merges and
+        incremental max-size clamp as the per-event path.  Returns False
+        WITHOUT touching state when a clamp would truncate below a
+        contributing interval's end (events past the clamp would be
+        silently swallowed; the caller re-runs the per-event path)."""
+        old: List[Tuple[int, int]] = list(self.windows.get(kh) or [])
+        merged: List[Tuple[int, int]] = []
+        i = j = 0
+        no, ni = len(old), len(ists)
+        while i < no or j < ni:
+            if i < no and (j >= ni or old[i][0] <= ists[j]):
+                s, e = old[i]
+                i += 1
+            else:
+                s, e = ists[j], iens[j]
+                j += 1
+            if merged and s <= merged[-1][1]:
+                ps, pe = merged[-1]
+                ne = max(pe, e)
+                if ne - ps > MAX_SESSION_SIZE_MICROS:
+                    if ps + MAX_SESSION_SIZE_MICROS < e:
+                        return False  # clamp would swallow interval tail
+                    ne = ps + MAX_SESSION_SIZE_MICROS
+                merged[-1] = (ps, ne)
+            else:
+                if e - s > MAX_SESSION_SIZE_MICROS:
+                    return False  # guarded by span_ok; belt-and-braces
+                merged.append((s, e))
+        self.windows.insert(max_t, kh, merged if merged != old else old)
+        if merged:
+            # keep the no-fire fast-path bound conservative: a fresh
+            # short session may end before the cached minimum
+            me = min(e for _, e in merged)
+            if self._min_end is not None and me < self._min_end:
+                self._min_end = me
+        return True
+
+    def _collect_expired(self, watermark: int) -> None:
+        """Move every session with end <= watermark into the pending-fire
+        list.  Event-time timers only ever fire on watermark advance, so
+        scanning the (bounded, active) per-key session map at each
+        watermark is equivalent to a per-session timer heap — without
+        the heap churn of cancel/reschedule on every batch that extends
+        a session.  A min-end bound skips the scan entirely while nothing
+        can fire (many dormant keys, slowly advancing watermark)."""
+        if self._min_end is not None and watermark < self._min_end:
+            return
+        if self._device_state:
+            # mask-compress every closed session out of the runs in one
+            # vector pass per partition — no key iteration
+            fk, fs, fe = self.windows.expire(watermark)
+            self._pending_fires.extend(
+                zip((int(k) for k in fk.tolist()), fs.tolist(),
+                    fe.tolist()))
+            self._min_end = self.windows.min_end()
+            return
+        expired_keys = []
+        min_end = None
+        for kh, sessions in self.windows.items():
+            fire = [(s, e) for (s, e) in sessions if e <= watermark]
+            if not fire:
+                for (_s, e) in sessions:
+                    if min_end is None or e < min_end:
+                        min_end = e
+                continue
+            remain = [(s, e) for (s, e) in sessions if e > watermark]
+            if remain:
+                self.windows.insert(watermark, kh, remain)
+                for (_s, e) in remain:
+                    if min_end is None or e < min_end:
+                        min_end = e
+            else:
+                expired_keys.append(kh)
+            self._pending_fires.extend((int(kh), s, e) for (s, e) in fire)
+        for kh in expired_keys:
+            self.windows.remove(kh)
+        self._min_end = min_end
+
+    async def _flush_fires(self, ctx: Context) -> None:
+        fires = self._pending_fires
+        if not fires:
+            return
+        self._pending_fires = []
+        rows = self.buffer.query_range(min(s for _, s, _ in fires),
+                                       max(e for _, _, e in fires))
+        if rows is None or not len(rows):
+            return
+        # assign every buffered row to its fired session in ONE combined
+        # sweep: sessions (as start events) and rows merge-sort by
+        # (key, time, starts-first); a running count of starts gives each
+        # row the global index of the latest session start at-or-before
+        # it — valid iff that session shares the row's key and the row
+        # precedes its end.  No per-key python, no buffer argsort.
+        m = len(fires)
+        fk = np.array([k for k, _, _ in fires], dtype=np.uint64)
+        fs = np.array([s for _, s, _ in fires], dtype=np.int64)
+        fe = np.array([e for _, _, e in fires], dtype=np.int64)
+        fo = np.lexsort((fs, fk))
+        fk, fs, fe = fk[fo], fs[fo], fe[fo]
+        n = len(rows)
+        all_kh = np.concatenate([fk, rows.key_hash])
+        all_t = np.concatenate([fs, rows.timestamp])
+        prio = np.concatenate([np.zeros(m, np.int8), np.ones(n, np.int8)])
+        o = np.lexsort((prio, all_t, all_kh))
+        started = np.cumsum(o < m)
+        pos = np.empty(m + n, dtype=np.int64)
+        pos[o] = np.arange(m + n)
+        si = started[pos[m:]] - 1  # per row: global session ordinal
+        sic = np.clip(si, 0, m - 1)
+        ok = ((si >= 0) & (fk[sic] == rows.key_hash)
+              & (rows.timestamp < fe[sic]))
+        if not ok.any():
+            return
+        sel = ok.nonzero()[0]
+        segs = sic[sel].astype(np.uint64)
+        sub = rows.select(sel)
+        seg_kh_a, seg_s_a, seg_e_a = fk, fs, fe
+
+        if self.flatten:
+            si = segs.astype(np.int64)
+            cols = dict(sub.columns)
+            cols["window_start"] = seg_s_a[si]
+            cols["window_end"] = seg_e_a[si]
+            out = Batch(seg_e_a[si] - 1, cols, sub.key_hash, sub.key_cols)
+        else:
+            uniq, agg_cols, _, _cnt, _vc = segment_aggregate(
+                segs, sub.timestamp, sub.columns, self.aggs, self.device)
+            ui = uniq.astype(np.int64)
+            # key columns: first row of each emitted segment
+            cols: Dict[str, np.ndarray] = {}
+            if sub.key_cols:
+                so = np.argsort(segs, kind="stable")
+                seg_sorted = segs[so]
+                _, first = np.unique(seg_sorted, return_index=True)
+                first_rows = so[first]  # aligned with sorted uniq
+                cols = {c: sub.columns[c][first_rows] for c in sub.key_cols
+                        if c in sub.columns}
+            cols["window_start"] = seg_s_a[ui]
+            cols["window_end"] = seg_e_a[ui]
+            cols.update(agg_cols)
+            out = Batch(seg_e_a[ui] - 1, cols, seg_kh_a[ui], sub.key_cols)
+        if self.projection is not None:
+            out = eval_record_expr(self.projection, out)
+        await ctx.collect(out)
+
+    async def handle_watermark(self, watermark: int, ctx: Context) -> None:
+        self._collect_expired(watermark)
+        await self._flush_fires(ctx)
+        # evict data older than every live session start
+        if self._device_state:
+            ls = self.windows.min_live_start()
+        else:
+            live_starts = [s for _, sessions in self.windows.items()
+                           for (s, _) in sessions]
+            ls = min(live_starts) if live_starts else None
+        self.buffer.evict_before(
+            ls if ls is not None else watermark - MAX_SESSION_SIZE_MICROS)
+        await ctx.broadcast(Message.wm(Watermark.event_time(watermark)))
+
 
 # -- builder registration -----------------------------------------------------------
 
@@ -557,6 +874,16 @@ def _build_tumbling(op: LogicalOperator, device: DeviceLike) -> Operator:
     return BinAggOperator(op.name, s.width_micros, s.width_micros, s.aggs,
                           s.projection, argmax_local=s.argmax_local,
                           device=device)
+
+
+@register_builder(OpKind.WINDOW)
+def _build_window(op: LogicalOperator, device: DeviceLike) -> Operator:
+    s = op.spec
+    if isinstance(s.typ, SessionWindow):
+        return SessionWindowOperator(op.name, s.typ.gap_micros, s.aggs,
+                                     s.flatten, s.projection, device)
+    raise NotImplementedError(
+        f"{op.name}: only session windows are ported ({s.typ})")
 
 
 @register_builder(OpKind.WINDOW_ARGMAX)

@@ -33,6 +33,28 @@ class InstantWindow:
     that already carry their window, stamped at window end - 1)."""
 
 
+@dataclass(frozen=True)
+class SessionWindow:
+    """Per-key sessions: events closer than ``gap_micros`` share one."""
+
+    gap_micros: int
+
+
+WindowType = Any  # union of the four window dataclasses above
+
+
+def window_label(w: WindowType) -> str:
+    if isinstance(w, TumblingWindow):
+        return f"tumbling({w.width_micros}us)"
+    if isinstance(w, SlidingWindow):
+        return f"sliding({w.width_micros}us,{w.slide_micros}us)"
+    if isinstance(w, InstantWindow):
+        return "instant"
+    if isinstance(w, SessionWindow):
+        return f"session({w.gap_micros}us)"
+    raise TypeError(w)
+
+
 # -- aggregates & expressions -----------------------------------------------------
 
 
@@ -42,15 +64,19 @@ class AggKind(Enum):
     MIN = "min"
     MAX = "max"
     AVG = "avg"
+    COUNT_DISTINCT = "count_distinct"
+    UDAF = "udaf"  # user aggregate fn(values) -> scalar; buffered paths only
 
 
 @dataclass(frozen=True)
 class AggSpec:
-    """One aggregate: kind + input column (None for COUNT(*)) + output."""
+    """One aggregate: kind + input column (None for COUNT(*)) + output.
+    ``fn`` carries the Python callable of a UDAF."""
 
     kind: AggKind
     column: Optional[str]
     output: str
+    fn: Optional[Any] = None
 
 
 class ExprReturnType(Enum):
@@ -82,6 +108,7 @@ class OpKind(Enum):
     TUMBLING_WINDOW_AGGREGATOR = "tumbling_window_aggregator"
     WINDOW_ARGMAX = "window_argmax"  # fused self-join-on-window-max
     WINDOW_JOIN = "window_join"  # windowed stream-stream equi-join
+    WINDOW = "window"  # buffered keyed window (session windows)
 
 
 class JoinType(Enum):
@@ -98,6 +125,18 @@ class PeriodicWatermarkSpec:
     max_lateness_micros: int = 0
     idle_time_micros: Optional[int] = None
     expression: Optional[ColumnExpr] = None  # row -> watermark timestamp
+
+
+@dataclass
+class WindowSpec:
+    """A buffered keyed window: rows are kept until the window fires,
+    then aggregated (or emitted flat)."""
+
+    typ: WindowType
+    aggs: Tuple[AggSpec, ...] = ()
+    flatten: bool = False
+    # post-aggregate projection over {key cols + agg outputs + bounds}
+    projection: Optional[ColumnExpr] = None
 
 
 @dataclass
@@ -276,6 +315,7 @@ class Program:
         return self.graph.topo_order()
 
     WINDOWED_KINDS = {
+        OpKind.WINDOW,
         OpKind.SLIDING_WINDOW_AGGREGATOR,
         OpKind.TUMBLING_WINDOW_AGGREGATOR,
         OpKind.WINDOW_JOIN,
@@ -366,6 +406,16 @@ class Stream:
         return self._chain(op, keyed=tuple(cols))
 
     # -- windows (keyed) -------------------------------------------------------
+
+    def window(self, typ: WindowType, aggs: Sequence[AggSpec] = (),
+               flatten: bool = False, projection: Optional[Callable] = None,
+               name: Optional[str] = None,
+               parallelism: Optional[int] = None) -> "Stream":
+        label = name or f"window_{window_label(typ)}"
+        proj = ColumnExpr(f"{label}_proj", projection) if projection else None
+        spec = WindowSpec(typ, tuple(aggs), flatten, proj)
+        op = LogicalOperator(OpKind.WINDOW, label, spec=spec)
+        return self._chain(op, parallelism, EdgeType.SHUFFLE)
 
     def sliding_aggregate(self, width_micros: int, slide_micros: int,
                           aggs: Sequence[AggSpec],

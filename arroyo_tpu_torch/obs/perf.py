@@ -15,6 +15,7 @@ from typing import Any, Dict
 import torch
 
 _COUNTERS: Dict[str, int] = {}
+_NOTES: Dict[str, Any] = {}
 
 
 def timing_enabled() -> bool:
@@ -23,6 +24,7 @@ def timing_enabled() -> bool:
 
 def reset() -> None:
     _COUNTERS.clear()
+    _NOTES.clear()
 
 
 def counter(key: str) -> int:
@@ -31,6 +33,15 @@ def counter(key: str) -> int:
 
 def count(key: str, n: int = 1) -> None:
     _COUNTERS[key] = _COUNTERS.get(key, 0) + n
+
+
+def note(key: str, value: Any) -> None:
+    """Keep a non-counter observation (e.g. a state shape) under ``key``."""
+    _NOTES[key] = value
+
+
+def get_note(key: str) -> Any:
+    return _NOTES.get(key)
 
 
 def timed_device(call, *args) -> Any:

@@ -8,16 +8,17 @@ of an element-wise expression, so a device round trip would only add
 copies.  Device-side SQL expressions arrive with the SQL planner.
 
 The join-key maps at the end carry the semantics of the planner's
-``_null_key_nonce_fn`` and ``_normalize_key`` (arroyo_tpu/sql/planner.py)
-and of ``formats.nan_validity``."""
+``_null_key_nonce_fn`` and ``_normalize_key`` (arroyo_tpu/sql/planner.py);
+NULLs are what ``formats.nan_validity`` says they are."""
 
 from __future__ import annotations
 
 import secrets
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Sequence, Tuple
 
 import numpy as np
 
+from ..formats import nan_validity
 from ..types import Batch
 
 
@@ -75,17 +76,6 @@ def eval_host_expr(fn: Callable[[Dict[str, np.ndarray]], Any], batch: Batch
 # -- join keys (the planner's join-key maps) -------------------------------------
 
 
-def nan_validity(v: np.ndarray) -> Optional[np.ndarray]:
-    """Row validity of a host column under the engine's implicit NULL
-    encodings — NaN in float columns, None (or NaN) in object columns —
-    or None when every row is valid by type."""
-    if v.dtype == object:
-        return np.array([x is not None and x == x for x in v], dtype=bool)
-    if v.dtype.kind == "f":
-        return ~np.isnan(v)
-    return None
-
-
 def normalize_join_key(v: Any) -> np.ndarray:
     """A join key column as the JAX planner casts it: float32, unless it
     holds objects (strings).  Integer ids are exact only below 2^24."""
@@ -112,7 +102,7 @@ def join_key_fn(base_fn: Callable[[Dict[str, Any]], Dict[str, Any]],
         for c in jk_cols:
             v = np.asarray(out[c])
             out[c] = v
-            ok = nan_validity(v)
+            ok = nan_validity(v, None)
             if ok is not None:
                 nullmask |= ~ok
         nonce = np.zeros(n, dtype=np.int64)

@@ -1,8 +1,8 @@
 """StateStore — the typed state facade operators use (port of
 ``arroyo_tpu.state.store``).  Tables are registered by descriptor; the
 store snapshots every table at a barrier and restores them from the
-backing store, filtered by the task's key range.  Join-side buffers
-live on the store's device, the runner's."""
+backing store, filtered by the task's key range.  Join-side buffers and session
+interval runs live on the store's device, the runner's."""
 
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from .tables import (
     BatchBuffer,
     DeviceTable,
     GlobalKeyedState,
+    KeyedState,
     TableDescriptor,
     TableType,
 )
@@ -69,6 +70,33 @@ class StateStore:
     def get_global_keyed_state(self, name: str, desc: str = ""
                                ) -> GlobalKeyedState:
         return self.register(TableDescriptor(name, TableType.GLOBAL, desc))
+
+    def get_keyed_state(self, name: str, desc: str = "") -> KeyedState:
+        return self.register(TableDescriptor(name, TableType.KEYED, desc))
+
+    def get_session_state(self, name: str, desc: str = "") -> KeyedState:
+        """Session-window state: partition-adaptive sorted interval runs
+        on the store's device (state/session_state.py) unless
+        ARROYO_SESSION_STATE=legacy.  Both layouts checkpoint as the
+        same KEYED ``[(time, key, sessions)]`` entries, so epochs restore
+        across layouts and the key-range entry filter applies."""
+        from .session_state import SessionRunState, session_state_enabled
+
+        if not session_state_enabled():
+            return self.get_keyed_state(name, desc)
+        existing = self.tables.get(name)
+        if existing is not None:
+            if type(existing) is KeyedState:
+                # Operator.open() registered (and possibly restored into)
+                # the dict layout before on_start chose: upgrade in
+                # place, carrying the restored entries
+                table = SessionRunState(device=self.device)
+                table.restore(existing.snapshot())
+                self.tables[name] = table
+                return table
+            return existing
+        return self.register(TableDescriptor(name, TableType.KEYED, desc),
+                             SessionRunState(device=self.device))
 
     def get_batch_buffer(self, name: str, desc: str = "",
                          retention_micros: int = 0) -> BatchBuffer:

@@ -1,8 +1,9 @@
 """State tables — the port of ``arroyo_tpu.state.tables`` for the tables
-the q5 path uses: :class:`GlobalKeyedState` (source offsets and timers),
-:class:`BatchBuffer` (window candidate rows) and :class:`DeviceTable`
-(device-resident operator state that checkpoints through
-snapshot()/restore() of numpy arrays).  The time-key and keyed tables
+the port's operators use: :class:`GlobalKeyedState` (source offsets and
+timers), :class:`KeyedState` (per-key values with update times: session
+windows), :class:`BatchBuffer` (buffered window rows) and
+:class:`DeviceTable` (device-resident operator state that checkpoints
+through snapshot()/restore() of numpy arrays).  The time-key tables
 arrive with the operators that use them."""
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from ..types import Batch
 
 class TableType(Enum):
     GLOBAL = "global"
+    KEYED = "keyed"
     BATCH_BUFFER = "batch_buffer"
     DEVICE = "device"
 
@@ -64,6 +66,51 @@ class GlobalKeyedState:
             if int(t) >= self._version.get(k, -1):
                 self._version[k] = int(t)
                 self._data[k] = v
+
+
+class KeyedState:
+    """kv with timestamp; every snapshot is a full one, so a removed
+    key is simply absent from the next epoch.
+
+    Interchange contract: ``snapshot()`` / ``restore()`` speak
+    ``[(time, key, value)]`` entry lists — the canonical KEYED table
+    form the backend persists and filters by key range on rescale.
+    Alternate layouts serving the same table (the session-run state in
+    state/session_state.py) round-trip this exact form, so epochs
+    written under one layout restore under the other."""
+
+    def __init__(self) -> None:
+        self._data: Dict[Any, Tuple[int, Any]] = {}
+
+    def insert(self, time: int, key: Any, value: Any) -> None:
+        self._data[key] = (int(time), value)
+
+    def get(self, key: Any) -> Any:
+        entry = self._data.get(key)
+        return entry[1] if entry is not None else None
+
+    def get_time(self, key: Any) -> Optional[int]:
+        entry = self._data.get(key)
+        return entry[0] if entry is not None else None
+
+    def remove(self, key: Any) -> None:
+        self._data.pop(key, None)
+
+    def items(self) -> List[Tuple[Any, Any]]:
+        return [(k, v) for k, (_, v) in self._data.items()]
+
+    def snapshot(self) -> List[Tuple[int, Any, Any]]:
+        return [(t, k, v) for k, (t, v) in self._data.items()]
+
+    def restore(self, entries: Iterable[Tuple[int, Any, Any]]) -> None:
+        for t, k, v in entries:
+            self._data[k] = (int(t), v)
+
+    def __len__(self) -> int:
+        return len(self._data)
+
+    def n_keys(self) -> int:
+        return len(self._data)
 
 
 class BatchBuffer:
@@ -136,5 +183,6 @@ class DeviceTable:
 
 TABLE_CLASSES = {
     TableType.GLOBAL: GlobalKeyedState,
+    TableType.KEYED: KeyedState,
     TableType.BATCH_BUFFER: BatchBuffer,
 }

@@ -7,7 +7,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 1. environment: torch/CUDA versions, the card, its power limit;
 2. build: the CUDA kernels from arroyo_tpu_torch/csrc with nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes nexmark q5 and q8 give it, timed with CUDA events beside
+   the shapes nexmark q5, q8 and config5 give it (and, for the session
+   kernels, at larger and skewed shapes), timed with CUDA events beside
    its plain version, a PyTorch yardstick (one call per plane) where one
    exists, and its least possible time on an H100 (bytes / 3.35 TB/s);
 4. state: the port's KeyedBinState (q5 aggregates, local argmax) over
@@ -26,13 +27,23 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    ring_merge, ring_gather) all launched, hot join partitions promoted
    and rows gathered from their rings, the device share in a separate
    ``ARROYO_TIMING=1`` run, the same rows from the CPU — and q8 at
-   2,000,000 events on the card and on the CPU with identical rows.
+   2,000,000 events on the card and on the CPU with identical rows;
+7. config5 path: session windows + median UDAF over the Kafka source
+   through ``LocalRunner.run(checkpoint_interval_secs=1.0)`` at 2,000,000
+   events (bench.py's producer, batches of 4,096, 1 s gap and lateness,
+   checkpoints every second into InMemoryBackend) on the card — sink rows
+   equal to a numpy control computed here from the same producer (one
+   session per key), session_union and segment_agg launched, interval
+   rows merged on the device, at least one checkpoint epoch completed;
+   the device share in a separate ``ARROYO_TIMING=1`` run; and config5 at
+   200,000 events on the card and on the CPU with identical rows.
 
-Launch counts are set to 0 just before each main-path run (q5, q8) and
-read just after it.  It prints a ``{"kernels": [...]}`` line, the card's name and power limit
+Launch counts are set to 0 just before each main-path run (q5, q8,
+config5) and read just after it.  It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 as nvidia-smi gives them, and, last, ``{"ok": true, "device": ...}``.
 It needs one card and exits non-zero without one."""
 
+import collections
 import json
 import os
 import statistics
@@ -50,6 +61,8 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from arroyo_tpu_torch.config5 import (  # noqa: E402
+    GAP_MICROS, config5_events, config5_produce, config5_program)
 from arroyo_tpu_torch.connectors.memory import clear_sink, sink_output  # noqa: E402
 from arroyo_tpu_torch.connectors.nexmark import (  # noqa: E402
     EVENT_AUCTION, EVENT_BID, EVENT_PERSON, NexmarkConfig, NexmarkGenerator,
@@ -69,11 +82,17 @@ from arroyo_tpu_torch.kernels.ring_gather import (  # noqa: E402
     ring_gather, ring_gather_reference)
 from arroyo_tpu_torch.kernels.ring_merge import (  # noqa: E402
     ring_merge, ring_merge_reference)
+from arroyo_tpu_torch.kernels.segment_agg import (  # noqa: E402
+    segment_agg, segment_agg_reference)
+from arroyo_tpu_torch.kernels.session_union import (  # noqa: E402
+    session_union, session_union_reference)
 from arroyo_tpu_torch.obs import perf  # noqa: E402
 from arroyo_tpu_torch.ops.keyed_bins import KeyedBinState  # noqa: E402
 from arroyo_tpu_torch.q5 import SLIDE_MICROS, WIDTH_MICROS, q5_program  # noqa: E402
 from arroyo_tpu_torch.q8 import WIDTH_MICROS as Q8_WIDTH  # noqa: E402
 from arroyo_tpu_torch.q8 import q8_program  # noqa: E402
+from arroyo_tpu_torch.state.session_state import (  # noqa: E402
+    aggregate_session_registry)
 from arroyo_tpu_torch.types import hash_columns  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
@@ -86,6 +105,10 @@ Q8_SMALL = 2_000_000
 C_Q8, B_Q8 = 1_048_576, 8  # q8's person-side state at Q8_EVENTS
 C_SLICE_Q8 = 800_768  # its occupied slots, rounded as a dense fire reads
 RING_CAP = 65_536  # the largest hot join ring q8 stages
+C5_EVENTS = 2_000_000  # 20 s of event time at bench.py's 10 us spacing
+C5_SMALL = 200_000  # bench.py's BENCH_C5_EVENTS default
+C5_BATCH = 4_096  # bench.py's CONFIG5_SQL batch_size
+C5_SPACING = 10
 
 K1_SOURCE = "arroyo_tpu_torch/csrc/bin_update.cu"
 K1_REPLACES = ("arroyo_tpu/ops/keyed_bins.py:62 _update_kernel; "
@@ -102,9 +125,13 @@ K5_SOURCE = "arroyo_tpu_torch/csrc/ring_merge.cu"
 K5_REPLACES = "arroyo_tpu/ops/join.py:372 _merge32_kernel"
 K6_SOURCE = "arroyo_tpu_torch/csrc/ring_gather.cu"
 K6_REPLACES = "arroyo_tpu/ops/join.py:535 _gather32_kernel"
+K7_SOURCE = "arroyo_tpu_torch/csrc/session_union.cu"
+K7_REPLACES = "arroyo_tpu/ops/session.py:75 _union_kernel"
+K8_SOURCE = "arroyo_tpu_torch/csrc/segment_agg.cu"
+K8_REPLACES = "arroyo_tpu/ops/segment.py:30 _segment_agg_kernel"
 
 KERNELS = (bin_update, argmax_fire, pane_emit, bin_evict, ring_merge,
-           ring_gather)
+           ring_gather, session_union, segment_agg)
 
 
 def reset_launches():
@@ -399,6 +426,75 @@ def k6_case(rng, dev, cap, nf, ni, m, shape):
                nbytes, 0, lib, "index_select per stack")
 
 
+def k7_case(rng, dev, n, n_keys, shape):
+    """Interval rows sorted by (key, start) with u64-hash keys (as int64
+    bit views), micros starts, ends a gap past them, a tenth touching
+    their predecessor."""
+    keys = rng.integers(-2**63, 2**63 - 1, n_keys, dtype=np.int64)
+    kh = np.sort(rng.choice(keys, n))
+    st = rng.integers(1_700_000_000_000_000, 1_700_000_100_000_000, n)
+    o = np.lexsort((st, kh))
+    kh, st = kh[o], st[o]
+    en = st + rng.integers(1, 2 * GAP_MICROS, n)
+    touch = np.nonzero(rng.random(n - 1) < 0.1)[0] + 1
+    st[touch] = en[touch - 1]
+    o = np.lexsort((st, kh))
+    kh, st, en = (torch.tensor(a[o], device=dev) for a in (kh, st, en))
+    got = session_union(kh, st, en)
+    want = session_union_reference(kh, st, en)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"session_union differs ({shape})")
+    ms = cuda_ms(lambda: session_union(kh, st, en))
+    plain = cuda_ms(lambda: session_union_reference(kh, st, en))
+    # three i64 planes read, one i64 plane and one flag byte written; the
+    # int64 compares and maxes have no published peak rate, so the bound
+    # counts bytes only
+    return row("session_union", K7_SOURCE, K7_REPLACES,
+               shape + f" sessions={int(got[0].sum())}", 0.0, ms, plain,
+               n * (3 * 8 + 8 + 1), 0, None, None)
+
+
+def k8_case(rng, dev, n, n_seg, kinds, shape):
+    cuts = np.sort(rng.choice(np.arange(1, n), n_seg - 1, replace=False))
+    offsets_np = np.concatenate([[0], cuts, [n]]).astype(np.int64)
+    offsets = torch.tensor(offsets_np, device=dev)
+    reduced = [c for c, k in enumerate(kinds) if k != "count"]
+    # one value row per channel that is not a count (count reads none)
+    values = torch.tensor(rng.normal(size=(len(reduced), n)) * 1e3,
+                          device=dev)
+    got = segment_agg(values, offsets, kinds)
+    want = segment_agg_reference(values, offsets, kinds)
+    torch.cuda.synchronize()
+    check(torch.equal(got[1], want[1]), f"segment_agg counts differ "
+          f"({shape})")
+    err = 0.0
+    for c, k in enumerate(kinds):
+        if k == "sum":  # f64 sums in the kernel's tree order: rtol 1e-12
+            torch.testing.assert_close(got[0][c], want[0][c], rtol=1e-12,
+                                       atol=1e-9)
+            err = max(err, float((got[0][c] - want[0][c]).abs().max()))
+        else:
+            check(torch.equal(got[0][c], want[0][c]),
+                  f"segment_agg channel {c} ({k}) not exact ({shape})")
+    ms = cuda_ms(lambda: segment_agg(values, offsets, kinds))
+    plain = cuda_ms(lambda: segment_agg_reference(values, offsets, kinds))
+    library, library_call = None, None
+    if not reduced:  # every channel counts rows: the lengths, as f64
+        library = cuda_ms(lambda: torch.diff(offsets).double())
+        library_call = "torch.diff(offsets).double()"
+    elif hasattr(torch, "segment_reduce"):
+        lengths = offsets[1:] - offsets[:-1]
+        library = cuda_ms(lambda: [
+            torch.segment_reduce(values[r], kinds[c], lengths=lengths)
+            for r, c in enumerate(reduced)])
+        library_call = "segment_reduce per sum/min/max channel"
+    nbytes = (len(reduced) * n * 8 + offsets_np.nbytes
+              + len(kinds) * n_seg * 8 + n_seg * 8)
+    return row("segment_agg", K8_SOURCE, K8_REPLACES, shape, err, ms, plain,
+               nbytes, len(reduced) * n, library, library_call)
+
+
 def kernel_phase():
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
@@ -437,6 +533,19 @@ def kernel_phase():
                             f"q8 payload nf=2 ni=6 cap={cap}"))
     rows.append(k6_case(rng, dev, RING_CAP, 2, 6, 5_000,
                         f"q8 payload nf=2 ni=6 cap={RING_CAP} m=5000"))
+    for n, n_keys in ((256, 64), (256, 1), (65_536, 4_096), (65_536, 1),
+                      (1_048_576, 65_536), (1_048_576, 1)):
+        rows.append(k7_case(rng, dev, n, n_keys,
+                            f"n={n} keys={n_keys}"
+                            + (" (config5 batch)" if n == 256 else "")))
+    mixed7 = ("sum", "min", "max", "count", "sum", "min", "max")
+    for n, n_seg, kinds, what in (
+            (8_192, 256, ("count",), "config5 fire COUNT(*)"),
+            (200_000, 2_048, ("count",), "config5 final flush COUNT(*)"),
+            (1_048_576, 65_536, mixed7, "mixed sum/min/max/count k=7"),
+            (1_048_576, 1, mixed7, "one skewed segment k=7")):
+        rows.append(k8_case(rng, dev, n, n_seg, kinds,
+                            f"{what} n={n} n_seg={n_seg}"))
     return rows
 
 
@@ -708,16 +817,126 @@ def q8_phase():
     return launches
 
 
+# -- phase 7: config5 -----------------------------------------------------------------
+
+C5_COLS = ("k", "med", "cnt", "window_start", "window_end")
+C5_COUNTERS = ("session_merge_dispatches", "session_merge_device_dispatches",
+               "session_device_merge_rows", "session_host_merge_rows",
+               "udaf_channel_rows", "kernel_dispatches")
+
+
+def c5_table(batches):
+    """Sink rows as sorted (ts, k, med, cnt, window_start, window_end)."""
+    rows = []
+    for b in batches:
+        rows.extend(zip(b.timestamp.tolist(),
+                        *(b.columns[c].tolist() for c in C5_COLS)))
+    return sorted(rows)
+
+
+def c5_control(num_events):
+    """config5 in numpy from the producer's events: each key lives in
+    one burst block (its events 640 us apart, far inside the 1 s gap), so
+    it has one session: first event, last event + gap, count, median."""
+    keys, vals, ts = config5_events(num_events, 0, C5_SPACING)
+    t = ts // 1000  # from_unixtime: ns -> us
+    order = np.argsort(keys, kind="stable")
+    k_s, v_s, t_s = keys[order], vals[order], t[order]
+    uniq, first, counts = np.unique(k_s, return_index=True,
+                                    return_counts=True)
+    start = np.minimum.reduceat(t_s, first)
+    end = np.maximum.reduceat(t_s, first) + GAP_MICROS
+    med = [float(np.median(v_s[a:a + c])) for a, c in zip(first, counts)]
+    return sorted(zip((end - 1).tolist(), uniq.tolist(), med,
+                      counts.tolist(), start.tolist(), end.tolist()))
+
+
+def run_c5(num_events, broker, sink, device):
+    """config5 through LocalRunner with 1 s checkpoints; returns (wall s,
+    sorted rows, sink batches, fully completed checkpoint epochs)."""
+    clear_sink(sink)
+    runner = LocalRunner(config5_program(num_events, C5_BATCH, sink,
+                                         broker=broker), device=device)
+    t0 = time.perf_counter()
+    resps = runner.run(checkpoint_interval_secs=1.0)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    done = collections.Counter(r.subtask_metadata.epoch for r in resps
+                               if r.kind == "checkpoint_completed")
+    epochs = sorted(e for e, c in done.items()
+                    if c == len(runner.engine.subtasks))
+    batches = sink_output(sink)
+    rows = c5_table(batches)
+    clear_sink(sink)
+    return dt, rows, len(batches), epochs
+
+
+def c5_phase():
+    t0 = time.perf_counter()
+    config5_produce("c5-big", C5_EVENTS, 0, C5_SPACING)
+    produce_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    control = c5_control(C5_EVENTS)
+    control_s = time.perf_counter() - t0
+    perf.reset()
+    reset_launches()
+    dt, rows, fires, epochs = run_c5(C5_EVENTS, "c5-big", "c5-cuda", None)
+    launches = read_launches()
+    counters = {k: perf.counter(k) for k in C5_COUNTERS}
+    state = aggregate_session_registry(
+        perf.get_note("session_state_registry"))
+    check(len(rows) > 0, "config5 emitted no rows on the card")
+    check(rows == control, f"config5 rows differ from the numpy control "
+          f"({len(rows)} vs {len(control)})")
+    check(launches["session_union"] > 0 and launches["segment_agg"] > 0,
+          f"config5 main path did not launch both kernels: {launches}")
+    check(counters["session_device_merge_rows"] > 0,
+          "config5 merged no interval rows on the device")
+    check(len(epochs) > 0, "config5 completed no checkpoint epoch")
+    os.environ["ARROYO_TIMING"] = "1"
+    perf.reset()
+    try:
+        dt_timed, rows_timed, _, _ = run_c5(C5_EVENTS, "c5-big", "c5-timed",
+                                            None)
+    finally:
+        del os.environ["ARROYO_TIMING"]
+    device_s = perf.counter("device_ns") / 1e9
+    check(rows_timed == rows, "config5 rows differ under ARROYO_TIMING")
+    config5_produce("c5-small", C5_SMALL, 0, C5_SPACING)
+    dt_small, small, _, _ = run_c5(C5_SMALL, "c5-small", "c5-small-cuda",
+                                   None)
+    dt_small_cpu, small_cpu, _, _ = run_c5(C5_SMALL, "c5-small",
+                                           "c5-small-cpu", "cpu")
+    check(len(small) > 0 and small == small_cpu,
+          "config5 rows at 200k events differ between card and cpu")
+    print("config5 main path: " + json.dumps({
+        "events": C5_EVENTS, "batch": C5_BATCH, "wall_s": dt,
+        "events_per_s": C5_EVENTS / dt, "sessions": len(rows),
+        "fire_batches": fires, "control_sessions": len(control),
+        "produce_s": produce_s, "control_s": control_s,
+        "checkpoint_epochs": len(epochs), "launches": launches,
+        "counters": counters, "session_state": state,
+        "timed_wall_s": dt_timed, "timed_device_s": device_s,
+        "device_share": device_s / dt_timed,
+        "small_events": C5_SMALL, "small_sessions": len(small),
+        "small_wall_s": dt_small, "small_cpu_wall_s": dt_small_cpu}))
+    return launches
+
+
 def main():
     smi = environment()
     kernels = kernel_phase()
     state_phase()
     q5_launches = main_path()
     q8_launches = q8_phase()
+    c5_launches = c5_phase()
     for r in kernels:
         r["launches_q5"] = q5_launches[r["name"]]
         r["launches_q8"] = q8_launches[r["name"]]
-        r["launches"] = r["launches_q5"] + r["launches_q8"]
+        r["launches_config5"] = c5_launches[r["name"]]
+        r["launches"] = (r["launches_q5"] + r["launches_q8"]
+                         + r["launches_config5"])
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

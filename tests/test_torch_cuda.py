@@ -16,6 +16,11 @@ from arroyo_tpu_torch.kernels.bin_update import bin_update, bin_update_reference
 from arroyo_tpu_torch.kernels.pane_emit import pane_emit, pane_emit_reference
 from arroyo_tpu_torch.kernels.ring_gather import ring_gather, ring_gather_reference
 from arroyo_tpu_torch.kernels.ring_merge import ring_merge, ring_merge_reference
+from arroyo_tpu_torch.kernels.segment_agg import segment_agg, segment_agg_reference
+from arroyo_tpu_torch.kernels.session_union import (
+    session_union,
+    session_union_reference,
+)
 
 F64_MAX = torch.finfo(torch.float64).max
 
@@ -195,3 +200,69 @@ def test_ring_gather_cuda_matches_plain(cuda_device):
     want = ring_gather_reference(idx, f, i)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _intervals(rng, n, n_keys):
+    """(kh, st, en) sorted by (kh, st): hash-like keys (full int64 range),
+    micros starts, ends a gap past them, some intervals touching."""
+    keys = rng.integers(-2**63, 2**63 - 1, n_keys, dtype=np.int64)
+    kh = np.sort(rng.choice(keys, n))
+    st = rng.integers(1_700_000_000_000_000, 1_700_000_100_000_000, n)
+    order = np.lexsort((st, kh))
+    kh, st = kh[order], st[order]
+    en = st + rng.integers(1, 3_000_000, n)
+    touch = rng.random(n) < 0.1  # st == the predecessor's end
+    touch[0] = False
+    st[touch] = en[np.nonzero(touch)[0] - 1]
+    order = np.lexsort((st, kh))
+    return kh[order], st[order], en[order]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_keys", [(1, 1), (256, 40), (65536, 3000),
+                                      (65536, 1), (1_048_576, 200_000),
+                                      (1_048_576, 1)])
+def test_session_union_cuda_matches_plain(cuda_device, n, n_keys):
+    """Exact flags and running ends, including one key spanning every
+    tile (the carry crosses all 1,024 blocks)."""
+    rng = np.random.default_rng(n + n_keys)
+    kh, st, en = (torch.tensor(a, device=cuda_device)
+                  for a in _intervals(rng, n, n_keys))
+    before = session_union.launches
+    got = session_union(kh, st, en)
+    want = session_union_reference(kh, st, en)
+    torch.cuda.synchronize()
+    assert session_union.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_seg,kinds", [
+    (8192, 256, ("count",)),  # config5's COUNT(*) fire
+    (200_000, 2048, ("count",)),  # config5's final flush
+    (1_048_576, 65536,
+     ("sum", "min", "max", "count", "sum", "min", "max")),
+    (1_048_576, 1, ("sum", "min", "max", "count")),  # one skewed segment
+    (1000, 1000, ("sum", "min"))])  # one row per segment
+def test_segment_agg_cuda_matches_plain(cuda_device, n, n_seg, kinds):
+    """Exact counts, min and max; rtol 1e-12 for the f64 sums (the
+    kernel's fixed tree order differs from index_add_'s)."""
+    rng = np.random.default_rng(n_seg)
+    cuts = np.sort(rng.choice(np.arange(1, n), n_seg - 1, replace=False))
+    offsets = torch.tensor(np.concatenate([[0], cuts, [n]]),
+                           device=cuda_device)
+    n_reduced = sum(k != "count" for k in kinds)  # count reads no row
+    values = torch.tensor(rng.normal(size=(n_reduced, n)) * 1e3,
+                          device=cuda_device)
+    before = segment_agg.launches
+    got = segment_agg(values, offsets, kinds)
+    want = segment_agg_reference(values, offsets, kinds)
+    torch.cuda.synchronize()
+    assert segment_agg.launches == before + 1
+    assert torch.equal(got[1], want[1])
+    for c, k in enumerate(kinds):
+        if k == "sum":
+            torch.testing.assert_close(got[0][c], want[0][c], rtol=1e-12,
+                                       atol=1e-9)
+        else:
+            assert torch.equal(got[0][c], want[0][c])

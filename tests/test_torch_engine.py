@@ -140,8 +140,9 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """(g) in a fresh interpreter, importing every arroyo_tpu_torch module
-    leaves ``jax`` and ``arroyo_tpu`` out of sys.modules (a subprocess,
-    because this test process imported both already)."""
+    leaves ``jax``, ``arroyo_tpu``, ``pydantic`` and ``pyarrow`` (the
+    card machine has neither of the last two) out of sys.modules (a
+    subprocess, because this test process imported them already)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import arroyo_tpu_torch as pkg\n"
@@ -150,7 +151,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'arroyo_tpu'))\n"
+        "('jax', 'jaxlib', 'arroyo_tpu', 'pydantic', 'pyarrow'))\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad or len(names) < 20 else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

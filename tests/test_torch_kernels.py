@@ -4,8 +4,9 @@ package's kernels on the same numpy inputs.
 On the CPU the wrappers run their plain PyTorch versions, so these tests
 hold those versions against ``_update_kernel`` (XLA), the Pallas
 ``scatter_add_channels`` (interpret mode, as tests/test_pallas.py runs
-it), the argmax fire kernels, the dense emit and evict kernels and the
-join ring's merge and gather kernels.  The CUDA kernels themselves are held
+it), the argmax fire kernels, the dense emit and evict kernels, the
+join ring's merge and gather kernels, the session union scan and the
+segment aggregate.  The CUDA kernels themselves are held
 against the plain versions by tests/test_torch_cuda.py."""
 
 import numpy as np
@@ -21,12 +22,16 @@ from arroyo_tpu.ops.keyed_bins import (NEG_INF as JAX_NEG_INF,
                                        _emit_kernel, _evict_kernel,
                                        _update_kernel)
 from arroyo_tpu.ops.pallas_kernels import HAVE_PALLAS, pad_batch, scatter_add_channels
+from arroyo_tpu.ops.segment import _segment_agg_kernel
+from arroyo_tpu.ops.session import _union_kernel
 from arroyo_tpu_torch.kernels.argmax_fire import argmax_fire
 from arroyo_tpu_torch.kernels.bin_evict import bin_evict
 from arroyo_tpu_torch.kernels.bin_update import bin_update
 from arroyo_tpu_torch.kernels.pane_emit import pane_emit
 from arroyo_tpu_torch.kernels.ring_gather import ring_gather
 from arroyo_tpu_torch.kernels.ring_merge import SENT32_HI, SENT32_LO, ring_merge
+from arroyo_tpu_torch.kernels.segment_agg import segment_agg
+from arroyo_tpu_torch.kernels.session_union import session_union
 from arroyo_tpu_torch.ops.keyed_bins import NEG_INF, POS_INF
 
 # (channel kinds, COUNT(*) channels): q5's bare COUNT(*), and a mixed
@@ -354,3 +359,110 @@ def test_wrappers_run_plain_versions_on_cpu_and_reject_other_devices():
     with pytest.raises(ValueError):
         ring_gather(torch.tensor([0], device="meta"), f.to("meta"),
                     torch.zeros((1, 4), dtype=torch.int64, device="meta"))
+
+
+def _union_fixture(rng, n, n_keys, touching):
+    """Interval rows sorted by (key, start), u64 hash keys, micros times;
+    ``touching`` makes a third of the starts equal the running end."""
+    keys = rng.integers(0, 2**64, n_keys, dtype=np.uint64)
+    kh = np.sort(rng.choice(keys, n))
+    st = rng.integers(1_700_000_000_000_000, 1_700_000_000_200_000, n)
+    order = np.lexsort((st, kh))
+    kh, st = kh[order], st[order]
+    en = st + rng.integers(1, 30_000, n)
+    if touching and n > 1:
+        t = np.nonzero(rng.random(n - 1) < 0.33)[0] + 1
+        t = t[kh[t] == kh[t - 1]]
+        st[t] = en[t - 1]  # st == the predecessor's end: must merge
+        order = np.lexsort((st, kh))
+        kh, st, en = kh[order], st[order], en[order]
+    return kh, st, en
+
+
+@pytest.mark.parametrize("n,n_keys,touching", [
+    (300, 40, False),  # many keys
+    (1000, 1, False),  # one key spanning the input
+    (517, 9, True),  # touching intervals merge
+    (1, 1, False)])
+def test_session_union_plain_matches_union_kernel(n, n_keys, touching):
+    """Exact new-session flags and running ends on the first n rows of
+    the JAX kernel's padded scan."""
+    rng = np.random.default_rng(n + n_keys)
+    kh, st, en = _union_fixture(rng, n, n_keys, touching)
+    npad = max(1 << (n - 1).bit_length(), 2)
+    khp = np.zeros(npad, dtype=np.uint64)
+    stp = np.full(npad, np.iinfo(np.int64).max)
+    enp = np.full(npad, np.iinfo(np.int64).min)
+    vp = np.zeros(npad, dtype=bool)
+    khp[:n], stp[:n], enp[:n], vp[:n] = kh, st, en, True
+    want_new, want_run = _union_kernel(npad)(
+        jnp.asarray(khp), jnp.asarray(stp), jnp.asarray(enp),
+        jnp.asarray(vp))
+    new, run = session_union(torch.tensor(kh.view(np.int64)),
+                             torch.tensor(st), torch.tensor(en))
+    np.testing.assert_array_equal(new.numpy(), np.asarray(want_new)[:n])
+    np.testing.assert_array_equal(run.numpy(), np.asarray(want_run)[:n])
+    if touching:
+        assert new.sum() < n_keys + (n - n_keys) // 2  # merges happened
+
+
+@pytest.mark.parametrize("kinds", [("sum",), ("min",), ("max",),
+                                   ("count",),
+                                   ("count", "sum", "min", "max", "sum")])
+def test_segment_agg_plain_matches_segment_agg_kernel(kinds):
+    """Exact counts, min, max and count channels; rtol 1e-12 for sums
+    (XLA's segment_sum adds in another order).  The port takes value rows
+    for the channels that are not counts only."""
+    rng = np.random.default_rng(len(kinds) * 7 + len(kinds[0]))
+    n, n_seg = 900, 37
+    seg = np.sort(rng.integers(0, n_seg, n))
+    seg[:n_seg] = np.arange(n_seg)  # every segment non-empty
+    seg = np.sort(seg)
+    offsets = np.searchsorted(seg, np.arange(n_seg + 1))
+    values = rng.normal(size=(len(kinds), n)) * 1e3
+    npad, spad = 1024, 64
+    vals = np.zeros((len(kinds), npad))
+    vals[:, :n] = values
+    sid = np.zeros(npad, dtype=np.int32)
+    sid[:n] = seg
+    valid = np.arange(npad) < n
+    want, want_counts = _segment_agg_kernel(npad, spad, kinds)(
+        jnp.asarray(vals), jnp.asarray(sid), jnp.asarray(valid))
+    reduced = [c for c, k in enumerate(kinds) if k != "count"]
+    got, counts = segment_agg(torch.tensor(values[reduced]),
+                              torch.tensor(offsets), kinds)
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np.asarray(want_counts)[:n_seg])
+    for c, k in enumerate(kinds):
+        w = np.asarray(want)[c, :n_seg]
+        if k == "sum":
+            np.testing.assert_allclose(got[c].numpy(), w, rtol=1e-12)
+        else:
+            np.testing.assert_array_equal(got[c].numpy(), w)
+
+
+def test_session_kernels_run_plain_versions_on_cpu_and_reject_others():
+    """The session kernels' wrappers count no launch for CPU tensors and
+    raise for tensors on another non-CUDA device."""
+    before = (session_union.launches, segment_agg.launches)
+    kh = torch.tensor([5, 5, 5, 9])
+    st = torch.tensor([0, 10, 30, 0])
+    en = torch.tensor([10, 20, 40, 3])
+    new, run = session_union(kh, st, en)
+    assert new.tolist() == [True, False, True, True]
+    assert run.tolist() == [10, 20, 40, 3]
+    out, cnt = segment_agg(torch.tensor([[1.0, 2.0, 4.0]],
+                                        dtype=torch.float64),
+                           torch.tensor([0, 2, 3]), ("sum",))
+    assert out.tolist() == [[3.0, 4.0]] and cnt.tolist() == [2, 1]
+    assert (session_union.launches, segment_agg.launches) == before
+    with pytest.raises(ValueError):
+        session_union(kh.to("meta"), st.to("meta"), en.to("meta"))
+    with pytest.raises(ValueError):
+        segment_agg(torch.zeros((1, 3), dtype=torch.float64, device="meta"),
+                    torch.tensor([0, 3], device="meta"), ("sum",))
+    with pytest.raises(ValueError, match="value rows"):  # count: no row
+        segment_agg(torch.zeros((1, 3), dtype=torch.float64),
+                    torch.tensor([0, 3]), ("count",))
+    with pytest.raises(TypeError):
+        session_union(kh.to(torch.int32), st, en)
