@@ -67,4 +67,4 @@ def make_sink(name: str, config: Dict[str, Any]) -> Operator:
 
 
 def _ensure_builtin() -> None:
-    from . import blackhole, kafka, memory, nexmark  # noqa: F401  (register)
+    from . import blackhole, impulse, kafka, memory, nexmark  # noqa: F401  (register)

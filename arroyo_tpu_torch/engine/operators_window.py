@@ -11,6 +11,9 @@
 * :class:`WindowJoinOperator` — the windowed stream-stream equi-join over
   partition-adaptive join state (``state/join_state.py``), whose hot
   partitions live on the device;
+* :class:`JoinWithExpirationOperator` — the unwindowed stream-stream
+  equi-join with TTL state: every arriving batch probes the opposite
+  side's state (the device rings of its hot partitions);
 * :class:`SessionWindowOperator` — session windows over interval-run
   state (``state/session_state.py``), aggregated per fired session by
   ``ops/segment.py``."""
@@ -40,7 +43,8 @@ from ..ops.segment import segment_aggregate
 from ..state.join_state import PartitionedJoinBuffer
 from ..state.session_state import SessionRunState, _count_merge
 from ..state.tables import DeviceTable, TableDescriptor, TableType
-from ..types import MAX_TIMESTAMP, Batch, Message, Watermark
+from ..types import (MAX_TIMESTAMP, UPDATE_OP_COLUMN, Batch, Message,
+                     UpdateOp, Watermark)
 from .build import register_builder
 from .context import Context
 from .operator import Operator
@@ -421,12 +425,10 @@ def join_batches(l: Batch, r: Batch, end: int, how: JoinType,
                  tmpl: Tuple[_SideTemplate, _SideTemplate]) -> Batch:
     """The legacy layout's fire (CPU only): sort both sides' key hashes,
     equi-join them on the host, null-pad the unmatched rows."""
-    from ..ops.join import _host_pairs
+    from ..ops.join import join_pairs
     from ..state.join_state import _count_gather
 
-    lo = np.argsort(l.key_hash, kind="stable")
-    ro = np.argsort(r.key_hash, kind="stable")
-    lidx, ridx, counts = _host_pairs(l.key_hash[lo], r.key_hash[ro])
+    lo, ro, lidx, ridx, counts = join_pairs(l.key_hash, r.key_hash)
     l_rows = l.select(lo[lidx])
     r_rows = r.select(ro[ridx])
     l_un = (l.select(lo[counts == 0])
@@ -545,6 +547,145 @@ class WindowJoinOperator(Operator):
         if not have_r:
             r = _empty_like_side(self._tmpl[1], l)
         return join_batches(l, r, end, self.join_type, self._tmpl)
+
+
+class JoinWithExpirationOperator(Operator):
+    """Unwindowed stream-stream join with TTL state.  Inner joins emit
+    append rows; outer joins emit updating (``__op``) rows: an arriving
+    row with no opposite match emits a null-padded CREATE, and when the
+    FIRST opposite-side row for that key arrives later, the padded rows
+    are retracted (DELETE) and replaced by joined CREATEs.  Each arriving
+    batch probes the opposite side's state (``probe_batch``: the device
+    rings of hot partitions), then joins its own side's state; rows
+    expire once the watermark passes their time plus their side's
+    TTL."""
+
+    def __init__(self, name: str, left_ttl: int, right_ttl: int,
+                 join_type: JoinType,
+                 left_cols: Tuple[Tuple[str, str], ...] = (),
+                 right_cols: Tuple[Tuple[str, str], ...] = ()):
+        super().__init__(name)
+        self.left_ttl = left_ttl
+        self.right_ttl = right_ttl
+        self.join_type = join_type
+        self._tmpl = (_SideTemplate(left_cols), _SideTemplate(right_cols))
+
+    async def on_start(self, ctx: Context) -> None:
+        self.left = ctx.state.get_join_buffer("l", "left state",
+                                              self.left_ttl)
+        self.right = ctx.state.get_join_buffer("r", "right state",
+                                               self.right_ttl)
+        self._partitioned = isinstance(self.left, PartitionedJoinBuffer)
+
+    def _orient(self, mine_rows: Batch, opp_cols: Dict[str, np.ndarray],
+                side: int, end: int, op: Optional[int]) -> Batch:
+        """An output batch of MY side's rows beside already-named
+        opposite-side columns, in left-right orientation; every emission
+        (matched, padded, retraction, either arrival side) goes through
+        ``_stable_join_part``, so the edge keeps one column layout."""
+        n = len(mine_rows)
+        key_names = tuple(mine_rows.key_cols)
+        if side == 0:
+            cols = _stable_join_part(dict(mine_rows.columns),
+                                     dict(opp_cols), n, key_names)
+        else:
+            cols = _stable_join_part(dict(opp_cols),
+                                     dict(mine_rows.columns), n, key_names)
+        if op is not None:
+            cols[UPDATE_OP_COLUMN] = np.full(n, op, np.int8)
+        return Batch(np.full(n, end - 1, dtype=np.int64), cols,
+                     mine_rows.key_hash, mine_rows.key_cols)
+
+    async def process_batch(self, batch: Batch, ctx: Context,
+                            side: int = 0) -> None:
+        if batch.key_hash is None:
+            raise ValueError(f"{self.name} requires keyed inputs")
+        if not len(batch):
+            return
+        how = self.join_type
+        self._tmpl[side].observe(batch)
+        mine, other = ((self.left, self.right) if side == 0
+                       else (self.right, self.left))
+        my_tmpl, opp_tmpl = self._tmpl[side], self._tmpl[1 - side]
+        # is MY side / the OPPOSITE side null-padded when unmatched?
+        my_outer = how in ((JoinType.LEFT, JoinType.FULL) if side == 0
+                           else (JoinType.RIGHT, JoinType.FULL))
+        opp_outer = how in ((JoinType.RIGHT, JoinType.FULL) if side == 0
+                            else (JoinType.LEFT, JoinType.FULL))
+        op_create = UpdateOp.CREATE.value if how != JoinType.INNER else None
+        # O(P): resident-but-dead rows are fine here (the probe drops them)
+        have_opp = (any(part.n for part in other.parts)
+                    if self._partitioned else len(other) > 0)
+        end = int(batch.timestamp.max()) + 1
+
+        # 1. retract padded opposite rows: keys NEW to my state that match
+        #    opposite rows emitted earlier as (null, row).  "New" is judged
+        #    from the current state, so after TTL eviction a re-arriving
+        #    key can retract a pad that was already retracted — the
+        #    reference's behaviour for expired state, kept for parity.
+        if opp_outer and have_opp:
+            batch_keys = np.unique(batch.key_hash)
+            new_keys = batch_keys[~mine.contains_keys(batch_keys)]
+            if len(new_keys):
+                if self._partitioned:
+                    padded = other.rows_with_keys(new_keys)
+                else:
+                    from ..state.join_state import _count_gather
+
+                    opp_all = other.all()
+                    padded = opp_all.select(np.isin(opp_all.key_hash,
+                                                    new_keys))
+                    _count_gather(0, len(padded))
+                if len(padded):
+                    pad = my_tmpl.null_cols(len(padded))
+                    await ctx.collect(self._orient(
+                        padded, pad, 1 - side, end, UpdateOp.DELETE.value))
+
+        # 2. joined CREATEs for matched pairs: the partitioned layout
+        #    probes the opposite state's sorted runs (only the batch gets
+        #    sorted); the legacy layout (CPU only) re-sorts both sides
+        if have_opp:
+            if self._partitioned:
+                bsel, opp_rows, counts = other.probe_batch(batch)
+                if len(bsel):
+                    await ctx.collect(self._orient(
+                        batch.select(bsel), dict(opp_rows.columns), side,
+                        end, op_create))
+                unmatched = counts == 0
+            else:
+                from ..ops.join import join_pairs
+                from ..state.join_state import _count_gather
+
+                opp = other.all()
+                lo, ro, lidx, ridx, counts = join_pairs(batch.key_hash,
+                                                        opp.key_hash)
+                if len(lidx):
+                    opp_rows = opp.select(ro[ridx])
+                    _count_gather(0, len(opp_rows))
+                    await ctx.collect(self._orient(
+                        batch.select(lo[lidx]), dict(opp_rows.columns),
+                        side, end, op_create))
+                unmatched = np.zeros(len(batch), dtype=bool)
+                unmatched[lo[counts == 0]] = True  # back to batch order
+        else:
+            unmatched = np.ones(len(batch), dtype=bool)
+
+        # 3. null-padded CREATEs for my unmatched rows
+        if my_outer and unmatched.any():
+            un = batch.select(unmatched)
+            await ctx.collect(self._orient(un, opp_tmpl.null_cols(len(un)),
+                                           side, end, op_create))
+
+        # 4. buffer, except null-keyed rows: their pad (if any) went out
+        #    above, and no opposite row can ever match or retract it
+        batch = _drop_null_keyed(batch)
+        if batch is not None and len(batch):
+            mine.append(batch)
+
+    async def handle_watermark(self, watermark: int, ctx: Context) -> None:
+        self.left.evict_before(watermark - self.left_ttl)
+        self.right.evict_before(watermark - self.right_ttl)
+        await ctx.broadcast(Message.wm(Watermark.event_time(watermark)))
 
 
 # -- session windows ------------------------------------------------------------------
@@ -899,3 +1040,11 @@ def _build_window_join(op: LogicalOperator, device: DeviceLike) -> Operator:
     s = op.spec
     return WindowJoinOperator(op.name, s.typ, s.join_type, s.left_cols,
                               s.right_cols)
+
+
+@register_builder(OpKind.JOIN_WITH_EXPIRATION)
+def _build_join_exp(op: LogicalOperator, device: DeviceLike) -> Operator:
+    s = op.spec
+    return JoinWithExpirationOperator(op.name, s.left_expiration_micros,
+                                      s.right_expiration_micros, s.join_type,
+                                      s.left_cols, s.right_cols)

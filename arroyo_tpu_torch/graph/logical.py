@@ -109,6 +109,7 @@ class OpKind(Enum):
     WINDOW_ARGMAX = "window_argmax"  # fused self-join-on-window-max
     WINDOW_JOIN = "window_join"  # windowed stream-stream equi-join
     WINDOW = "window"  # buffered keyed window (session windows)
+    JOIN_WITH_EXPIRATION = "join_with_expiration"  # unwindowed TTL join
 
 
 class JoinType(Enum):
@@ -182,6 +183,20 @@ class WindowJoinSpec:
     (name, kind) schemas for pads before a side has seen a batch."""
 
     typ: Any  # TumblingWindow | SlidingWindow | InstantWindow
+    join_type: JoinType = JoinType.INNER
+    left_cols: Tuple[Tuple[str, str], ...] = ()
+    right_cols: Tuple[Tuple[str, str], ...] = ()
+
+
+@dataclass
+class JoinWithExpirationSpec:
+    """Unwindowed stream-stream equi-join whose state expires after a TTL
+    per side; outer kinds emit updating (``__op``) rows.
+    ``left_cols``/``right_cols`` are (name, kind) schemas for pads before
+    a side has seen a batch."""
+
+    left_expiration_micros: int
+    right_expiration_micros: int
     join_type: JoinType = JoinType.INNER
     left_cols: Tuple[Tuple[str, str], ...] = ()
     right_cols: Tuple[Tuple[str, str], ...] = ()
@@ -460,11 +475,32 @@ class Stream:
                     parallelism: Optional[int] = None) -> "Stream":
         """Join this stream (left, side 0) with ``other`` (right, side 1)
         per window; both must be keyed by the join key."""
-        if self.program is not other.program:
-            raise ValueError("join streams must share a Program")
         spec = WindowJoinSpec(window, join_type, tuple(left_cols),
                               tuple(right_cols))
-        op = LogicalOperator(OpKind.WINDOW_JOIN, name, spec=spec)
+        return self._join(other, OpKind.WINDOW_JOIN, spec, name, parallelism)
+
+    def join_with_expiration(self, other: "Stream",
+                             left_expiration_micros: int,
+                             right_expiration_micros: int,
+                             join_type: JoinType = JoinType.INNER,
+                             left_cols: Tuple[Tuple[str, str], ...] = (),
+                             right_cols: Tuple[Tuple[str, str], ...] = (),
+                             name: str = "join",
+                             parallelism: Optional[int] = None) -> "Stream":
+        """Join this stream (left, side 0) with ``other`` (right, side 1)
+        without windows: each side's rows stay joinable until the
+        watermark passes their time plus that side's TTL."""
+        spec = JoinWithExpirationSpec(left_expiration_micros,
+                                      right_expiration_micros, join_type,
+                                      tuple(left_cols), tuple(right_cols))
+        return self._join(other, OpKind.JOIN_WITH_EXPIRATION, spec, name,
+                          parallelism)
+
+    def _join(self, other: "Stream", kind: OpKind, spec: Any, name: str,
+              parallelism: Optional[int]) -> "Stream":
+        if self.program is not other.program:
+            raise ValueError("join streams must share a Program")
+        op = LogicalOperator(kind, name, spec=spec)
         par = parallelism or self.program.node(self.tail).parallelism
         nid = self.program.add_node(op, par)
         ks = ",".join(self.keyed) if self.keyed else "()"

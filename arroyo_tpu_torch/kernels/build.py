@@ -2,7 +2,8 @@
 
 Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` — one process
 per source, all started together — and the objects are linked into ONE
-shared library with a plain C interface, loaded with ``ctypes``.  No
+shared library with a plain C interface, loaded with ``ctypes``.  Headers
+(``csrc/*.cuh``) are included by the sources that use them.  No
 PyTorch headers are involved, so a build takes seconds.
 
 The build runs at first use, from the package's sources only, into
@@ -49,7 +50,7 @@ def find_nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob("*.cu")):
+    for src in sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libarroyo_kernels-{h.hexdigest()[:16]}.so"

@@ -23,20 +23,33 @@ are always on (the JAX package's ``payload_device_enabled`` holds
 whenever x64 does, and torch has native i64 and f64); strings cannot
 ride the device: the buffer's sticky fallback keeps such sides host.
 
-Left for later: the legacy layout's device ``join_pairs`` (sort, probe
-and expand kernels) and the probe path of joins with expiration and semi
-joins (``probe_ring``, ``expand_hit``, ``expand_gather``)."""
+PROBES: joins with expiration probe an arriving batch's sorted keys
+against a hot ring in one launch (:func:`probe_ring` over
+:func:`~arroyo_tpu_torch.kernels.join_probe`: candidate ranges on the
+``hi`` plane, a superset of the true matches), read back the pair
+total to size the expansion, then either expand the ranges into
+unverified (query, ring position) pairs (:func:`expand_hit`,
+:func:`~arroyo_tpu_torch.kernels.join_expand`) or expand, verify the full
+split key and gather both payload stacks in one more launch
+(:func:`expand_gather`, :func:`~arroyo_tpu_torch.kernels.expand_gather`).
+
+Left for later: the legacy layout's device ``join_pairs`` (the sort
+kernel; the port's ``join_pairs`` is host numpy, CPU only)."""
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..kernels.expand_gather import expand_gather as expand_gather_kernel
+from ..kernels.join_expand import join_expand
+from ..kernels.join_probe import join_probe
 from ..kernels.ring_gather import ring_gather
 from ..kernels.ring_merge import SENT32_HI, SENT32_LO, ring_merge
+from ..obs import perf
 from ..obs.perf import timed_device
 
 # padding key of the legacy layout: sorts after every real hash
@@ -72,6 +85,21 @@ def _host_pairs(lk_sorted: np.ndarray, rk_sorted: np.ndarray
     lidx, offs = expand_counts(counts)
     ridx = np.repeat(left_start, counts) + offs
     return lidx, ridx, counts
+
+
+def join_pairs(lk: np.ndarray, rk: np.ndarray
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray,
+                          np.ndarray]:
+    """(lo, ro, lidx, ridx, counts) of an equi-join of two u64 key arrays,
+    on the host: ``lo``/``ro`` sort each side stably, ``lidx``/``ridx``
+    index pairs into the sorted orders, ``counts`` is each sorted left
+    row's match count (for outer-join unmatched masks).  The legacy
+    layout's full re-sort, counted as ``join_state_resorts``."""
+    perf.count("join_state_resorts")
+    lo = np.argsort(lk, kind="stable")
+    ro = np.argsort(rk, kind="stable")
+    lidx, ridx, counts = _host_pairs(lk[lo], rk[ro])
+    return lo, ro, lidx, ridx, counts
 
 
 def device_join_enabled(device: torch.device) -> bool:
@@ -260,6 +288,63 @@ def merge_ring(ring: SplitRing, res_pos: np.ndarray,
         _put(dp, dev))
     return SplitRing(hi, lo, cap, fstack, istack, ring.plan, ring.nf,
                      ring.ni, dev)
+
+
+class ProbeHit(NamedTuple):
+    """One ring probe's intermediates: candidate match ranges on the i32
+    ``hi`` plane (a SUPERSET of the true matches — hi-equal, full key
+    unverified), with ``start``/``cum`` and the padded queries left on
+    the ring's device for the expansion launch; ``total`` is the number
+    of candidate pairs, read back to size it."""
+
+    start_d: torch.Tensor
+    cum_d: torch.Tensor
+    total: int
+    q_hi: torch.Tensor
+    q_lo: torch.Tensor
+
+
+def probe_ring(ring: SplitRing, qkeys_sorted: np.ndarray,
+               n_valid: int) -> ProbeHit:
+    """Candidate match ranges of sorted query keys against a resident
+    ring, one ``join_probe`` launch; the queries pad to a power-of-two
+    bucket with the ``hi`` sentinel.  Candidates still need the full-key
+    verify (:func:`expand_hit` / :func:`expand_gather`)."""
+    m = len(qkeys_sorted)
+    mq = _bucket(max(m, 1))
+    q = np.empty((2, mq), np.int32)
+    q[0], q[1] = SENT32_HI, SENT32_LO
+    q[0, :m] = split_hi32(qkeys_sorted)
+    q[1, :m] = split_lo32(qkeys_sorted)
+    q_d = _put(q, ring.device)
+    start_d, _counts, cum_d = timed_device(join_probe, q_d[0], ring.hi, m,
+                                           n_valid)
+    # the padded queries count 0, so the last prefix sum is the total
+    return ProbeHit(start_d, cum_d, int(cum_d[-1]), q_d[0], q_d[1])
+
+
+def expand_hit(hit: ProbeHit) -> Tuple[np.ndarray, np.ndarray]:
+    """Keys-only expansion of candidate ranges: (query index, ring
+    position) i64 pairs, UNVERIFIED — the caller kills i32 collisions
+    against its host mirror (``skeys[spos] == qkeys[qidx]``)."""
+    lidx, ridx = timed_device(join_expand, hit.start_d, hit.cum_d,
+                              hit.total)
+    return lidx.cpu().numpy(), ridx.cpu().numpy()
+
+
+def expand_gather(ring: SplitRing, hit: ProbeHit
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray,
+                             np.ndarray]:
+    """probe -> expand -> payload materialization, fused: ONE launch turns
+    the device-resident candidate ranges into pair indices, the full-key
+    verify and the gathered payload stacks.  Returns (qidx, ring_pos,
+    valid, f_rows [nf, total], i_rows [ni, total]) on the host; ``valid``
+    is False for i32-equal-but-u64-distinct candidates."""
+    lidx, ridx, valid, gf, gi = timed_device(
+        expand_gather_kernel, hit.start_d, hit.cum_d, hit.total, ring.hi,
+        ring.lo, hit.q_hi, hit.q_lo, ring.fstack, ring.istack)
+    return (lidx.cpu().numpy(), ridx.cpu().numpy(), valid.cpu().numpy(),
+            gf.cpu().numpy(), gi.cpu().numpy())
 
 
 def gather_ring(ring: SplitRing, spos: np.ndarray

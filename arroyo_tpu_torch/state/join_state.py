@@ -1,5 +1,6 @@
 """Partition-adaptive join state — the port of
-``arroyo_tpu.state.join_state`` for window joins.
+``arroyo_tpu.state.join_state`` for window joins and joins with
+expiration.
 
 * each side's rows hash-partition by the low bits of ``key_hash``;
 * each partition keeps its rows in arrival order plus an **incrementally
@@ -26,13 +27,21 @@ Knobs, as in the JAX package:
   ARROYO_JOIN_HOT_PARTITIONS=4           device-resident partition budget
   ARROYO_JOIN_HOT_MIN_ROWS=4096          EWMA rows to qualify as hot
 
-Not ported yet: the probe side used by joins with expiration and semi
-joins (``probe``, ``probe_rows``, ``probe_batch``, ``contains_keys``,
-``remove_keys``, ``rows_with_keys``), the stats registry, the Prometheus
-mirrors and the profiler frames."""
+Joins with expiration probe the state with each arriving batch
+(``probe_batch``): a hot partition with payload planes answers with one
+``join_probe`` and one fused ``expand_gather`` launch (``probe_rows``), a
+keys-only ring with ``join_probe`` + ``join_expand`` and a host verify
+(``probe``), a cold partition on the host mirror.  Outer joins look keys
+up with ``contains_keys`` and ``rows_with_keys`` (``probe`` + ``gather``).
+Every buffer notes its ``stats()`` in the ``join_state_registry`` perf
+note every 16th append; ``aggregate_stats_registry`` folds the notes.
+
+Not ported yet: ``remove_keys`` (semi joins), the Prometheus mirrors and
+the profiler frames."""
 
 from __future__ import annotations
 
+import itertools
 import os
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -348,6 +357,78 @@ class _Partition:
             return self.n
         return int((self.ts[: self.n] >= self.valid_from).sum())
 
+    def probe(self, qkeys_sorted: np.ndarray
+              ) -> Tuple[np.ndarray, np.ndarray]:
+        """Match ranges of sorted query keys against the resident run.
+        Returns (qidx, spos): for every (query row, live matching state
+        row) pair, the index into ``qkeys_sorted`` and the SORTED-RUN
+        position of the match (``gather`` maps it to storage or into the
+        ring's payload planes)."""
+        from ..ops import join as dj
+
+        n = self.n
+        z = np.zeros(0, dtype=np.int64)
+        if n == 0 or len(qkeys_sorted) == 0:
+            return z, z
+        self.touches = 0.9 * self.touches + 0.1 * len(qkeys_sorted) * 10
+        if self.dev is not None:
+            hit = dj.probe_ring(self.dev, qkeys_sorted, n)
+            if hit.total == 0:
+                return z, z
+            qidx, sidx = dj.expand_hit(hit)
+            # full-key verify on the host mirror: the candidates are
+            # top-32-equal ranges; i32-equal-but-u64-distinct rows die here
+            ok = self.skeys[sidx] == qkeys_sorted[qidx]
+            if not ok.all():
+                qidx, sidx = qidx[ok], sidx[ok]
+        else:
+            skeys = self.skeys[:n]
+            start = np.searchsorted(skeys, qkeys_sorted, side="left")
+            end = np.searchsorted(skeys, qkeys_sorted, side="right")
+            counts = end - start
+            if not counts.any():
+                return z, z
+            qidx, offs = dj.expand_counts(counts)
+            sidx = np.repeat(start, counts) + offs  # sorted-run positions
+        if self.valid_from != _NEG_INF and len(sidx):
+            alive = self.sts[sidx] >= self.valid_from
+            qidx, sidx = qidx[alive], sidx[alive]
+        return qidx, sidx
+
+    def probe_rows(self, qkeys_sorted: np.ndarray
+                   ) -> Tuple[np.ndarray, np.ndarray,
+                              Optional[Dict[str, np.ndarray]],
+                              Optional[np.ndarray]]:
+        """:meth:`probe` fused with the payload materialization: when this
+        partition's payload planes are resident, the candidate expansion,
+        the full-key verify AND the payload gather are one
+        ``expand_gather`` launch.  Returns (qidx, spos, cols, ts); cols
+        and ts are None when the caller must host-gather (a cold
+        partition or a keys-only ring)."""
+        from ..ops import join as dj
+
+        ring = self.dev
+        if ring is None or ring.plan is None:
+            qidx, spos = self.probe(qkeys_sorted)
+            return qidx, spos, None, None
+        n = self.n
+        z = np.zeros(0, dtype=np.int64)
+        if n == 0 or len(qkeys_sorted) == 0:
+            return z, z, None, None
+        self.touches = 0.9 * self.touches + 0.1 * len(qkeys_sorted) * 10
+        hit = dj.probe_ring(ring, qkeys_sorted, n)
+        if hit.total == 0:
+            return z, z, None, None
+        qidx, sidx, valid, gf, gi = dj.expand_gather(ring, hit)
+        keep = valid
+        if self.valid_from != _NEG_INF:
+            keep = keep & (gi[0] >= self.valid_from)
+        if not keep.all():
+            qidx, sidx = qidx[keep], sidx[keep]
+            gf, gi = gf[:, keep], gi[:, keep]
+        ts, cols = dj.unpack_payload(ring, gf, gi)
+        return qidx, sidx, cols, ts
+
     def range_view(self, start: Optional[int], end: Optional[int]
                    ) -> Tuple[np.ndarray, np.ndarray]:
         """(keys_sorted, sorted_run_positions) of live rows with
@@ -372,6 +453,8 @@ class PartitionedJoinBuffer(BatchBuffer):
         self.parts = [_Partition() for _ in range(self.P)]
         self.key_cols: Tuple[str, ...] = ()
         self._schema: Dict[str, np.dtype] = {}
+        self._appends = 0
+        self._uid = next(_BUF_UIDS)
         # STICKY string fallback: the first object/string column flips
         # payload residency off for this buffer's whole life
         self._payload_sticky_host = False
@@ -411,6 +494,15 @@ class PartitionedJoinBuffer(BatchBuffer):
         elif any(pt.dev is not None for pt in self.parts):
             for pt in self.parts:
                 pt.demote()
+        self._appends += 1
+        if self._appends % 16 == 1:
+            # throttled note, one entry per buffer (a join has two sides);
+            # the reader clears the registry and folds it
+            reg = perf.get_note("join_state_registry")
+            if not isinstance(reg, dict):
+                reg = {}
+                perf.note("join_state_registry", reg)
+            reg[self._uid] = self.stats()
 
     def _rebalance_hot(self) -> None:
         """Deterministic hot-set maintenance: the top-``budget`` partitions
@@ -468,6 +560,17 @@ class PartitionedJoinBuffer(BatchBuffer):
     def query_range(self, start: int, end: int) -> Optional[Batch]:
         return self._materialize(start, end)
 
+    def contains_keys(self, key_hashes: np.ndarray) -> np.ndarray:
+        """Per element: does a live row carry this key hash?"""
+        out = np.zeros(len(key_hashes), dtype=bool)
+        if not len(key_hashes):
+            return out
+        sorter = np.argsort(key_hashes, kind="stable")
+        qidx, _pos = self.probe_positions(key_hashes[sorter])
+        if len(qidx):
+            out[sorter[np.unique(qidx)]] = True
+        return out
+
     def __len__(self) -> int:
         return sum(part.live_count() for part in self.parts)
 
@@ -480,6 +583,98 @@ class PartitionedJoinBuffer(BatchBuffer):
             if batch.key_hash is None and batch.key_cols:
                 batch = batch.with_key(batch.key_cols)
             self.append(batch)
+
+    # -- probes ------------------------------------------------------------
+
+    def probe_positions(self, qkeys_sorted: np.ndarray
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+        """(qidx, encoded part << 48 | sorted-run pos) for every live match
+        of the sorted query keys; used by contains_keys and
+        rows_with_keys."""
+        dest = self._route(qkeys_sorted)
+        qi_parts: List[np.ndarray] = []
+        gp_parts: List[np.ndarray] = []
+        for p in range(self.P):
+            sel = np.nonzero(dest == p)[0]
+            if not len(sel):
+                continue
+            qidx, pos = self.parts[p].probe(qkeys_sorted[sel])
+            if len(qidx):
+                qi_parts.append(sel[qidx])
+                gp_parts.append(p * (1 << 48) + pos)
+        if not qi_parts:
+            z = np.zeros(0, dtype=np.int64)
+            return z, z
+        return np.concatenate(qi_parts), np.concatenate(gp_parts)
+
+    def probe_batch(self, batch: Batch
+                    ) -> Tuple[np.ndarray, Batch, np.ndarray]:
+        """Join an arriving batch against this (opposite-side) state
+        without materializing or re-sorting it: sort only the batch's
+        keys and probe each partition's resident run (hot partitions with
+        payload planes through :meth:`_Partition.probe_rows`' fused device
+        path).  Returns ``(bsel, state_rows, counts)``: matched-pair batch
+        row indices, the aligned state rows, and per-batch-row live match
+        counts in batch order (for outer-join unmatched masks)."""
+        kh = batch.key_hash
+        nq = len(kh)
+        sorter = np.argsort(kh, kind="stable")
+        qk = kh[sorter]
+        dest = self._route(qk)
+        counts = np.zeros(nq, dtype=np.int64)
+        qi_parts: List[np.ndarray] = []
+        blocks: List[Tuple[_Partition, np.ndarray,
+                           Optional[Dict[str, np.ndarray]],
+                           Optional[np.ndarray]]] = []
+        total = 0
+        for p in range(self.P):
+            sel = np.nonzero(dest == p)[0]
+            if not len(sel) or self.parts[p].n == 0:
+                continue
+            qidx, spos, dcols, dts = self.parts[p].probe_rows(qk[sel])
+            if not len(qidx):
+                continue
+            qi_parts.append(sel[qidx])
+            blocks.append((self.parts[p], spos, dcols, dts))
+            total += len(qidx)
+        if not total:
+            return np.zeros(0, dtype=np.int64), self._empty_rows(), counts
+        bsel = sorter[np.concatenate(qi_parts)]
+        np.add.at(counts, bsel, 1)
+        return bsel, self._assemble_blocks(blocks, total), counts
+
+    def _assemble_blocks(self, blocks, total: int) -> Batch:
+        """One output batch from per-partition probe results, each block
+        device- or host-gathered (the null-init and promotion rules of
+        :meth:`gather`)."""
+        ts = np.empty(total, dtype=np.int64)
+        kh = np.empty(total, dtype=np.uint64)
+        cols: Dict[str, np.ndarray] = {}
+        dev_rows = host_rows = 0
+        at = 0
+        for part, spos, dcols, dts in blocks:
+            m = len(spos)
+            sel = slice(at, at + m)
+            kh[sel] = part.skeys[spos]
+            if dcols is not None:
+                ts[sel] = dts
+                pcols = dcols
+                dev_rows += m
+            else:
+                ts[sel] = part.sts[spos]
+                rows = part.order[spos]
+                pcols = {c: v[rows] for c, v in part.cols.items()}
+                host_rows += m
+            _fill_cols(cols, total, sel, pcols)
+            at += m
+        _count_gather(dev_rows, host_rows)
+        return Batch(ts, cols, kh, self.key_cols)
+
+    def rows_with_keys(self, keys: np.ndarray) -> Batch:
+        """Live rows whose key hash is in ``keys`` (each row once)."""
+        ks = np.sort(np.asarray(keys, dtype=np.uint64))
+        _qidx, gpos = self.probe_positions(ks)
+        return self.gather(gpos)
 
     # -- window fires ------------------------------------------------------
 
@@ -602,6 +797,27 @@ class PartitionedJoinBuffer(BatchBuffer):
                 "payload_rings": payload_rings,
                 "payload_ring_bytes": payload_bytes,
                 "ring_cap_rows": ring_cap}
+
+
+_BUF_UIDS = itertools.count()
+
+
+def aggregate_stats_registry(reg: Optional[Dict[Any, Dict[str, Any]]]
+                             ) -> Dict[str, Any]:
+    """Fold the per-buffer stats registry into one shape summary:
+    additive fields sum across buffers, ``partitions`` reports the
+    per-side setting and ``ring_devices`` the widest buffer."""
+    entries = list((reg or {}).values())
+    if not entries:
+        return {}
+    out = {"partitions": max(e.get("partitions", 0) for e in entries),
+           "buffers": len(entries)}
+    for k in ("hot_partitions", "spill_bytes", "rows", "payload_rings",
+              "payload_ring_bytes", "ring_cap_rows"):
+        out[k] = int(sum(e.get(k, 0) for e in entries))
+    out["ring_devices"] = int(max(e.get("ring_devices", 0)
+                                  for e in entries))
+    return out
 
 
 def make_join_buffer(device: DeviceLike = None) -> BatchBuffer:

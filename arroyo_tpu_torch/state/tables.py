@@ -114,8 +114,8 @@ class KeyedState:
 
 
 class BatchBuffer:
-    """Columnar buffered rows for window operators: batches are appended
-    O(1) and consolidated lazily; range query and eviction are
+    """Columnar buffered rows for window and join operators: batches are
+    appended O(1) and consolidated lazily; range query and eviction are
     vectorized over the merged batch."""
 
     def __init__(self) -> None:
@@ -151,6 +151,16 @@ class BatchBuffer:
         mask = m.timestamp >= time
         if not mask.all():
             self._merged = m.select(mask)
+
+    def all(self) -> Optional[Batch]:
+        return self._consolidate()
+
+    def contains_keys(self, key_hashes: np.ndarray) -> np.ndarray:
+        """Per element: does a buffered row carry this key hash?"""
+        m = self._consolidate()
+        if m is None or m.key_hash is None:
+            return np.zeros(len(key_hashes), dtype=bool)
+        return np.isin(key_hashes, m.key_hash)
 
     def __len__(self) -> int:
         m = self._consolidate()

@@ -137,6 +137,20 @@ class Batch:
         return Batch(ts, cols, kh, batches[0].key_cols)
 
 
+# -- updating streams: the retraction data model ------------------------------
+
+
+class UpdateOp(Enum):
+    """Row-level operation for updating streams (Debezium c/u/d model)."""
+
+    CREATE = 0
+    UPDATE = 1
+    DELETE = 2
+
+
+UPDATE_OP_COLUMN = "__op"  # int8 column carrying UpdateOp on updating edges
+
+
 # -- watermarks, barriers, control messages -----------------------------------
 
 

@@ -36,15 +36,27 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    session per key), session_union and segment_agg launched, interval
    rows merged on the device, at least one checkpoint epoch completed;
    the device share in a separate ``ARROYO_TIMING=1`` run; and config5 at
-   200,000 events on the card and on the CPU with identical rows.
+   200,000 events on the card and on the CPU with identical rows;
+8. join-stress path: bench.py's join with expiration (two impulse streams
+   at 1 event/ms, the left side Zipf-keyed over 100,000 keys, the right
+   uniform, batches of 8,192) through ``LocalRunner`` on the card, twice:
+   8a INNER with bench.py's 30 s TTL over 1,000,000 events a side — every
+   key-equal pair at most one TTL apart (a numpy control from the
+   counters) present, every row key-equal, no pair twice, bench.py's
+   ``state_bounded`` true; 8b LEFT with the planner's 1 h TTL over
+   400,000 events a side — the net rows (CREATE minus DELETE) equal a
+   numpy LEFT JOIN of the two streams; each once more under
+   ``ARROYO_TIMING=1`` for the device share.
 
 Launch counts are set to 0 just before each main-path run (q5, q8,
-config5) and read just after it.  It prints a ``{"kernels": [...]}`` line, the card's name and power limit
-as nvidia-smi gives them, and, last, ``{"ok": true, "device": ...}``.
+config5, 8a, 8b) and read just after it.  It prints a
+``{"kernels": [...]}`` line, the card's name and power limit as
+nvidia-smi gives them, and, last, ``{"ok": true, "device": ...}``.
 It needs one card and exits non-zero without one."""
 
 import collections
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -68,7 +80,10 @@ from arroyo_tpu_torch.connectors.nexmark import (  # noqa: E402
     EVENT_AUCTION, EVENT_BID, EVENT_PERSON, NexmarkConfig, NexmarkGenerator,
     make_splits)
 from arroyo_tpu_torch.engine.engine import LocalRunner  # noqa: E402
-from arroyo_tpu_torch.graph.logical import AggKind, AggSpec  # noqa: E402
+from arroyo_tpu_torch.graph.logical import AggKind, AggSpec, JoinType  # noqa: E402
+from arroyo_tpu_torch.join_stress import (  # noqa: E402
+    BASE_TIME_MICROS, INTERVAL_MICROS, PLANNER_TTL_MICROS, TTL_MICROS,
+    join_stress_keys, join_stress_program, state_bounded)
 from arroyo_tpu_torch.kernels import build  # noqa: E402
 from arroyo_tpu_torch.kernels.argmax_fire import (  # noqa: E402
     argmax_fire, argmax_fire_reference)
@@ -76,6 +91,12 @@ from arroyo_tpu_torch.kernels.bin_evict import (  # noqa: E402
     bin_evict, bin_evict_reference)
 from arroyo_tpu_torch.kernels.bin_update import (  # noqa: E402
     bin_update, bin_update_reference, channel_identity)
+from arroyo_tpu_torch.kernels.expand_gather import (  # noqa: E402
+    expand_gather, expand_gather_reference)
+from arroyo_tpu_torch.kernels.join_expand import (  # noqa: E402
+    join_expand, join_expand_reference)
+from arroyo_tpu_torch.kernels.join_probe import (  # noqa: E402
+    join_probe, join_probe_reference)
 from arroyo_tpu_torch.kernels.pane_emit import (  # noqa: E402
     pane_emit, pane_emit_reference)
 from arroyo_tpu_torch.kernels.ring_gather import (  # noqa: E402
@@ -91,6 +112,8 @@ from arroyo_tpu_torch.ops.keyed_bins import KeyedBinState  # noqa: E402
 from arroyo_tpu_torch.q5 import SLIDE_MICROS, WIDTH_MICROS, q5_program  # noqa: E402
 from arroyo_tpu_torch.q8 import WIDTH_MICROS as Q8_WIDTH  # noqa: E402
 from arroyo_tpu_torch.q8 import q8_program  # noqa: E402
+from arroyo_tpu_torch.state.join_state import (  # noqa: E402
+    aggregate_stats_registry)
 from arroyo_tpu_torch.state.session_state import (  # noqa: E402
     aggregate_session_registry)
 from arroyo_tpu_torch.types import hash_columns  # noqa: E402
@@ -109,6 +132,14 @@ C5_EVENTS = 2_000_000  # 20 s of event time at bench.py's 10 us spacing
 C5_SMALL = 200_000  # bench.py's BENCH_C5_EVENTS default
 C5_BATCH = 4_096  # bench.py's CONFIG5_SQL batch_size
 C5_SPACING = 10
+JS_INNER = 1_000_000  # 8a: events per side, 2.5x bench.py's 400,000
+JS_LEFT = 400_000  # 8b: bench.py's events per side
+JS_BATCH = 8_192  # bench.py's join-stress batch
+# 8a's median hot-partition probe (4,378 probes of a CPU run of phase 8):
+# ring capacity and rows, padded and real queries; 100,000 keys over 16
+# join partitions leave 6,250 keys a partition
+JS_RING_CAP, JS_RING_ROWS, JS_MQ, JS_M = 8_192, 5_905, 1_024, 520
+JS_KEYS = 6_250
 
 K1_SOURCE = "arroyo_tpu_torch/csrc/bin_update.cu"
 K1_REPLACES = ("arroyo_tpu/ops/keyed_bins.py:62 _update_kernel; "
@@ -129,9 +160,17 @@ K7_SOURCE = "arroyo_tpu_torch/csrc/session_union.cu"
 K7_REPLACES = "arroyo_tpu/ops/session.py:75 _union_kernel"
 K8_SOURCE = "arroyo_tpu_torch/csrc/segment_agg.cu"
 K8_REPLACES = "arroyo_tpu/ops/segment.py:30 _segment_agg_kernel"
+K9_SOURCE = "arroyo_tpu_torch/csrc/join_probe.cu"
+K9_REPLACES = "arroyo_tpu/ops/join.py:76 _probe_kernel"
+K10_SOURCE = "arroyo_tpu_torch/csrc/join_expand.cu"
+K10_REPLACES = "arroyo_tpu/ops/join.py:121 _expand_kernel"
+K11_SOURCE = "arroyo_tpu_torch/csrc/expand_gather.cu"
+K11_REPLACES = "arroyo_tpu/ops/join.py:487 _expand_gather_kernel"
 
 KERNELS = (bin_update, argmax_fire, pane_emit, bin_evict, ring_merge,
-           ring_gather, session_union, segment_agg)
+           ring_gather, session_union, segment_agg, join_probe, join_expand,
+           expand_gather)
+PATHS = ("q5", "q8", "config5", "join_inner", "join_left")
 
 
 def reset_launches():
@@ -163,6 +202,13 @@ def cuda_ms(fn, reps=20, warm=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def searched(plane_bytes, n, searches):
+    """Bytes of a sorted plane of ``n`` entries that ``searches`` binary
+    searches must read: a 32-byte sector per step, ceil(log2(n + 1))
+    steps each, and never more than the whole plane."""
+    return min(plane_bytes, 32 * math.ceil(math.log2(n + 1)) * searches)
 
 
 def bound(nbytes, ops, op_rate):
@@ -470,10 +516,27 @@ def k8_case(rng, dev, n, n_seg, kinds, shape):
           f"({shape})")
     err = 0.0
     for c, k in enumerate(kinds):
-        if k == "sum":  # f64 sums in the kernel's tree order: rtol 1e-12
-            torch.testing.assert_close(got[0][c], want[0][c], rtol=1e-12,
+        if k == "sum":
+            # f64 sums in the kernel's fixed tree order against the
+            # correctly rounded sums (math.fsum): rtol 1e-12, stable from
+            # run to run.  The plain version's index_add_ adds in another
+            # order on every run (atomics); an order change moves a sum by
+            # ulps of the segment's sum of |x|, ~1,000x its |sum| at 2^20
+            # zero-mean rows, so against it: 1e-12 of sum |x| + 1e-9
+            r = reduced.index(c)
+            row_np = values[r].cpu().numpy()
+            exact = torch.tensor([math.fsum(row_np[a:b]) for a, b in zip(
+                offsets_np[:-1], offsets_np[1:])], dtype=torch.float64,
+                device=dev)
+            torch.testing.assert_close(got[0][c], exact, rtol=1e-12,
                                        atol=1e-9)
-            err = max(err, float((got[0][c] - want[0][c]).abs().max()))
+            l1 = segment_agg_reference(values[r:r + 1].abs(), offsets,
+                                       ("sum",))[0][0]
+            diff = (got[0][c] - want[0][c]).abs()
+            check(bool((diff <= 1e-9 + 1e-12 * l1).all()),
+                  f"segment_agg channel {c} (sum) differs by "
+                  f"{float(diff.max())} ({shape})")
+            err = max(err, float(diff.max()))
         else:
             check(torch.equal(got[0][c], want[0][c]),
                   f"segment_agg channel {c} ({k}) not exact ({shape})")
@@ -493,6 +556,88 @@ def k8_case(rng, dev, n, n_seg, kinds, shape):
               + len(kinds) * n_seg * 8 + n_seg * 8)
     return row("segment_agg", K8_SOURCE, K8_REPLACES, shape, err, ms, plain,
                nbytes, len(reduced) * n, library, library_call)
+
+
+def join_cases(rng, dev, cap, n_valid, mq, m, span, ni, shape):
+    """K9-K11 on one ring probe: a sorted ring of ``n_valid`` keys drawn
+    from ``span`` values (repeats), sorted queries from the same values
+    (a fifth of them absent), a third sharing a ring row's lo."""
+    sent = 0x7FFFFFFF
+    hi_np = np.full(cap, sent, np.int32)
+    hi_np[:n_valid] = np.sort(rng.integers(0, span, n_valid) * 2)
+    lo_np = rng.integers(-2**31, 2**31 - 1, cap).astype(np.int32)
+    q_np = np.full(mq, sent, np.int32)
+    miss = (rng.random(m) < 0.2) & (span > 1)
+    q_np[:m] = np.sort(rng.integers(0, span, m) * 2 + miss)
+    ql_np = rng.integers(-2**31, 2**31 - 1, mq).astype(np.int32)
+    pick = np.minimum(np.searchsorted(hi_np[:n_valid], q_np), n_valid - 1)
+    own = rng.random(mq) < 0.33
+    ql_np[own] = lo_np[pick[own]]
+    t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+    hi, lo, q_hi, q_lo = t(hi_np), t(lo_np), t(q_np), t(ql_np)
+    ist = t(rng.integers(-2**62, 2**62, (ni, cap)))
+    fst = torch.zeros((0, cap), dtype=torch.float64, device=dev)
+    got = join_probe(q_hi, hi, m, n_valid)
+    want = join_probe_reference(q_hi, hi, m, n_valid)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"join_probe differs ({shape})")
+    start, counts, cum = want
+    total = int(cum[-1])
+    check(total > 0, f"join case has no candidate pair ({shape})")
+    n_q = int(torch.unique(q_hi).numel())  # distinct searched values
+    shape = f"{shape} total={total}"
+    pairs = join_expand(start, cum, total)
+    check(all(torch.equal(g, w) for g, w in zip(
+        pairs, join_expand_reference(start, cum, total))),
+        f"join_expand differs ({shape})")
+    eg_args = (start, cum, total, hi, lo, q_hi, q_lo, fst, ist)
+    got = expand_gather(*eg_args)
+    want = expand_gather_reference(*eg_args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"expand_gather differs ({shape})")
+    distinct = int(torch.unique(want[1]).numel())
+    used = int(torch.unique(want[0]).numel())  # queries with a pair
+    c64 = counts.long()
+
+    def lib_probe():
+        s_ = torch.searchsorted(hi, q_hi)
+        e_ = torch.searchsorted(hi, q_hi, right=True)
+        return torch.cumsum(e_ - s_, 0)
+
+    def lib_expand():
+        lidx = torch.repeat_interleave(c64, output_size=total)
+        j = torch.arange(total, device=dev)
+        return lidx, start[lidx] + j - (cum - c64)[lidx]
+
+    def lib_gather():
+        lidx, ridx = lib_expand()
+        ridx = ridx.clamp(0, cap - 1)
+        ok = (hi[ridx] == q_hi[lidx]) & (lo[ridx] == q_lo[lidx])
+        return ok, fst.index_select(1, ridx), ist.index_select(1, ridx)
+
+    rows = []
+    for name, src, rep, fn, plain, lib, call, nbytes in (
+            ("join_probe", K9_SOURCE, K9_REPLACES,
+             lambda: join_probe(q_hi, hi, m, n_valid),
+             lambda: join_probe_reference(q_hi, hi, m, n_valid), lib_probe,
+             "searchsorted x2 + cumsum",
+             4 * mq + searched(4 * cap, cap, 2 * n_q) + 16 * mq),
+            ("join_expand", K10_SOURCE, K10_REPLACES,
+             lambda: join_expand(start, cum, total),
+             lambda: join_expand_reference(start, cum, total), lib_expand,
+             "repeat_interleave + arange",
+             4 * used + searched(8 * mq, mq, used) + 16 * total),
+            ("expand_gather", K11_SOURCE, K11_REPLACES,
+             lambda: expand_gather(*eg_args),
+             lambda: expand_gather_reference(*eg_args), lib_gather,
+             "repeat_interleave + arange + index_select per stack",
+             12 * used + searched(8 * mq, mq, used)
+             + distinct * (8 + 8 * ni) + total * (17 + 8 * ni))):
+        rows.append(row(name, src, rep, shape, 0.0, cuda_ms(fn),
+                        cuda_ms(plain), nbytes, 0, cuda_ms(lib), call))
+    return rows
 
 
 def kernel_phase():
@@ -546,6 +691,13 @@ def kernel_phase():
             (1_048_576, 1, mixed7, "one skewed segment k=7")):
         rows.append(k8_case(rng, dev, n, n_seg, kinds,
                             f"{what} n={n} n_seg={n_seg}"))
+    for cap, n_valid, mq, m, span, what in (
+            (JS_RING_CAP, JS_RING_ROWS, JS_MQ, JS_M, JS_KEYS,
+             "join-stress partition probe"),
+            (1 << 20, 1 << 20, 512, 1, 1, "one query spanning 2^20 rows")):
+        rows += join_cases(rng, dev, cap, n_valid, mq, m, span, 3,
+                           f"{what} cap={cap} n_valid={n_valid} mq={mq} "
+                           f"m={m} ni=3")
     return rows
 
 
@@ -924,19 +1076,179 @@ def c5_phase():
     return launches
 
 
+# -- phase 8: join-stress ---------------------------------------------------------------
+
+JS_COUNTERS = ("join_state_promotions", "join_state_demotions",
+               "join_state_device_merges", "join_state_ring_regrows",
+               "join_state_compactions", "join_device_gather_rows",
+               "join_host_gather_rows", "kernel_dispatches")
+
+
+def js_codes(v0, v1):
+    """One int64 per (left counter, right counter) pair; v1 = -1 (a NULL
+    right side) codes as 0.  Counters stay below 2^21."""
+    return (np.asarray(v0, np.int64) << 21) | (np.asarray(v1, np.int64) + 1)
+
+
+def js_pairs(n, window):
+    """Codes of every key-equal (left, right) counter pair with |c0 - c1|
+    <= window (None: any distance), sorted; counters are event times in
+    ms, as the impulse sources stamp them."""
+    c = np.arange(n, dtype=np.int64)
+    kl, kr = join_stress_keys(c, 0), join_stress_keys(c, 1)
+    span = 4 * n + 4  # codes (key, counter) far enough apart per key
+    rcode = np.sort(kr * span + c)  # right rows sorted by (key, counter)
+    base = kl * span + c
+    w = n if window is None else window
+    lo = np.searchsorted(rcode, base - w, side="left")
+    hi = np.searchsorted(rcode, base + w, side="right")
+    counts = hi - lo
+    li = np.repeat(c, counts)
+    ri = np.arange(int(counts.sum())) - np.repeat(np.cumsum(counts) - counts,
+                                                  counts)
+    rc = rcode[np.repeat(lo, counts) + ri] % span
+    codes = js_codes(li, rc)
+    if window is None:  # LEFT: the unmatched left rows, NULL-padded
+        codes = np.concatenate([codes, js_codes(c[counts == 0], -1)])
+    return np.sort(codes)
+
+
+def js_output(batches):
+    """(codes of CREATE rows, codes of DELETE rows), each sorted, after
+    checking every row is key-equal (k, and r_k where matched, equal to
+    the keys the two counters get)."""
+    creates, deletes = [], []
+    for b in batches:
+        n = len(b)
+        v0 = b.columns["v0"].astype(np.int64)
+        v1f = np.asarray(b.columns["v1"], np.float64)
+        matched = ~np.isnan(v1f)
+        v1 = np.where(matched, v1f, -1).astype(np.int64)
+        k = np.asarray(b.columns["k"], np.int64)
+        check(np.array_equal(k, join_stress_keys(v0, 0)),
+              "join-stress: k is not the left counter's key")
+        rk = np.asarray(b.columns["r_k"], np.float64)[matched]
+        check(np.array_equal(rk.astype(np.int64), k[matched])
+              and np.array_equal(join_stress_keys(v1[matched], 1),
+                                 k[matched]),
+              "join-stress: a joined row is not key-equal")
+        op = b.columns.get("__op", np.zeros(n, np.int8))
+        codes = js_codes(v0, v1)
+        creates.append(codes[op == 0])
+        deletes.append(codes[op == 2])
+    cat = lambda xs: np.sort(np.concatenate(xs)) if xs else np.zeros(0, np.int64)  # noqa: E731
+    return cat(creates), cat(deletes)
+
+
+def run_js(n, how, ttl, sink, device):
+    """Join-stress through LocalRunner; returns (wall s, create codes,
+    delete codes, folded join-state registry)."""
+    clear_sink(sink)
+    perf.note("join_state_registry", {})
+    runner = LocalRunner(join_stress_program(n, how, ttl, sink, JS_BATCH),
+                         device=device)
+    t0 = time.perf_counter()
+    runner.run()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    creates, deletes = js_output(sink_output(sink))
+    clear_sink(sink)
+    return dt, creates, deletes, aggregate_stats_registry(
+        perf.get_note("join_state_registry"))
+
+
+def js_variant(what, n, how, ttl, gate):
+    """One variant on the card, launches and counters counted, then once
+    more under ARROYO_TIMING=1; ``gate(creates, deletes)`` checks each
+    run's rows.  Returns (result, launches, the first run's state)."""
+    perf.reset()
+    reset_launches()
+    dt, creates, deletes, state = run_js(n, how, ttl, f"js-{what}", None)
+    launches = read_launches()
+    counters = {k: perf.counter(k) for k in JS_COUNTERS}
+    res = {"events_per_side": n, "batch": JS_BATCH, "ttl_micros": ttl,
+           "join": how.value, "wall_s": dt, "events_per_s": 2 * n / dt,
+           "rows_created": len(creates), "rows_deleted": len(deletes),
+           **gate(creates, deletes), "launches": launches,
+           "counters": counters, "state": state}
+    os.environ["ARROYO_TIMING"] = "1"
+    perf.reset()
+    try:
+        dt_timed, creates, deletes, _ = run_js(n, how, ttl, f"js-{what}-t",
+                                               None)
+    finally:
+        del os.environ["ARROYO_TIMING"]
+    gate(creates, deletes)
+    device_s = perf.counter("device_ns") / 1e9
+    res.update(timed_wall_s=dt_timed, timed_device_s=device_s,
+               device_share=device_s / dt_timed)
+    return res, launches, state
+
+
+def js_phase():
+    t0 = time.perf_counter()
+    certain = js_pairs(JS_INNER, TTL_MICROS // INTERVAL_MICROS)
+    left_join = js_pairs(JS_LEFT, None)
+    control_s = time.perf_counter() - t0
+
+    def gate_inner(creates, deletes):
+        # a row's partner at most one TTL earlier is still live when the
+        # row arrives: the join's watermark (the min over both sides) is
+        # below the arriving batch's own times, so eviction at watermark
+        # - TTL keeps it; pairs further apart may or may not be emitted
+        check(len(deletes) == 0, "join-stress inner emitted DELETE rows")
+        check(len(np.unique(creates)) == len(creates),
+              "join-stress inner emitted a pair twice")
+        missing = int((~np.isin(certain, creates)).sum())
+        check(missing == 0, f"join-stress inner misses {missing} of "
+              f"{len(certain)} certain pairs")
+        return {"certain_pairs": len(certain),
+                "beyond_ttl_rows": len(creates) - len(certain)}
+
+    def gate_left(creates, deletes):
+        uniq, cnt = np.unique(creates, return_counts=True)
+        d_uniq, d_cnt = np.unique(deletes, return_counts=True)
+        at = np.minimum(np.searchsorted(uniq, d_uniq), max(len(uniq) - 1, 0))
+        check(np.array_equal(uniq[at], d_uniq),
+              "join-stress left deleted a row it never created")
+        cnt[at] -= d_cnt
+        check(bool(np.all(cnt >= 0)), "join-stress left deleted a row twice")
+        net = np.repeat(uniq, cnt)
+        check(np.array_equal(net, left_join), f"join-stress left net rows "
+              f"differ from the numpy LEFT JOIN ({len(net)} vs "
+              f"{len(left_join)})")
+        return {"net_rows": len(net), "control_rows": len(left_join)}
+
+    res_a, la, state = js_variant("inner", JS_INNER, JoinType.INNER,
+                                  TTL_MICROS, gate_inner)
+    check(state_bounded(state, TTL_MICROS),
+          f"join-stress inner state not bounded: {state}")
+    res_a["state_bounded"] = True
+    check(all(la[k] > 0 for k in ("join_probe", "expand_gather",
+                                  "ring_merge")),
+          f"join-stress inner did not launch its kernels: {la}")
+    res_b, lb, _ = js_variant("left", JS_LEFT, JoinType.LEFT,
+                              PLANNER_TTL_MICROS, gate_left)
+    check(all(lb[k] > 0 for k in ("join_probe", "expand_gather",
+                                  "join_expand", "ring_merge",
+                                  "ring_gather")),
+          f"join-stress left did not launch its kernels: {lb}")
+    print("join-stress path: " + json.dumps({
+        "control_s": control_s, "inner": res_a, "left": res_b}))
+    return la, lb
+
+
 def main():
     smi = environment()
     kernels = kernel_phase()
     state_phase()
-    q5_launches = main_path()
-    q8_launches = q8_phase()
-    c5_launches = c5_phase()
+    launches = dict(zip(PATHS, (main_path(), q8_phase(), c5_phase())))
+    launches["join_inner"], launches["join_left"] = js_phase()
     for r in kernels:
-        r["launches_q5"] = q5_launches[r["name"]]
-        r["launches_q8"] = q8_launches[r["name"]]
-        r["launches_config5"] = c5_launches[r["name"]]
-        r["launches"] = (r["launches_q5"] + r["launches_q8"]
-                         + r["launches_config5"])
+        for path in PATHS:
+            r[f"launches_{path}"] = launches[path][r["name"]]
+        r["launches"] = sum(r[f"launches_{p}"] for p in PATHS)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,12 @@ import torch
 from arroyo_tpu_torch.kernels.argmax_fire import argmax_fire, argmax_fire_reference
 from arroyo_tpu_torch.kernels.bin_evict import bin_evict, bin_evict_reference
 from arroyo_tpu_torch.kernels.bin_update import bin_update, bin_update_reference
+from arroyo_tpu_torch.kernels.expand_gather import (
+    expand_gather,
+    expand_gather_reference,
+)
+from arroyo_tpu_torch.kernels.join_expand import join_expand, join_expand_reference
+from arroyo_tpu_torch.kernels.join_probe import join_probe, join_probe_reference
 from arroyo_tpu_torch.kernels.pane_emit import pane_emit, pane_emit_reference
 from arroyo_tpu_torch.kernels.ring_gather import ring_gather, ring_gather_reference
 from arroyo_tpu_torch.kernels.ring_merge import ring_merge, ring_merge_reference
@@ -266,3 +272,92 @@ def test_segment_agg_cuda_matches_plain(cuda_device, n, n_seg, kinds):
                                        atol=1e-9)
         else:
             assert torch.equal(got[0][c], want[0][c])
+
+
+SENT32_HI = 0x7FFFFFFF
+
+
+def _ring_and_queries(rng, cap, n_valid, mq, m, span):
+    """A sorted ring with repeats (keys in [0, 2 * span), sentinels past
+    n_valid, random lo) and sorted queries, a third of which copy the lo
+    of a ring row with their hi; span 1 puts every row under one key."""
+    hi = np.full(cap, SENT32_HI, np.int32)
+    hi[:n_valid] = np.sort(rng.integers(0, span, n_valid) * 2)
+    lo = rng.integers(-2**31, 2**31 - 1, cap).astype(np.int32)
+    q_hi = np.full(mq, SENT32_HI, np.int32)
+    miss = (rng.random(m) < 0.2) & (span > 1)  # odd keys: no match
+    q_hi[:m] = np.sort(rng.integers(0, span, m) * 2 + miss)
+    q_lo = rng.integers(-2**31, 2**31 - 1, mq).astype(np.int32)
+    pick = np.minimum(np.searchsorted(hi[:n_valid], q_hi), n_valid - 1)
+    own = rng.random(mq) < 0.33
+    q_lo[own] = lo[pick[own]]
+    return hi, lo, q_hi, q_lo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,n_valid,mq,m,span", [
+    (4096, 3000, 512, 480, 5000),  # a join-stress partition probe
+    (8192, 8192, 1024, 1024, 300),  # one full tile of queries
+    (65536, 60000, 65536, 50000, 20000),  # 64 tiles: the carry scan
+    (1 << 20, 1 << 20, 512, 1, 1),  # one query spans the whole ring
+    (4096, 10, 512, 400, 3)])  # a nearly empty ring
+def test_join_kernels_cuda_match_plain(cuda_device, cap, n_valid, mq, m,
+                                       span):
+    """K9-K11 bit-exact against their plain versions: bounds, counts and
+    the i64 prefix sum across tiles; pairs, verify flags and both
+    stacks (nf = 0 as in join-stress, and nf = 2)."""
+    rng = np.random.default_rng(cap + mq + span)
+    t = lambda a: torch.tensor(a, device=cuda_device)  # noqa: E731
+    hi, lo, q_hi, q_lo = map(t, _ring_and_queries(rng, cap, n_valid, mq, m,
+                                                  span))
+    before = (join_probe.launches, join_expand.launches,
+              expand_gather.launches)
+    got = join_probe(q_hi, hi, m, n_valid)
+    want = join_probe_reference(q_hi, hi, m, n_valid)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    start, _counts, cum = want
+    total = int(cum[-1])
+    assert total > 0
+    pairs = join_expand(start, cum, total)
+    for g, w in zip(pairs, join_expand_reference(start, cum, total)):
+        assert torch.equal(g, w)
+    for nf in (0, 2):
+        fst = t(rng.normal(size=(nf, cap)))
+        ist = t(rng.integers(-2**62, 2**62, (3, cap)))
+        args = (start, cum, total, hi, lo, q_hi, q_lo, fst, ist)
+        got = expand_gather(*args)
+        want = expand_gather_reference(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and torch.equal(g, w)
+    assert (join_probe.launches, join_expand.launches,
+            expand_gather.launches) == (before[0] + 1, before[1] + 1,
+                                        before[2] + 2)
+
+
+@pytest.mark.cuda
+def test_join_kernels_cuda_count_no_launch_without_work(cuda_device):
+    """No queries, or no candidate pair: the wrappers return empty
+    outputs of the right types and count no launch."""
+    t = lambda a: torch.tensor(a, device=cuda_device)  # noqa: E731
+    hi = t(np.array([2, 4, 0x7FFFFFFF], np.int32))
+    lo = t(np.zeros(3, np.int32))
+    q = t(np.zeros(0, np.int32))
+    before = (join_probe.launches, join_expand.launches,
+              expand_gather.launches)
+    start, counts, cum = join_probe(q, hi, 0, 2)
+    assert [x.shape[0] for x in (start, counts, cum)] == [0, 0, 0]
+    start, cum = t(np.zeros(2, np.int32)), t(np.zeros(2, np.int64))
+    q2 = t(np.array([1, 3], np.int32))
+    lidx, ridx = join_expand(start, cum, 0)
+    assert lidx.shape == ridx.shape == (0,)
+    out = expand_gather(start, cum, 0, hi, lo, q2, q2,
+                        torch.zeros((0, 3), dtype=torch.float64,
+                                    device=cuda_device),
+                        t(np.zeros((2, 3), np.int64)))
+    assert [tuple(x.shape) for x in out] == [(0,), (0,), (0,), (0, 0),
+                                             (2, 0)]
+    assert (join_probe.launches, join_expand.launches,
+            expand_gather.launches) == before

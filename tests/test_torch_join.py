@@ -232,3 +232,78 @@ def test_join_buffer_snapshots_restore_across_packages(ring_knobs,
                           rrows.columns["i64"].tolist()))
 
     assert pairs(dst, peer, got) == pairs(src, other, want)
+
+
+def _colliding_keys(rng, n):
+    """Key hashes from a small space with many top-32-equal keys that
+    differ in their low bits within one partition (the low 4 bits), so a
+    ring probe's hi-plane candidates include false ones."""
+    hi = rng.integers(1, 40, n).astype(np.uint64) << np.uint64(32)
+    mid = rng.integers(0, 6, n).astype(np.uint64) << np.uint64(8)
+    return hi | mid | rng.integers(0, 16, n).astype(np.uint64)
+
+
+@pytest.mark.parametrize("with_string", [False, True])
+def test_probe_side_matches_jax(ring_knobs, with_string):
+    """``probe``/``probe_rows`` per partition and ``probe_batch``,
+    ``contains_keys``, ``rows_with_keys`` per buffer equal the JAX
+    buffer's after every append and TTL eviction — rings with payload
+    planes (the fused expand-gather) or, with a string column, keys-only
+    rings (expand + host verify) — and so do the stats registry's
+    notes."""
+    from arroyo_tpu.obs import perf as jperf
+    from arroyo_tpu.state.join_state import (
+        aggregate_stats_registry as jax_fold)
+    from arroyo_tpu_torch.obs import perf
+    from arroyo_tpu_torch.state.join_state import aggregate_stats_registry
+
+    rng = np.random.default_rng(67 + with_string)
+    perf.reset()
+    jperf.note("join_state_registry", {})
+    jb, pb = JaxBuffer(), PartitionedJoinBuffer(device="cpu")
+    probes = 0
+    for i in range(10):
+        n = 300
+        kh = _colliding_keys(rng, n)
+        ts = i * 1_000 + rng.integers(0, 1_000, n)
+        cols = {"i64": rng.integers(-2**62, 2**62, n),
+                "f64": rng.normal(size=n)}
+        if with_string:
+            cols["s"] = np.array([f"x{v}" for v in
+                                  rng.integers(0, 9, n)], dtype=object)
+        jb.append(JaxBatch(ts, dict(cols), kh, ("k",)))
+        pb.append(Batch(ts, dict(cols), kh, ("k",)))
+        if i % 3 == 2:
+            for b in (jb, pb):
+                b.evict_before(i * 1_000 - 2_500)
+        qk = _colliding_keys(rng, 200)
+        qts = np.full(200, i * 1_000 + 999)
+        got = pb.probe_batch(Batch(qts, {}, qk, ("k",)))
+        want = jb.probe_batch(JaxBatch(qts, {}, qk, ("k",)))
+        np.testing.assert_array_equal(got[0], want[0])
+        _same_batch(got[1], want[1])
+        np.testing.assert_array_equal(got[2], want[2])
+        probes += len(got[0])
+        np.testing.assert_array_equal(pb.contains_keys(qk),
+                                      jb.contains_keys(qk))
+        _same_batch(pb.rows_with_keys(qk[:50]), jb.rows_with_keys(qk[:50]))
+        qs = np.sort(qk)
+        dest = (qs & np.uint64(pb.P - 1)).astype(np.int64)
+        for p in range(pb.P):
+            q = qs[dest == p]
+            for a, b in zip(pb.parts[p].probe(q), jb.parts[p].probe(q)):
+                np.testing.assert_array_equal(a, b)
+            a, b = pb.parts[p].probe_rows(q), jb.parts[p].probe_rows(q)
+            for x, y in zip(a[:2], b[:2]):
+                np.testing.assert_array_equal(x, y)
+            assert (a[2] is None) == (b[2] is None)
+            if a[2] is not None:
+                _same_cols(a[2], b[2])
+                np.testing.assert_array_equal(a[3], b[3])
+    assert probes > 0
+    hot = [p for p in pb.parts if p.dev is not None]
+    assert hot and all((p.dev.plan is None) == with_string for p in hot)
+    assert perf.counter("join_state_device_merges") > 0
+    want = jax_fold(jperf.get_note("join_state_registry"))
+    got = aggregate_stats_registry(perf.get_note("join_state_registry"))
+    assert got == {**want, "ring_devices": min(want["hot_partitions"], 1)}

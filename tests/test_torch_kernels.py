@@ -5,16 +5,20 @@ On the CPU the wrappers run their plain PyTorch versions, so these tests
 hold those versions against ``_update_kernel`` (XLA), the Pallas
 ``scatter_add_channels`` (interpret mode, as tests/test_pallas.py runs
 it), the argmax fire kernels, the dense emit and evict kernels, the
-join ring's merge and gather kernels, the session union scan and the
-segment aggregate.  The CUDA kernels themselves are held
-against the plain versions by tests/test_torch_cuda.py."""
+join ring's merge, gather, probe, expand and fused expand-gather
+kernels, the session union scan and the segment aggregate.  The CUDA
+kernels themselves are held against the plain versions by
+tests/test_torch_cuda.py."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
-from arroyo_tpu.ops.join import _gather32_kernel, _merge32_kernel
+from arroyo_tpu.ops.join import _bucket as jax_join_bucket
+from arroyo_tpu.ops.join import (_expand_gather_kernel, _expand_kernel,
+                                 _gather32_kernel, _merge32_kernel,
+                                 _probe_kernel)
 from arroyo_tpu.ops.keyed_bins import (NEG_INF as JAX_NEG_INF,
                                        POS_INF as JAX_POS_INF,
                                        _argmax_gather_kernel,
@@ -27,6 +31,9 @@ from arroyo_tpu.ops.session import _union_kernel
 from arroyo_tpu_torch.kernels.argmax_fire import argmax_fire
 from arroyo_tpu_torch.kernels.bin_evict import bin_evict
 from arroyo_tpu_torch.kernels.bin_update import bin_update
+from arroyo_tpu_torch.kernels.expand_gather import expand_gather
+from arroyo_tpu_torch.kernels.join_expand import join_expand
+from arroyo_tpu_torch.kernels.join_probe import join_probe
 from arroyo_tpu_torch.kernels.pane_emit import pane_emit
 from arroyo_tpu_torch.kernels.ring_gather import ring_gather
 from arroyo_tpu_torch.kernels.ring_merge import SENT32_HI, SENT32_LO, ring_merge
@@ -466,3 +473,125 @@ def test_session_kernels_run_plain_versions_on_cpu_and_reject_others():
                     torch.tensor([0, 3]), ("count",))
     with pytest.raises(TypeError):
         session_union(kh.to(torch.int32), st, en)
+
+
+def _probe_fixture(rng, case):
+    """A ring (sorted ``hi`` with repeats, sentinel padding past
+    ``n_valid``; random ``lo``) and sorted queries padded to ``mq``:
+    ``empty`` — no query matches; ``skew`` — one query spans the whole
+    full ring; ``collide`` — hi-equal candidates whose lo mostly differs;
+    ``padded`` — a partly filled ring and many padding queries."""
+    cap, mq = 1024, 512
+    n_valid, m = {"empty": (900, 400), "skew": (cap, 1),
+                  "collide": (1000, 300), "padded": (700, 37)}[case]
+    hi = np.full(cap, SENT32_HI, np.int32)
+    lo = rng.integers(-2**31, 2**31 - 1, cap).astype(np.int32)
+    q_hi = np.full(mq, SENT32_HI, np.int32)
+    q_lo = np.full(mq, SENT32_LO, np.int32)
+    if case == "skew":
+        hi[:] = 12345
+        q_hi[0] = 12345
+        q_lo[0] = lo[500]
+    else:
+        span = 60 if case == "collide" else 2_000
+        ring = np.sort(rng.integers(0, span, n_valid) * 2).astype(np.int32)
+        hi[:n_valid] = ring
+        q = rng.integers(0, span, m) * 2
+        if case == "empty":
+            q = q + 1  # odd: never in the ring
+        order = np.argsort(q, kind="stable")
+        q_hi[:m] = q[order]
+        # a third of the queries copy the lo of a ring row with their hi
+        pick = np.searchsorted(ring, q_hi[:m])
+        own = (rng.random(m) < 0.33) & (pick < n_valid)
+        q_lo[:m] = rng.integers(-2**31, 2**31 - 1, m)
+        q_lo[:m][own] = lo[pick[own]]
+    return hi, lo, q_hi, q_lo, m, n_valid
+
+
+@pytest.mark.parametrize("case", ["empty", "skew", "collide", "padded"])
+def test_join_probe_expand_gather_plain_match_jax_kernels(case):
+    """K9 against ``_probe_kernel`` in both its searchsorted and
+    merged-rank forms, K10 against ``_expand_kernel`` and K11 against
+    ``_expand_gather_kernel``, all bit-exact (the JAX outputs are i32 and
+    bucket-padded: compared widened, sliced to the exact pair total)."""
+    rng = np.random.default_rng(61)
+    hi, lo, q_hi, q_lo, m, n_valid = _probe_fixture(rng, case)
+    cap, mq = len(hi), len(q_hi)
+    nf, ni = 1, 3
+    fs = rng.normal(size=(nf, cap))
+    ist = rng.integers(-2**62, 2**62, (ni, cap))
+    start, counts, cum = join_probe(torch.tensor(q_hi), torch.tensor(hi), m,
+                                    n_valid)
+    assert (start.dtype, counts.dtype, cum.dtype) == (
+        torch.int32, torch.int32, torch.int64)
+    for merged in (False, True):
+        want = _probe_kernel(mq, cap, merged)(jnp.asarray(q_hi),
+                                              jnp.asarray(hi), m, n_valid)
+        for g, w in zip((start, counts, cum), want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    total = int(cum[-1])
+    assert (total == 0) == (case == "empty")
+    assert case != "skew" or total == cap
+    if not total:
+        lidx, ridx = join_expand(start, cum, 0)
+        assert lidx.shape == ridx.shape == (0,)
+        return
+    mb = jax_join_bucket(total)
+    jl, jr = _expand_kernel(mq, mb)(jnp.asarray(start.numpy()),
+                                    jnp.asarray(cum.numpy().astype(np.int32)))
+    lidx, ridx = join_expand(start, cum, total)
+    np.testing.assert_array_equal(lidx.numpy(), np.asarray(jl)[:total])
+    np.testing.assert_array_equal(ridx.numpy(), np.asarray(jr)[:total])
+    want = _expand_gather_kernel(mq, cap, mb, nf, ni)(
+        jnp.asarray(start.numpy()), jnp.asarray(cum.numpy().astype(np.int32)),
+        *map(jnp.asarray, (hi, lo, q_hi, q_lo, fs, ist)))
+    got = expand_gather(start, cum, total, *map(torch.tensor,
+                                                (hi, lo, q_hi, q_lo, fs,
+                                                 ist)))
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w)[:total])
+    for g, w in zip(got[3:], want[3:]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w)[:, :total])
+    valid = got[2].numpy()
+    if case == "collide":
+        assert valid.any() and not valid.all()
+    if case == "skew":
+        assert valid.sum() == 1
+
+
+def test_join_kernels_run_plain_versions_on_cpu_and_reject_others():
+    """K9-K11 count no launch for CPU tensors, work with no float stack
+    (join-stress has only integer columns) and raise for tensors on
+    another non-CUDA device."""
+    before = (join_probe.launches, join_expand.launches,
+              expand_gather.launches)
+    hi = torch.tensor([1, 3, 3, 7, int(SENT32_HI)], dtype=torch.int32)
+    lo = torch.tensor([0, 5, 6, 0, int(SENT32_LO)], dtype=torch.int32)
+    q_hi = torch.tensor([3, 7, int(SENT32_HI)], dtype=torch.int32)
+    q_lo = torch.tensor([6, 1, int(SENT32_LO)], dtype=torch.int32)
+    start, counts, cum = join_probe(q_hi, hi, 2, 4)
+    assert (start.tolist(), counts.tolist(), cum.tolist()) == (
+        [1, 3, 4], [2, 1, 0], [2, 3, 3])
+    lidx, ridx = join_expand(start, cum, 3)
+    assert (lidx.tolist(), ridx.tolist()) == ([0, 0, 1], [1, 2, 3])
+    ist = torch.arange(10, dtype=torch.int64).reshape(2, 5)
+    fst = torch.zeros((0, 5), dtype=torch.float64)
+    _l, _r, valid, gf, gi = expand_gather(start, cum, 3, hi, lo, q_hi, q_lo,
+                                          fst, ist)
+    assert valid.tolist() == [False, True, False]
+    assert gf.shape == (0, 3) and gi.tolist() == [[1, 2, 3], [6, 7, 8]]
+    assert (join_probe.launches, join_expand.launches,
+            expand_gather.launches) == before
+    meta = [t.to("meta") for t in (hi, lo, q_hi, q_lo, start, cum)]
+    with pytest.raises(ValueError):
+        join_probe(meta[2], meta[0], 2, 4)
+    with pytest.raises(ValueError):
+        join_expand(meta[4], meta[5], 3)
+    with pytest.raises(ValueError):
+        expand_gather(meta[4], meta[5], 3, *meta[:4], fst.to("meta"),
+                      ist.to("meta"))
+    with pytest.raises(ValueError):
+        join_probe(q_hi, hi, 4, 4)  # m > mq
+    with pytest.raises(TypeError):
+        join_probe(q_hi.long(), hi, 2, 4)
