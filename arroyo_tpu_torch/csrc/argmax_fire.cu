@@ -32,10 +32,11 @@
 
 #include <climits>
 
+#include "block_scan.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // must match kernels/argmax_fire.py THREADS
-constexpr int kScanThreads = 1024;
 
 template <typename T>
 __device__ __forceinline__ T type_max();
@@ -119,51 +120,18 @@ __global__ void select_count_kernel(const T* __restrict__ cnt,
   if (threadIdx.x == 0) block_counts[blockIdx.x] = n;
 }
 
-// one block: offsets[i] = sum(block_counts[:i]), offsets[nblocks] = total
-__global__ void exclusive_scan_kernel(const int* __restrict__ block_counts,
-                                      int nblocks, int* __restrict__ offsets) {
-  __shared__ int sums[kScanThreads];
-  const int tid = threadIdx.x;
-  const int per = (nblocks + kScanThreads - 1) / kScanThreads;
-  const int lo = min(tid * per, nblocks);
-  const int hi = min(lo + per, nblocks);
-  int s = 0;
-  for (int i = lo; i < hi; ++i) s += block_counts[i];
-  sums[tid] = s;
-  __syncthreads();
-  for (int off = 1; off < kScanThreads; off <<= 1) {
-    const int add = tid >= off ? sums[tid - off] : 0;
-    __syncthreads();
-    sums[tid] += add;
-    __syncthreads();
-  }
-  int run = tid > 0 ? sums[tid - 1] : 0;
-  for (int i = lo; i < hi; ++i) {
-    offsets[i] = run;
-    run += block_counts[i];
-  }
-  if (tid == kScanThreads - 1) offsets[nblocks] = sums[tid];
-}
-
 template <typename T>
 __global__ void gather_kernel(const T* __restrict__ cnt,
                               const T* __restrict__ ext, long long total,
                               int kpad, const int* __restrict__ offsets,
                               int nnz, int* __restrict__ idx2,
                               T* __restrict__ out_cnt) {
-  __shared__ int warp_total[kThreads / 32];
   const long long t =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   T v = 0;
   const int sel = selected(cnt, ext, t, total, kpad, &v);
-  const unsigned lane = threadIdx.x & 31;
-  const unsigned warp = threadIdx.x >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, sel);
-  if (lane == 0) warp_total[warp] = __popc(ballot);
-  __syncthreads();
+  const int pos = compact_position<kThreads>(sel, offsets);
   if (!sel) return;
-  int pos = offsets[blockIdx.x] + __popc(ballot & ((1u << lane) - 1u));
-  for (unsigned w = 0; w < warp; ++w) pos += warp_total[w];
   idx2[pos] = static_cast<int>(t / kpad);
   idx2[nnz + pos] = static_cast<int>(t % kpad);
   out_cnt[pos] = v;

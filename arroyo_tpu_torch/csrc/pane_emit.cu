@@ -29,20 +29,11 @@
 
 #include <cuda_runtime.h>
 
-#include <cfloat>
+#include "pane_reduce.cuh"
 
 namespace {
 
-constexpr int kMaxChannels = 64;
 constexpr int kThreads = 256;
-
-enum Kind : int { kAdd = 0, kMin = 1, kMax = 2 };
-
-struct XferSpec {
-  int n;
-  int ch[kMaxChannels];
-  int kind[kMaxChannels];
-};
 
 template <typename CountT>
 __global__ void pane_emit_kernel(const double* __restrict__ values,
@@ -70,21 +61,8 @@ __global__ void pane_emit_kernel(const double* __restrict__ values,
 
   const long long plane = static_cast<long long>(C) * B;
   for (int r = 0; r < spec.n; ++r) {
-    const double* v = values + spec.ch[r] * plane + row;
-    const int kind = spec.kind[r];
-    double acc = kind == kMin ? DBL_MAX : (kind == kMax ? -DBL_MAX : 0.0);
-    for (int w = 0; w < W; ++w) {
-      if (!po[w]) continue;
-      const double x = v[pr[w]];
-      if (kind == kAdd) {
-        acc += x;
-      } else if (kind == kMin) {
-        acc = x < acc ? x : acc;
-      } else {
-        acc = x > acc ? x : acc;
-      }
-    }
-    out[static_cast<long long>(r) * n_out + i] = acc;
+    out[static_cast<long long>(r) * n_out + i] =
+        pane_reduce(values + spec.ch[r] * plane + row, pr, po, W, spec.kind[r]);
   }
 }
 
@@ -101,14 +79,9 @@ extern "C" int arroyo_pane_emit(const void* values, const void* counts,
                                 const int* kinds, int n_xfer, int C, int B,
                                 int W, int k, int c_slice, void* out,
                                 void* out_cnt, void* stream) {
-  if (n_xfer < 0 || n_xfer > kMaxChannels || c_slice > C)
-    return cudaErrorInvalidValue;
   XferSpec spec;
-  spec.n = n_xfer;
-  for (int r = 0; r < n_xfer; ++r) {
-    spec.ch[r] = chans[r];
-    spec.kind[r] = kinds[r];
-  }
+  if (!make_spec(chans, kinds, n_xfer, &spec) || c_slice > C)
+    return cudaErrorInvalidValue;
   const long long n_out = static_cast<long long>(c_slice) * k;
   if (n_out <= 0) return cudaSuccess;
   const unsigned blocks =

@@ -1,0 +1,64 @@
+// The reduction of one channel over a pane's ring bins, shared by the
+// dense (pane_emit.cu) and compact (emit_compact.cu) pane fires so the
+// two branches add in one order and emit bit-equal sums — the port of
+// arroyo_tpu/ops/keyed_bins.py:109 `_pane_reduce`.
+//
+// For the bins w = 0..W-1 of pane p with ok[p, w] set, in that order:
+// kind add (sum/avg/count channels) adds onto 0.0, min and max fold onto
+// +/- the largest f64 (the channels' identities).
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cfloat>
+
+namespace {
+
+constexpr int kMaxChannels = 64;
+
+enum Kind : int { kAdd = 0, kMin = 1, kMax = 2 };
+
+// the transferred channels of a fire: the channel read for each output
+// row and its reduction, passed by value
+struct XferSpec {
+  int n;
+  int ch[kMaxChannels];
+  int kind[kMaxChannels];
+};
+
+// `row` points at the slot's B bins of the channel; pr/po at pane p's W
+// ring indices and ok flags
+__device__ __forceinline__ double pane_reduce(const double* __restrict__ row,
+                                              const int* __restrict__ pr,
+                                              const bool* __restrict__ po,
+                                              int W, int kind) {
+  double acc = kind == kMin ? DBL_MAX : (kind == kMax ? -DBL_MAX : 0.0);
+  for (int w = 0; w < W; ++w) {
+    if (!po[w]) continue;
+    const double x = row[pr[w]];
+    if (kind == kAdd) {
+      acc += x;
+    } else if (kind == kMin) {
+      acc = x < acc ? x : acc;
+    } else {
+      acc = x > acc ? x : acc;
+    }
+  }
+  return acc;
+}
+
+// host side: fill a spec from the caller's arrays; false when n_xfer is
+// out of range
+inline bool make_spec(const int* chans, const int* kinds, int n_xfer,
+                      XferSpec* spec) {
+  if (n_xfer < 0 || n_xfer > kMaxChannels) return false;
+  spec->n = n_xfer;
+  for (int r = 0; r < n_xfer; ++r) {
+    spec->ch[r] = chans[r];
+    spec->kind[r] = kinds[r];
+  }
+  return true;
+}
+
+}  // namespace

@@ -5,6 +5,10 @@
 * :class:`BinAggOperator` — sliding/tumbling two-phase window aggregate
   over :class:`~arroyo_tpu_torch.ops.keyed_bins.KeyedBinState`; panes are
   emitted on watermark advance by one device pass over all pending panes.
+  With ``top_n`` (a fused sliding TopN) each emission keeps only the
+  top rows per window through ``ops/topk.py``;
+* :class:`TumblingTopNOperator` — the per-window TopN stage (the global
+  merge after a fused one, with the materialized ROW_NUMBER());
 * :class:`WindowArgmaxOperator` — the fused per-window argmax stage that
   consumes the aggregate's (pre-filtered) panes and settles the global
   answer;
@@ -40,16 +44,20 @@ from ..graph.logical import (
 from ..ops.expr import CompiledExpr, eval_record_expr
 from ..ops.keyed_bins import KeyedBinState, filter_canonical_snapshot
 from ..ops.segment import segment_aggregate
+from ..ops.topk import segment_top_k
 from ..state.join_state import PartitionedJoinBuffer
 from ..state.session_state import SessionRunState, _count_merge
 from ..state.tables import DeviceTable, TableDescriptor, TableType
 from ..types import (MAX_TIMESTAMP, UPDATE_OP_COLUMN, Batch, Message,
-                     UpdateOp, Watermark)
+                     UpdateOp, Watermark, hash_columns)
 from .build import register_builder
 from .context import Context
 from .operator import Operator
 
 MAX_SESSION_SIZE_MICROS = 24 * 3600 * 1_000_000  # the longest session
+# rows from which a TopN ranks on the device; below it a host lexsort is
+# cheaper than the device call
+TOP_N_DEVICE_ROWS = 512
 
 
 class _SlotKeyValues:
@@ -102,6 +110,7 @@ class BinAggOperator(Operator):
                  aggs: Tuple[AggSpec, ...],
                  projection: Optional[ColumnExpr] = None,
                  argmax_local: Optional[Tuple[str, str]] = None,
+                 top_n: Optional[Tuple[Tuple[str, ...], str, int]] = None,
                  device: DeviceLike = None):
         super().__init__(name)
         self.width = width_micros
@@ -109,6 +118,8 @@ class BinAggOperator(Operator):
         self.aggs = aggs
         self.state = KeyedBinState(aggs, slide_micros, width_micros,
                                    device=device)
+        # (partition_cols, sort_column, max_elements) of a fused TopN
+        self.top_n = top_n
         if argmax_local is not None:
             # emission pre-filters to local per-pane argmax candidates
             self.state.set_argmax_local(*argmax_local)
@@ -178,9 +189,134 @@ class BinAggOperator(Operator):
         ts = window_end - 1  # rows stamp at window end - 1
         key_cols = self._key_cols or tuple(self.keyvals.cols)
         out = Batch(ts, cols, keys.astype(np.uint64), key_cols)
+        if self.top_n is not None:
+            out = _apply_top_n(out, *self.top_n, device=self.state.device)
         if self.projection is not None:
             out = eval_record_expr(self.projection, out)
         await ctx.collect(out)
+
+
+def _topn_partition(batch: Batch, partition_cols: Tuple[str, ...]
+                    ) -> np.ndarray:
+    """The TopN partition of each row: a hash of the partition columns and
+    the window end (TopN ranks within a window, never across windows),
+    or the window end alone."""
+    if partition_cols:
+        cols = [batch.columns[c] for c in partition_cols]
+        if "window_end" in batch.columns:
+            cols.append(batch.columns["window_end"])
+        return hash_columns(cols)
+    return batch.columns.get("window_end", np.zeros(len(batch), np.int64))
+
+
+def _host_ranks(part: np.ndarray, sort_val: np.ndarray
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """(order, 0-based rank of each row of ``order`` in its partition)
+    of a stable lexsort by (partition, -value)."""
+    order = np.lexsort((-np.asarray(sort_val, dtype=np.float64), part))
+    part_sorted = np.asarray(part)[order]
+    is_start = np.ones(len(order), dtype=bool)
+    is_start[1:] = part_sorted[1:] != part_sorted[:-1]
+    seg_start = is_start.nonzero()[0]
+    seg_id = np.cumsum(is_start) - 1
+    return order, np.arange(len(order)) - seg_start[seg_id]
+
+
+def _apply_top_n(batch: Batch, partition_cols: Tuple[str, ...],
+                 sort_column: str, max_elements: Optional[int],
+                 rank_column: Optional[str] = None,
+                 device: DeviceLike = None) -> Batch:
+    """Keep the top ``max_elements`` rows by ``sort_column`` (descending)
+    per partition: one ``segment_top_k`` call on ``device`` from
+    ``TOP_N_DEVICE_ROWS`` rows, a host lexsort below.
+
+    ``max_elements=None`` ranks without pruning; ``rank_column`` adds the
+    1-based rank in the partition (a materialized ROW_NUMBER()), computed
+    on the host over the surviving rows."""
+    if len(batch) == 0:
+        return batch
+    sort_val = batch.columns[sort_column]
+    part = _topn_partition(batch, partition_cols)
+    if max_elements is not None:
+        if len(batch) >= TOP_N_DEVICE_ROWS:
+            keep = segment_top_k(part, sort_val, max_elements, device)
+        else:
+            order, rank = _host_ranks(part, sort_val)
+            keep = order[rank < max_elements]
+            keep.sort()
+        batch = batch.select(keep)
+        if rank_column is None:
+            return batch
+        part = np.asarray(part)[keep]
+        sort_val = batch.columns[sort_column]
+    if rank_column is None:
+        return batch
+    order, rank = _host_ranks(part, sort_val)
+    ranks = np.empty(len(order), dtype=np.int64)
+    ranks[order] = rank + 1
+    cols = dict(batch.columns)
+    cols[rank_column] = ranks
+    return Batch(batch.timestamp, cols, batch.key_hash, batch.key_cols)
+
+
+class TumblingTopNOperator(Operator):
+    """Per-window TopN: rows buffer until their window's end passes the
+    watermark, then the top ``max_elements`` per partition are emitted
+    (with their rank in ``rank_column``, when set)."""
+
+    def __init__(self, name: str, width_micros: int,
+                 max_elements: Optional[int], sort_column: str,
+                 partition_cols: Tuple[str, ...],
+                 projection: Optional[ColumnExpr] = None,
+                 rank_column: Optional[str] = None,
+                 device: DeviceLike = None):
+        super().__init__(name)
+        self.width = width_micros
+        self.max_elements = max_elements
+        self.sort_column = sort_column
+        self.partition_cols = partition_cols
+        self.rank_column = rank_column
+        self.projection = (CompiledExpr(projection.name, projection.fn)
+                           if projection else None)
+        self.device = resolve_device(device)
+
+    def tables(self) -> List[TableDescriptor]:
+        return [TableDescriptor("t", TableType.BATCH_BUFFER, "topn buffer",
+                                retention_micros=self.width)]
+
+    async def on_start(self, ctx: Context) -> None:
+        self.buffer = ctx.state.get_batch_buffer("t")
+
+    async def process_batch(self, batch: Batch, ctx: Context,
+                            side: int = 0) -> None:
+        self.buffer.append(batch)
+        ends = np.unique((batch.timestamp // self.width + 1) * self.width)
+        for e in ends.tolist():
+            ctx.timers.schedule(int(e), ("tn", int(e)))
+
+    async def handle_timer(self, time: int, key: Any, payload: Any,
+                           ctx: Context) -> None:
+        end = key[1]
+        start = end - self.width
+        rows = self.buffer.query_range(start, end)
+        if rows is not None and len(rows):
+            out_cols = dict(rows.columns)
+            # rows that carry window columns (a global TopN over windowed
+            # aggregates) keep them: this stage's buckets are not the window
+            if "window_start" not in out_cols:
+                out_cols["window_start"] = np.full(len(rows), start,
+                                                   np.int64)
+            if "window_end" not in out_cols:
+                out_cols["window_end"] = np.full(len(rows), end, np.int64)
+            out = Batch(np.full(len(rows), end - 1, np.int64), out_cols,
+                        rows.key_hash, rows.key_cols)
+            out = _apply_top_n(out, self.partition_cols, self.sort_column,
+                               self.max_elements, self.rank_column,
+                               self.device)
+            if self.projection is not None:
+                out = eval_record_expr(self.projection, out)
+            await ctx.collect(out)
+        self.buffer.evict_before(end)
 
 
 class WindowArgmaxOperator(Operator):
@@ -1015,6 +1151,23 @@ def _build_tumbling(op: LogicalOperator, device: DeviceLike) -> Operator:
     return BinAggOperator(op.name, s.width_micros, s.width_micros, s.aggs,
                           s.projection, argmax_local=s.argmax_local,
                           device=device)
+
+
+@register_builder(OpKind.SLIDING_AGGREGATING_TOP_N)
+def _build_sliding_topn(op: LogicalOperator, device: DeviceLike) -> Operator:
+    s = op.spec
+    return BinAggOperator(op.name, s.width_micros, s.slide_micros, s.aggs,
+                          s.projection,
+                          top_n=(s.partition_cols, s.sort_column,
+                                 s.max_elements), device=device)
+
+
+@register_builder(OpKind.TUMBLING_TOP_N)
+def _build_topn(op: LogicalOperator, device: DeviceLike) -> Operator:
+    s = op.spec
+    return TumblingTopNOperator(op.name, s.width_micros, s.max_elements,
+                                s.sort_column, s.partition_cols, s.projection,
+                                s.rank_column, device)
 
 
 @register_builder(OpKind.WINDOW)

@@ -110,6 +110,8 @@ class OpKind(Enum):
     WINDOW_JOIN = "window_join"  # windowed stream-stream equi-join
     WINDOW = "window"  # buffered keyed window (session windows)
     JOIN_WITH_EXPIRATION = "join_with_expiration"  # unwindowed TTL join
+    TUMBLING_TOP_N = "tumbling_top_n"
+    SLIDING_AGGREGATING_TOP_N = "sliding_aggregating_top_n"
 
 
 class JoinType(Enum):
@@ -203,6 +205,37 @@ class JoinWithExpirationSpec:
 
 
 @dataclass
+class TopNSpec:
+    """A per-window TopN stage (TumblingTopN).
+
+    ``max_elements=None`` ranks without pruning; ``rank_column`` emits
+    the 1-based per-partition rank (a materialized ROW_NUMBER())."""
+
+    width_micros: int
+    max_elements: Optional[int]
+    # the sort column; descending order
+    sort_column: str = ""
+    partition_cols: Tuple[str, ...] = ()
+    projection: Optional[ColumnExpr] = None
+    rank_column: Optional[str] = None
+
+
+@dataclass
+class SlidingAggregatingTopNSpec:
+    """A sliding aggregate fused with a TopN: each pane emission keeps
+    only the top ``max_elements`` rows by ``sort_column`` per window (and
+    partition)."""
+
+    width_micros: int
+    slide_micros: int
+    aggs: Tuple[AggSpec, ...] = ()
+    partition_cols: Tuple[str, ...] = ()
+    sort_column: str = ""
+    max_elements: int = 10
+    projection: Optional[ColumnExpr] = None
+
+
+@dataclass
 class ConnectorOpSpec:
     connector: str  # registry name, e.g. 'nexmark', 'memory'
     config: Dict[str, Any] = field(default_factory=dict)
@@ -236,9 +269,14 @@ class EdgeType(Enum):
 
 @dataclass
 class StreamNode:
+    """``max_parallelism`` pins operators whose semantics need a bounded
+    subtask count (a global TopN merge stage stays at 1) across rescales;
+    the port runs every node at parallelism 1."""
+
     operator_id: str
     operator: LogicalOperator
     parallelism: int = 1
+    max_parallelism: Optional[int] = None
 
 
 @dataclass
@@ -334,6 +372,8 @@ class Program:
         OpKind.SLIDING_WINDOW_AGGREGATOR,
         OpKind.TUMBLING_WINDOW_AGGREGATOR,
         OpKind.WINDOW_JOIN,
+        OpKind.TUMBLING_TOP_N,
+        OpKind.SLIDING_AGGREGATING_TOP_N,
     }
 
     def validate(self) -> List[str]:
@@ -450,6 +490,37 @@ class Stream:
         proj = ColumnExpr(f"{name}_proj", projection) if projection else None
         spec = TumblingAggregatorSpec(width_micros, tuple(aggs), proj)
         op = LogicalOperator(OpKind.TUMBLING_WINDOW_AGGREGATOR, name, spec=spec)
+        return self._chain(op, parallelism, EdgeType.SHUFFLE)
+
+    def tumbling_top_n(self, width_micros: int, max_elements: Optional[int],
+                       sort_column: str, partition_cols: Sequence[str] = (),
+                       projection: Optional[Callable] = None,
+                       name: str = "tumbling_top_n",
+                       parallelism: Optional[int] = None) -> "Stream":
+        """Per ``width_micros`` window, keep the top ``max_elements`` rows
+        by ``sort_column`` (descending) per partition."""
+        proj = ColumnExpr(f"{name}_proj", projection) if projection else None
+        spec = TopNSpec(width_micros, max_elements, sort_column,
+                        tuple(partition_cols), proj)
+        op = LogicalOperator(OpKind.TUMBLING_TOP_N, name, spec=spec)
+        return self._chain(op, parallelism, EdgeType.SHUFFLE)
+
+    def sliding_aggregating_top_n(self, width_micros: int, slide_micros: int,
+                                  aggs: Sequence[AggSpec],
+                                  partition_cols: Sequence[str],
+                                  sort_column: str, max_elements: int,
+                                  projection: Optional[Callable] = None,
+                                  name: str = "sliding_topn",
+                                  parallelism: Optional[int] = None
+                                  ) -> "Stream":
+        """A sliding aggregate whose pane emission keeps only the top
+        ``max_elements`` rows by ``sort_column`` per window."""
+        proj = ColumnExpr(f"{name}_proj", projection) if projection else None
+        spec = SlidingAggregatingTopNSpec(
+            width_micros, slide_micros, tuple(aggs), tuple(partition_cols),
+            sort_column, max_elements, proj)
+        op = LogicalOperator(OpKind.SLIDING_AGGREGATING_TOP_N, name,
+                             spec=spec)
         return self._chain(op, parallelism, EdgeType.SHUFFLE)
 
     def window_argmax(self, value_col: str, minmax: str,

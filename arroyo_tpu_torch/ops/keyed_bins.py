@@ -12,16 +12,19 @@
   launch;
 * pane emission on watermark advance runs one device pass over all
   pending panes: the q5 argmax branch through
-  :func:`~arroyo_tpu_torch.kernels.argmax_fire`, every other fire through
-  the dense branch, :func:`~arroyo_tpu_torch.kernels.pane_emit`;
+  :func:`~arroyo_tpu_torch.kernels.argmax_fire`; every other fire through
+  the compact branch (:func:`~arroyo_tpu_torch.kernels.emit_count` +
+  :func:`~arroyo_tpu_torch.kernels.emit_gather`, live cells only) when
+  the last fire was sparse enough, else the dense branch,
+  :func:`~arroyo_tpu_torch.kernels.pane_emit` — the JAX package's choice,
+  fire for fire;
 * eviction resets expired ring columns on the device through
   :func:`~arroyo_tpu_torch.kernels.bin_evict`.
 
 Snapshots use the canonical, topology-independent numpy format of the
 JAX package, so a checkpoint taken by either package restores in the
 other.  The ring-parallel emission branch exists only across devices in
-the JAX package; the compact-emission branch is not ported (the dense
-branch emits the same rows in the same order)."""
+the JAX package and is not ported."""
 
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from ..graph.logical import AggKind, AggSpec
 from ..kernels.argmax_fire import argmax_fire
 from ..kernels.bin_evict import bin_evict
 from ..kernels.bin_update import bin_update, channel_identity
+from ..kernels.emit_compact import emit_count, emit_gather
 from ..kernels.pane_emit import pane_emit
 from ..native import assign_bins
 
@@ -261,6 +265,9 @@ class KeyedBinState:
         # promoted to i64 before the rows land
         self.total_rows = 0
         self._argmax_local: Optional[str] = None  # 'max' | 'min'
+        # live cells over (keys x panes) of the last fire: picks the
+        # compact or the dense branch of the next one
+        self._fire_density: Optional[float] = None
         # update coalescing: pre-aggregated cell runs buffer here and
         # flush in one update launch when a reader needs the planes
         self._pending: List[Tuple[np.ndarray, np.ndarray, np.ndarray,
@@ -499,9 +506,10 @@ class KeyedBinState:
             # every output column derives from the counts plane
             key_idx, pane_idx, cnt_sel, ch_sel = self._emit_argmax(ring,
                                                                    bin_ok)
+        elif self._use_compact_emit(self._c_slice(), k):
+            key_idx, pane_idx, cnt_sel, ch_sel = self._emit_compact(
+                ring[:k], bin_ok[:k])
         else:
-            # the JAX package may take its compact branch here; it keeps
-            # this branch's row-major order, so the rows are identical
             outs, cnts = self._read_dense(ring, bin_ok, k)
             key_idx, pane_idx, cnt_sel, ch_sel = self._flatten_dense(
                 outs, cnts, k)
@@ -515,11 +523,58 @@ class KeyedBinState:
                 self._evict(expired % self.B)
             self.min_bin = new_min
 
+        self._fire_density = len(key_idx) / max(self.next_slot * k, 1)
         if len(key_idx) == 0:
             return None
         keys = self.slot_to_key[key_idx]
         window_end = (pane_ends[pane_idx] + 1) * self.slide
         return keys, self._out_cols(cnt_sel, ch_sel), window_end, cnt_sel
+
+    def _use_compact_emit(self, c_slice: int, k: int) -> bool:
+        """Compact emission (an extra scalar readback, then only live
+        cells) when the last fire's density predicts fewer bytes than the
+        dense read of ``c_slice`` slots; ``ARROYO_EMIT_COMPACT`` =
+        ``on``/``off`` forces a branch, ``auto`` (the default) predicts,
+        with the JAX package's byte model and margin."""
+        mode = os.environ.get("ARROYO_EMIT_COMPACT", "auto")
+        if mode == "off":
+            return False
+        if mode == "on":
+            return True
+        if self._fire_density is None:
+            return False  # no evidence yet: dense is the safe default
+        itemsize = self.counts.element_size()
+        row_bytes = 8 + itemsize + 8 * len(self._xfer_ch)  # idx2+cnt+chans
+        compact_bytes = self._fire_density * self.next_slot * k * row_bytes
+        dense_bytes = (8 * len(self._xfer_ch) + itemsize) * c_slice * k
+        # the margin stands in for the extra readback and gather pass
+        margin = int(os.environ.get("ARROYO_EMIT_COMPACT_MARGIN",
+                                    256 * 1024))
+        return compact_bytes + margin < dense_bytes
+
+    def _emit_compact(self, ring: np.ndarray, bin_ok: np.ndarray
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                 np.ndarray]:
+        """(key_idx, pane_idx, counts, channel values [n_xfer, m]) for the
+        live cells of the occupied slots only, compacted on the device in
+        row-major order (the dense branch's np.nonzero order)."""
+        from ..obs import perf
+
+        ring_t = _to_device(ring, self.device)
+        ok_t = _to_device(bin_ok, self.device)
+        cnt, offsets = perf.timed_device(emit_count, self.counts, ring_t,
+                                         ok_t, self.next_slot)
+        nnz = int(offsets[-1].item())  # the one blocking scalar readback
+        if nnz == 0:
+            return (np.zeros(0, np.int64), np.zeros(0, np.int64),
+                    np.zeros(0, np.int64),
+                    np.zeros((len(self._xfer_ch), 0)))
+        idx2, cnt_c, ch = perf.timed_device(
+            emit_gather, self.values, cnt, ring_t, ok_t, self._ch_kinds,
+            self._xfer_ch, offsets, nnz)
+        idx2 = idx2.cpu().numpy()
+        return (idx2[0].astype(np.int64), idx2[1].astype(np.int64),
+                cnt_c.cpu().numpy(), ch.cpu().numpy())
 
     def _evict(self, ring_cols: np.ndarray) -> None:
         """Reset expired ring columns to each channel's identity and zero

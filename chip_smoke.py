@@ -46,10 +46,21 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    ``state_bounded`` true; 8b LEFT with the planner's 1 h TTL over
    400,000 events a side — the net rows (CREATE minus DELETE) equal a
    numpy LEFT JOIN of the two streams; each once more under
-   ``ARROYO_TIMING=1`` for the device share.
+   ``ARROYO_TIMING=1`` for the device share;
+9. hot-items path: Nexmark hot items, top 10 per window (the ROW_NUMBER
+   form of q5: a HOP(2 s, 10 s) COUNT(*) fused with a per-window TopN,
+   then a global TopN stage) through ``LocalRunner`` at 40,000,000 events
+   (batches of 131,072, 1,000,000 events/s) on the card — at most 10
+   rows per window, each row's count and each window's multiset of counts
+   equal to a numpy control from the same generator, segment_top_k
+   launched on every fire and the compact fire (emit_count + emit_gather)
+   taken under ``ARROYO_EMIT_COMPACT=auto``, the state's bytes, the device
+   share in a separate ``ARROYO_TIMING=1`` run — and at 2,000,000 events
+   the card's rows equal to the CPU's, also under
+   ``ARROYO_EMIT_COMPACT=on``.
 
 Launch counts are set to 0 just before each main-path run (q5, q8,
-config5, 8a, 8b) and read just after it.  It prints a
+config5, 8a, 8b, hot items) and read just after it.  It prints a
 ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi gives them, and, last, ``{"ok": true, "device": ...}``.
 It needs one card and exits non-zero without one."""
@@ -81,6 +92,9 @@ from arroyo_tpu_torch.connectors.nexmark import (  # noqa: E402
     make_splits)
 from arroyo_tpu_torch.engine.engine import LocalRunner  # noqa: E402
 from arroyo_tpu_torch.graph.logical import AggKind, AggSpec, JoinType  # noqa: E402
+from arroyo_tpu_torch.hot_items import SLIDE_MICROS as HOT_SLIDE  # noqa: E402
+from arroyo_tpu_torch.hot_items import WIDTH_MICROS as HOT_WIDTH  # noqa: E402
+from arroyo_tpu_torch.hot_items import TOP_K, hot_items_program  # noqa: E402
 from arroyo_tpu_torch.join_stress import (  # noqa: E402
     BASE_TIME_MICROS, INTERVAL_MICROS, PLANNER_TTL_MICROS, TTL_MICROS,
     join_stress_keys, join_stress_program, state_bounded)
@@ -91,6 +105,8 @@ from arroyo_tpu_torch.kernels.bin_evict import (  # noqa: E402
     bin_evict, bin_evict_reference)
 from arroyo_tpu_torch.kernels.bin_update import (  # noqa: E402
     bin_update, bin_update_reference, channel_identity)
+from arroyo_tpu_torch.kernels.emit_compact import (  # noqa: E402
+    emit_count, emit_count_reference, emit_gather, emit_gather_reference)
 from arroyo_tpu_torch.kernels.expand_gather import (  # noqa: E402
     expand_gather, expand_gather_reference)
 from arroyo_tpu_torch.kernels.join_expand import (  # noqa: E402
@@ -105,6 +121,8 @@ from arroyo_tpu_torch.kernels.ring_merge import (  # noqa: E402
     ring_merge, ring_merge_reference)
 from arroyo_tpu_torch.kernels.segment_agg import (  # noqa: E402
     segment_agg, segment_agg_reference)
+from arroyo_tpu_torch.kernels.segment_top_k import (  # noqa: E402
+    order_keys, segment_top_k, segment_top_k_reference)
 from arroyo_tpu_torch.kernels.session_union import (  # noqa: E402
     session_union, session_union_reference)
 from arroyo_tpu_torch.obs import perf  # noqa: E402
@@ -140,6 +158,14 @@ JS_BATCH = 8_192  # bench.py's join-stress batch
 # join partitions leave 6,250 keys a partition
 JS_RING_CAP, JS_RING_ROWS, JS_MQ, JS_M = 8_192, 5_905, 1_024, 520
 JS_KEYS = 6_250
+HOT_EVENTS = 40_000_000  # the size at which hot items' fires turn sparse
+HOT_SMALL = 2_000_000
+# hot items at HOT_EVENTS (a CPU run of the JAX package): TopN input rows
+# of a steady-state fire (one window) and of the final flush (5 windows);
+# the key directory's capacity and ring; fire density when compact
+TOPK_STEADY, TOPK_FLUSH = 599_800, 1_410_844
+C_HOT, B_HOT, W_HOT = 4_194_304, 16, 5
+HOT_DENSITY = 0.25
 
 K1_SOURCE = "arroyo_tpu_torch/csrc/bin_update.cu"
 K1_REPLACES = ("arroyo_tpu/ops/keyed_bins.py:62 _update_kernel; "
@@ -166,11 +192,16 @@ K10_SOURCE = "arroyo_tpu_torch/csrc/join_expand.cu"
 K10_REPLACES = "arroyo_tpu/ops/join.py:121 _expand_kernel"
 K11_SOURCE = "arroyo_tpu_torch/csrc/expand_gather.cu"
 K11_REPLACES = "arroyo_tpu/ops/join.py:487 _expand_gather_kernel"
+K12_SOURCE = "arroyo_tpu_torch/csrc/segment_top_k.cu"
+K12_REPLACES = "arroyo_tpu/ops/topk.py:25 _topk_kernel"
+K13_SOURCE = K14_SOURCE = "arroyo_tpu_torch/csrc/emit_compact.cu"
+K13_REPLACES = "arroyo_tpu/ops/keyed_bins.py:198 _emit_count_kernel"
+K14_REPLACES = "arroyo_tpu/ops/keyed_bins.py:213 _emit_compact_kernel"
 
 KERNELS = (bin_update, argmax_fire, pane_emit, bin_evict, ring_merge,
            ring_gather, session_union, segment_agg, join_probe, join_expand,
-           expand_gather)
-PATHS = ("q5", "q8", "config5", "join_inner", "join_left")
+           expand_gather, segment_top_k, emit_count, emit_gather)
+PATHS = ("q5", "q8", "config5", "join_inner", "join_left", "hot_items")
 
 
 def reset_launches():
@@ -640,6 +671,98 @@ def join_cases(rng, dev, cap, n_valid, mq, m, span, ni, shape):
     return rows
 
 
+def bid_counts(rng, n):
+    """TopN input values as a hot-items fire gives them: bids per auction
+    in a window — mostly a few, some hot auctions far more, heavy ties."""
+    v = rng.geometric(0.35, n).astype(np.float64)
+    hot = rng.random(n) < 0.002
+    v[hot] = rng.integers(50, 900, int(hot.sum()))
+    return v
+
+
+def topk_case(rng, dev, n, n_seg, shape):
+    """K12 at a hot-items fire's size: ``n`` rows over ``n_seg`` windows,
+    k = 10; exact against the plain version."""
+    seg = torch.tensor(rng.integers(0, n_seg, n).astype(np.int32),
+                       device=dev)
+    val = torch.tensor(bid_counts(rng, n), device=dev)
+    got = segment_top_k(seg, val, TOP_K)
+    want = segment_top_k_reference(seg, val, TOP_K)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"segment_top_k differs ({shape})")
+    ms = cuda_ms(lambda: segment_top_k(seg, val, TOP_K))
+    plain = cuda_ms(lambda: segment_top_k_reference(seg, val, TOP_K))
+    keys = order_keys(val)
+
+    def library():  # two stable sorts give the kept rows' order
+        by_val = torch.sort(keys, stable=True).indices
+        return torch.sort(seg[by_val], stable=True)
+
+    lib = cuda_ms(library)
+    # an i32 segment id and an f64 value read a row, an i32 index written
+    # a kept row; the compares have no published peak rate
+    return row("segment_top_k", K12_SOURCE, K12_REPLACES,
+               f"{shape} kept={got.numel()}", 0.0, ms, plain,
+               12 * n + 4 * got.numel(), 0, lib, "two stable torch.sort")
+
+
+def compact_cases(rng, dev, k, rows, shape):
+    """K13/K14 at hot items' compact fires: C_HOT slots, the first
+    ``rows`` occupied, a COUNT(*) counts plane whose pane cells are live
+    with probability HOT_DENSITY.  Exact against the plain versions and
+    against the dense fire (pane_emit) at the live cells."""
+    q = 1 - (1 - HOT_DENSITY) ** (1 / W_HOT)  # a bin holds rows
+    cells = np.where(rng.random((rows, B_HOT)) < q,
+                     rng.integers(1, 9, (rows, B_HOT)), 0)
+    counts = torch.zeros((C_HOT, B_HOT), dtype=torch.int32, device=dev)
+    counts[:rows] = torch.tensor(cells.astype(np.int32), device=dev)
+    values = torch.zeros((1, C_HOT, B_HOT), dtype=torch.float64, device=dev)
+    ring_np = ((np.arange(k)[:, None] + np.arange(W_HOT)[None, :] + 3)
+               % B_HOT).astype(np.int32)
+    ring = torch.tensor(ring_np, device=dev)
+    ok = torch.ones((k, W_HOT), dtype=torch.bool, device=dev)
+    kinds, xfer = ("count",), ()
+    cnt, offsets = emit_count(counts, ring, ok, rows)
+    cnt_r, offsets_r = emit_count_reference(counts, ring, ok, rows)
+    torch.cuda.synchronize()
+    check(torch.equal(cnt, cnt_r) and torch.equal(offsets, offsets_r),
+          f"emit_count differs ({shape})")
+    nnz = int(offsets[-1])
+    g_args = (values, cnt, ring, ok, kinds, xfer, offsets, nnz)
+    got, want = emit_gather(*g_args), emit_gather_reference(*g_args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"emit_gather differs ({shape})")
+    _outs, dense = pane_emit(values, counts, ring, ok, kinds, xfer, rows)
+    check(torch.equal(got[1], dense[got[0][0].long(), got[0][1].long()]),
+          f"emit_gather's counts differ from pane_emit's ({shape})")
+    shape = f"{shape} density={nnz / (rows * k):.4f} nnz={nnz}"
+    ring_l = ring.long()
+
+    def lib_count():  # the masked gather-sum of the pane counts
+        return torch.where(ok[None], counts[:rows][:, ring_l], 0).sum(-1)
+
+    def lib_gather():  # nonzero + one index_select per plane
+        flat = torch.nonzero(cnt.reshape(-1) > 0).squeeze(1)
+        return flat, cnt.reshape(-1).index_select(0, flat)
+
+    item = counts.element_size()
+    nb = offsets.numel()
+    cols = len(np.unique(ring_np))
+    return [
+        row("emit_count", K13_SOURCE, K13_REPLACES, shape, 0.0,
+            cuda_ms(lambda: emit_count(counts, ring, ok, rows)),
+            cuda_ms(lambda: emit_count_reference(counts, ring, ok, rows)),
+            rows * cols * item + rows * k * item + 4 * nb,
+            rows * k * W_HOT, cuda_ms(lib_count),
+            "counts[:, ring] masked sum"),
+        row("emit_gather", K14_SOURCE, K14_REPLACES, shape, 0.0,
+            cuda_ms(lambda: emit_gather(*g_args)),
+            cuda_ms(lambda: emit_gather_reference(*g_args)),
+            rows * k * item + 4 * nb + nnz * (8 + item), 0,
+            cuda_ms(lib_gather), "nonzero + index_select")]
+
+
 def kernel_phase():
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
@@ -698,6 +821,14 @@ def kernel_phase():
         rows += join_cases(rng, dev, cap, n_valid, mq, m, span, 3,
                            f"{what} cap={cap} n_valid={n_valid} mq={mq} "
                            f"m={m} ni=3")
+    for n, n_seg, what in ((TOPK_STEADY, 1, "hot items steady fire"),
+                           (TOPK_FLUSH, 5, "hot items final flush")):
+        rows.append(topk_case(rng, dev, n, n_seg,
+                              f"{what} n={n} n_seg={n_seg} k={TOP_K}"))
+    for k in (1, 5):
+        rows += compact_cases(rng, dev, k, 3_000_000,
+                              f"hot items COUNT(*) C={C_HOT} B={B_HOT} "
+                              f"W={W_HOT} k={k} rows=3000000 int32")
     return rows
 
 
@@ -1239,12 +1370,159 @@ def js_phase():
     return la, lb
 
 
+# -- phase 9: hot items -----------------------------------------------------------------
+
+
+def hot_control(num_events):
+    """Hot items in numpy from the port's generator: bids per (auction,
+    window) of HOP(2 s, 10 s) for every window that holds a bid, as
+    {window end: dense bid counts indexed by auction}."""
+    cfg = NexmarkConfig(num_events=num_events, rate_limited=False,
+                        event_rate=1_000_000.0, batch_size=BATCH,
+                        projection=["bid_auction", "event_type"])
+    first, n, num = make_splits(cfg, 0, 1)[0]
+    gen = NexmarkGenerator(cfg, 0, first, n, num, seed=0)
+    gen.set_rate(cfg.event_rate, 1)
+    auctions, bins = [], []
+    while gen.has_next:
+        b, _ = gen.next_batch(BATCH)
+        bid = b.columns["event_type"] == EVENT_BID
+        auctions.append(b.columns["bid_auction"][bid])
+        bins.append(b.timestamp[bid] // HOT_SLIDE)
+    auctions, bins = np.concatenate(auctions), np.concatenate(bins)
+    order = np.argsort(bins, kind="stable")
+    auctions, bins = auctions[order], bins[order]
+    n_auctions = int(auctions.max()) + 1
+    lo, hi = int(bins[0]), int(bins[-1])
+    per_bin = []
+    for b in range(lo, hi + 1):
+        a, z = np.searchsorted(bins, [b, b + 1])
+        per_bin.append(np.bincount(auctions[a:z], minlength=n_auctions))
+    w = HOT_WIDTH // HOT_SLIDE
+    windows = {}
+    for p in range(lo, hi + w):
+        window = sum(per_bin[b - lo] for b in range(max(p - w + 1, lo),
+                                                      min(p, hi) + 1))
+        windows[(p + 1) * HOT_SLIDE] = window
+    return windows
+
+
+def hot_table(batches):
+    """Sink rows as an int64 [n, 5] array (ts, auction, num,
+    window_start, window_end), sorted."""
+    cols = ("auction", "num", "window_start", "window_end")
+    t = np.stack([np.concatenate([b.timestamp for b in batches])]
+                 + [np.concatenate([b.columns[c] for b in batches])
+                    for c in cols], axis=1).astype(np.int64)
+    return t[np.lexsort(t.T[::-1])]
+
+
+def hot_gate(rows, control):
+    """At most TOP_K rows per window; each row's count is the control's;
+    each window's counts are the control's top TOP_K, as a multiset."""
+    check(np.array_equal(rows[:, 0], rows[:, 4] - 1)
+          and np.array_equal(rows[:, 3], rows[:, 4] - HOT_WIDTH),
+          "hot items: window columns or timestamps wrong")
+    ends, starts = np.unique(rows[:, 4], return_index=True)
+    check(set(ends.tolist()) == set(control),
+          f"hot items: {len(ends)} windows emitted, the control has "
+          f"{len(control)}")
+    bounds = np.append(starts, len(rows))
+    for i, e in enumerate(ends.tolist()):
+        r = rows[bounds[i]:bounds[i + 1]]
+        window = control[e]
+        check(len(r) <= TOP_K, f"hot items: {len(r)} rows in window {e}")
+        check(np.array_equal(r[:, 2], window[r[:, 1]]),
+              f"hot items: a count in window {e} is not the control's")
+        top = np.sort(np.partition(window, -TOP_K)[-TOP_K:])
+        check(np.array_equal(np.sort(r[:, 2]), top[top > 0]),
+              f"hot items: window {e} is not the control's top {TOP_K}")
+    return len(ends)
+
+
+def run_hot(num_events, sink, device):
+    """Hot items through LocalRunner; returns (wall s, sorted rows, the
+    fused aggregate's state)."""
+    clear_sink(sink)
+    runner = LocalRunner(hot_items_program(num_events, BATCH, sink=sink,
+                                           base_time_micros=0),
+                         device=device)
+    t0 = time.perf_counter()
+    runner.run()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    state = {}
+    for h in runner.engine.subtasks.values():
+        st = getattr(h.runner.operator, "state", None)
+        if st is not None:
+            state = {"C": st.C, "B": st.B, "keys": st.next_slot,
+                     "counts_bytes": st.counts.numel()
+                     * st.counts.element_size(),
+                     "values_bytes": st.values.numel() * 8,
+                     "last_fire_density": st._fire_density}
+    rows = hot_table(sink_output(sink))
+    clear_sink(sink)
+    return dt, rows, state
+
+
+def hot_phase():
+    t0 = time.perf_counter()
+    control = hot_control(HOT_EVENTS)
+    control_s = time.perf_counter() - t0
+    perf.reset()
+    reset_launches()
+    dt, rows, state = run_hot(HOT_EVENTS, "hot-cuda", None)  # the card
+    launches = read_launches()
+    windows = hot_gate(rows, control)
+    fires = launches["pane_emit"] + launches["emit_count"]
+    check(launches["segment_top_k"] == fires > 0,
+          f"hot items: segment_top_k launched {launches['segment_top_k']} "
+          f"times over {fires} fires")
+    check(all(launches[k] > 0 for k in ("bin_update", "bin_evict",
+                                         "emit_count", "emit_gather")),
+          f"hot items main path did not launch every kernel: {launches}")
+    os.environ["ARROYO_TIMING"] = "1"
+    perf.reset()
+    try:
+        dt_timed, rows_timed, _ = run_hot(HOT_EVENTS, "hot-timed", None)
+    finally:
+        del os.environ["ARROYO_TIMING"]
+    device_s = perf.counter("device_ns") / 1e9
+    check(np.array_equal(rows_timed, rows), "hot items rows differ under "
+          "ARROYO_TIMING")
+    dt_small, small, _ = run_hot(HOT_SMALL, "hot-small-cuda", None)
+    dt_small_cpu, small_cpu, _ = run_hot(HOT_SMALL, "hot-small-cpu", "cpu")
+    check(len(small) > 0 and np.array_equal(small, small_cpu),
+          "hot items rows at 2M events differ between card and cpu")
+    os.environ["ARROYO_EMIT_COMPACT"] = "on"
+    compact_before = emit_count.launches
+    try:
+        _, small_on, _ = run_hot(HOT_SMALL, "hot-small-on", None)
+    finally:
+        del os.environ["ARROYO_EMIT_COMPACT"]
+    check(emit_count.launches > compact_before
+          and np.array_equal(small_on, small),
+          "hot items rows at 2M events differ under ARROYO_EMIT_COMPACT=on")
+    print("hot-items path: " + json.dumps({
+        "events": HOT_EVENTS, "batch": BATCH, "wall_s": dt,
+        "events_per_s": HOT_EVENTS / dt, "rows": len(rows),
+        "windows": windows, "fires": fires, "control_s": control_s,
+        "launches": launches, "state": state,
+        "timed_wall_s": dt_timed, "timed_device_s": device_s,
+        "device_share": device_s / dt_timed,
+        "small_events": HOT_SMALL, "small_rows": len(small),
+        "small_wall_s": dt_small, "small_cpu_wall_s": dt_small_cpu}))
+    return launches
+
+
 def main():
     smi = environment()
     kernels = kernel_phase()
     state_phase()
     launches = dict(zip(PATHS, (main_path(), q8_phase(), c5_phase())))
     launches["join_inner"], launches["join_left"] = js_phase()
+    launches["hot_items"] = hot_phase()
     for r in kernels:
         for path in PATHS:
             r[f"launches_{path}"] = launches[path][r["name"]]

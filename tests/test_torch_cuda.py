@@ -13,6 +13,12 @@ import torch
 from arroyo_tpu_torch.kernels.argmax_fire import argmax_fire, argmax_fire_reference
 from arroyo_tpu_torch.kernels.bin_evict import bin_evict, bin_evict_reference
 from arroyo_tpu_torch.kernels.bin_update import bin_update, bin_update_reference
+from arroyo_tpu_torch.kernels.emit_compact import (
+    emit_count,
+    emit_count_reference,
+    emit_gather,
+    emit_gather_reference,
+)
 from arroyo_tpu_torch.kernels.expand_gather import (
     expand_gather,
     expand_gather_reference,
@@ -23,6 +29,10 @@ from arroyo_tpu_torch.kernels.pane_emit import pane_emit, pane_emit_reference
 from arroyo_tpu_torch.kernels.ring_gather import ring_gather, ring_gather_reference
 from arroyo_tpu_torch.kernels.ring_merge import ring_merge, ring_merge_reference
 from arroyo_tpu_torch.kernels.segment_agg import segment_agg, segment_agg_reference
+from arroyo_tpu_torch.kernels.segment_top_k import (
+    segment_top_k,
+    segment_top_k_reference,
+)
 from arroyo_tpu_torch.kernels.session_union import (
     session_union,
     session_union_reference,
@@ -361,3 +371,91 @@ def test_join_kernels_cuda_count_no_launch_without_work(cuda_device):
                                              (2, 0)]
     assert (join_probe.launches, join_expand.launches,
             expand_gather.launches) == before
+
+
+def _topk_values(rng, n, hi):
+    """Bid counts (small integers: heavy ties) with a few NaN, -0.0 and
+    +/-inf mixed in."""
+    v = rng.integers(1, hi, n).astype(np.float64)
+    r = rng.random(n)
+    v[r < 0.001] = np.nan
+    v[(r >= 0.001) & (r < 0.002)] = -0.0
+    v[(r >= 0.002) & (r < 0.003)] = np.inf
+    v[(r >= 0.003) & (r < 0.004)] = -np.inf
+    return v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_seg,k,skew", [
+    (599_800, 1, 10, False),  # hot items at steady state: one window
+    (1_410_844, 5, 10, False),  # the final flush: five windows
+    (200_000, 20_000, 3, False),  # many segments smaller than k
+    (300_000, 5_000, 10, True),  # one segment holds half the rows
+    (5_000, 7, 100_000, False),  # k beyond every segment
+    (1, 1, 1, False)])
+def test_segment_top_k_cuda_matches_plain(cuda_device, n, n_seg, k, skew):
+    """The kept index array equals the plain version's exactly."""
+    rng = np.random.default_rng(n + n_seg)
+    seg = rng.integers(0, n_seg, n)
+    if skew:
+        seg[rng.random(n) < 0.5] = n_seg // 2
+    seg = np.searchsorted(np.unique(seg), seg).astype(np.int32)
+    t = lambda a: torch.tensor(a, device=cuda_device)  # noqa: E731
+    args = (t(seg), t(_topk_values(rng, n, 3_000)), k)
+    before = segment_top_k.launches
+    got = segment_top_k(*args)
+    want = segment_top_k_reference(*args)
+    torch.cuda.synchronize()
+    assert segment_top_k.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("cdt", [torch.int32, torch.int64])
+def test_emit_compact_cuda_matches_plain_and_pane_emit(cuda_device, k, cdt):
+    """Hot items' compact fire (C = 2^22 slots, a quarter of them live):
+    counts, offsets, rows and counts exact against the plain versions,
+    and every channel bit-equal to the dense fire's (pane_emit) at the
+    live cells, sums included."""
+    g = torch.Generator(device=cuda_device).manual_seed(k)
+    kinds = ("count", "sum", "min", "max")
+    xfer = (1, 2, 3)
+    C, B, W = 4_194_304, 16, 5
+    dev = cuda_device
+    values = torch.randn((len(kinds), C, B), generator=g, dtype=torch.float64,
+                         device=dev) * 100
+    live = torch.rand((C, B), generator=g, device=dev) < 0.06
+    counts = torch.where(live, torch.randint(1, 9, (C, B), generator=g,
+                                             device=dev), 0).to(cdt)
+    values[2][~live] = F64_MAX  # the channels' identities where no row
+    values[3][~live] = -F64_MAX
+    ring = torch.tensor(((np.arange(k)[:, None] + np.arange(W)[None, :])
+                         % B).astype(np.int32), device=cuda_device)
+    ok_np = np.ones((k, W), dtype=bool)
+    ok_np[0, :1] = False
+    ok = torch.tensor(ok_np, device=cuda_device)
+    rows = C - 1_000
+    before = (emit_count.launches, emit_gather.launches)
+    cnt, offsets = emit_count(counts, ring, ok, rows)
+    cnt_r, offsets_r = emit_count_reference(counts, ring, ok, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(cnt, cnt_r) and torch.equal(offsets, offsets_r)
+    nnz = int(offsets[-1])
+    assert 0.1 < nnz / (rows * k) < 0.5
+    got = emit_gather(values, cnt, ring, ok, kinds, xfer, offsets, nnz)
+    want = emit_gather_reference(values, cnt, ring, ok, kinds, xfer,
+                                 offsets, nnz)
+    torch.cuda.synchronize()
+    assert (emit_count.launches, emit_gather.launches) == (before[0] + 1,
+                                                           before[1] + 1)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for r, j in enumerate(xfer):
+        if kinds[j] in ("min", "max"):
+            assert torch.equal(got[2][r], want[2][r])
+        else:
+            torch.testing.assert_close(got[2][r], want[2][r], rtol=1e-12,
+                                       atol=1e-9)
+    dense, _ = pane_emit(values, counts, ring, ok, kinds, xfer, rows)
+    s, p = got[0][0].long(), got[0][1].long()
+    assert torch.equal(got[2], dense[:, s, p])
