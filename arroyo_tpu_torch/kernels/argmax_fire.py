@@ -105,21 +105,17 @@ def argmax_fire(counts: torch.Tensor, ring: torch.Tensor,
     offsets = torch.empty(nblocks + 1, dtype=torch.int32, device=dev)
     i64 = int(counts.dtype == torch.int64)
     count_fn, gather_fn = _c_fns()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = count_fn(counts.data_ptr(), i64, ring.data_ptr(),
-                      bin_ok.data_ptr(), C, B, W, kpad,
-                      int(minmax == "max"), cnt.data_ptr(), ext.data_ptr(),
-                      block_counts.data_ptr(), offsets.data_ptr(), stream)
-        build.check(rc, "argmax_fire count")
-        argmax_fire.launches += 1
-        nnz = int(offsets[nblocks].item())  # the one host sync
-        idx2 = torch.empty((2, nnz), dtype=torch.int32, device=dev)
-        out_cnt = torch.empty(nnz, dtype=counts.dtype, device=dev)
-        rc = gather_fn(cnt.data_ptr(), i64, ext.data_ptr(), C, kpad,
-                       offsets.data_ptr(), nnz, idx2.data_ptr(),
-                       out_cnt.data_ptr(), stream)
-    build.check(rc, "argmax_fire gather")
+    build.launch("argmax_fire count", count_fn, dev, counts.data_ptr(), i64,
+                 ring.data_ptr(), bin_ok.data_ptr(), C, B, W, kpad,
+                 int(minmax == "max"), cnt.data_ptr(), ext.data_ptr(),
+                 block_counts.data_ptr(), offsets.data_ptr())
+    argmax_fire.launches += 1
+    nnz = int(offsets[nblocks].item())  # the one host sync
+    idx2 = torch.empty((2, nnz), dtype=torch.int32, device=dev)
+    out_cnt = torch.empty(nnz, dtype=counts.dtype, device=dev)
+    build.launch("argmax_fire gather", gather_fn, dev, cnt.data_ptr(), i64,
+                 ext.data_ptr(), C, kpad, offsets.data_ptr(), nnz,
+                 idx2.data_ptr(), out_cnt.data_ptr())
     return idx2, out_cnt
 
 

@@ -80,12 +80,9 @@ def bin_evict(values: torch.Tensor, counts: torch.Tensor, cols: torch.Tensor,
         raise ValueError(f"bin_evict: unsupported device {dev}")
     n_ch, C, B = values.shape
     inits = np.asarray([channel_identity(k) for k in kinds], dtype=np.float64)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _c_fn()(values.data_ptr(), counts.data_ptr(),
-                     int(counts.dtype == torch.int64), cols.data_ptr(),
-                     cols.shape[0], inits.ctypes.data, n_ch, C, B, stream)
-    build.check(rc, "bin_evict")
+    build.launch("bin_evict", _c_fn(), dev, values.data_ptr(),
+                 counts.data_ptr(), int(counts.dtype == torch.int64),
+                 cols.data_ptr(), cols.shape[0], inits.ctypes.data, n_ch, C, B)
     bin_evict.launches += 1
 
 

@@ -135,13 +135,10 @@ def bin_update(values: torch.Tensor, counts: torch.Tensor,
         raise ValueError(f"bin_update: unsupported device {values.device}")
     kinds_np = np.array([KIND_CODES[k] for k in kinds], dtype=np.int32)
     srcs = channel_sources(n_ch, dup)
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _c_fn()(values.data_ptr(), counts.data_ptr(),
-                     int(counts.dtype == torch.int64), idx.data_ptr(),
-                     packed.data_ptr(), kinds_np.ctypes.data,
-                     srcs.ctypes.data, n_ch, C, B, m, stream)
-    build.check(rc, "bin_update")
+    build.launch("bin_update", _c_fn(), values.device, values.data_ptr(),
+                 counts.data_ptr(), int(counts.dtype == torch.int64),
+                 idx.data_ptr(), packed.data_ptr(), kinds_np.ctypes.data,
+                 srcs.ctypes.data, n_ch, C, B, m)
     bin_update.launches += 1
 
 

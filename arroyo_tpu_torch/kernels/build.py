@@ -23,6 +23,8 @@ import threading
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "arroyo_tpu_torch"
@@ -108,3 +110,18 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launcher."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def launch(what: str, fn, device: torch.device, *args) -> None:
+    """Launch a kernel: call its C launcher ``fn(*args, stream)`` on
+    PyTorch's current stream of ``device`` and raise on a non-zero
+    ``cudaError_t``.  It enters no device context and builds no
+    ``torch.cuda.Stream`` object (the raw handle is the one PyTorch's
+    generated code reads), so ``device`` must already be the current
+    device, else it raises.  Every wrapper launches through here."""
+    index = device.index
+    current = torch._C._cuda_getDevice()
+    if index != current:
+        raise ValueError(f"{what}: tensors on cuda:{index} but cuda:{current} "
+                         "is the current device")
+    check(fn(*args, torch._C._cuda_getCurrentRawStream(index)), what)

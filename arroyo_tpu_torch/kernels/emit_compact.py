@@ -134,13 +134,10 @@ def emit_count(counts: torch.Tensor, ring: torch.Tensor, bin_ok: torch.Tensor,
     nb = _nblocks(rows * k)
     cnt = torch.empty((rows, k), dtype=counts.dtype, device=dev)
     scan = torch.empty(2 * nb + 1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _c_fns()[0](counts.data_ptr(), int(counts.dtype == torch.int64),
-                         ring.data_ptr(), bin_ok.data_ptr(), B, W, k, rows,
-                         cnt.data_ptr(), scan.data_ptr(),
-                         scan[nb:].data_ptr(), stream)
-    build.check(rc, "emit_count")
+    build.launch("emit_count", _c_fns()[0], dev, counts.data_ptr(),
+                 int(counts.dtype == torch.int64), ring.data_ptr(),
+                 bin_ok.data_ptr(), B, W, k, rows, cnt.data_ptr(),
+                 scan.data_ptr(), scan[nb:].data_ptr())
     emit_count.launches += 1
     return cnt, scan[nb:]
 
@@ -183,15 +180,12 @@ def emit_gather(values: torch.Tensor, cnt: torch.Tensor, ring: torch.Tensor,
     outs = torch.empty((len(xfer), nnz), dtype=torch.float64, device=dev)
     chans = np.asarray(list(xfer), dtype=np.int32)
     codes = np.asarray([KIND_CODES[kinds[j]] for j in xfer], dtype=np.int32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _c_fns()[1](values.data_ptr(), cnt.data_ptr(),
-                         int(cnt.dtype == torch.int64), ring.data_ptr(),
-                         bin_ok.data_ptr(), chans.ctypes.data,
-                         codes.ctypes.data, len(xfer), C, B, ring.shape[1],
-                         k, rows, offsets.data_ptr(), nnz, idx2.data_ptr(),
-                         out_cnt.data_ptr(), outs.data_ptr(), stream)
-    build.check(rc, "emit_gather")
+    build.launch("emit_gather", _c_fns()[1], dev, values.data_ptr(),
+                 cnt.data_ptr(), int(cnt.dtype == torch.int64),
+                 ring.data_ptr(), bin_ok.data_ptr(), chans.ctypes.data,
+                 codes.ctypes.data, len(xfer), C, B, ring.shape[1], k, rows,
+                 offsets.data_ptr(), nnz, idx2.data_ptr(), out_cnt.data_ptr(),
+                 outs.data_ptr())
     emit_gather.launches += 1
     return idx2, out_cnt, outs
 

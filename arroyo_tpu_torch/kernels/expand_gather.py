@@ -107,14 +107,11 @@ def expand_gather(start: torch.Tensor, cum: torch.Tensor, total: int,
     gi = torch.empty((ni, total), dtype=torch.int64, device=dev)
     if total == 0:
         return lidx, ridx, valid, gf, gi  # nothing to launch
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _c_fn()(start.data_ptr(), cum.data_ptr(), mq, total,
-                     hi.data_ptr(), lo.data_ptr(), cap, q_hi.data_ptr(),
-                     q_lo.data_ptr(), fstack.data_ptr(), nf,
-                     istack.data_ptr(), ni, lidx.data_ptr(), ridx.data_ptr(),
-                     valid.data_ptr(), gf.data_ptr(), gi.data_ptr(), stream)
-    build.check(rc, "expand_gather")
+    build.launch("expand_gather", _c_fn(), dev, start.data_ptr(),
+                 cum.data_ptr(), mq, total, hi.data_ptr(), lo.data_ptr(), cap,
+                 q_hi.data_ptr(), q_lo.data_ptr(), fstack.data_ptr(), nf,
+                 istack.data_ptr(), ni, lidx.data_ptr(), ridx.data_ptr(),
+                 valid.data_ptr(), gf.data_ptr(), gi.data_ptr())
     expand_gather.launches += 1
     return lidx, ridx, valid, gf, gi
 

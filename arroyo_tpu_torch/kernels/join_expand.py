@@ -85,11 +85,8 @@ def join_expand(start: torch.Tensor, cum: torch.Tensor, total: int
     lidx, ridx = out[0], out[1]
     if total == 0:
         return lidx, ridx  # nothing to launch
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _c_fn()(start.data_ptr(), cum.data_ptr(), mq, total,
-                     lidx.data_ptr(), ridx.data_ptr(), stream)
-    build.check(rc, "join_expand")
+    build.launch("join_expand", _c_fn(), dev, start.data_ptr(), cum.data_ptr(),
+                 mq, total, lidx.data_ptr(), ridx.data_ptr())
     join_expand.launches += 1
     return lidx, ridx
 

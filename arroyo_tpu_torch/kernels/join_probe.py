@@ -111,12 +111,9 @@ def join_probe(q_hi: torch.Tensor, hi: torch.Tensor, m: int, n_valid: int
     cum, tile_sum = i64[:mq], i64[mq:]
     if mq == 0:
         return start, counts, cum  # nothing to launch
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _c_fn()(q_hi.data_ptr(), mq, hi.data_ptr(), cap, m, n_valid,
-                     start.data_ptr(), counts.data_ptr(), cum.data_ptr(),
-                     tile_sum.data_ptr(), stream)
-    build.check(rc, "join_probe")
+    build.launch("join_probe", _c_fn(), dev, q_hi.data_ptr(), mq,
+                 hi.data_ptr(), cap, m, n_valid, start.data_ptr(),
+                 counts.data_ptr(), cum.data_ptr(), tile_sum.data_ptr())
     join_probe.launches += 1
     return start, counts, cum
 

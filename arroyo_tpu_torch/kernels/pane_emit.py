@@ -111,14 +111,11 @@ def pane_emit(values: torch.Tensor, counts: torch.Tensor, ring: torch.Tensor,
     cnts = torch.empty((c_slice, k), dtype=counts.dtype, device=dev)
     chans = np.asarray(list(xfer), dtype=np.int32)
     codes = np.asarray([KIND_CODES[kinds[j]] for j in xfer], dtype=np.int32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _c_fn()(values.data_ptr(), counts.data_ptr(),
-                     int(counts.dtype == torch.int64), ring.data_ptr(),
-                     bin_ok.data_ptr(), chans.ctypes.data, codes.ctypes.data,
-                     len(xfer), C, B, W, k, c_slice, outs.data_ptr(),
-                     cnts.data_ptr(), stream)
-    build.check(rc, "pane_emit")
+    build.launch("pane_emit", _c_fn(), dev, values.data_ptr(),
+                 counts.data_ptr(), int(counts.dtype == torch.int64),
+                 ring.data_ptr(), bin_ok.data_ptr(), chans.ctypes.data,
+                 codes.ctypes.data, len(xfer), C, B, W, k, c_slice,
+                 outs.data_ptr(), cnts.data_ptr())
     pane_emit.launches += 1
     return outs, cnts
 

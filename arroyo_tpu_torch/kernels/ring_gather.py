@@ -6,8 +6,13 @@ Replaces arroyo_tpu/ops/join.py:535 ``_gather32_kernel``.
 On the H100 it is bound by memory (8 bytes of index plus 8 bytes per
 stack row read and written per output row) and, at nexmark q8's few
 thousand rows per partition fire, by its launch.  The CUDA kernel
-(``csrc/ring_gather.cu``) runs one thread per (stack row, output row)
-with coalesced stores, one launch per call.
+(``csrc/ring_gather.cu``) runs one thread per output position, which
+reads its index once, and writes both stacks into ONE i64 buffer: one
+launch, one allocation and no host sync per call.  ``ring_gather_rows``
+returns that buffer, which the join reads back in one copy a fire;
+``ring_gather`` is the kernel's public function in the JAX kernel's
+form, (f64 rows, i64 rows), and returns two views of it, so the
+semantics the plain version and the tests hold stay as they were.
 
 ``ring_gather_reference`` is the plain PyTorch version; the wrapper takes
 it only for tensors on the CPU."""
@@ -29,18 +34,19 @@ def _check(idx: torch.Tensor, fstack: torch.Tensor,
         raise TypeError("idx must be i64 [m]")
     if fstack.dtype != torch.float64 or fstack.dim() != 2:
         raise TypeError("fstack must be f64 [nf, cap]")
+    nf, cap = fstack.shape
     if istack.dtype != torch.int64 or istack.dim() != 2 or \
-            istack.shape[1] != fstack.shape[1]:
-        raise TypeError(f"istack must be i64 [ni, {fstack.shape[1]}]")
-    cap = fstack.shape[1]
+            istack.shape[1] != cap:
+        raise TypeError(f"istack must be i64 [ni, {cap}]")
     if cap <= 0:
         raise ValueError("ring_gather needs cap > 0")
-    devs = {t.device for t in (idx, fstack, istack)}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on several devices: {devs}")
-    if not all(t.is_contiguous() for t in (idx, fstack, istack)):
+    if not idx.device == fstack.device == istack.device:
+        raise ValueError(f"tensors on several devices: {idx.device}, "
+                         f"{fstack.device}, {istack.device}")
+    if not (idx.is_contiguous() and fstack.is_contiguous()
+            and istack.is_contiguous()):
         raise ValueError("ring_gather needs contiguous tensors")
-    return idx.shape[0], fstack.shape[0], istack.shape[0], cap
+    return idx.shape[0], nf, istack.shape[0], cap
 
 
 def ring_gather_reference(idx: torch.Tensor, fstack: torch.Tensor,
@@ -56,30 +62,43 @@ def ring_gather_reference(idx: torch.Tensor, fstack: torch.Tensor,
 def _c_fn():
     fn = build.load().arroyo_ring_gather
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, ll, p, p, i, i, ll, p, p, p]
+    fn.argtypes = [p, ll, p, p, i, i, ll, p, p]
     fn.restype = i
     return fn
+
+
+def ring_gather_rows(idx: torch.Tensor, fstack: torch.Tensor,
+                     istack: torch.Tensor) -> torch.Tensor:
+    """rows i64[nf + ni, m]: ``fstack`` f64[nf, cap] (as its bits) over
+    ``istack`` i64[ni, cap], read at the positions ``idx`` i64[m] — one
+    buffer, so a caller reads both stacks back in one copy."""
+    m, nf, ni, cap = _check(idx, fstack, istack)
+    dev = idx.device
+    if dev.type == "cpu":
+        gf, gi = ring_gather_reference(idx, fstack, istack)
+        return torch.cat([gf.view(torch.int64), gi])
+    if dev.type != "cuda":
+        raise ValueError(f"ring_gather: unsupported device {dev}")
+    rows = torch.empty((nf + ni, m), dtype=torch.int64, device=dev)
+    if m and nf + ni:
+        build.launch("ring_gather", _c_fn(), dev, idx.data_ptr(), m,
+                     fstack.data_ptr(), istack.data_ptr(), nf, ni, cap,
+                     rows.data_ptr())
+        ring_gather.launches += 1
+    return rows
 
 
 def ring_gather(idx: torch.Tensor, fstack: torch.Tensor, istack: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(gf f64[nf, m], gi i64[ni, m]): ``fstack`` f64[nf, cap] and
-    ``istack`` i64[ni, cap] read at the positions ``idx`` i64[m]."""
-    m, nf, ni, cap = _check(idx, fstack, istack)
-    dev = idx.device
-    if dev.type == "cpu":
+    ``istack`` i64[ni, cap] read at the positions ``idx`` i64[m]; on the
+    card both are views of one ``ring_gather_rows`` buffer."""
+    if idx.device.type == "cpu":
+        _check(idx, fstack, istack)
         return ring_gather_reference(idx, fstack, istack)
-    if dev.type != "cuda":
-        raise ValueError(f"ring_gather: unsupported device {dev}")
-    gf = torch.empty((nf, m), dtype=torch.float64, device=dev)
-    gi = torch.empty((ni, m), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _c_fn()(idx.data_ptr(), m, fstack.data_ptr(), istack.data_ptr(),
-                     nf, ni, cap, gf.data_ptr(), gi.data_ptr(), stream)
-    build.check(rc, "ring_gather")
-    ring_gather.launches += 1
-    return gf, gi
+    rows = ring_gather_rows(idx, fstack, istack)
+    nf = fstack.shape[0]
+    return rows[:nf].view(torch.float64), rows[nf:]
 
 
 ring_gather.launches = 0

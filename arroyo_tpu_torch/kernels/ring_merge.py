@@ -140,14 +140,11 @@ def ring_merge(hi: torch.Tensor, lo: torch.Tensor,
         out_i = torch.empty((ni, cap), dtype=torch.int64, device=dev)
         ptrs = [t.data_ptr() for t in (fstack, istack, d_f, d_i, out_f,
                                        out_i)]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _c_fn()(hi.data_ptr(), lo.data_ptr(), ptrs[0], ptrs[1],
-                     res_pos.data_ptr(), d_hi.data_ptr(), d_lo.data_ptr(),
-                     ptrs[2], ptrs[3], delta_pos.data_ptr(), cap, db, nf, ni,
-                     out_hi.data_ptr(), out_lo.data_ptr(), ptrs[4], ptrs[5],
-                     stream)
-    build.check(rc, "ring_merge")
+    build.launch("ring_merge", _c_fn(), dev, hi.data_ptr(), lo.data_ptr(),
+                 ptrs[0], ptrs[1], res_pos.data_ptr(), d_hi.data_ptr(),
+                 d_lo.data_ptr(), ptrs[2], ptrs[3], delta_pos.data_ptr(), cap,
+                 db, nf, ni, out_hi.data_ptr(), out_lo.data_ptr(), ptrs[4],
+                 ptrs[5])
     ring_merge.launches += 1
     return out_hi, out_lo, out_f, out_i
 

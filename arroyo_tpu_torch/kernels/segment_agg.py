@@ -100,12 +100,9 @@ def segment_agg(values: torch.Tensor, offsets: torch.Tensor,
     if n_seg == 0:
         return out, counts  # nothing to launch
     codes = np.asarray([KIND_CODES[x] for x in kinds], dtype=np.int32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _c_fn()(values.data_ptr(), n, offsets.data_ptr(), n_seg,
-                     codes.ctypes.data, k, out.data_ptr(), counts.data_ptr(),
-                     stream)
-    build.check(rc, "segment_agg")
+    build.launch("segment_agg", _c_fn(), dev, values.data_ptr(), n,
+                 offsets.data_ptr(), n_seg, codes.ctypes.data, k,
+                 out.data_ptr(), counts.data_ptr())
     segment_agg.launches += 1
     return out, counts
 

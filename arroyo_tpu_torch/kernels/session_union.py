@@ -95,13 +95,10 @@ def session_union(kh: torch.Tensor, st: torch.Tensor, en: torch.Tensor
     tile_i32 = torch.empty(2 * n_tiles, dtype=torch.int32, device=dev)
     tile_v, carry = local[n:n + n_tiles], local[n + n_tiles:]
     tile_f, first_head = tile_i32[:n_tiles], tile_i32[n_tiles:]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _c_fn()(kh.data_ptr(), st.data_ptr(), en.data_ptr(), n,
-                     local.data_ptr(), tile_f.data_ptr(), tile_v.data_ptr(),
-                     carry.data_ptr(), first_head.data_ptr(), new.data_ptr(),
-                     run_en.data_ptr(), stream)
-    build.check(rc, "session_union")
+    build.launch("session_union", _c_fn(), dev, kh.data_ptr(), st.data_ptr(),
+                 en.data_ptr(), n, local.data_ptr(), tile_f.data_ptr(),
+                 tile_v.data_ptr(), carry.data_ptr(), first_head.data_ptr(),
+                 new.data_ptr(), run_en.data_ptr())
     session_union.launches += 1
     return new, run_en
 

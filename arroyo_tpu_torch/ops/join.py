@@ -7,7 +7,8 @@ sentinels, maintained by ONE scatter-merge launch per arriving delta
 (:func:`~arroyo_tpu_torch.kernels.ring_merge`; positions are computed on
 the host mirror, where the delta was already sorted).  Window fires match
 on the host mirror's full keys and gather the matched rows' payload from
-the ring in one launch (:func:`~arroyo_tpu_torch.kernels.ring_gather`).
+the ring in one launch and read both payload stacks back in one copy
+(:func:`~arroyo_tpu_torch.kernels.ring_gather.ring_gather_rows`).
 
 SPLIT-HASH LAYOUT: the partition id fixes the low hash bits, and the top
 32 bits of the u64 hash are an order-consistent prefix of the host run's
@@ -47,7 +48,7 @@ import torch
 from ..kernels.expand_gather import expand_gather as expand_gather_kernel
 from ..kernels.join_expand import join_expand
 from ..kernels.join_probe import join_probe
-from ..kernels.ring_gather import ring_gather
+from ..kernels.ring_gather import ring_gather_rows
 from ..kernels.ring_merge import SENT32_HI, SENT32_LO, ring_merge
 from ..obs import perf
 from ..obs.perf import timed_device
@@ -351,12 +352,13 @@ def gather_ring(ring: SplitRing, spos: np.ndarray
                 ) -> Tuple[np.ndarray, np.ndarray]:
     """Fire-path payload gather: the payload stacks at the given
     sorted-run positions (already exact — fires match on the host
-    mirror's full keys) in one launch, read back as (f_rows [nf, n],
-    i_rows [ni, n])."""
-    gf, gi = timed_device(ring_gather,
-                          _put(np.asarray(spos, dtype=np.int64), ring.device),
-                          ring.fstack, ring.istack)
-    return gf.cpu().numpy(), gi.cpu().numpy()
+    mirror's full keys) in one launch, read back in one copy as (f_rows
+    [nf, n], i_rows [ni, n])."""
+    rows = timed_device(ring_gather_rows,
+                        _put(np.asarray(spos, dtype=np.int64), ring.device),
+                        ring.fstack, ring.istack).cpu().numpy()
+    nf = ring.fstack.shape[0]
+    return rows[:nf].view(np.float64), rows[nf:]
 
 
 def unpack_payload(ring: SplitRing, gf: np.ndarray, gi: np.ndarray

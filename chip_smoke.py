@@ -11,6 +11,12 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    kernels, at larger and skewed shapes), timed with CUDA events beside
    its plain version, a PyTorch yardstick (one call per plane) where one
    exists, and its least possible time on an H100 (bytes / 3.35 TB/s);
+   segment_top_k and ring_gather are timed in turns with their yardstick
+   (library, kernel, kernel, library), print their launches, host syncs
+   and allocations per call (the last two as PyTorch's sync debug mode
+   and caching allocator see them) and torch.profiler's device time per
+   launch, and
+   ring_gather's launch path is split into its host steps;
 4. state: the port's KeyedBinState (q5 aggregates, local argmax) over
    2,000,000 nexmark events on the card and on the CPU — every fire and
    the final snapshot identical, and a card snapshot restored into a
@@ -69,10 +75,12 @@ import collections
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -115,6 +123,7 @@ from arroyo_tpu_torch.kernels.join_probe import (  # noqa: E402
     join_probe, join_probe_reference)
 from arroyo_tpu_torch.kernels.pane_emit import (  # noqa: E402
     pane_emit, pane_emit_reference)
+from arroyo_tpu_torch.kernels import ring_gather as ring_gather_mod  # noqa: E402
 from arroyo_tpu_torch.kernels.ring_gather import (  # noqa: E402
     ring_gather, ring_gather_reference)
 from arroyo_tpu_torch.kernels.ring_merge import (  # noqa: E402
@@ -122,7 +131,7 @@ from arroyo_tpu_torch.kernels.ring_merge import (  # noqa: E402
 from arroyo_tpu_torch.kernels.segment_agg import (  # noqa: E402
     segment_agg, segment_agg_reference)
 from arroyo_tpu_torch.kernels.segment_top_k import (  # noqa: E402
-    order_keys, segment_top_k, segment_top_k_reference)
+    _round_grid_cap, order_keys, segment_top_k, segment_top_k_reference)
 from arroyo_tpu_torch.kernels.session_union import (  # noqa: E402
     session_union, session_union_reference)
 from arroyo_tpu_torch.obs import perf  # noqa: E402
@@ -233,6 +242,79 @@ def cuda_ms(fn, reps=20, warm=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def in_turns(kernel, library):
+    """Kernel and library call timed in turns (library, kernel, kernel,
+    library), each a cuda_ms median: (kernel ms, library ms, the four)."""
+    lib_a, k_a, k_b, lib_b = (cuda_ms(library), cuda_ms(kernel),
+                              cuda_ms(kernel), cuda_ms(library))
+    return (k_a + k_b) / 2, (lib_a + lib_b) / 2, [lib_a, k_a, k_b, lib_b]
+
+
+def host_us(fn, reps=2000):
+    """Mean host microseconds of one call (no synchronization inside the
+    loop; launches queue on the card)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return dt / reps / 1e3
+
+
+def per_call(fn):
+    """(allocations, host syncs) of one warm call of ``fn``: the caching
+    allocator's allocation requests (``memory_stats``) and the
+    synchronizing operations PyTorch reports while
+    ``set_sync_debug_mode`` is "warn"."""
+    fn()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    torch.cuda.synchronize()
+    # the mode's first use also warns that it is a prototype: not a sync
+    syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+    return allocs, syncs
+
+
+def profile_kernels(fn, reps=20):
+    """Device microseconds of each kernel launch of one ``fn`` call, in
+    launch order (``name[i]`` for the i-th launch of a kernel launched
+    more than once), means over ``reps`` calls from torch.profiler's CUDA
+    activity; empty when the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    runs = collections.defaultdict(list)
+    for ev in sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start):
+        m = re.search(r"([A-Za-z_]\w*)(?:<[^()]*>)?\(", ev.name)
+        runs[m.group(1) if m else ev.name[:40]].append(
+            ev.time_range.elapsed_us())
+    per = {}
+    for name, times in runs.items():
+        n = max(1, len(times) // reps)
+        for i in range(n):
+            per[f"{name}[{i}]" if n > 1 else name] = (
+                statistics.fmean(times[i::n]))
+    return per
 
 
 def searched(plane_bytes, n, searches):
@@ -487,20 +569,72 @@ def k5_case(rng, dev, cap, nf, ni, shape):
                nbytes, 0, lib, "index_copy_ per plane, resident then delta")
 
 
+def launch_split(idx, f, i):
+    """Where a ring_gather call's time goes: host microseconds of each
+    step of the wrapper, the whole wrapper and the bare ctypes call; the
+    kernel's device time from torch.profiler; and CUDA-event ms of the
+    wrapper and the bare call."""
+    m, nf, ni, cap = idx.shape[0], f.shape[0], i.shape[0], f.shape[1]
+    dev = idx.device
+    fn = ring_gather_mod._c_fn()
+    rows = torch.empty((nf + ni, m), dtype=torch.int64, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    args = (idx.data_ptr(), m, f.data_ptr(), i.data_ptr(), nf, ni, cap,
+            rows.data_ptr(), stream)
+
+    def bare():
+        return fn(*args)
+
+    return {
+        "check_us": host_us(lambda: ring_gather_mod._check(idx, f, i)),
+        "alloc_us": host_us(lambda: torch.empty(
+            (nf + ni, m), dtype=torch.int64, device=dev)),
+        "device_and_stream_us": host_us(lambda: (
+            torch._C._cuda_getDevice(),
+            torch._C._cuda_getCurrentRawStream(dev.index))),
+        "ctypes_launch_us": host_us(bare),
+        "views_us": host_us(lambda: (rows[:nf].view(torch.float64),
+                                     rows[nf:])),
+        "wrapper_us": host_us(lambda: ring_gather(idx, f, i)),
+        "index_select_pair_us": host_us(
+            lambda: (f.index_select(1, idx), i.index_select(1, idx))),
+        "device_us": profile_kernels(lambda: ring_gather(idx, f, i)),
+        "wrapper_event_ms": cuda_ms(lambda: ring_gather(idx, f, i)),
+        "bare_event_ms": cuda_ms(bare),
+    }
+
+
 def k6_case(rng, dev, cap, nf, ni, m, shape):
     f = torch.tensor(rng.normal(size=(nf, cap)), device=dev)
     i = torch.tensor(rng.integers(-2**62, 2**62, (ni, cap)), device=dev)
     idx = torch.tensor(np.sort(rng.integers(0, cap, m)), device=dev)
+    before = ring_gather.launches
     got, want = ring_gather(idx, f, i), ring_gather_reference(idx, f, i)
     torch.cuda.synchronize()
+    launches = ring_gather.launches - before
+    check(launches == 1, f"ring_gather made {launches} launches")
     check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
           f"ring_gather differs ({shape})")
-    ms = cuda_ms(lambda: ring_gather(idx, f, i))
+    check(got[0].untyped_storage().data_ptr()
+          == got[1].untyped_storage().data_ptr()
+          and got[1].data_ptr() == got[0].data_ptr() + nf * m * 8,
+          "ring_gather's outputs are not views of one buffer")
+    allocs, syncs = per_call(lambda: ring_gather(idx, f, i))
+    check(allocs == 1 and syncs == 0,
+          f"ring_gather made {allocs} allocations and {syncs} host syncs")
+    ms, lib, turns = in_turns(
+        lambda: ring_gather(idx, f, i),
+        lambda: (f.index_select(1, idx), i.index_select(1, idx)))
     plain = cuda_ms(lambda: ring_gather_reference(idx, f, i))
-    lib = cuda_ms(lambda: (f.index_select(1, idx), i.index_select(1, idx)))
+    split = launch_split(idx, f, i)
+    print("ring_gather launch path: " + json.dumps(split))
     nbytes = m * 8 + 2 * m * 8 * (nf + ni)
-    return row("ring_gather", K6_SOURCE, K6_REPLACES, shape, 0.0, ms, plain,
-               nbytes, 0, lib, "index_select per stack")
+    r = row("ring_gather", K6_SOURCE, K6_REPLACES, shape, 0.0, ms, plain,
+            nbytes, 0, lib, "index_select per stack")
+    r.update(turns_ms=turns, launches_per_call=launches,
+             syncs_per_call=syncs, allocations_per_call=allocs,
+             launch_split=split)
+    return r
 
 
 def k7_case(rng, dev, n, n_keys, shape):
@@ -687,23 +821,44 @@ def topk_case(rng, dev, n, n_seg, shape):
                        device=dev)
     val = torch.tensor(bid_counts(rng, n), device=dev)
     got = segment_top_k(seg, val, TOP_K)
+    tally = (segment_top_k.last_launches, segment_top_k.last_syncs)
     want = segment_top_k_reference(seg, val, TOP_K)
     torch.cuda.synchronize()
     check(torch.equal(got, want), f"segment_top_k differs ({shape})")
-    ms = cuda_ms(lambda: segment_top_k(seg, val, TOP_K))
-    plain = cuda_ms(lambda: segment_top_k_reference(seg, val, TOP_K))
+    check(tally[0] <= 6 and tally[1] == 1,
+          f"segment_top_k's prefilter path took {tally[0]} launches and "
+          f"{tally[1]} host syncs ({shape})")
+    allocs, syncs = per_call(lambda: segment_top_k(seg, val, TOP_K))
+    check(syncs == tally[1],
+          f"segment_top_k counted {tally[1]} host syncs, PyTorch saw "
+          f"{syncs} ({shape})")
     keys = order_keys(val)
 
     def library():  # two stable sorts give the kept rows' order
         by_val = torch.sort(keys, stable=True).indices
         return torch.sort(seg[by_val], stable=True)
 
-    lib = cuda_ms(library)
+    ms, lib, turns = in_turns(lambda: segment_top_k(seg, val, TOP_K),
+                              library)
+    plain = cuda_ms(lambda: segment_top_k_reference(seg, val, TOP_K))
+    device = profile_kernels(lambda: segment_top_k(seg, val, TOP_K))
+    host = host_us(lambda: segment_top_k(seg, val, TOP_K), reps=200)
+    grid = _round_grid_cap(dev.index)
+    print(f"segment_top_k {shape}: {tally[0]} launches, {syncs} host "
+          f"syncs, {allocs} allocations per call, round grid <= {grid} "
+          f"blocks; kernel {ms:.4f} ms, two "
+          f"sorts {lib:.4f} ms; host us per call {host:.1f}; device us per "
+          "call " + json.dumps(device))
     # an i32 segment id and an f64 value read a row, an i32 index written
     # a kept row; the compares have no published peak rate
-    return row("segment_top_k", K12_SOURCE, K12_REPLACES,
-               f"{shape} kept={got.numel()}", 0.0, ms, plain,
-               12 * n + 4 * got.numel(), 0, lib, "two stable torch.sort")
+    r = row("segment_top_k", K12_SOURCE, K12_REPLACES,
+            f"{shape} kept={got.numel()}", 0.0, ms, plain,
+            12 * n + 4 * got.numel(), 0, lib, "two stable torch.sort")
+    r.update(turns_ms=turns, launches_per_call=tally[0],
+             syncs_per_call=syncs, allocations_per_call=allocs,
+             host_us_per_call=host, device_us_per_call=device,
+             round_grid_blocks=grid)
+    return r
 
 
 def compact_cases(rng, dev, k, rows, shape):

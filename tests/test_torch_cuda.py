@@ -6,6 +6,8 @@ machine with a card and no JAX:
 
 Without a card every test skips (CUDA kernels have no CPU mode)."""
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -26,10 +28,16 @@ from arroyo_tpu_torch.kernels.expand_gather import (
 from arroyo_tpu_torch.kernels.join_expand import join_expand, join_expand_reference
 from arroyo_tpu_torch.kernels.join_probe import join_probe, join_probe_reference
 from arroyo_tpu_torch.kernels.pane_emit import pane_emit, pane_emit_reference
-from arroyo_tpu_torch.kernels.ring_gather import ring_gather, ring_gather_reference
+from arroyo_tpu_torch.kernels.ring_gather import (
+    ring_gather,
+    ring_gather_reference,
+    ring_gather_rows,
+)
 from arroyo_tpu_torch.kernels.ring_merge import ring_merge, ring_merge_reference
 from arroyo_tpu_torch.kernels.segment_agg import segment_agg, segment_agg_reference
 from arroyo_tpu_torch.kernels.segment_top_k import (
+    FINAL_ROWS,
+    TILE_ROWS,
     segment_top_k,
     segment_top_k_reference,
 )
@@ -212,10 +220,85 @@ def test_ring_gather_cuda_matches_plain(cuda_device):
                      device=cuda_device)
     idx = torch.tensor(np.sort(rng.integers(0, cap, 5000)),
                        device=cuda_device)
+    before = ring_gather.launches
     got = ring_gather(idx, f, i)
     want = ring_gather_reference(idx, f, i)
     torch.cuda.synchronize()
+    assert ring_gather.launches == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # both outputs are views of one [nf + ni, m] buffer: gi's rows follow
+    # gf's in the same storage
+    storage = got[1].untyped_storage()
+    assert got[0].untyped_storage().data_ptr() == storage.data_ptr()
+    assert storage.nbytes() == 8 * 8 * 5000
+    assert got[1].data_ptr() == got[0].data_ptr() + 2 * 8 * 5000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,nf,ni", [(0, 2, 6), (700, 0, 1), (700, 2, 0),
+                                     (1, 1, 1)])
+def test_ring_gather_cuda_edges_and_clamping(cuda_device, m, nf, ni):
+    """m = 0 and an empty stack launch nothing; indices outside [0, cap)
+    clamp to its ends; the rows buffer holds the f64 rows' bits over the
+    i64 rows."""
+    rng = np.random.default_rng(m + 10 * nf + ni)
+    cap = 1024
+    f = torch.tensor(rng.normal(size=(nf, cap)), device=cuda_device)
+    i = torch.tensor(rng.integers(-2**62, 2**62, (ni, cap)),
+                     device=cuda_device)
+    idx = torch.tensor(rng.integers(-3 * cap, 3 * cap, m),
+                       device=cuda_device)
+    before = ring_gather.launches
+    rows = ring_gather_rows(idx, f, i)
+    gf, gi = ring_gather(idx, f, i)
+    want = ring_gather_reference(idx, f, i)
+    torch.cuda.synchronize()
+    assert ring_gather.launches == before + (2 if m and nf + ni else 0)
+    assert tuple(rows.shape) == (nf + ni, m)
+    assert torch.equal(gf, want[0]) and torch.equal(gi, want[1])
+    assert torch.equal(rows[:nf].view(torch.float64), want[0])
+    assert torch.equal(rows[nf:], want[1])
+
+
+def _allocs_and_syncs(fn):
+    """(allocations, host syncs) of one warm call of ``fn``, as the caching
+    allocator and PyTorch's sync debug mode see them."""
+    fn()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    # the mode's first use also warns that it is a prototype: not a sync
+    syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+    return allocs, syncs
+
+
+@pytest.mark.cuda
+def test_kernels_cuda_allocations_and_syncs_per_call(cuda_device):
+    """ring_gather: one allocation and no host sync a call; segment_top_k
+    at hot items' steady fire: the one sync its wrapper counts.  A known
+    readback checks that the sync detector sees one."""
+    rng = np.random.default_rng(40)
+    x = torch.ones(1000, device=cuda_device)
+    assert _allocs_and_syncs(lambda: x.sum().item())[1] == 1
+    cap, m = 65536, 5000
+    f = torch.tensor(rng.normal(size=(2, cap)), device=cuda_device)
+    i = torch.tensor(rng.integers(-2**62, 2**62, (6, cap)),
+                     device=cuda_device)
+    idx = torch.tensor(np.sort(rng.integers(0, cap, m)), device=cuda_device)
+    assert _allocs_and_syncs(lambda: ring_gather_rows(idx, f, i)) == (1, 0)
+    assert _allocs_and_syncs(lambda: ring_gather(idx, f, i)) == (1, 0)
+    n = 599_800
+    seg = torch.zeros(n, dtype=torch.int32, device=cuda_device)
+    val = torch.tensor(_topk_values(rng, n, 3_000), device=cuda_device)
+    _allocs, syncs = _allocs_and_syncs(lambda: segment_top_k(seg, val, 10))
+    assert syncs == segment_top_k.last_syncs == 1
 
 
 def _intervals(rng, n, n_keys):
@@ -392,6 +475,10 @@ def _topk_values(rng, n, hi):
     (200_000, 20_000, 3, False),  # many segments smaller than k
     (300_000, 5_000, 10, True),  # one segment holds half the rows
     (5_000, 7, 100_000, False),  # k beyond every segment
+    (1_410_844, 100_000, 10, False),  # the general path after a round
+    (100_000, 3, 3_000, False),  # k beyond a tile: the general path
+    (6_000, 4, 6_000, False),  # k = n in the final block alone
+    (70_000, 2, 0, False),  # k = 0 keeps nothing
     (1, 1, 1, False)])
 def test_segment_top_k_cuda_matches_plain(cuda_device, n, n_seg, k, skew):
     """The kept index array equals the plain version's exactly."""
@@ -406,8 +493,52 @@ def test_segment_top_k_cuda_matches_plain(cuda_device, n, n_seg, k, skew):
     got = segment_top_k(*args)
     want = segment_top_k_reference(*args)
     torch.cuda.synchronize()
-    assert segment_top_k.launches == before + 1
+    assert segment_top_k.launches == before + (1 if k else 0)
     assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_seg,ties", [
+    (599_800, 1, False),  # hot items' steady fire: two rounds to 20 rows
+    (1_410_844, 5, False),  # the flush: a second round takes 34k to <= 850
+    (599_800, 1, True),  # the 10th place tied across many tiles
+])
+def test_segment_top_k_cuda_prefilter_launches_and_syncs(cuda_device, n,
+                                                         n_seg, ties):
+    """The prefilter path at hot items' sizes: a zero-fill, two rounds and
+    the final block (4 launches, at most 6) and one host sync, exact."""
+    rng = np.random.default_rng(n + n_seg)
+    seg = rng.integers(0, n_seg, n).astype(np.int32)
+    v = (np.where(rng.random(n) < 0.0005, 7.0, 3.0) if ties
+         else _topk_values(rng, n, 3_000))
+    t = lambda a: torch.tensor(a, device=cuda_device)  # noqa: E731
+    args = (t(seg), t(v), 10)
+    got = segment_top_k(*args)
+    assert (segment_top_k.last_launches, segment_top_k.last_syncs) == (4, 1)
+    assert torch.equal(got, segment_top_k_reference(*args))
+
+
+@pytest.mark.cuda
+def test_segment_top_k_cuda_path_tallies(cuda_device):
+    """Launches and syncs per call on each path: nothing for k = 0; the
+    final block alone up to FINAL_ROWS rows; the general radix path (two
+    more syncs) when k fills a tile or the candidates do not shrink."""
+    rng = np.random.default_rng(5)
+
+    def run(n, n_seg, k):
+        seg = torch.tensor(rng.integers(0, n_seg, n).astype(np.int32),
+                           device=cuda_device)
+        val = torch.tensor(_topk_values(rng, n, 50), device=cuda_device)
+        got = segment_top_k(seg, val, k)
+        assert torch.equal(got, segment_top_k_reference(seg, val, k))
+        return segment_top_k.last_launches, segment_top_k.last_syncs
+
+    assert run(1_000, 3, 0) == (0, 0)
+    assert run(FINAL_ROWS, 3, 10) == (1, 1)
+    launches, syncs = run(100_000, 3, TILE_ROWS)
+    assert syncs == 2 and launches >= 7
+    launches, syncs = run(1_410_844, 100_000, 10)
+    assert syncs == 3 and launches >= 4 + 7
 
 
 @pytest.mark.cuda

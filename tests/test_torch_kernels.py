@@ -35,7 +35,7 @@ from arroyo_tpu_torch.kernels.expand_gather import expand_gather
 from arroyo_tpu_torch.kernels.join_expand import join_expand
 from arroyo_tpu_torch.kernels.join_probe import join_probe
 from arroyo_tpu_torch.kernels.pane_emit import pane_emit
-from arroyo_tpu_torch.kernels.ring_gather import ring_gather
+from arroyo_tpu_torch.kernels.ring_gather import ring_gather, ring_gather_rows
 from arroyo_tpu_torch.kernels.ring_merge import SENT32_HI, SENT32_LO, ring_merge
 from arroyo_tpu_torch.kernels.segment_agg import segment_agg
 from arroyo_tpu_torch.kernels.session_union import session_union
@@ -320,6 +320,28 @@ def test_ring_gather_plain_matches_gather32_kernel(nf, ni):
                          torch.tensor(ist))
     np.testing.assert_array_equal(gf.numpy(), np.asarray(wf)[:, :m])
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi)[:, :m])
+
+
+@pytest.mark.parametrize("nf,ni", [(2, 6), (0, 3), (2, 0)])
+def test_ring_gather_rows_stack_the_gather32_kernel_outputs(nf, ni):
+    """ring_gather_rows: the f64 rows' bits over the i64 rows in one i64
+    buffer, equal to the JAX kernel's two outputs."""
+    rng = np.random.default_rng(37 + nf)
+    cap, m = 512, 300
+    fs = rng.normal(size=(nf, cap))
+    ist = rng.integers(-2**62, 2**62, (ni, cap))
+    idx = np.sort(rng.integers(0, cap, m))
+    mb = _bucket(m, floor=8)
+    idx_p = np.zeros(mb, np.int64)
+    idx_p[:m] = idx
+    wf, wi = _gather32_kernel(cap, mb, nf, ni)(
+        jnp.asarray(idx_p), jnp.asarray(fs), jnp.asarray(ist))
+    rows = ring_gather_rows(torch.tensor(idx), torch.tensor(fs),
+                            torch.tensor(ist))
+    assert rows.dtype == torch.int64 and tuple(rows.shape) == (nf + ni, m)
+    np.testing.assert_array_equal(rows[:nf].numpy().view(np.float64),
+                                  np.asarray(wf)[:, :m])
+    np.testing.assert_array_equal(rows[nf:].numpy(), np.asarray(wi)[:, :m])
 
 
 def test_wrappers_run_plain_versions_on_cpu_and_reject_other_devices():
