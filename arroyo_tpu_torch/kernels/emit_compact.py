@@ -29,7 +29,7 @@ import torch
 
 from . import build
 from .bin_update import KIND_CODES
-from .pane_emit import pane_emit_reference
+from .pane_emit import pane_reduce_reference
 
 THREADS = 256  # cells per block of the count/gather kernels
 
@@ -92,8 +92,8 @@ def emit_gather_reference(values: torch.Tensor, cnt: torch.Tensor,
                         (flat % k).to(torch.int32)])
     zero = torch.zeros((rows, values.shape[2]), dtype=cnt.dtype,
                        device=cnt.device)
-    outs, _ = pane_emit_reference(values, zero, ring, bin_ok, kinds, xfer,
-                                  rows)
+    outs, _ = pane_reduce_reference(values, zero, ring, bin_ok, kinds, xfer,
+                                    rows)
     return (idx2, cnt.reshape(-1)[flat],
             outs.reshape(len(xfer), rows * k)[:, flat])
 

@@ -17,9 +17,14 @@
   :func:`~arroyo_tpu_torch.kernels.emit_gather`, live cells only) when
   the last fire was sparse enough, else the dense branch,
   :func:`~arroyo_tpu_torch.kernels.pane_emit` — the JAX package's choice,
-  fire for fire;
-* eviction resets expired ring columns on the device through
-  :func:`~arroyo_tpu_torch.kernels.bin_evict`.
+  fire for fire.  A fire's geometry is a few scalars (first bin, live
+  range, W, k); the dense branch passes them to its kernel, the other
+  branches take ring arrays built from them by ``fire_geometry``;
+* eviction resets expired ring columns of the occupied slots on the
+  device through :func:`~arroyo_tpu_torch.kernels.bin_evict`.  Slots at
+  and past ``next_slot`` are never written: every cell there holds its
+  channel's identity and count 0 (``__init__``, ``_grow``, ``_grow_ring``
+  and ``restore`` make them so, and updates only reach directory slots).
 
 Snapshots use the canonical, topology-independent numpy format of the
 JAX package, so a checkpoint taken by either package restores in the
@@ -40,7 +45,7 @@ from ..kernels.argmax_fire import argmax_fire
 from ..kernels.bin_evict import bin_evict
 from ..kernels.bin_update import bin_update, channel_identity
 from ..kernels.emit_compact import emit_count, emit_gather
-from ..kernels.pane_emit import pane_emit
+from ..kernels.pane_emit import fire_geometry, pane_emit, pane_views
 from ..native import assign_bins
 
 # f64 extremes: the accumulation channels are float64, so f32 extremes
@@ -491,26 +496,22 @@ class KeyedBinState:
         self.flush_updates()
         pane_ends = np.arange(first_pane, last_pane + 1, dtype=np.int64)
         k = len(pane_ends)
-        kpad = _bucket(k, floor=1)
-        # 64-bit bin arithmetic on the host -> small int32 ring indices
-        offs = np.arange(self.W, dtype=np.int64) - (self.W - 1)
-        abs_bins = pane_ends[:, None] + offs[None, :]  # [k, W] int64
-        ring = np.zeros((kpad, self.W), dtype=np.int32)
-        ring[:k] = (abs_bins % self.B).astype(np.int32)
-        bin_ok = np.zeros((kpad, self.W), dtype=bool)
-        # only bins in [min_bin, max_bin] are live in the ring
-        lo = self.min_bin if self.min_bin is not None else 0
-        bin_ok[:k] = (abs_bins >= lo) & (abs_bins <= self.max_bin)
+        # the fire's geometry: pane p's bin w is the absolute bin
+        # first_bin + p + w; only bins in [min_bin, max_bin] are live
+        first_bin = int(first_pane) - (self.W - 1)
+        lo = int(self.min_bin) if self.min_bin is not None else 0
+        hi = int(self.max_bin)
 
         if self._argmax_local is not None and not self._xfer_ch:
             # every output column derives from the counts plane
-            key_idx, pane_idx, cnt_sel, ch_sel = self._emit_argmax(ring,
-                                                                   bin_ok)
+            key_idx, pane_idx, cnt_sel, ch_sel = self._emit_argmax(
+                *fire_geometry(first_bin, lo, hi, self.W, k, self.B,
+                               kpad=_bucket(k, floor=1)))
         elif self._use_compact_emit(self._c_slice(), k):
             key_idx, pane_idx, cnt_sel, ch_sel = self._emit_compact(
-                ring[:k], bin_ok[:k])
+                *fire_geometry(first_bin, lo, hi, self.W, k, self.B))
         else:
-            outs, cnts = self._read_dense(ring, bin_ok, k)
+            outs, cnts = self._read_dense(first_bin, lo, hi, k)
             key_idx, pane_idx, cnt_sel, ch_sel = self._flatten_dense(
                 outs, cnts, k)
 
@@ -518,9 +519,9 @@ class KeyedBinState:
         # evict bins no future pane needs: abs bins <= last_pane - W + 1
         new_min = last_pane - self.W + 2
         if self.min_bin is not None and new_min > self.min_bin:
-            expired = np.arange(self.min_bin, min(new_min, self.max_bin + 1))
-            if len(expired):
-                self._evict(expired % self.B)
+            n_expired = min(new_min, self.max_bin + 1) - self.min_bin
+            if n_expired > 0:
+                self._evict(int(self.min_bin), int(n_expired))
             self.min_bin = new_min
 
         self._fire_density = len(key_idx) / max(self.next_slot * k, 1)
@@ -576,14 +577,14 @@ class KeyedBinState:
         return (idx2[0].astype(np.int64), idx2[1].astype(np.int64),
                 cnt_c.cpu().numpy(), ch.cpu().numpy())
 
-    def _evict(self, ring_cols: np.ndarray) -> None:
-        """Reset expired ring columns to each channel's identity and zero
-        their counts, in place, in one device call."""
+    def _evict(self, first_bin: int, n_bins: int) -> None:
+        """Reset the ring columns of the expired absolute bins first_bin
+        .. first_bin + n_bins - 1 to each channel's identity and zero their
+        counts, in place, in one device call over the occupied slots."""
         from ..obs import perf
 
-        perf.timed_device(bin_evict, self.values, self.counts,
-                          _to_device(ring_cols.astype(np.int32), self.device),
-                          self._ch_kinds)
+        perf.timed_device(bin_evict, self.values, self.counts, first_bin,
+                          n_bins, self.next_slot, self._ch_kinds)
 
     def _c_slice(self) -> int:
         """Occupied-key rows read back by a dense fire."""
@@ -591,19 +592,20 @@ class KeyedBinState:
             return min(_bucket(max(self.next_slot, 1), floor=256), self.C)
         return min(-(-self.next_slot // 2048) * 2048, self.C)
 
-    def _read_dense(self, ring: np.ndarray, bin_ok: np.ndarray, k: int
+    def _read_dense(self, first_bin: int, lo: int, hi: int, k: int
                     ) -> Tuple[np.ndarray, np.ndarray]:
         """Dense pane read: one device call computes the occupied keys'
-        counts and transferred channels for the real panes, then both
-        are read back."""
+        counts and transferred channels for the real panes into one
+        buffer, which is read back in one copy."""
         from ..obs import perf
 
-        outs, cnts = perf.timed_device(
-            pane_emit, self.values, self.counts,
-            _to_device(ring[:k], self.device),
-            _to_device(bin_ok[:k], self.device), self._ch_kinds,
-            self._xfer_ch, self._c_slice())
-        return outs.cpu().numpy(), cnts.cpu().numpy()
+        c_slice = self._c_slice()
+        buf = perf.timed_device(
+            pane_emit, self.values, self.counts, first_bin, lo, hi,
+            self.W, k, self._ch_kinds, self._xfer_ch, c_slice)
+        outs, cnts = pane_views(buf.cpu(), len(self._xfer_ch), c_slice, k,
+                                self.counts.dtype)
+        return outs.numpy(), cnts.numpy()
 
     def _flatten_dense(self, outs: np.ndarray, cnts: np.ndarray, k: int
                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,

@@ -7,16 +7,21 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 1. environment: torch/CUDA versions, the card, its power limit;
 2. build: the CUDA kernels from arroyo_tpu_torch/csrc with nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes nexmark q5, q8 and config5 give it (and, for the session
-   kernels, at larger and skewed shapes), timed with CUDA events beside
-   its plain version, a PyTorch yardstick (one call per plane) where one
-   exists, and its least possible time on an H100 (bytes / 3.35 TB/s);
-   segment_top_k and ring_gather are timed in turns with their yardstick
-   (library, kernel, kernel, library), print their launches, host syncs
+   the shapes nexmark q5, q8, config5 and hot items give it (and, for the
+   session kernels, at larger and skewed shapes), timed with CUDA events
+   beside its plain version, a PyTorch yardstick (one call per plane)
+   where one exists, and its least possible time on an H100 (bytes /
+   3.35 TB/s; pane_emit and bin_evict count the 32-byte sectors their
+   rows' columns touch); segment_top_k, ring_gather, pane_emit and
+   bin_evict are timed in turns with their yardstick (three rounds of
+   library, kernel, kernel, library), print their launches, host syncs
    and allocations per call (the last two as PyTorch's sync debug mode
    and caching allocator see them) and torch.profiler's device time per
    launch, and
-   ring_gather's launch path is split into its host steps;
+   ring_gather's launch path is split into its host steps.  With
+   ``--parent DIR`` (a ``git archive`` of the parent commit unpacked at
+   DIR) the parent's pane_emit and bin_evict are built from DIR and timed
+   in turns with this tree's at the same shapes;
 4. state: the port's KeyedBinState (q5 aggregates, local argmax) over
    2,000,000 nexmark events on the card and on the CPU — every fire and
    the final snapshot identical, and a card snapshot restored into a
@@ -69,8 +74,11 @@ Launch counts are set to 0 just before each main-path run (q5, q8,
 config5, 8a, 8b, hot items) and read just after it.  It prints a
 ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi gives them, and, last, ``{"ok": true, "device": ...}``.
-It needs one card and exits non-zero without one."""
+It needs one card and exits non-zero without one.
 
+    python3 chip_smoke.py --parent DIR   # phase 3 also times the parent's"""
+
+import argparse
 import collections
 import json
 import math
@@ -122,7 +130,8 @@ from arroyo_tpu_torch.kernels.join_expand import (  # noqa: E402
 from arroyo_tpu_torch.kernels.join_probe import (  # noqa: E402
     join_probe, join_probe_reference)
 from arroyo_tpu_torch.kernels.pane_emit import (  # noqa: E402
-    pane_emit, pane_emit_reference)
+    fire_geometry, pane_emit, pane_emit_reference, pane_views)
+from arroyo_tpu_torch.kernels import pane_emit as pane_emit_mod  # noqa: E402
 from arroyo_tpu_torch.kernels import ring_gather as ring_gather_mod  # noqa: E402
 from arroyo_tpu_torch.kernels.ring_gather import (  # noqa: E402
     ring_gather, ring_gather_reference)
@@ -175,6 +184,11 @@ HOT_SMALL = 2_000_000
 TOPK_STEADY, TOPK_FLUSH = 599_800, 1_410_844
 C_HOT, B_HOT, W_HOT = 4_194_304, 16, 5
 HOT_DENSITY = 0.25
+# its occupied slots (the auctions of a 40M-event run) and the dense
+# fire's c_slice for them (rounded up to 2,048)
+HOT_ROWS, C_SLICE_HOT = 2_398_860, 2_400_256
+SECTOR = 32  # bytes of the card's memory transaction
+ATOM = 64  # bytes HBM3 reads or writes at a time
 
 K1_SOURCE = "arroyo_tpu_torch/csrc/bin_update.cu"
 K1_REPLACES = ("arroyo_tpu/ops/keyed_bins.py:62 _update_kernel; "
@@ -244,12 +258,31 @@ def cuda_ms(fn, reps=20, warm=3):
     return statistics.median(times)
 
 
-def in_turns(kernel, library):
-    """Kernel and library call timed in turns (library, kernel, kernel,
-    library), each a cuda_ms median: (kernel ms, library ms, the four)."""
-    lib_a, k_a, k_b, lib_b = (cuda_ms(library), cuda_ms(kernel),
-                              cuda_ms(kernel), cuda_ms(library))
-    return (k_a + k_b) / 2, (lib_a + lib_b) / 2, [lib_a, k_a, k_b, lib_b]
+def in_turns(kernel, other, pairs=3):
+    """``kernel`` and ``other`` (a library call, or another version) timed
+    in turns, ``pairs`` rounds of (other, kernel, kernel, other), each a
+    cuda_ms median: (kernel ms, other ms, the medians in order), the ms
+    the means of each side's medians."""
+    seq = []
+    for _ in range(pairs):
+        seq += [cuda_ms(other), cuda_ms(kernel), cuda_ms(kernel),
+                cuda_ms(other)]
+    mine = [t for i, t in enumerate(seq) if i % 4 in (1, 2)]
+    theirs = [t for i, t in enumerate(seq) if i % 4 in (0, 3)]
+    return statistics.fmean(mine), statistics.fmean(theirs), seq
+
+
+def turn_factors(seq):
+    """What in_turns' medians say of the two sides: the other's time over
+    the kernel's in each round (above 1: the kernel is faster), and each
+    side's spread (its slowest median over its fastest) within the call."""
+    rounds = [seq[i:i + 4] for i in range(0, len(seq), 4)]
+    mine = [t for r in rounds for t in r[1:3]]
+    theirs = [t for r in rounds for t in (r[0], r[3])]
+    return {"factor_each_round": [(r[0] + r[3]) / (r[1] + r[2])
+                                  for r in rounds],
+            "kernel_spread": max(mine) / min(mine),
+            "other_spread": max(theirs) / min(theirs)}
 
 
 def host_us(fn, reps=2000):
@@ -288,17 +321,21 @@ def per_call(fn):
     return allocs, syncs
 
 
-def profile_kernels(fn, reps=20):
+def profile_kernels(fn, reps=20, before=None):
     """Device microseconds of each kernel launch of one ``fn`` call, in
     launch order (``name[i]`` for the i-th launch of a kernel launched
     more than once), means over ``reps`` calls from torch.profiler's CUDA
-    activity; empty when the profiler records no device activity."""
+    activity; empty when the profiler records no device activity.
+    ``before`` (an L2 flush) runs ahead of each call; its own launches
+    are listed too."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if before is not None:
+                before()
             fn()
         torch.cuda.synchronize()
     runs = collections.defaultdict(list)
@@ -460,18 +497,114 @@ def bin_planes(rng, dev, kinds, C, B, cdt):
     return values, counts
 
 
-def k3_case(rng, dev, kinds, xfer, C, B, W, k, c_slice, cdt, shape):
+def row_sectors(itemsize, B, cols):
+    """32-byte sectors of one B-cell row that the ring columns ``cols``
+    touch (rows start on a sector: B * itemsize is a multiple of 32)."""
+    check(B * itemsize % SECTOR == 0, f"rows of {B * itemsize} bytes")
+    return len({c * itemsize // SECTOR for c in cols})
+
+
+def run_sectors(nbytes):
+    """Bytes of the 32-byte sectors a contiguous run of ``nbytes`` fills."""
+    return -(-nbytes // SECTOR) * SECTOR
+
+
+def row_atoms(itemsize, B, cols):
+    """HBM3's 64-byte access atoms that the ring columns ``cols`` of one
+    B-cell row touch, as a fraction of an atom when rows are shorter
+    (rows start on an atom or share one whole)."""
+    row = B * itemsize
+    if row < ATOM:
+        return row / ATOM
+    return len({c * itemsize // ATOM for c in cols})
+
+
+def atom_bound_ms(read_atoms, partial_atoms, full_bytes):
+    """The least time IF memory moves whole 64-byte atoms (a model, not
+    measured here): atoms read, atoms partly written (read, then written
+    back whole), and bytes written in whole atoms."""
+    return ((read_atoms + 2 * partial_atoms) * ATOM + full_bytes) \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def parent_kernels(parent):
+    """The parent commit's kernel modules, from a ``git archive`` of it
+    unpacked at ``parent``: its ``arroyo_tpu_torch/kernels`` imported as
+    the package ``parent_kernels`` and built from its own csrc/ into its
+    own build/ directory.  Returns (pane_emit module, bin_evict module,
+    build seconds)."""
+    import importlib
+    import importlib.util
+    pkg = os.path.join(os.path.abspath(parent), "arroyo_tpu_torch", "kernels")
+    spec = importlib.util.spec_from_file_location(
+        "parent_kernels", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_kernels"] = mod
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    importlib.import_module("parent_kernels.build").load()
+    return (importlib.import_module("parent_kernels.pane_emit"),
+            importlib.import_module("parent_kernels.bin_evict"),
+            time.perf_counter() - t0)
+
+
+def measured(fn, kernel):
+    """What a row reports of one wrapper: host microseconds a call (200
+    calls queued, no sync between them), torch.profiler's device
+    microseconds of each launch — warm, and cold: after writing 64 MiB,
+    more than the H100's 50 MB L2 holds, as a fire finds the planes after
+    a stretch of other work (``kernel``'s launches only) — and
+    allocations and host syncs a call."""
+    allocs, syncs = per_call(fn)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    cold = profile_kernels(fn, before=flush.zero_)
+    return {"host_us_per_call": host_us(fn, reps=200),
+            "device_us_per_call": profile_kernels(fn),
+            "device_us_cold": {n: us for n, us in cold.items() if kernel in n},
+            "allocations_per_call": allocs, "syncs_per_call": syncs}
+
+
+def pane_emit_split(args, library):
+    """Where a pane_emit call's host time goes: microseconds of its
+    argument checks, its one allocation, the launch alone (ctypes,
+    cudaLaunchKernel) into a buffer made beforehand, the whole wrapper,
+    and the library call."""
+    values, counts, first_bin, lo, hi, W, k, kinds, xfer, c_slice = args
+    dev = values.device
+    nbytes = (8 * len(xfer) + counts.element_size()) * c_slice * k
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    spec = pane_emit_mod._check(values, counts, W, k, kinds, xfer, c_slice)
+    return {
+        "check_us": host_us(lambda: pane_emit_mod._check(
+            values, counts, W, k, kinds, xfer, c_slice)),
+        "alloc_us": host_us(lambda: torch.empty(nbytes, dtype=torch.uint8,
+                                                device=dev)),
+        "launch_us": host_us(lambda: pane_emit_mod._launch(
+            values, counts, spec, first_bin, lo, hi, W, k, c_slice, buf)),
+        "wrapper_us": host_us(lambda: pane_emit(*args)),
+        "library_us": host_us(library)}
+
+
+def k3_case(rng, dev, kinds, xfer, C, B, W, k, c_slice, cdt, geometry,
+            shape, parent=None):
+    """K3 on one fire: ``geometry`` (first_bin, lo, hi) as fire_panes
+    passes it.  Exact against the plain version (f64 sums rtol 1e-12),
+    one launch, one allocation and no host sync a call; timed in turns
+    with its library call where one exists and, with ``parent``, with the
+    parent commit's kernel (its ring arrays made on the card beforehand,
+    as its phase 3 made them) and the parent's dense read as its state
+    made it (two copies to the card, the kernel, two readbacks) against
+    this one (the kernel, one readback)."""
     values, counts = bin_planes(rng, dev, kinds, C, B, cdt)
-    ring_np = ((np.arange(k)[:, None] + np.arange(W)[None, :])
-               % B).astype(np.int32)
-    ok_np = np.ones((k, W), dtype=bool)
-    if W > 1:
-        ok_np[0, :2] = False  # the oldest bins of the first pane evicted
-    ring = torch.tensor(ring_np, device=dev)
-    ok = torch.tensor(ok_np, device=dev)
-    args = (values, counts, ring, ok, kinds, xfer, c_slice)
-    got, want = pane_emit(*args), pane_emit_reference(*args)
+    first_bin, lo, hi = geometry
+    args = (values, counts, first_bin, lo, hi, W, k, kinds, xfer, c_slice)
+    before = pane_emit.launches
+    got = pane_views(pane_emit(*args), len(xfer), c_slice, k, cdt)
+    launches = pane_emit.launches - before
+    want = pane_emit_reference(*args)
     torch.cuda.synchronize()
+    check(launches == 1, f"pane_emit made {launches} launches ({shape})")
     check(torch.equal(got[1], want[1]), f"pane_emit counts differ ({shape})")
     err = 0.0
     for r, j in enumerate(xfer):
@@ -482,44 +615,174 @@ def k3_case(rng, dev, kinds, xfer, C, B, W, k, c_slice, cdt, shape):
             torch.testing.assert_close(got[0][r], want[0][r], rtol=1e-12,
                                        atol=1e-9)
             err = max(err, float((got[0][r] - want[0][r]).abs().max()))
-    ms = cuda_ms(lambda: pane_emit(*args))
-    plain = cuda_ms(lambda: pane_emit_reference(*args))
-    library = None
+    ring_np, ok_np = fire_geometry(first_bin, lo, hi, W, k, B)
+    live = np.unique(ring_np[ok_np])
+
+    def kernel():
+        return pane_emit(*args)
+
+    library, library_call = None, None
+    planes = [counts[:c_slice]] + [values[j, :c_slice] for j in xfer]
+    cols = torch.tensor(live, device=dev)
     if W == 1:  # one index_select per plane reads the pane's one column
-        col = ring[0].long()
-        planes = [counts[:c_slice]] + [values[j, :c_slice] for j in xfer]
-        library = cuda_ms(lambda: [p.index_select(1, col) for p in planes])
-    per = counts.element_size() + 8 * len(xfer)
-    cols_read = len(np.unique(ring_np[ok_np]))
-    nbytes = c_slice * (cols_read + k) * per + ring_np.nbytes + ok_np.nbytes
+        def library():
+            return [p.index_select(1, cols) for p in planes]
+        library_call = "index_select per plane"
+    elif k == 1 and not xfer:  # the pane's W columns of counts, summed
+        def library():
+            return counts[:c_slice].index_select(1, cols).sum(1)
+        library_call = "counts[:c_slice].index_select(1, cols).sum(1)"
+    if library is not None:
+        ms, lib, turns = in_turns(kernel, library)
+    else:
+        ms, lib, turns = cuda_ms(kernel), None, None
+    plain = cuda_ms(lambda: pane_emit_reference(*args))
+    meas = measured(kernel, "pane_emit")
+    check(meas["allocations_per_call"] == 1 and meas["syncs_per_call"] == 0,
+          f"pane_emit made {meas['allocations_per_call']} allocations and "
+          f"{meas['syncs_per_call']} host syncs ({shape})")
+    item = counts.element_size()
+    n_read = (row_sectors(item, B, live)
+              + len(xfer) * row_sectors(8, B, live)) * SECTOR * c_slice
+    n_write = (run_sectors(8 * len(xfer) * c_slice * k)
+               + run_sectors(item * c_slice * k))
     ops = c_slice * int(ok_np.sum()) * (1 + len(xfer))
-    return row("pane_emit", K3_SOURCE, K3_REPLACES, shape, err, ms, plain,
-               nbytes, ops, library, "index_select per plane")
+    r = row("pane_emit", K3_SOURCE, K3_REPLACES, shape, err, ms, plain,
+            n_read + n_write, ops, lib, library_call)
+    atoms = c_slice * (row_atoms(item, B, live)
+                       + len(xfer) * row_atoms(8, B, live))
+    r.update(turns_ms=turns, launches_per_call=launches,
+             bound_bytes=n_read + n_write,
+             atom_bound_ms=atom_bound_ms(atoms, 0, n_write), **meas)
+    if library is not None:
+        r["library_device_us"] = profile_kernels(library)
+        r["library_turns"] = turn_factors(turns)
+    if W == 1:
+        r["host_split"] = pane_emit_split(args, library)
+    if parent is not None:
+        pe = parent.pane_emit
+        ring_t = torch.tensor(ring_np, device=dev)
+        ok_t = torch.tensor(ok_np, device=dev)
+        p_args = (values, counts, ring_t, ok_t, kinds, xfer, c_slice)
+        p_out = pe(*p_args)
+        torch.cuda.synchronize()
+        check(torch.equal(p_out[1], got[1]) and torch.equal(p_out[0], got[0]),
+              f"pane_emit differs from the parent's ({shape})")
+        c_ms, p_ms, p_turns = in_turns(kernel, lambda: pe(*p_args))
+        read_cnt = counts.dtype
+
+        def parent_read():  # the parent's KeyedBinState._read_dense
+            o, c = pe(values, counts, torch.tensor(ring_np, device=dev),
+                      torch.tensor(ok_np, device=dev), kinds, xfer, c_slice)
+            return o.cpu().numpy(), c.cpu().numpy()
+
+        def read():  # this KeyedBinState._read_dense
+            o, c = pane_views(kernel().cpu(), len(xfer), c_slice, k,
+                              read_cnt)
+            return o.numpy(), c.numpy()
+
+        read_ms, p_read_ms, read_turns = in_turns(read, parent_read)
+        r["parent"] = {"ms": p_ms, "kernel_ms_beside_it": c_ms,
+                       "turns_ms": p_turns, **turn_factors(p_turns),
+                       "read_ms": p_read_ms, "change_read_ms": read_ms,
+                       "read_turns_ms": read_turns,
+                       "read_factors": turn_factors(read_turns),
+                       **measured(lambda: pe(*p_args), "pane_emit")}
+    print(f"pane_emit {shape}: " + json.dumps(
+        {key: r[key] for key in ("ms", "library_ms", "turns_ms",
+                                 "library_turns", "bound_ms", "bound_bytes",
+                                 "atom_bound_ms", "library_device_us",
+                                 "host_us_per_call", "device_us_per_call",
+                                 "device_us_cold", "allocations_per_call",
+                                 "syncs_per_call", "host_split", "parent")
+                  if key in r}))
+    return r
 
 
-def k4_case(rng, dev, kinds, C, B, cols_np, cdt, shape):
+def k4_case(rng, dev, kinds, C, B, first_bin, n_bins, rows, cdt, shape,
+            parent=None):
+    """K4 on one eviction of the bins first_bin .. first_bin + n_bins - 1
+    over the first ``rows`` slots: exact against the plain version, the
+    rows past ``rows`` untouched, one launch, no allocation and no host
+    sync a call; timed in turns with ``index_fill_`` per plane over the
+    same rows and, with ``parent``, with the parent commit's kernel (all
+    C rows; its column list on the card beforehand, as its phase 3 had
+    it, and copied there a call, as its state did)."""
     values, counts = bin_planes(rng, dev, kinds, C, B, cdt)
-    cols = torch.tensor(cols_np.astype(np.int32), device=dev)
-    v_k, c_k = values.clone(), counts.clone()
-    bin_evict(v_k, c_k, cols, kinds)
-    bin_evict_reference(values, counts, cols, kinds)
+    tail_v, tail_c = values[:, rows:].clone(), counts[rows:].clone()
+    v_r, c_r = values.clone(), counts.clone()
+    before = bin_evict.launches
+    bin_evict(values, counts, first_bin, n_bins, rows, kinds)
+    launches = bin_evict.launches - before
+    bin_evict_reference(v_r, c_r, first_bin, n_bins, rows, kinds)
     torch.cuda.synchronize()
-    check(torch.equal(c_k, counts) and torch.equal(v_k, values),
+    check(launches == 1, f"bin_evict made {launches} launches ({shape})")
+    check(torch.equal(counts, c_r) and torch.equal(values, v_r),
           f"bin_evict differs ({shape})")
-    ms = cuda_ms(lambda: bin_evict(v_k, c_k, cols, kinds))
-    plain = cuda_ms(lambda: bin_evict_reference(values, counts, cols, kinds))
-    col64 = cols.long()
+    check(torch.equal(values[:, rows:], tail_v)
+          and torch.equal(counts[rows:], tail_c),
+          f"bin_evict wrote past its {rows} rows ({shape})")
+    del v_r, c_r, tail_v, tail_c
+    cols = sorted({(first_bin + i) % B for i in range(min(n_bins, B))})
+    col64 = torch.tensor(cols, device=dev)
 
-    def library():  # one index_fill_ per plane
-        counts.index_fill_(1, col64, 0)
-        for j, k in enumerate(kinds):
-            values[j].index_fill_(1, col64, channel_identity(k))
+    def kernel():
+        bin_evict(values, counts, first_bin, n_bins, rows, kinds)
 
-    lib = cuda_ms(library)
-    e = len(np.unique(cols_np))
-    nbytes = C * e * (counts.element_size() + 8 * len(kinds)) + cols_np.nbytes
-    return row("bin_evict", K4_SOURCE, K4_REPLACES, shape, 0.0, ms, plain,
-               nbytes, 0, lib, "index_fill_ per plane")
+    def library():  # one index_fill_ per plane, over the same rows
+        counts[:rows].index_fill_(1, col64, 0)
+        for j, kind in enumerate(kinds):
+            values[j, :rows].index_fill_(1, col64, channel_identity(kind))
+
+    ms, lib, turns = in_turns(kernel, library)
+    plain = cuda_ms(lambda: bin_evict_reference(values, counts, first_bin,
+                                                n_bins, rows, kinds))
+    meas = measured(kernel, "bin_evict")
+    check(meas["allocations_per_call"] == 0 and meas["syncs_per_call"] == 0,
+          f"bin_evict made {meas['allocations_per_call']} allocations and "
+          f"{meas['syncs_per_call']} host syncs ({shape})")
+    # stores only; a sector partly written counts as one 32-byte sector
+    nbytes = rows * SECTOR * (row_sectors(counts.element_size(), B, cols)
+                              + len(kinds) * row_sectors(8, B, cols))
+    r = row("bin_evict", K4_SOURCE, K4_REPLACES, shape, 0.0, ms, plain,
+            nbytes, 0, lib, "index_fill_ per plane")
+    atoms = rows * (row_atoms(counts.element_size(), B, cols)
+                    + len(kinds) * row_atoms(8, B, cols))
+    r.update(turns_ms=turns, library_turns=turn_factors(turns),
+             launches_per_call=launches, bound_bytes=nbytes,
+             atom_bound_ms=atom_bound_ms(0, atoms, 0),
+             library_device_us=profile_kernels(library), **meas)
+    if parent is not None:
+        be = parent.bin_evict
+        cols_np = np.asarray(cols, dtype=np.int32)
+        cols_t = torch.tensor(cols_np, device=dev)
+        p_v, p_c = values.clone(), counts.clone()
+        be(p_v, p_c, cols_t, kinds)
+        torch.cuda.synchronize()
+        check(torch.equal(p_v[:, :rows], values[:, :rows])
+              and torch.equal(p_c[:rows], counts[:rows]),
+              f"bin_evict differs from the parent's ({shape})")
+        del p_v, p_c
+        c_ms, p_ms, p_turns = in_turns(
+            kernel, lambda: be(values, counts, cols_t, kinds))
+        c_s_ms, s_ms, s_turns = in_turns(kernel, lambda: be(
+            values, counts, torch.tensor(cols_np, device=dev), kinds))
+        r["parent"] = {"ms": p_ms, "kernel_ms_beside_it": c_ms,
+                       "turns_ms": p_turns, **turn_factors(p_turns),
+                       "state_call_ms": s_ms,
+                       "kernel_ms_beside_state_call": c_s_ms,
+                       "state_call_turns_ms": s_turns,
+                       "state_call_factors": turn_factors(s_turns),
+                       **measured(lambda: be(values, counts, cols_t, kinds),
+                                  "bin_evict")}
+    print(f"bin_evict {shape}: " + json.dumps(
+        {key: r[key] for key in ("ms", "library_ms", "turns_ms",
+                                 "library_turns", "bound_ms", "bound_bytes",
+                                 "atom_bound_ms", "library_device_us",
+                                 "host_us_per_call", "device_us_per_call",
+                                 "device_us_cold", "allocations_per_call",
+                                 "syncs_per_call", "parent") if key in r}))
+    return r
 
 
 def k5_case(rng, dev, cap, nf, ni, shape):
@@ -872,10 +1135,12 @@ def compact_cases(rng, dev, k, rows, shape):
     counts = torch.zeros((C_HOT, B_HOT), dtype=torch.int32, device=dev)
     counts[:rows] = torch.tensor(cells.astype(np.int32), device=dev)
     values = torch.zeros((1, C_HOT, B_HOT), dtype=torch.float64, device=dev)
-    ring_np = ((np.arange(k)[:, None] + np.arange(W_HOT)[None, :] + 3)
-               % B_HOT).astype(np.int32)
+    # panes p < k over the absolute bins 3 + p + w, all live
+    geometry = (3, 3, 3 + k + W_HOT - 2)
+    ring_np, ok_np = fire_geometry(*geometry, W_HOT, k, B_HOT)
+    check(ok_np.all(), "hot compact fire: a bin is not live")
     ring = torch.tensor(ring_np, device=dev)
-    ok = torch.ones((k, W_HOT), dtype=torch.bool, device=dev)
+    ok = torch.tensor(ok_np, device=dev)
     kinds, xfer = ("count",), ()
     cnt, offsets = emit_count(counts, ring, ok, rows)
     cnt_r, offsets_r = emit_count_reference(counts, ring, ok, rows)
@@ -888,7 +1153,9 @@ def compact_cases(rng, dev, k, rows, shape):
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, want)),
           f"emit_gather differs ({shape})")
-    _outs, dense = pane_emit(values, counts, ring, ok, kinds, xfer, rows)
+    _outs, dense = pane_views(
+        pane_emit(values, counts, *geometry, W_HOT, k, kinds, xfer, rows),
+        len(xfer), rows, k, counts.dtype)
     check(torch.equal(got[1], dense[got[0][0].long(), got[0][1].long()]),
           f"emit_gather's counts differ from pane_emit's ({shape})")
     shape = f"{shape} density={nnz / (rows * k):.4f} nnz={nnz}"
@@ -918,7 +1185,7 @@ def compact_cases(rng, dev, k, rows, shape):
             cuda_ms(lib_gather), "nonzero + index_select")]
 
 
-def kernel_phase():
+def kernel_phase(parent=None):
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
     rows = []
@@ -935,21 +1202,37 @@ def kernel_phase():
         for minmax in ("max", "min"):
             for cdt in (torch.int32, torch.int64):
                 rows.append(k2_case(rng, dev, kpad, minmax, cdt))
+    # q8's tumbling fire: one live bin; the mixed fire: panes wrapping
+    # the ring, bins 0 and 1 evicted; hot items' sliding fire: 5 live bins
+    q8_bin = 8 * 5_000 + 3
     for cdt in (torch.int32, torch.int64):
         rows.append(k3_case(rng, dev, ("count",), (), C_Q8, B_Q8, 1, 1,
-                            C_SLICE_Q8, cdt,
+                            C_SLICE_Q8, cdt, (q8_bin, q8_bin, q8_bin),
                             f"q8 COUNT(*) C={C_Q8} B={B_Q8} W=1 k=1 "
-                            f"c_slice={C_SLICE_Q8} {cdt}"))
+                            f"c_slice={C_SLICE_Q8} {cdt}", parent))
         rows.append(k3_case(rng, dev, mixed, tuple(range(1, 8)), C_Q5, B_Q5,
                             5, 8, C_Q5, cdt,
+                            (16 * 9 - 4, 16 * 9 - 2, 16 * 9 + 7),
                             f"mixed sum/avg/count/min/max C={C_Q5} B={B_Q5} "
-                            f"W=5 k=8 {cdt}"))
-    rows.append(k4_case(rng, dev, ("count",), C_Q8, B_Q8, np.array([3]),
-                        torch.int32, f"q8 COUNT(*) C={C_Q8} B={B_Q8} "
-                        "1 column int32"))
-    rows.append(k4_case(rng, dev, ("count",), C_Q5, B_Q5,
-                        np.array([2, 3, 4, 5]), torch.int32,
-                        f"q5 COUNT(*) C={C_Q5} B={B_Q5} 4 columns int32"))
+                            f"W=5 k=8 {cdt}", parent))
+    hot_bin = 16 * 50 + 6
+    rows.append(k3_case(rng, dev, ("count",), (), C_HOT, B_HOT, W_HOT, 1,
+                        C_SLICE_HOT, torch.int32,
+                        (hot_bin, hot_bin, hot_bin + W_HOT - 1),
+                        f"hot items COUNT(*) C={C_HOT} B={B_HOT} W={W_HOT} "
+                        f"k=1 c_slice={C_SLICE_HOT} int32", parent))
+    rows.append(k4_case(rng, dev, ("count",), C_Q8, B_Q8, 8 * 5_000 + 3, 1,
+                        C_SLICE_Q8, torch.int32,
+                        f"q8 COUNT(*) C={C_Q8} B={B_Q8} 1 column "
+                        f"rows={C_SLICE_Q8} int32", parent))
+    rows.append(k4_case(rng, dev, ("count",), C_Q5, B_Q5, 16 * 9 + 2, 4,
+                        C_Q5, torch.int32,
+                        f"q5 COUNT(*) C={C_Q5} B={B_Q5} 4 columns "
+                        f"rows={C_Q5} int32", parent))
+    rows.append(k4_case(rng, dev, ("count",), C_HOT, B_HOT, 16 * 50 + 6, 1,
+                        HOT_ROWS, torch.int32,
+                        f"hot items COUNT(*) C={C_HOT} B={B_HOT} 1 column "
+                        f"rows={HOT_ROWS} int32", parent))
     for cap in (16_384, RING_CAP):
         rows.append(k5_case(rng, dev, cap, 0, 0, f"keys only cap={cap}"))
         rows.append(k5_case(rng, dev, cap, 2, 6,
@@ -1672,8 +1955,20 @@ def hot_phase():
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--parent", help="a directory holding a git archive of the parent "
+        "commit: phase 3 also times its pane_emit and bin_evict in turns "
+        "with this tree's")
+    opts = parser.parse_args()
     smi = environment()
-    kernels = kernel_phase()
+    parent = None
+    if opts.parent:
+        pe, be, secs = parent_kernels(opts.parent)
+        parent = argparse.Namespace(pane_emit=pe.pane_emit,
+                                    bin_evict=be.bin_evict)
+        print(f"parent kernels from {opts.parent}: build {secs:.3f} s")
+    kernels = kernel_phase(parent)
     state_phase()
     launches = dict(zip(PATHS, (main_path(), q8_phase(), c5_phase())))
     launches["join_inner"], launches["join_left"] = js_phase()

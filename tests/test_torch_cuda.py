@@ -27,7 +27,12 @@ from arroyo_tpu_torch.kernels.expand_gather import (
 )
 from arroyo_tpu_torch.kernels.join_expand import join_expand, join_expand_reference
 from arroyo_tpu_torch.kernels.join_probe import join_probe, join_probe_reference
-from arroyo_tpu_torch.kernels.pane_emit import pane_emit, pane_emit_reference
+from arroyo_tpu_torch.kernels.pane_emit import (
+    fire_geometry,
+    pane_emit,
+    pane_emit_reference,
+    pane_views,
+)
 from arroyo_tpu_torch.kernels.ring_gather import (
     ring_gather,
     ring_gather_reference,
@@ -136,19 +141,24 @@ def _planes(rng, dev, kinds, C, B, cdt):
      (1, 2, 3, 4, 5, 6, 7), 5, 8)])
 @pytest.mark.parametrize("cdt", [torch.int32, torch.int64])
 def test_pane_emit_cuda_matches_plain(cuda_device, kinds, xfer, W, k, cdt):
-    """Exact for counts, min and max; rtol 1e-12 for f64 pane sums."""
+    """Exact for counts, min and max; rtol 1e-12 for f64 pane sums.  The
+    fire's panes wrap the ring; at W > 1 the first bin is evicted and the
+    last lies past the newest.  One launch; both outputs view one
+    buffer."""
     rng = np.random.default_rng(13)
     C, B, c_slice = 65536, 16, 60000
     values, counts = _planes(rng, cuda_device, kinds, C, B, cdt)
-    ring = torch.tensor(rng.integers(0, B, (k, W)).astype(np.int32),
-                        device=cuda_device)
-    ok = torch.tensor(rng.random((k, W)) < 0.8, device=cuda_device)
+    first_bin = 16 * 3 + 13
+    lo = first_bin + (W > 1)
+    hi = first_bin + k + W - 2 - (k > 1)
+    args = (values, counts, first_bin, lo, hi, W, k, kinds, xfer, c_slice)
     before = pane_emit.launches
-    got = pane_emit(values, counts, ring, ok, kinds, xfer, c_slice)
-    want = pane_emit_reference(values, counts, ring, ok, kinds, xfer,
-                               c_slice)
+    got = pane_views(pane_emit(*args), len(xfer), c_slice, k, cdt)
+    want = pane_emit_reference(*args)
     torch.cuda.synchronize()
     assert pane_emit.launches == before + 1
+    assert got[0].untyped_storage().data_ptr() == \
+        got[1].untyped_storage().data_ptr()
     assert torch.equal(got[1], want[1])
     for r, j in enumerate(xfer):
         if kinds[j] in ("min", "max"):
@@ -159,18 +169,53 @@ def test_pane_emit_cuda_matches_plain(cuda_device, kinds, xfer, W, k, cdt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,first_bin,lo,hi,W,k", [
+    (16, 16 * 3 + 2, 16 * 3 + 6, 16 * 3 + 21, 5, 20),  # final flush
+    (16, -4, 0, 6, 5, 3),  # evicted bins, negative absolute bins
+    (16, 7, 9, 12, 1, 1),  # no live bin
+    (8, 8 * 9 + 6, 8 * 9 + 6, 8 * 9 + 6, 1, 1),  # q8's ring
+    (64, 64 * 2 + 50, 64 * 2 + 50, 64 * 2 + 95, 3, 44),  # a wide ring
+])
 @pytest.mark.parametrize("cdt", [torch.int32, torch.int64])
-def test_bin_evict_cuda_matches_plain(cuda_device, cdt):
-    """Exact, with a repeated and an out-of-ring column."""
+def test_pane_emit_cuda_geometries_match_plain(cuda_device, B, first_bin,
+                                               lo, hi, W, k, cdt):
+    """Fires whose live span is empty, wraps, holds every ring column (a
+    final flush of k = B + W - 1 panes) or covers 46 columns of a 64-bin
+    ring: exact against the plain version."""
+    rng = np.random.default_rng(B + k)
+    kinds = ("count", "sum", "min", "max")
+    xfer = (1, 2, 3)
+    C, c_slice = 8192, 6144
+    values, counts = _planes(rng, cuda_device, kinds, C, B, cdt)
+    args = (values, counts, first_bin, lo, hi, W, k, kinds, xfer, c_slice)
+    want = pane_emit_reference(*args)
+    got = pane_views(pane_emit(*args), len(xfer), c_slice, k, cdt)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0][1:], want[0][1:])  # min, max
+    torch.testing.assert_close(got[0][0], want[0][0], rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.int32, torch.int64])
+@pytest.mark.parametrize("first_bin,n_bins", [
+    (16 * 7 + 3, 1), (16 * 7 + 2, 4), (16 * 7 + 13, 6), (-5, 40)])
+def test_bin_evict_cuda_matches_plain(cuda_device, cdt, first_bin, n_bins):
+    """Exact: one column, an unaligned run of four, a run wrapping past
+    column B - 1, every column; the rows past ``rows`` untouched."""
     rng = np.random.default_rng(19)
     kinds = ("count", "sum", "min", "max")
-    values, counts = _planes(rng, cuda_device, kinds, 65536, 16, cdt)
-    cols = torch.tensor([3, 9, 3, 16], dtype=torch.int32, device=cuda_device)
+    C, rows = 65536, 60001
+    values, counts = _planes(rng, cuda_device, kinds, C, 16, cdt)
     v_ref, c_ref = values.clone(), counts.clone()
-    bin_evict(values, counts, cols, kinds)
-    bin_evict_reference(v_ref, c_ref, cols, kinds)
+    before = bin_evict.launches
+    bin_evict(values, counts, first_bin, n_bins, rows, kinds)
+    bin_evict_reference(v_ref, c_ref, first_bin, n_bins, rows, kinds)
     torch.cuda.synchronize()
+    assert bin_evict.launches == before + 1
     assert torch.equal(counts, c_ref) and torch.equal(values, v_ref)
+    assert not torch.equal(counts[rows:, (first_bin % 16)],
+                           torch.zeros_like(counts[rows:, 0]))
 
 
 def _merge_inputs(rng, dev, cap, n_res, m, nf, ni):
@@ -281,9 +326,10 @@ def _allocs_and_syncs(fn):
 
 @pytest.mark.cuda
 def test_kernels_cuda_allocations_and_syncs_per_call(cuda_device):
-    """ring_gather: one allocation and no host sync a call; segment_top_k
-    at hot items' steady fire: the one sync its wrapper counts.  A known
-    readback checks that the sync detector sees one."""
+    """ring_gather and pane_emit: one allocation and no host sync a call;
+    bin_evict: neither; segment_top_k at hot items' steady fire: the one
+    sync its wrapper counts.  A known readback checks that the sync
+    detector sees one."""
     rng = np.random.default_rng(40)
     x = torch.ones(1000, device=cuda_device)
     assert _allocs_and_syncs(lambda: x.sum().item())[1] == 1
@@ -299,6 +345,13 @@ def test_kernels_cuda_allocations_and_syncs_per_call(cuda_device):
     val = torch.tensor(_topk_values(rng, n, 3_000), device=cuda_device)
     _allocs, syncs = _allocs_and_syncs(lambda: segment_top_k(seg, val, 10))
     assert syncs == segment_top_k.last_syncs == 1
+    kinds = ("count", "sum", "min")
+    values, counts = _planes(rng, cuda_device, kinds, 65536, 16, torch.int32)
+    assert _allocs_and_syncs(lambda: pane_emit(
+        values, counts, 16 * 5 + 2, 16 * 5 + 2, 16 * 5 + 9, 5, 4, kinds,
+        (1, 2), 60000)) == (1, 0)
+    assert _allocs_and_syncs(lambda: bin_evict(
+        values, counts, 16 * 5 + 2, 1, 60000, kinds)) == (0, 0)
 
 
 def _intervals(rng, n, n_keys):
@@ -561,10 +614,10 @@ def test_emit_compact_cuda_matches_plain_and_pane_emit(cuda_device, k, cdt):
                                              device=dev), 0).to(cdt)
     values[2][~live] = F64_MAX  # the channels' identities where no row
     values[3][~live] = -F64_MAX
-    ring = torch.tensor(((np.arange(k)[:, None] + np.arange(W)[None, :])
-                         % B).astype(np.int32), device=cuda_device)
-    ok_np = np.ones((k, W), dtype=bool)
-    ok_np[0, :1] = False
+    # panes p < k over the absolute bins p + w, bin 0 evicted
+    ring_np, ok_np = fire_geometry(0, 1, k + W, W, k, B)
+    assert not ok_np[0, 0] and ok_np.sum() == k * W - 1
+    ring = torch.tensor(ring_np, device=cuda_device)
     ok = torch.tensor(ok_np, device=cuda_device)
     rows = C - 1_000
     before = (emit_count.launches, emit_gather.launches)
@@ -587,6 +640,7 @@ def test_emit_compact_cuda_matches_plain_and_pane_emit(cuda_device, k, cdt):
         else:
             torch.testing.assert_close(got[2][r], want[2][r], rtol=1e-12,
                                        atol=1e-9)
-    dense, _ = pane_emit(values, counts, ring, ok, kinds, xfer, rows)
+    dense, _ = pane_views(pane_emit(values, counts, 0, 1, k + W, W, k, kinds,
+                                    xfer, rows), len(xfer), rows, k, cdt)
     s, p = got[0][0].long(), got[0][1].long()
     assert torch.equal(got[2], dense[:, s, p])

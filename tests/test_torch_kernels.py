@@ -34,7 +34,7 @@ from arroyo_tpu_torch.kernels.bin_update import bin_update
 from arroyo_tpu_torch.kernels.expand_gather import expand_gather
 from arroyo_tpu_torch.kernels.join_expand import join_expand
 from arroyo_tpu_torch.kernels.join_probe import join_probe
-from arroyo_tpu_torch.kernels.pane_emit import pane_emit
+from arroyo_tpu_torch.kernels.pane_emit import fire_geometry, pane_emit, pane_views
 from arroyo_tpu_torch.kernels.ring_gather import ring_gather, ring_gather_rows
 from arroyo_tpu_torch.kernels.ring_merge import SENT32_HI, SENT32_LO, ring_merge
 from arroyo_tpu_torch.kernels.segment_agg import segment_agg
@@ -196,21 +196,26 @@ EMIT_SETS = [
 @pytest.mark.parametrize("cdt", [np.int32, np.int64])
 def test_pane_emit_plain_matches_emit_kernel(kinds, xfer, W, k, kpad, cdt):
     """Exact for counts, min and max; rtol 1e-12 for f64 pane sums (the
-    summation order over W may differ).  JAX computes the padded kpad
-    panes over all C slots; the port reads the c_slice occupied slots
-    and the k real panes, so the JAX result is sliced to them."""
+    summation order over W may differ).  The fire's geometry is scalars
+    (a first bin whose panes wrap the ring, the first bin evicted when
+    W > 1, the last past the newest bin when k > 1); JAX takes the ring
+    arrays built from them, padded to kpad panes, over all C slots; the
+    port reads the c_slice occupied slots and the k real panes, so the
+    JAX result is sliced to them."""
     rng = np.random.default_rng(17)
     C, B, c_slice = 300, 16, 256
     values, counts = _planes(rng, kinds, C, B, cdt)
-    ring = rng.integers(0, B, (kpad, W)).astype(np.int32)
-    bin_ok = rng.random((kpad, W)) < 0.8
-    bin_ok[k:] = False
+    first_bin = 16 * 40 + 13
+    lo = first_bin + (W > 1)
+    hi = first_bin + k + W - 2 - (k > 1)
+    ring, bin_ok = fire_geometry(first_bin, lo, hi, W, k, B, kpad=kpad)
     jo, jc = _emit_kernel(kinds, C, B, W, kpad, tuple(xfer))(
         jnp.asarray(values), jnp.asarray(counts), jnp.asarray(ring),
         jnp.asarray(bin_ok))
-    to, tc = pane_emit(torch.tensor(values), torch.tensor(counts),
-                       torch.tensor(ring[:k]), torch.tensor(bin_ok[:k]),
-                       kinds, xfer, c_slice)
+    tcounts = torch.tensor(counts)
+    to, tc = pane_views(pane_emit(torch.tensor(values), tcounts, first_bin,
+                                  lo, hi, W, k, kinds, xfer, c_slice),
+                        len(xfer), c_slice, k, tcounts.dtype)
     assert tuple(to.shape) == (len(xfer), c_slice, k)
     np.testing.assert_array_equal(tc.numpy(),
                                   np.asarray(jc)[:c_slice, :k])
@@ -226,13 +231,14 @@ def test_pane_emit_plain_matches_emit_kernel(kinds, xfer, W, k, kpad, cdt):
 @pytest.mark.parametrize("kinds,_xfer", EMIT_SETS)
 @pytest.mark.parametrize("cdt", [np.int32, np.int64])
 def test_bin_evict_plain_matches_evict_kernel(kinds, _xfer, cdt):
-    """Exact: the expired columns reset to 0 and each channel's identity,
-    every other cell untouched; JAX pads the column list to a bucket with
-    invalid entries, the port takes the real columns only."""
+    """Exact: the expired columns (absolute bins 83..85, ring columns
+    3..5) reset to 0 and each channel's identity over all C slots, every
+    other cell untouched; JAX pads the column list to a bucket with
+    invalid entries, the port takes the expired span as scalars."""
     rng = np.random.default_rng(23)
     C, B = 300, 16
     values, counts = _planes(rng, kinds, C, B, cdt)
-    cols = np.array([3, 4, 5, 4], dtype=np.int32)  # a repeat is harmless
+    cols = np.array([3, 4, 5], dtype=np.int32)
     epad = _bucket(len(cols))
     ring = np.zeros(epad, dtype=np.int32)
     ring[:len(cols)] = cols
@@ -242,7 +248,7 @@ def test_bin_evict_plain_matches_evict_kernel(kinds, _xfer, cdt):
         jnp.asarray(values), jnp.asarray(counts), jnp.asarray(ring),
         jnp.asarray(ok))
     tv, tc = torch.tensor(values), torch.tensor(counts)
-    bin_evict(tv, tc, torch.tensor(cols), kinds)
+    bin_evict(tv, tc, 5 * B + 3, len(cols), C, kinds)
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
@@ -357,12 +363,10 @@ def test_wrappers_run_plain_versions_on_cpu_and_reject_other_devices():
     assert counts[1, 2] == 2 and values[0, 1, 2] == 2.0
     argmax_fire(counts, torch.zeros((1, 1), dtype=torch.int32),
                 torch.ones((1, 1), dtype=torch.bool), "max")
-    ring = torch.tensor([[2]], dtype=torch.int32)
-    ok = torch.ones((1, 1), dtype=torch.bool)
-    outs, cnts = pane_emit(values, counts, ring, ok, ("count",), (), 8)
+    outs, cnts = pane_views(pane_emit(values, counts, 2, 0, 2, 1, 1,
+                                      ("count",), (), 8), 0, 8, 1, torch.int32)
     assert cnts[1, 0] == 2 and outs.shape == (0, 8, 1)
-    bin_evict(values, counts, torch.tensor([2], dtype=torch.int32),
-              ("count",))
+    bin_evict(values, counts, 2, 1, 8, ("count",))
     assert int(counts.sum()) == 0 and float(values.sum()) == 0.0
     hi = torch.full((4,), 7, dtype=torch.int32)
     pos = torch.tensor([3, 0, 4, 4])
@@ -380,11 +384,9 @@ def test_wrappers_run_plain_versions_on_cpu_and_reject_other_devices():
     with pytest.raises(ValueError):
         bin_update(*meta, ("count",), (0,))
     with pytest.raises(ValueError):
-        pane_emit(meta[0], meta[1], ring.to("meta"), ok.to("meta"),
-                  ("count",), (), 8)
+        pane_emit(meta[0], meta[1], 2, 0, 2, 1, 1, ("count",), (), 8)
     with pytest.raises(ValueError):
-        bin_evict(meta[0], meta[1], torch.tensor([2], dtype=torch.int32,
-                                                 device="meta"), ("count",))
+        bin_evict(meta[0], meta[1], 2, 1, 8, ("count",))
     with pytest.raises(ValueError):
         ring_gather(torch.tensor([0], device="meta"), f.to("meta"),
                     torch.zeros((1, 4), dtype=torch.int64, device="meta"))
