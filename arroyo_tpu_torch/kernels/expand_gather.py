@@ -14,12 +14,20 @@ time).  ``nf`` may be 0.  All outputs are sized to the exact ``total``.
 
 On the H100 it is bound by memory (8 + 8 * (nf + ni) bytes read and 17 +
 8 * (nf + ni) written per pair) and, at join-stress's shapes, by its
-launch.  The CUDA kernel (``csrc/expand_gather.cu``) runs one thread per
-pair; each thread writes column j of every stack row, so stores
-coalesce.
+launch.  The CUDA kernel (``csrc/expand_gather.cu``) expands 512 pairs a
+block: it finds the block's queries with one warp-cooperative search and
+stages their ``cum``, ``start`` and keys in shared memory, so a thread's
+search stays off global memory; each thread writes column j of every
+output row, so stores coalesce.  Every output lands in ONE i64 buffer —
+rows ``lidx``, ``ridx``, ``gf`` (as its bits), ``gi``, then ``valid`` as
+bytes — so a probe makes one allocation, one launch and no host sync, and
+the join reads it back in one copy: :func:`expand_gather_buffer` returns
+the buffer and :func:`expand_views` splits it, on the card or on the
+host.  :func:`expand_gather` is the kernel's public function in the JAX
+kernel's form and returns the five views.
 
-``expand_gather_reference`` is the plain PyTorch version; the wrapper
-takes it only for tensors on the CPU."""
+``expand_gather_reference`` is the plain PyTorch version; the wrappers
+take it only for tensors on the CPU."""
 
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import ctypes
 import functools
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from . import build
@@ -38,13 +47,15 @@ Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
 
 def _check(start, cum, total, hi, lo, q_hi, q_lo, fstack, istack
            ) -> Tuple[int, int, int, int]:
+    """What the C launcher cannot see: dtypes, shapes, one device and
+    contiguity; returns (mq, cap, nf, ni)."""
     mq = check_ranges(start, cum, total)
-    for name, t, n in (("hi", hi, None), ("lo", lo, hi.shape[0]),
-                       ("q_hi", q_hi, mq), ("q_lo", q_lo, mq)):
-        if t.dtype != torch.int32 or t.dim() != 1 or (
-                n is not None and t.shape[0] != n):
-            raise TypeError(f"{name} must be i32 [{n or 'cap'}]")
     cap = hi.shape[0]
+    i32 = torch.int32
+    if not (hi.dtype == lo.dtype == q_hi.dtype == q_lo.dtype == i32
+            and hi.dim() == lo.dim() == q_hi.dim() == q_lo.dim() == 1
+            and lo.shape[0] == cap and q_hi.shape[0] == q_lo.shape[0] == mq):
+        raise TypeError(f"hi, lo must be i32 [cap], q_hi, q_lo i32 [{mq}]")
     if cap <= 0:
         raise ValueError("expand_gather needs cap > 0")
     if fstack.dtype != torch.float64 or fstack.dim() != 2 or \
@@ -53,11 +64,13 @@ def _check(start, cum, total, hi, lo, q_hi, q_lo, fstack, istack
     if istack.dtype != torch.int64 or istack.dim() != 2 or \
             istack.shape[1] != cap:
         raise TypeError(f"istack must be i64 [ni, {cap}]")
-    ts = (start, cum, hi, lo, q_hi, q_lo, fstack, istack)
-    devs = {t.device for t in ts}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on several devices: {devs}")
-    if not all(t.is_contiguous() for t in ts):
+    dev = start.device
+    if not (hi.device == lo.device == q_hi.device == q_lo.device
+            == fstack.device == istack.device == dev):
+        raise ValueError("expand_gather: tensors on several devices")
+    if not (hi.is_contiguous() and lo.is_contiguous()
+            and q_hi.is_contiguous() and q_lo.is_contiguous()
+            and fstack.is_contiguous() and istack.is_contiguous()):
         raise ValueError("expand_gather needs contiguous tensors")
     return mq, cap, fstack.shape[0], istack.shape[0]
 
@@ -73,14 +86,68 @@ def expand_gather_reference(start, cum, total, hi, lo, q_hi, q_lo, fstack,
             istack.index_select(1, ridx))
 
 
+def buffer_words(total: int, nf: int, ni: int) -> int:
+    """i64 words of an :func:`expand_gather_buffer`: 2 + nf + ni rows of
+    ``total``, then ``total`` bytes of ``valid``."""
+    return (2 + nf + ni) * total + (total + 7) // 8
+
+
+def expand_views(buf, total: int, nf: int, ni: int) -> Outputs:
+    """(lidx, ridx, valid, gf f64[nf, total], gi i64[ni, total]) viewing an
+    :func:`expand_gather_buffer` — a tensor on the card or the host, or
+    its numpy copy."""
+    rows = 2 + nf + ni
+    f64, flag = ((np.float64, np.bool_) if isinstance(buf, np.ndarray)
+                 else (torch.float64, torch.bool))
+    words = buf[:rows * total].reshape(rows, total)
+    valid = buf[rows * total:].view(flag)[:total]
+    return (words[0], words[1], valid, words[2:2 + nf].view(f64),
+            words[2 + nf:])
+
+
 @functools.lru_cache(maxsize=None)
 def _c_fn():
     fn = build.load().arroyo_expand_gather
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, ll, ll, p, p, ll, p, p, p, i, p, i, p, p, p, p, p,
-                   p]
+    fn.argtypes = [p, p, ll, ll, p, p, ll, p, p, p, i, p, i, p, p]
     fn.restype = i
     return fn
+
+
+def _launch(start, cum, mq, total, hi, lo, cap, q_hi, q_lo, fstack, nf,
+            istack, ni, buf) -> None:
+    """Launch the kernel into ``buf`` (checked arguments, a CUDA device)."""
+    build.launch("expand_gather", _c_fn(), start.device, start.data_ptr(),
+                 cum.data_ptr(), mq, total, hi.data_ptr(), lo.data_ptr(), cap,
+                 q_hi.data_ptr(), q_lo.data_ptr(), fstack.data_ptr(), nf,
+                 istack.data_ptr(), ni, buf.data_ptr())
+
+
+def expand_gather_buffer(start: torch.Tensor, cum: torch.Tensor, total: int,
+                         hi: torch.Tensor, lo: torch.Tensor,
+                         q_hi: torch.Tensor, q_lo: torch.Tensor,
+                         fstack: torch.Tensor, istack: torch.Tensor
+                         ) -> torch.Tensor:
+    """The five outputs of :func:`expand_gather` in one i64 buffer of
+    :func:`buffer_words` words (split it with :func:`expand_views`)."""
+    mq, cap, nf, ni = _check(start, cum, total, hi, lo, q_hi, q_lo, fstack,
+                             istack)
+    dev = start.device
+    buf = torch.empty(buffer_words(total, nf, ni), dtype=torch.int64,
+                      device=dev)
+    if dev.type == "cpu":
+        got = expand_gather_reference(start, cum, total, hi, lo, q_hi, q_lo,
+                                      fstack, istack)
+        for view, part in zip(expand_views(buf, total, nf, ni), got):
+            view.copy_(part)
+        return buf
+    if dev.type != "cuda":
+        raise ValueError(f"expand_gather: unsupported device {dev}")
+    if total:
+        _launch(start, cum, mq, total, hi, lo, cap, q_hi, q_lo, fstack, nf,
+                istack, ni, buf)
+        expand_gather.launches += 1
+    return buf
 
 
 def expand_gather(start: torch.Tensor, cum: torch.Tensor, total: int,
@@ -91,29 +158,15 @@ def expand_gather(start: torch.Tensor, cum: torch.Tensor, total: int,
     f64[nf, total], gi i64[ni, total]) for the candidate ranges ``start``
     i32[mq] / ``cum`` i64[mq] of the queries ``q_hi``/``q_lo`` i32[mq] in
     the ring planes ``hi``/``lo`` i32[cap] with payload stacks ``fstack``
-    f64[nf, cap] and ``istack`` i64[ni, cap]."""
-    mq, cap, nf, ni = _check(start, cum, total, hi, lo, q_hi, q_lo, fstack,
-                             istack)
-    dev = start.device
-    if dev.type == "cpu":
+    f64[nf, cap] and ``istack`` i64[ni, cap]; on the card, views of one
+    :func:`expand_gather_buffer`."""
+    if start.device.type == "cpu":
+        _check(start, cum, total, hi, lo, q_hi, q_lo, fstack, istack)
         return expand_gather_reference(start, cum, total, hi, lo, q_hi,
                                        q_lo, fstack, istack)
-    if dev.type != "cuda":
-        raise ValueError(f"expand_gather: unsupported device {dev}")
-    idx = torch.empty((2, total), dtype=torch.int64, device=dev)
-    lidx, ridx = idx[0], idx[1]
-    valid = torch.empty(total, dtype=torch.bool, device=dev)
-    gf = torch.empty((nf, total), dtype=torch.float64, device=dev)
-    gi = torch.empty((ni, total), dtype=torch.int64, device=dev)
-    if total == 0:
-        return lidx, ridx, valid, gf, gi  # nothing to launch
-    build.launch("expand_gather", _c_fn(), dev, start.data_ptr(),
-                 cum.data_ptr(), mq, total, hi.data_ptr(), lo.data_ptr(), cap,
-                 q_hi.data_ptr(), q_lo.data_ptr(), fstack.data_ptr(), nf,
-                 istack.data_ptr(), ni, lidx.data_ptr(), ridx.data_ptr(),
-                 valid.data_ptr(), gf.data_ptr(), gi.data_ptr())
-    expand_gather.launches += 1
-    return lidx, ridx, valid, gf, gi
+    buf = expand_gather_buffer(start, cum, total, hi, lo, q_hi, q_lo, fstack,
+                               istack)
+    return expand_views(buf, total, fstack.shape[0], istack.shape[0])
 
 
 expand_gather.launches = 0

@@ -32,7 +32,10 @@ total to size the expansion, then either expand the ranges into
 unverified (query, ring position) pairs (:func:`expand_hit`,
 :func:`~arroyo_tpu_torch.kernels.join_expand`) or expand, verify the full
 split key and gather both payload stacks in one more launch
-(:func:`expand_gather`, :func:`~arroyo_tpu_torch.kernels.expand_gather`).
+(:func:`expand_gather`, :func:`~arroyo_tpu_torch.kernels.expand_gather`)
+into one buffer that is read back in one copy.  ``join_ring_probes``
+counts the probes and ``join_probe_readbacks`` their device-to-host
+copies (the pair total, then the expansion's).
 
 Left for later: the legacy layout's device ``join_pairs`` (the sort
 kernel; the port's ``join_pairs`` is host numpy, CPU only)."""
@@ -45,7 +48,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels.expand_gather import expand_gather as expand_gather_kernel
+from ..device import to_host
+from ..kernels.expand_gather import expand_gather_buffer, expand_views
 from ..kernels.join_expand import join_expand
 from ..kernels.join_probe import join_probe
 from ..kernels.ring_gather import ring_gather_rows
@@ -320,6 +324,8 @@ def probe_ring(ring: SplitRing, qkeys_sorted: np.ndarray,
     q_d = _put(q, ring.device)
     start_d, _counts, cum_d = timed_device(join_probe, q_d[0], ring.hi, m,
                                            n_valid)
+    perf.count("join_ring_probes")
+    perf.count("join_probe_readbacks")
     # the padded queries count 0, so the last prefix sum is the total
     return ProbeHit(start_d, cum_d, int(cum_d[-1]), q_d[0], q_d[1])
 
@@ -330,6 +336,7 @@ def expand_hit(hit: ProbeHit) -> Tuple[np.ndarray, np.ndarray]:
     against its host mirror (``skeys[spos] == qkeys[qidx]``)."""
     lidx, ridx = timed_device(join_expand, hit.start_d, hit.cum_d,
                               hit.total)
+    perf.count("join_probe_readbacks", 2)
     return lidx.cpu().numpy(), ridx.cpu().numpy()
 
 
@@ -338,14 +345,16 @@ def expand_gather(ring: SplitRing, hit: ProbeHit
                              np.ndarray]:
     """probe -> expand -> payload materialization, fused: ONE launch turns
     the device-resident candidate ranges into pair indices, the full-key
-    verify and the gathered payload stacks.  Returns (qidx, ring_pos,
-    valid, f_rows [nf, total], i_rows [ni, total]) on the host; ``valid``
-    is False for i32-equal-but-u64-distinct candidates."""
-    lidx, ridx, valid, gf, gi = timed_device(
-        expand_gather_kernel, hit.start_d, hit.cum_d, hit.total, ring.hi,
+    verify and the gathered payload stacks, in one buffer read back in
+    one copy.  Returns (qidx, ring_pos, valid, f_rows [nf, total], i_rows
+    [ni, total]) on the host, numpy views of that copy; ``valid`` is
+    False for i32-equal-but-u64-distinct candidates."""
+    buf = timed_device(
+        expand_gather_buffer, hit.start_d, hit.cum_d, hit.total, ring.hi,
         ring.lo, hit.q_hi, hit.q_lo, ring.fstack, ring.istack)
-    return (lidx.cpu().numpy(), ridx.cpu().numpy(), valid.cpu().numpy(),
-            gf.cpu().numpy(), gi.cpu().numpy())
+    perf.count("join_probe_readbacks")
+    return expand_views(to_host(buf), hit.total, ring.fstack.shape[0],
+                        ring.istack.shape[0])
 
 
 def gather_ring(ring: SplitRing, spos: np.ndarray

@@ -11,7 +11,8 @@ decompose into channels reduce on the host, as in the JAX package.
 The JAX package pads rows and segments to power-of-two buckets to bound
 XLA recompiles; the kernel takes exact sizes, so the port passes the
 segment offsets as they are.  COUNT(*) channels upload no values: the
-kernel reads rows only for the channels it reduces."""
+kernel reads rows only for the channels it reduces.  A reduce makes one
+upload, one launch and one readback."""
 
 from __future__ import annotations
 
@@ -20,10 +21,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import DeviceLike
+from ..device import DeviceLike, to_host
 from ..formats import coerce_float, nan_validity
 from ..graph.logical import AggKind, AggSpec
-from ..kernels.segment_agg import segment_agg
+from ..kernels.segment_agg import segment_agg_buffer
 from ..obs import perf
 
 # f64 extremes: the channels are float64, so the null identities must not
@@ -56,15 +57,22 @@ def _reduce(kinds: List[str], rows: List[np.ndarray], seg_start: np.ndarray,
             ) -> Tuple[np.ndarray, np.ndarray]:
     """(outs f64[len(kinds), n_seg], rows per segment) over the
     segments starting at ``seg_start``; ``rows`` holds the values of the
-    channels that are not counts, in channel order."""
-    vals = np.empty((len(rows), n), dtype=np.float64)
+    channels that are not counts, in channel order.  One upload (the
+    offsets, then the value rows as their bits, in one host array of
+    8-byte words), one launch and one readback of the kernel's buffer."""
+    n_seg = len(seg_start)
+    host = np.empty(n_seg + 1 + len(rows) * n, dtype=np.int64)
+    host[:n_seg] = seg_start
+    host[n_seg] = n
+    vals = host[n_seg + 1:].view(np.float64).reshape(len(rows), n)
     for i, row in enumerate(rows):
         vals[i] = row
-    offsets = np.append(seg_start, n).astype(np.int64)
-    out_t, counts_t = perf.timed_device(
-        segment_agg, torch.tensor(vals, device=device),
-        torch.tensor(offsets, device=device), tuple(kinds))
-    return out_t.cpu().numpy(), counts_t.cpu().numpy()
+    up = torch.from_numpy(host).to(device)
+    buf = perf.timed_device(
+        segment_agg_buffer, up[n_seg + 1:].view(torch.float64).view(
+            len(rows), n), up[:n_seg + 1], tuple(kinds))
+    out = to_host(buf)
+    return out[1:].view(np.float64), out[0]
 
 
 def segment_aggregate(

@@ -14,14 +14,17 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    3.35 TB/s; pane_emit and bin_evict count the 32-byte sectors their
    rows' columns touch); segment_top_k, ring_gather, pane_emit and
    bin_evict are timed in turns with their yardstick (three rounds of
-   library, kernel, kernel, library), print their launches, host syncs
-   and allocations per call (the last two as PyTorch's sync debug mode
-   and caching allocator see them) and torch.profiler's device time per
-   launch, and
-   ring_gather's launch path is split into its host steps.  With
-   ``--parent DIR`` (a ``git archive`` of the parent commit unpacked at
-   DIR) the parent's pane_emit and bin_evict are built from DIR and timed
-   in turns with this tree's at the same shapes;
+   library, kernel, kernel, library), and so are segment_agg and
+   expand_gather; those six print their launches, host syncs and
+   allocations per call (the last two as PyTorch's sync debug mode and
+   caching allocator see them) and torch.profiler's device time per
+   launch; segment_agg's sums are held to math.fsum and to themselves
+   over two calls; ring_gather's and expand_gather's launch paths are
+   split into their host steps (expand_gather's with ctypes' cost of one
+   argument).  With ``--parent DIR`` (a ``git archive`` of the parent
+   commit unpacked at DIR) the parent's pane_emit, bin_evict, segment_agg
+   and expand_gather are built from DIR and timed in turns with this
+   tree's at the same shapes, and so are the reads their callers made;
 4. state: the port's KeyedBinState (q5 aggregates, local argmax) over
    2,000,000 nexmark events on the card and on the CPU — every fire and
    the final snapshot identical, and a card snapshot restored into a
@@ -56,8 +59,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    counters) present, every row key-equal, no pair twice, bench.py's
    ``state_bounded`` true; 8b LEFT with the planner's 1 h TTL over
    400,000 events a side — the net rows (CREATE minus DELETE) equal a
-   numpy LEFT JOIN of the two streams; each once more under
-   ``ARROYO_TIMING=1`` for the device share;
+   numpy LEFT JOIN of the two streams; the device-to-host copies per hot
+   probe (at most two in 8a: the pair total, then the expansion's
+   buffer); each once more under ``ARROYO_TIMING=1`` for the device
+   share;
 9. hot-items path: Nexmark hot items, top 10 per window (the ROW_NUMBER
    form of q5: a HOP(2 s, 10 s) COUNT(*) fused with a per-window TopN,
    then a global TopN stage) through ``LocalRunner`` at 40,000,000 events
@@ -106,6 +111,7 @@ from arroyo_tpu_torch.connectors.memory import clear_sink, sink_output  # noqa: 
 from arroyo_tpu_torch.connectors.nexmark import (  # noqa: E402
     EVENT_AUCTION, EVENT_BID, EVENT_PERSON, NexmarkConfig, NexmarkGenerator,
     make_splits)
+from arroyo_tpu_torch.device import to_host  # noqa: E402
 from arroyo_tpu_torch.engine.engine import LocalRunner  # noqa: E402
 from arroyo_tpu_torch.graph.logical import AggKind, AggSpec, JoinType  # noqa: E402
 from arroyo_tpu_torch.hot_items import SLIDE_MICROS as HOT_SLIDE  # noqa: E402
@@ -123,8 +129,10 @@ from arroyo_tpu_torch.kernels.bin_update import (  # noqa: E402
     bin_update, bin_update_reference, channel_identity)
 from arroyo_tpu_torch.kernels.emit_compact import (  # noqa: E402
     emit_count, emit_count_reference, emit_gather, emit_gather_reference)
+from arroyo_tpu_torch.kernels import expand_gather as expand_gather_mod  # noqa: E402
 from arroyo_tpu_torch.kernels.expand_gather import (  # noqa: E402
-    expand_gather, expand_gather_reference)
+    expand_gather, expand_gather_buffer, expand_gather_reference,
+    expand_views)
 from arroyo_tpu_torch.kernels.join_expand import (  # noqa: E402
     join_expand, join_expand_reference)
 from arroyo_tpu_torch.kernels.join_probe import (  # noqa: E402
@@ -137,14 +145,16 @@ from arroyo_tpu_torch.kernels.ring_gather import (  # noqa: E402
     ring_gather, ring_gather_reference)
 from arroyo_tpu_torch.kernels.ring_merge import (  # noqa: E402
     ring_merge, ring_merge_reference)
+from arroyo_tpu_torch.kernels import join_expand as join_expand_mod  # noqa: E402
 from arroyo_tpu_torch.kernels.segment_agg import (  # noqa: E402
-    segment_agg, segment_agg_reference)
+    segment_agg, segment_agg_buffer, segment_agg_reference)
 from arroyo_tpu_torch.kernels.segment_top_k import (  # noqa: E402
     _round_grid_cap, order_keys, segment_top_k, segment_top_k_reference)
 from arroyo_tpu_torch.kernels.session_union import (  # noqa: E402
     session_union, session_union_reference)
 from arroyo_tpu_torch.obs import perf  # noqa: E402
 from arroyo_tpu_torch.ops.keyed_bins import KeyedBinState  # noqa: E402
+from arroyo_tpu_torch.ops.segment import _reduce as segment_reduce  # noqa: E402
 from arroyo_tpu_torch.q5 import SLIDE_MICROS, WIDTH_MICROS, q5_program  # noqa: E402
 from arroyo_tpu_torch.q8 import WIDTH_MICROS as Q8_WIDTH  # noqa: E402
 from arroyo_tpu_torch.q8 import q8_program  # noqa: E402
@@ -531,8 +541,8 @@ def parent_kernels(parent):
     """The parent commit's kernel modules, from a ``git archive`` of it
     unpacked at ``parent``: its ``arroyo_tpu_torch/kernels`` imported as
     the package ``parent_kernels`` and built from its own csrc/ into its
-    own build/ directory.  Returns (pane_emit module, bin_evict module,
-    build seconds)."""
+    own build/ directory.  Returns a namespace of its pane_emit,
+    bin_evict, segment_agg and expand_gather and the build seconds."""
     import importlib
     import importlib.util
     pkg = os.path.join(os.path.abspath(parent), "arroyo_tpu_torch", "kernels")
@@ -544,9 +554,11 @@ def parent_kernels(parent):
     spec.loader.exec_module(mod)
     t0 = time.perf_counter()
     importlib.import_module("parent_kernels.build").load()
-    return (importlib.import_module("parent_kernels.pane_emit"),
-            importlib.import_module("parent_kernels.bin_evict"),
-            time.perf_counter() - t0)
+    secs = time.perf_counter() - t0
+    names = ("pane_emit", "bin_evict", "segment_agg", "expand_gather")
+    return argparse.Namespace(build_s=secs, **{
+        name: getattr(importlib.import_module(f"parent_kernels.{name}"), name)
+        for name in names})
 
 
 def measured(fn, kernel):
@@ -592,10 +604,7 @@ def k3_case(rng, dev, kinds, xfer, C, B, W, k, c_slice, cdt, geometry,
     passes it.  Exact against the plain version (f64 sums rtol 1e-12),
     one launch, one allocation and no host sync a call; timed in turns
     with its library call where one exists and, with ``parent``, with the
-    parent commit's kernel (its ring arrays made on the card beforehand,
-    as its phase 3 made them) and the parent's dense read as its state
-    made it (two copies to the card, the kernel, two readbacks) against
-    this one (the kernel, one readback)."""
+    parent commit's kernel."""
     values, counts = bin_planes(rng, dev, kinds, C, B, cdt)
     first_bin, lo, hi = geometry
     args = (values, counts, first_bin, lo, hi, W, k, kinds, xfer, c_slice)
@@ -659,35 +668,16 @@ def k3_case(rng, dev, kinds, xfer, C, B, W, k, c_slice, cdt, geometry,
         r["library_turns"] = turn_factors(turns)
     if W == 1:
         r["host_split"] = pane_emit_split(args, library)
-    if parent is not None:
+    if parent is not None:  # the same kernel: the A/A noise of a turn
         pe = parent.pane_emit
-        ring_t = torch.tensor(ring_np, device=dev)
-        ok_t = torch.tensor(ok_np, device=dev)
-        p_args = (values, counts, ring_t, ok_t, kinds, xfer, c_slice)
-        p_out = pe(*p_args)
+        p_out = pane_views(pe(*args), len(xfer), c_slice, k, cdt)
         torch.cuda.synchronize()
         check(torch.equal(p_out[1], got[1]) and torch.equal(p_out[0], got[0]),
               f"pane_emit differs from the parent's ({shape})")
-        c_ms, p_ms, p_turns = in_turns(kernel, lambda: pe(*p_args))
-        read_cnt = counts.dtype
-
-        def parent_read():  # the parent's KeyedBinState._read_dense
-            o, c = pe(values, counts, torch.tensor(ring_np, device=dev),
-                      torch.tensor(ok_np, device=dev), kinds, xfer, c_slice)
-            return o.cpu().numpy(), c.cpu().numpy()
-
-        def read():  # this KeyedBinState._read_dense
-            o, c = pane_views(kernel().cpu(), len(xfer), c_slice, k,
-                              read_cnt)
-            return o.numpy(), c.numpy()
-
-        read_ms, p_read_ms, read_turns = in_turns(read, parent_read)
+        c_ms, p_ms, p_turns = in_turns(kernel, lambda: pe(*args))
         r["parent"] = {"ms": p_ms, "kernel_ms_beside_it": c_ms,
                        "turns_ms": p_turns, **turn_factors(p_turns),
-                       "read_ms": p_read_ms, "change_read_ms": read_ms,
-                       "read_turns_ms": read_turns,
-                       "read_factors": turn_factors(read_turns),
-                       **measured(lambda: pe(*p_args), "pane_emit")}
+                       **measured(lambda: pe(*args), "pane_emit")}
     print(f"pane_emit {shape}: " + json.dumps(
         {key: r[key] for key in ("ms", "library_ms", "turns_ms",
                                  "library_turns", "bound_ms", "bound_bytes",
@@ -705,9 +695,7 @@ def k4_case(rng, dev, kinds, C, B, first_bin, n_bins, rows, cdt, shape,
     over the first ``rows`` slots: exact against the plain version, the
     rows past ``rows`` untouched, one launch, no allocation and no host
     sync a call; timed in turns with ``index_fill_`` per plane over the
-    same rows and, with ``parent``, with the parent commit's kernel (all
-    C rows; its column list on the card beforehand, as its phase 3 had
-    it, and copied there a call, as its state did)."""
+    same rows and, with ``parent``, with the parent commit's kernel."""
     values, counts = bin_planes(rng, dev, kinds, C, B, cdt)
     tail_v, tail_c = values[:, rows:].clone(), counts[rows:].clone()
     v_r, c_r = values.clone(), counts.clone()
@@ -752,29 +740,22 @@ def k4_case(rng, dev, kinds, C, B, first_bin, n_bins, rows, cdt, shape,
              launches_per_call=launches, bound_bytes=nbytes,
              atom_bound_ms=atom_bound_ms(0, atoms, 0),
              library_device_us=profile_kernels(library), **meas)
-    if parent is not None:
+    if parent is not None:  # the same kernel: the A/A noise of a turn
         be = parent.bin_evict
-        cols_np = np.asarray(cols, dtype=np.int32)
-        cols_t = torch.tensor(cols_np, device=dev)
         p_v, p_c = values.clone(), counts.clone()
-        be(p_v, p_c, cols_t, kinds)
+        be(p_v, p_c, first_bin, n_bins, rows, kinds)
         torch.cuda.synchronize()
-        check(torch.equal(p_v[:, :rows], values[:, :rows])
-              and torch.equal(p_c[:rows], counts[:rows]),
+        check(torch.equal(p_v, values) and torch.equal(p_c, counts),
               f"bin_evict differs from the parent's ({shape})")
         del p_v, p_c
-        c_ms, p_ms, p_turns = in_turns(
-            kernel, lambda: be(values, counts, cols_t, kinds))
-        c_s_ms, s_ms, s_turns = in_turns(kernel, lambda: be(
-            values, counts, torch.tensor(cols_np, device=dev), kinds))
+
+        def parent_call():
+            be(values, counts, first_bin, n_bins, rows, kinds)
+
+        c_ms, p_ms, p_turns = in_turns(kernel, parent_call)
         r["parent"] = {"ms": p_ms, "kernel_ms_beside_it": c_ms,
                        "turns_ms": p_turns, **turn_factors(p_turns),
-                       "state_call_ms": s_ms,
-                       "kernel_ms_beside_state_call": c_s_ms,
-                       "state_call_turns_ms": s_turns,
-                       "state_call_factors": turn_factors(s_turns),
-                       **measured(lambda: be(values, counts, cols_t, kinds),
-                                  "bin_evict")}
+                       **measured(parent_call, "bin_evict")}
     print(f"bin_evict {shape}: " + json.dumps(
         {key: r[key] for key in ("ms", "library_ms", "turns_ms",
                                  "library_turns", "bound_ms", "bound_bytes",
@@ -929,31 +910,43 @@ def k7_case(rng, dev, n, n_keys, shape):
                n * (3 * 8 + 8 + 1), 0, None, None)
 
 
-def k8_case(rng, dev, n, n_seg, kinds, shape):
+def k8_case(rng, dev, n, n_seg, kinds, shape, parent=None):
+    """K8 on one reduce: counts, min and max exact against the plain
+    version, sums within rtol 1e-12 of math.fsum and bit-equal across two
+    calls, one launch, one allocation and no host sync a call; timed in
+    turns with its library call and, with ``parent``, with the parent
+    commit's kernel and the parent's reduce as its caller made it (two
+    uploads, the kernel, two readbacks) against this one (one upload, the
+    kernel, one readback)."""
     cuts = np.sort(rng.choice(np.arange(1, n), n_seg - 1, replace=False))
     offsets_np = np.concatenate([[0], cuts, [n]]).astype(np.int64)
     offsets = torch.tensor(offsets_np, device=dev)
     reduced = [c for c, k in enumerate(kinds) if k != "count"]
     # one value row per channel that is not a count (count reads none)
-    values = torch.tensor(rng.normal(size=(len(reduced), n)) * 1e3,
-                          device=dev)
+    values_np = rng.normal(size=(len(reduced), n)) * 1e3
+    values = torch.tensor(values_np, device=dev).reshape(len(reduced), n)
+    before = segment_agg.launches
     got = segment_agg(values, offsets, kinds)
+    launches = segment_agg.launches - before
+    again = segment_agg(values, offsets, kinds)
     want = segment_agg_reference(values, offsets, kinds)
     torch.cuda.synchronize()
+    check(launches == 1, f"segment_agg made {launches} launches ({shape})")
     check(torch.equal(got[1], want[1]), f"segment_agg counts differ "
           f"({shape})")
+    check(torch.equal(got[0], again[0]), f"segment_agg is not bit-equal "
+          f"across two calls ({shape})")
     err = 0.0
     for c, k in enumerate(kinds):
         if k == "sum":
-            # f64 sums in the kernel's fixed tree order against the
-            # correctly rounded sums (math.fsum): rtol 1e-12, stable from
-            # run to run.  The plain version's index_add_ adds in another
-            # order on every run (atomics); an order change moves a sum by
-            # ulps of the segment's sum of |x|, ~1,000x its |sum| at 2^20
+            # f64 sums in the kernel's fixed order against the correctly
+            # rounded sums (math.fsum): rtol 1e-12, stable from run to
+            # run.  The plain version's index_add_ adds in another order
+            # on every run (atomics); an order change moves a sum by ulps
+            # of the segment's sum of |x|, ~1,000x its |sum| at 2^20
             # zero-mean rows, so against it: 1e-12 of sum |x| + 1e-9
             r = reduced.index(c)
-            row_np = values[r].cpu().numpy()
-            exact = torch.tensor([math.fsum(row_np[a:b]) for a, b in zip(
+            exact = torch.tensor([math.fsum(values_np[r, a:b]) for a, b in zip(
                 offsets_np[:-1], offsets_np[1:])], dtype=torch.float64,
                 device=dev)
             torch.testing.assert_close(got[0][c], exact, rtol=1e-12,
@@ -968,25 +961,87 @@ def k8_case(rng, dev, n, n_seg, kinds, shape):
         else:
             check(torch.equal(got[0][c], want[0][c]),
                   f"segment_agg channel {c} ({k}) not exact ({shape})")
-    ms = cuda_ms(lambda: segment_agg(values, offsets, kinds))
-    plain = cuda_ms(lambda: segment_agg_reference(values, offsets, kinds))
-    library, library_call = None, None
+
+    def kernel():  # the call the segment reduce makes: one buffer
+        return segment_agg_buffer(values, offsets, kinds)
+
+    check(torch.equal(kernel()[0], got[1]) and torch.equal(
+        kernel()[1:].view(torch.float64), got[0]),
+        f"segment_agg_buffer differs from segment_agg ({shape})")
     if not reduced:  # every channel counts rows: the lengths, as f64
-        library = cuda_ms(lambda: torch.diff(offsets).double())
+        def library():
+            return torch.diff(offsets).double()
         library_call = "torch.diff(offsets).double()"
-    elif hasattr(torch, "segment_reduce"):
+    else:
         lengths = offsets[1:] - offsets[:-1]
-        library = cuda_ms(lambda: [
-            torch.segment_reduce(values[r], kinds[c], lengths=lengths)
-            for r, c in enumerate(reduced)])
+
+        def library():
+            return [torch.segment_reduce(values[r], kinds[c], lengths=lengths)
+                    for r, c in enumerate(reduced)]
         library_call = "segment_reduce per sum/min/max channel"
+    ms, lib, turns = in_turns(kernel, library)
+    plain = cuda_ms(lambda: segment_agg_reference(values, offsets, kinds))
+    meas = measured(kernel, "segment_")
+    public = per_call(lambda: segment_agg(values, offsets, kinds))
+    check(meas["allocations_per_call"] == 1 and meas["syncs_per_call"] == 0
+          and public == (1, 0),
+          f"segment_agg made {meas['allocations_per_call']} allocations and "
+          f"{meas['syncs_per_call']} host syncs, the (out, counts) form "
+          f"{public} ({shape})")
+    meas["tuple_form_host_us"] = host_us(
+        lambda: segment_agg(values, offsets, kinds), reps=200)
     nbytes = (len(reduced) * n * 8 + offsets_np.nbytes
               + len(kinds) * n_seg * 8 + n_seg * 8)
-    return row("segment_agg", K8_SOURCE, K8_REPLACES, shape, err, ms, plain,
-               nbytes, len(reduced) * n, library, library_call)
+    r = row("segment_agg", K8_SOURCE, K8_REPLACES, shape, err, ms, plain,
+            nbytes, len(reduced) * n, lib, library_call)
+    r.update(turns_ms=turns, library_turns=turn_factors(turns),
+             launches_per_call=launches,
+             library_device_us=profile_kernels(library), **meas)
+    if parent is not None:
+        pa = parent.segment_agg
+        p_out = pa(values, offsets, kinds)
+        torch.cuda.synchronize()
+        check(torch.equal(p_out[1], got[1]) and all(
+            torch.equal(p_out[0][c], got[0][c]) for c, k in enumerate(kinds)
+            if k != "sum"), f"segment_agg differs from the parent's ({shape})")
+        c_ms, p_ms, p_turns = in_turns(kernel, lambda: pa(values, offsets,
+                                                          kinds))
+        rows_np = [values_np[i] for i in range(len(reduced))]
+        seg_start = offsets_np[:-1]
+
+        def parent_reduce():  # the parent's ops/segment._reduce
+            vals = np.empty((len(rows_np), n), dtype=np.float64)
+            for i, row_np in enumerate(rows_np):
+                vals[i] = row_np
+            offs = np.append(seg_start, n).astype(np.int64)
+            o, c = pa(torch.tensor(vals, device=dev),
+                      torch.tensor(offs, device=dev), tuple(kinds))
+            return o.cpu().numpy(), c.cpu().numpy()
+
+        def reduce():  # this ops/segment._reduce
+            return segment_reduce(list(kinds), rows_np, seg_start, n, dev)
+
+        red_ms, p_red_ms, red_turns = in_turns(reduce, parent_reduce)
+        r["parent"] = {"ms": p_ms, "kernel_ms_beside_it": c_ms,
+                       "turns_ms": p_turns, **turn_factors(p_turns),
+                       "reduce_ms": p_red_ms, "change_reduce_ms": red_ms,
+                       "reduce_turns_ms": red_turns,
+                       "reduce_factors": turn_factors(red_turns),
+                       **measured(lambda: pa(values, offsets, kinds),
+                                  "segment_agg")}
+    print(f"segment_agg {shape}: " + json.dumps(
+        {key: r[key] for key in ("ms", "library_ms", "turns_ms",
+                                 "library_turns", "bound_ms",
+                                 "library_device_us", "host_us_per_call",
+                                 "device_us_per_call", "device_us_cold",
+                                 "allocations_per_call", "syncs_per_call",
+                                 "tuple_form_host_us", "parent")
+                  if key in r}))
+    return r
 
 
-def join_cases(rng, dev, cap, n_valid, mq, m, span, ni, shape):
+def join_cases(rng, dev, cap, n_valid, mq, m, span, ni, shape,
+               parent=None):
     """K9-K11 on one ring probe: a sorted ring of ``n_valid`` keys drawn
     from ``span`` values (repeats), sorted queries from the same values
     (a fifth of them absent), a third sharing a ring row's lo."""
@@ -1020,11 +1075,7 @@ def join_cases(rng, dev, cap, n_valid, mq, m, span, ni, shape):
         pairs, join_expand_reference(start, cum, total))),
         f"join_expand differs ({shape})")
     eg_args = (start, cum, total, hi, lo, q_hi, q_lo, fst, ist)
-    got = expand_gather(*eg_args)
     want = expand_gather_reference(*eg_args)
-    torch.cuda.synchronize()
-    check(all(torch.equal(g, w) for g, w in zip(got, want)),
-          f"expand_gather differs ({shape})")
     distinct = int(torch.unique(want[1]).numel())
     used = int(torch.unique(want[0]).numel())  # queries with a pair
     c64 = counts.long()
@@ -1056,16 +1107,140 @@ def join_cases(rng, dev, cap, n_valid, mq, m, span, ni, shape):
              lambda: join_expand(start, cum, total),
              lambda: join_expand_reference(start, cum, total), lib_expand,
              "repeat_interleave + arange",
-             4 * used + searched(8 * mq, mq, used) + 16 * total),
-            ("expand_gather", K11_SOURCE, K11_REPLACES,
-             lambda: expand_gather(*eg_args),
-             lambda: expand_gather_reference(*eg_args), lib_gather,
-             "repeat_interleave + arange + index_select per stack",
-             12 * used + searched(8 * mq, mq, used)
-             + distinct * (8 + 8 * ni) + total * (17 + 8 * ni))):
+             4 * used + searched(8 * mq, mq, used) + 16 * total)):
         rows.append(row(name, src, rep, shape, 0.0, cuda_ms(fn),
                         cuda_ms(plain), nbytes, 0, cuda_ms(lib), call))
+    rows.append(k11_case(eg_args, want, lib_gather, shape,
+                         12 * used + searched(8 * mq, mq, used)
+                         + distinct * (8 + 8 * ni) + total * (17 + 8 * ni),
+                         parent))
     return rows
+
+
+def expand_gather_split(args):
+    """Where an expand_gather call's host time goes: microseconds of its
+    argument checks, its one allocation, the launch alone into a buffer
+    made beforehand (ctypes' conversion of its 15 arguments and
+    cudaLaunchKernel), the ctypes call alone (the same arguments with no
+    pairs: the launcher returns before launching), the whole wrapper and
+    the five views of the tuple form;
+    and the ctypes calls alone of three launchers that take 7, 9 and 15
+    arguments, with the slope of a line through them: ctypes' cost of one
+    argument."""
+    start, cum, total, hi, lo, q_hi, q_lo, fstack, istack = args
+    mq, cap, nf, ni = expand_gather_mod._check(*args)
+    words = expand_gather_mod.buffer_words(total, nf, ni)
+    buf = torch.empty(words, dtype=torch.int64, device=start.device)
+    stream = torch._C._cuda_getCurrentRawStream(start.device.index)
+    eg = expand_gather_mod._c_fn()
+    eg_args = [start.data_ptr(), cum.data_ptr(), mq, total, hi.data_ptr(),
+               lo.data_ptr(), cap, q_hi.data_ptr(), q_lo.data_ptr(),
+               fstack.data_ptr(), nf, istack.data_ptr(), ni, buf.data_ptr(),
+               stream]
+    idle = {  # (arguments, the launcher called with no work)
+        7: (join_expand_mod._c_fn(), [start.data_ptr(), cum.data_ptr(), mq,
+                                      0, buf.data_ptr(), buf.data_ptr(),
+                                      stream]),
+        9: (ring_gather_mod._c_fn(), [buf.data_ptr(), 0, fstack.data_ptr(),
+                                      istack.data_ptr(), nf, ni, cap,
+                                      buf.data_ptr(), stream]),
+        15: (eg, eg_args[:3] + [0] + eg_args[4:])}
+    idle_us = {n_args: host_us(lambda fn=fn, a=a: fn(*a))
+               for n_args, (fn, a) in idle.items()}
+    xs = sorted(idle_us)
+    mx = statistics.fmean(xs)
+    my = statistics.fmean(idle_us[x] for x in xs)
+    slope = (sum((x - mx) * (idle_us[x] - my) for x in xs)
+             / sum((x - mx) ** 2 for x in xs))
+    return {
+        "check_us": host_us(lambda: expand_gather_mod._check(*args)),
+        "alloc_us": host_us(lambda: torch.empty(words, dtype=torch.int64,
+                                                device=start.device)),
+        "launch_us": host_us(lambda: expand_gather_mod._launch(
+            start, cum, mq, total, hi, lo, cap, q_hi, q_lo, fstack, nf,
+            istack, ni, buf)),
+        "bare_launch_us": host_us(lambda: eg(*eg_args)),
+        "ctypes_call_us_by_arguments": idle_us,
+        "ctypes_us_per_argument": slope,
+        "wrapper_us": host_us(lambda: expand_gather_buffer(*args)),
+        "views_us": host_us(lambda: expand_views(buf, total, nf, ni))}
+
+
+def k11_case(args, want, library, shape, nbytes, parent=None):
+    """K11 on one probe's expansion: all five outputs bit-equal to the
+    plain version as views of one buffer, one launch, one allocation and
+    no host sync a call; timed in turns with its library calls and, with
+    ``parent``, with the parent commit's kernel and the parent's caller
+    (the kernel, five readbacks) against this one (the kernel into one
+    buffer, one readback); its host split."""
+    start, cum, total, hi, lo, q_hi, q_lo, fstack, istack = args
+    nf, ni = fstack.shape[0], istack.shape[0]
+    before = expand_gather.launches
+    got = expand_gather(*args)
+    launches = expand_gather.launches - before
+    torch.cuda.synchronize()
+    check(launches == 1, f"expand_gather made {launches} launches ({shape})")
+    check(all(g.dtype == w.dtype and torch.equal(g, w)
+              for g, w in zip(got, want)),
+          f"expand_gather differs ({shape})")
+    check(len({g.untyped_storage().data_ptr() for g in got}) == 1,
+          "expand_gather's outputs are not views of one buffer")
+
+    def kernel():  # the call the join makes: one buffer
+        return expand_gather_buffer(*args)
+
+    check(all(torch.equal(v, w) for v, w in zip(
+        expand_views(kernel(), total, nf, ni), want)),
+        f"expand_gather_buffer's views differ ({shape})")
+    ms, lib, turns = in_turns(kernel, library)
+    plain = cuda_ms(lambda: expand_gather_reference(*args))
+    meas = measured(kernel, "expand_gather")
+    public = per_call(lambda: expand_gather(*args))
+    check(meas["allocations_per_call"] == 1 and meas["syncs_per_call"] == 0
+          and public == (1, 0),
+          f"expand_gather made {meas['allocations_per_call']} allocations "
+          f"and {meas['syncs_per_call']} host syncs, the five-view form "
+          f"{public} ({shape})")
+    meas["tuple_form_host_us"] = host_us(lambda: expand_gather(*args),
+                                         reps=200)
+    r = row("expand_gather", K11_SOURCE, K11_REPLACES, shape, 0.0, ms, plain,
+            nbytes, 0, lib,
+            "repeat_interleave + arange + index_select per stack")
+    r.update(turns_ms=turns, library_turns=turn_factors(turns),
+             launches_per_call=launches, bound_bytes=nbytes,
+             library_device_us=profile_kernels(library), **meas,
+             host_split=expand_gather_split(args))
+    if parent is not None:
+        pe = parent.expand_gather
+        p_out = pe(*args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(p_out, got)),
+              f"expand_gather differs from the parent's ({shape})")
+        c_ms, p_ms, p_turns = in_turns(kernel, lambda: pe(*args))
+
+        def parent_read():  # the parent's ops/join.expand_gather
+            return tuple(x.cpu().numpy() for x in pe(*args))
+
+        def read():  # this ops/join.expand_gather
+            return expand_views(to_host(expand_gather_buffer(*args)), total,
+                                nf, ni)
+
+        read_ms, p_read_ms, read_turns = in_turns(read, parent_read)
+        r["parent"] = {"ms": p_ms, "kernel_ms_beside_it": c_ms,
+                       "turns_ms": p_turns, **turn_factors(p_turns),
+                       "read_ms": p_read_ms, "change_read_ms": read_ms,
+                       "read_turns_ms": read_turns,
+                       "read_factors": turn_factors(read_turns),
+                       **measured(lambda: pe(*args), "expand_gather")}
+    print(f"expand_gather {shape}: " + json.dumps(
+        {key: r[key] for key in ("ms", "library_ms", "turns_ms",
+                                 "library_turns", "bound_ms", "bound_bytes",
+                                 "library_device_us", "host_us_per_call",
+                                 "device_us_per_call", "device_us_cold",
+                                 "allocations_per_call", "syncs_per_call",
+                                 "tuple_form_host_us", "host_split",
+                                 "parent") if key in r}))
+    return r
 
 
 def bid_counts(rng, n):
@@ -1251,14 +1426,14 @@ def kernel_phase(parent=None):
             (1_048_576, 65_536, mixed7, "mixed sum/min/max/count k=7"),
             (1_048_576, 1, mixed7, "one skewed segment k=7")):
         rows.append(k8_case(rng, dev, n, n_seg, kinds,
-                            f"{what} n={n} n_seg={n_seg}"))
+                            f"{what} n={n} n_seg={n_seg}", parent))
     for cap, n_valid, mq, m, span, what in (
             (JS_RING_CAP, JS_RING_ROWS, JS_MQ, JS_M, JS_KEYS,
              "join-stress partition probe"),
             (1 << 20, 1 << 20, 512, 1, 1, "one query spanning 2^20 rows")):
         rows += join_cases(rng, dev, cap, n_valid, mq, m, span, 3,
                            f"{what} cap={cap} n_valid={n_valid} mq={mq} "
-                           f"m={m} ni=3")
+                           f"m={m} ni=3", parent)
     for n, n_seg, what in ((TOPK_STEADY, 1, "hot items steady fire"),
                            (TOPK_FLUSH, 5, "hot items final flush")):
         rows.append(topk_case(rng, dev, n, n_seg,
@@ -1483,7 +1658,8 @@ def run_q8(num_events, sink, device):
 
 Q8_COUNTERS = ("join_state_promotions", "join_state_device_merges",
                "join_state_ring_regrows", "join_device_gather_rows",
-               "join_host_gather_rows", "kernel_dispatches")
+               "join_host_gather_rows", "join_ring_probes",
+               "join_probe_readbacks", "kernel_dispatches")
 
 
 def q8_phase():
@@ -1650,7 +1826,8 @@ def c5_phase():
 JS_COUNTERS = ("join_state_promotions", "join_state_demotions",
                "join_state_device_merges", "join_state_ring_regrows",
                "join_state_compactions", "join_device_gather_rows",
-               "join_host_gather_rows", "kernel_dispatches")
+               "join_host_gather_rows", "join_ring_probes",
+               "join_probe_readbacks", "kernel_dispatches")
 
 
 def js_codes(v0, v1):
@@ -1740,7 +1917,9 @@ def js_variant(what, n, how, ttl, gate):
            "join": how.value, "wall_s": dt, "events_per_s": 2 * n / dt,
            "rows_created": len(creates), "rows_deleted": len(deletes),
            **gate(creates, deletes), "launches": launches,
-           "counters": counters, "state": state}
+           "counters": counters, "state": state,
+           "readbacks_per_hot_probe": counters["join_probe_readbacks"]
+           / max(counters["join_ring_probes"], 1)}
     os.environ["ARROYO_TIMING"] = "1"
     perf.reset()
     try:
@@ -1797,6 +1976,11 @@ def js_phase():
     check(all(la[k] > 0 for k in ("join_probe", "expand_gather",
                                   "ring_merge")),
           f"join-stress inner did not launch its kernels: {la}")
+    # a hot probe reads back its pair total, then the expansion's buffer
+    probes = res_a["counters"]["join_ring_probes"]
+    check(probes > 0 and res_a["counters"]["join_probe_readbacks"]
+          <= 2 * probes, "join-stress inner made more than two "
+          f"device-to-host copies a hot probe: {res_a['counters']}")
     res_b, lb, _ = js_variant("left", JS_LEFT, JoinType.LEFT,
                               PLANNER_TTL_MICROS, gate_left)
     check(all(lb[k] > 0 for k in ("join_probe", "expand_gather",
@@ -1958,16 +2142,15 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--parent", help="a directory holding a git archive of the parent "
-        "commit: phase 3 also times its pane_emit and bin_evict in turns "
-        "with this tree's")
+        "commit: phase 3 also times its pane_emit, bin_evict, segment_agg "
+        "and expand_gather in turns with this tree's")
     opts = parser.parse_args()
     smi = environment()
     parent = None
     if opts.parent:
-        pe, be, secs = parent_kernels(opts.parent)
-        parent = argparse.Namespace(pane_emit=pe.pane_emit,
-                                    bin_evict=be.bin_evict)
-        print(f"parent kernels from {opts.parent}: build {secs:.3f} s")
+        parent = parent_kernels(opts.parent)
+        print(f"parent kernels from {opts.parent}: build "
+              f"{parent.build_s:.3f} s")
     kernels = kernel_phase(parent)
     state_phase()
     launches = dict(zip(PATHS, (main_path(), q8_phase(), c5_phase())))

@@ -23,7 +23,9 @@ from arroyo_tpu_torch.kernels.emit_compact import (
 )
 from arroyo_tpu_torch.kernels.expand_gather import (
     expand_gather,
+    expand_gather_buffer,
     expand_gather_reference,
+    expand_views,
 )
 from arroyo_tpu_torch.kernels.join_expand import join_expand, join_expand_reference
 from arroyo_tpu_torch.kernels.join_probe import join_probe, join_probe_reference
@@ -39,7 +41,12 @@ from arroyo_tpu_torch.kernels.ring_gather import (
     ring_gather_rows,
 )
 from arroyo_tpu_torch.kernels.ring_merge import ring_merge, ring_merge_reference
-from arroyo_tpu_torch.kernels.segment_agg import segment_agg, segment_agg_reference
+from arroyo_tpu_torch.kernels.segment_agg import (
+    TILE_ROWS,
+    segment_agg,
+    segment_agg_buffer,
+    segment_agg_reference,
+)
 from arroyo_tpu_torch.kernels.segment_top_k import (
     FINAL_ROWS,
     TILE_ROWS,
@@ -326,9 +333,9 @@ def _allocs_and_syncs(fn):
 
 @pytest.mark.cuda
 def test_kernels_cuda_allocations_and_syncs_per_call(cuda_device):
-    """ring_gather and pane_emit: one allocation and no host sync a call;
-    bin_evict: neither; segment_top_k at hot items' steady fire: the one
-    sync its wrapper counts.  A known readback checks that the sync
+    """ring_gather, pane_emit, segment_agg and expand_gather: one
+    allocation and no host sync a call; bin_evict: neither; segment_top_k
+    at hot items' steady fire: the one sync its wrapper counts.  A known readback checks that the sync
     detector sees one."""
     rng = np.random.default_rng(40)
     x = torch.ones(1000, device=cuda_device)
@@ -352,6 +359,25 @@ def test_kernels_cuda_allocations_and_syncs_per_call(cuda_device):
         (1, 2), 60000)) == (1, 0)
     assert _allocs_and_syncs(lambda: bin_evict(
         values, counts, 16 * 5 + 2, 1, 60000, kinds)) == (0, 0)
+    # segment_agg at config5's fire and over many tiles; expand_gather at
+    # a join-stress probe
+    for n, n_seg, kinds in ((8192, 256, ("count",)),
+                            (1 << 20, 4096, ("sum", "count", "max"))):
+        offsets, vals = _segments(rng, n, n_seg, kinds, cuda_device)
+        assert _allocs_and_syncs(
+            lambda: segment_agg_buffer(vals, offsets, kinds)) == (1, 0)
+        assert _allocs_and_syncs(
+            lambda: segment_agg(vals, offsets, kinds)) == (1, 0)
+    t = lambda a: torch.tensor(a, device=cuda_device)  # noqa: E731
+    hi, lo, q_hi, q_lo = map(t, _ring_and_queries(rng, 8192, 5905, 1024,
+                                                  520, 6250))
+    start, _counts, cum = join_probe_reference(q_hi, hi, 520, 5905)
+    total = int(cum[-1])
+    args = (start, cum, total, hi, lo, q_hi, q_lo,
+            torch.zeros((0, 8192), dtype=torch.float64, device=cuda_device),
+            t(rng.integers(-2**62, 2**62, (3, 8192))))
+    assert _allocs_and_syncs(lambda: expand_gather_buffer(*args)) == (1, 0)
+    assert _allocs_and_syncs(lambda: expand_gather(*args)) == (1, 0)
 
 
 def _intervals(rng, n, n_keys):
@@ -398,7 +424,8 @@ def test_session_union_cuda_matches_plain(cuda_device, n, n_keys):
     (1000, 1000, ("sum", "min"))])  # one row per segment
 def test_segment_agg_cuda_matches_plain(cuda_device, n, n_seg, kinds):
     """Exact counts, min and max; rtol 1e-12 for the f64 sums (the
-    kernel's fixed tree order differs from index_add_'s)."""
+    kernel's fixed order differs from index_add_'s); two calls give
+    bit-equal sums."""
     rng = np.random.default_rng(n_seg)
     cuts = np.sort(rng.choice(np.arange(1, n), n_seg - 1, replace=False))
     offsets = torch.tensor(np.concatenate([[0], cuts, [n]]),
@@ -409,8 +436,10 @@ def test_segment_agg_cuda_matches_plain(cuda_device, n, n_seg, kinds):
     before = segment_agg.launches
     got = segment_agg(values, offsets, kinds)
     want = segment_agg_reference(values, offsets, kinds)
+    again = segment_agg(values, offsets, kinds)
     torch.cuda.synchronize()
-    assert segment_agg.launches == before + 1
+    assert segment_agg.launches == before + 2
+    assert torch.equal(got[0], again[0])  # deterministic: bit-equal
     assert torch.equal(got[1], want[1])
     for c, k in enumerate(kinds):
         if k == "sum":
@@ -418,6 +447,71 @@ def test_segment_agg_cuda_matches_plain(cuda_device, n, n_seg, kinds):
                                        atol=1e-9)
         else:
             assert torch.equal(got[0][c], want[0][c])
+
+
+def _segments(rng, n, n_seg, kinds, device, offsets=None):
+    """(offsets, values) of n rows over n_seg random non-empty segments,
+    or over the given offsets; one value row per channel not a count."""
+    if offsets is None:
+        cuts = np.sort(rng.choice(np.arange(1, n), n_seg - 1, replace=False))
+        offsets = np.concatenate([[0], cuts, [n]])
+    n_reduced = sum(k != "count" for k in kinds)  # count reads no row
+    values = rng.normal(size=(n_reduced, n)) * 1e3
+    return (torch.tensor(np.asarray(offsets, np.int64), device=device),
+            torch.tensor(values, device=device).reshape(n_reduced, n))
+
+
+def _tile_layout(case):
+    """Offsets that straddle segment_agg's row tiles (TILE_ROWS rows)."""
+    T = TILE_ROWS
+    if case == "tile_edges":  # segments ending exactly on tile edges
+        return [0, 100, T, T + 5, 2 * T, 3 * T, 3 * T + 1, 5 * T]
+    if case == "long_then_ones":  # one segment over 40 tiles, then 1-row
+        return [0, 40 * T + 77] + list(range(40 * T + 78, 42 * T + 1))
+    if case == "empties":  # empty at the start, the middle and the end
+        return [0, 0, 0, 5, 5, 5, T, T, T + 1, 3 * T + 10, 3 * T + 10,
+                3 * T + 10]
+    if case == "many_empties":  # a tile holding thousands of empty ones
+        return [0] + [100] * 3000 + [T + 50] * 10 + [2 * T]
+    raise ValueError(case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tile_edges", "long_then_ones", "empties",
+                                  "many_empties"])
+@pytest.mark.parametrize("kinds", [("sum", "min", "max", "count", "sum"),
+                                   ("count",)])  # k_r = 5 and k_r = 0
+def test_segment_agg_cuda_straddles_tiles(cuda_device, case, kinds):
+    """Segments across and on the edges of the kernel's row tiles, empty
+    segments and value-free calls: counts, min and max exact against the
+    plain version, sums within rtol 1e-12 of math.fsum, and two calls
+    bit-equal (the order of additions is fixed by the offsets)."""
+    import math
+    rng = np.random.default_rng(len(case) + len(kinds))
+    offs = _tile_layout(case)
+    n = offs[-1]
+    offsets, values = _segments(rng, n, len(offs) - 1, kinds, cuda_device,
+                                offs)
+    before = segment_agg.launches
+    got = segment_agg(values, offsets, kinds)
+    again = segment_agg_buffer(values, offsets, kinds)
+    want = segment_agg_reference(values, offsets, kinds)
+    torch.cuda.synchronize()
+    assert segment_agg.launches == before + 2
+    assert torch.equal(again[0], got[1])
+    assert torch.equal(again[1:].view(torch.float64), got[0])  # bit-equal
+    assert torch.equal(got[1], want[1])
+    vals = values.cpu().numpy()
+    r = 0
+    for c, k in enumerate(kinds):
+        if k == "sum":
+            exact = torch.tensor([math.fsum(vals[r, a:b]) for a, b in zip(
+                offs[:-1], offs[1:])], dtype=torch.float64)
+            torch.testing.assert_close(got[0][c].cpu(), exact, rtol=1e-12,
+                                       atol=1e-9)
+        else:
+            assert torch.equal(got[0][c], want[0][c])
+        r += k != "count"
 
 
 SENT32_HI = 0x7FFFFFFF
@@ -481,6 +575,45 @@ def test_join_kernels_cuda_match_plain(cuda_device, cap, n_valid, mq, m,
     assert (join_probe.launches, join_expand.launches,
             expand_gather.launches) == (before[0] + 1, before[1] + 1,
                                         before[2] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("total", [1, 512, 513, 5000])
+@pytest.mark.parametrize("nf", [0, 2])
+def test_expand_gather_cuda_block_edges(cuda_device, total, nf):
+    """Pair totals of 1, one block of 512 pairs, one more, and many
+    blocks, over queries whose counts include long runs of zeros: all
+    five outputs bit-equal to the plain version, as views of one buffer."""
+    rng = np.random.default_rng(total + nf)
+    cap, mq = 8192, 1024
+    counts = np.zeros(mq, np.int64)
+    hit = np.sort(rng.choice(mq, min(mq, 40), replace=False))
+    counts[hit] = rng.multinomial(total - len(hit), np.ones(len(hit))
+                                  / len(hit)) + 1 if total >= len(hit) else 0
+    if total < len(hit):
+        counts[hit[:total]] = 1
+    assert counts.sum() == total
+    cum = np.cumsum(counts)
+    start = np.minimum(rng.integers(0, cap, mq), cap - counts)
+    t = lambda a: torch.tensor(a, device=cuda_device)  # noqa: E731
+    hi = t(rng.integers(0, 50, cap).astype(np.int32))
+    lo = t(rng.integers(0, 3, cap).astype(np.int32))
+    q_hi = t(rng.integers(0, 50, mq).astype(np.int32))
+    q_lo = t(rng.integers(0, 3, mq).astype(np.int32))
+    args = (t(start.astype(np.int32)), t(cum), total, hi, lo, q_hi, q_lo,
+            t(rng.normal(size=(nf, cap))).reshape(nf, cap),
+            t(rng.integers(-2**62, 2**62, (3, cap))))
+    before = expand_gather.launches
+    buf = expand_gather_buffer(*args)
+    got = expand_gather(*args)
+    want = expand_gather_reference(*args)
+    torch.cuda.synchronize()
+    assert expand_gather.launches == before + 2
+    for g, v, w in zip(got, expand_views(buf, total, nf, 3), want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w) and torch.equal(v, w)
+    assert got[0].untyped_storage().data_ptr() == \
+        got[4].untyped_storage().data_ptr()
 
 
 @pytest.mark.cuda

@@ -87,6 +87,62 @@ def test_ring_round_trip_matches_jax(name):
         np.testing.assert_array_equal(pcols[c], all_cols[c][order][spos])
 
 
+@pytest.mark.parametrize("name", ["f64", "i64", None])
+@pytest.mark.parametrize("queries", ["hits", "collide", "none"])
+def test_probe_expand_gather_matches_jax(name, queries):
+    """probe_ring -> expand_gather on a resident ring: the port's one
+    readback of the kernel's buffer gives the JAX package's five arrays
+    (query index, ring position, the full-key verify, both payload
+    stacks), bit-exact; then unpack_payload gives the same columns.
+    ``hits``: queries drawn from the ring's keys and others; ``collide``:
+    queries sharing a ring key's top 32 bits only; ``none``: no pair."""
+    rng = np.random.default_rng(43)
+    n, m = 400, 150
+    keys = np.sort(rng.integers(0, 2**40, n, dtype=np.uint64) << np.uint64(
+        20))
+    keys[50:60] = keys[50]  # a run of equal keys
+    keys = np.sort(keys)
+    cols = _cols(rng, n)
+    if name is not None:
+        cols = {name: cols[name]}
+    ts = rng.integers(0, 10**9, n)
+    if queries == "none":
+        q = keys[rng.integers(0, n, m)] + np.uint64(1) + (np.uint64(1) << np.uint64(35))
+    else:
+        q = keys[rng.integers(0, n, m)]
+        other = rng.random(m) < 0.3
+        q[other] = rng.integers(0, 2**60, int(other.sum()), dtype=np.uint64)
+        if queries == "collide":  # same top 32 bits, other low bits
+            q[~other] ^= np.uint64(0x5)
+            q[:5] = keys[:5]
+    q = np.sort(q)
+    got = []
+    for mod, dev in ((jj, None), (pj, "cpu")):
+        ring = mod.stage_ring(keys, dev, sorted_ts=ts, sorted_cols=cols)
+        hit = mod.probe_ring(ring, q, n)
+        if mod is jj:
+            total = int(np.asarray(hit.counts).sum())
+            out = mod.expand_gather(ring, hit, total) if total else None
+        else:
+            assert hit.total == total
+            out = mod.expand_gather(ring, hit) if total else None
+        got.append((ring, out))
+    (jr, jout), (pr, pout) = got
+    assert (total == 0) == (queries == "none")
+    if not total:
+        return
+    for g, w in zip(pout, jout):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+    valid = pout[2]
+    if queries == "collide":
+        assert valid.any() and not valid.all()
+    jts, jcols = jj.unpack_payload(jr, jout[3][:, valid], jout[4][:, valid])
+    pts, pcols = pj.unpack_payload(pr, pout[3][:, valid], pout[4][:, valid])
+    np.testing.assert_array_equal(pts, jts)
+    _same_cols(pcols, jcols)
+
+
 def test_split_helpers_match_jax():
     rng = np.random.default_rng(43)
     keys = rng.integers(0, 2**63, 1000, dtype=np.uint64) * np.uint64(2)

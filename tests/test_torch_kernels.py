@@ -31,13 +31,14 @@ from arroyo_tpu.ops.session import _union_kernel
 from arroyo_tpu_torch.kernels.argmax_fire import argmax_fire
 from arroyo_tpu_torch.kernels.bin_evict import bin_evict
 from arroyo_tpu_torch.kernels.bin_update import bin_update
-from arroyo_tpu_torch.kernels.expand_gather import expand_gather
+from arroyo_tpu_torch.kernels.expand_gather import (
+    expand_gather, expand_gather_buffer, expand_views)
 from arroyo_tpu_torch.kernels.join_expand import join_expand
 from arroyo_tpu_torch.kernels.join_probe import join_probe
 from arroyo_tpu_torch.kernels.pane_emit import fire_geometry, pane_emit, pane_views
 from arroyo_tpu_torch.kernels.ring_gather import ring_gather, ring_gather_rows
 from arroyo_tpu_torch.kernels.ring_merge import SENT32_HI, SENT32_LO, ring_merge
-from arroyo_tpu_torch.kernels.segment_agg import segment_agg
+from arroyo_tpu_torch.kernels.segment_agg import segment_agg, segment_agg_buffer
 from arroyo_tpu_torch.kernels.session_union import session_union
 from arroyo_tpu_torch.ops.keyed_bins import NEG_INF, POS_INF
 
@@ -437,19 +438,44 @@ def test_session_union_plain_matches_union_kernel(n, n_keys, touching):
         assert new.sum() < n_keys + (n - n_keys) // 2  # merges happened
 
 
-@pytest.mark.parametrize("kinds", [("sum",), ("min",), ("max",),
-                                   ("count",),
-                                   ("count", "sum", "min", "max", "sum")])
-def test_segment_agg_plain_matches_segment_agg_kernel(kinds):
-    """Exact counts, min, max and count channels; rtol 1e-12 for sums
-    (XLA's segment_sum adds in another order).  The port takes value rows
-    for the channels that are not counts only."""
-    rng = np.random.default_rng(len(kinds) * 7 + len(kinds[0]))
+SEG_KINDS = [("sum",), ("min",), ("max",), ("count",),
+             ("count", "sum", "min", "max", "sum")]
+
+
+def _segment_layout(rng, layout):
+    """(n, n_seg, offsets) of a test batch: ``dense`` — 900 rows over 37
+    non-empty segments; ``empties`` — empty segments at the start, in the
+    middle and at the end; ``none`` — no segment and no row."""
+    if layout == "none":
+        return 0, 0, np.zeros(1, dtype=np.int64)
     n, n_seg = 900, 37
     seg = np.sort(rng.integers(0, n_seg, n))
     seg[:n_seg] = np.arange(n_seg)  # every segment non-empty
     seg = np.sort(seg)
-    offsets = np.searchsorted(seg, np.arange(n_seg + 1))
+    if layout == "empties":  # segments 0, 1, 17 and 36 hold no row
+        seg[seg == 0], seg[seg == 1] = 2, 2
+        seg[seg == 17], seg[seg == 36] = 18, 35
+        seg = np.sort(seg)
+    return n, n_seg, np.searchsorted(seg, np.arange(n_seg + 1))
+
+
+@pytest.mark.parametrize("kinds,layout", [
+    *(pytest.param(k, "dense", id=f"kinds{i}")
+      for i, k in enumerate(SEG_KINDS)),
+    *(pytest.param(k, layout, id=f"{layout}-kinds{i}")
+      for layout in ("empties", "none") for i, k in enumerate(SEG_KINDS))])
+def test_segment_agg_plain_matches_segment_agg_kernel(kinds, layout):
+    """Exact counts, min, max and count channels; rtol 1e-12 for sums
+    (XLA's segment_sum adds in another order).  The port takes value rows
+    for the channels that are not counts only.  An empty segment gets
+    the identities and count 0.  Its MIN/MAX identities are the f64
+    extremes (the plain version's, ROADMAP C8) where the JAX kernel gives
+    XLA's empty-segment +/-inf; callers never pass an empty segment.
+    ``segment_agg_buffer``'s rows (counts, then the channels as their
+    bits) hold the same values."""
+    rng = np.random.default_rng(len(kinds) * 7 + len(kinds[0]))
+    n, n_seg, offsets = _segment_layout(rng, layout)
+    seg = np.repeat(np.arange(n_seg), np.diff(offsets))
     values = rng.normal(size=(len(kinds), n)) * 1e3
     npad, spad = 1024, 64
     vals = np.zeros((len(kinds), npad))
@@ -460,16 +486,25 @@ def test_segment_agg_plain_matches_segment_agg_kernel(kinds):
     want, want_counts = _segment_agg_kernel(npad, spad, kinds)(
         jnp.asarray(vals), jnp.asarray(sid), jnp.asarray(valid))
     reduced = [c for c, k in enumerate(kinds) if k != "count"]
-    got, counts = segment_agg(torch.tensor(values[reduced]),
-                              torch.tensor(offsets), kinds)
-    np.testing.assert_array_equal(counts.numpy(),
-                                  np.asarray(want_counts)[:n_seg])
-    for c, k in enumerate(kinds):
-        w = np.asarray(want)[c, :n_seg]
-        if k == "sum":
-            np.testing.assert_allclose(got[c].numpy(), w, rtol=1e-12)
-        else:
-            np.testing.assert_array_equal(got[c].numpy(), w)
+    args = (torch.tensor(values[reduced]).reshape(len(reduced), n),
+            torch.tensor(offsets), kinds)
+    got, counts = segment_agg(*args)
+    buf = segment_agg_buffer(*args)
+    assert buf.dtype == torch.int64 and tuple(buf.shape) == (
+        len(kinds) + 1, n_seg)
+    for cnt, out in ((counts, got), (buf[0], buf[1:].view(torch.float64))):
+        np.testing.assert_array_equal(cnt.numpy(),
+                                      np.asarray(want_counts)[:n_seg])
+        for c, k in enumerate(kinds):
+            w = np.asarray(want)[c, :n_seg].copy()
+            if k in ("min", "max"):
+                empty = np.diff(offsets) == 0
+                assert (w[empty] == (np.inf if k == "min" else -np.inf)).all()
+                w[empty] = POS_INF if k == "min" else NEG_INF
+            if k == "sum":
+                np.testing.assert_allclose(out[c].numpy(), w, rtol=1e-12)
+            else:
+                np.testing.assert_array_equal(out[c].numpy(), w)
 
 
 def test_session_kernels_run_plain_versions_on_cpu_and_reject_others():
@@ -538,7 +573,8 @@ def test_join_probe_expand_gather_plain_match_jax_kernels(case):
     """K9 against ``_probe_kernel`` in both its searchsorted and
     merged-rank forms, K10 against ``_expand_kernel`` and K11 against
     ``_expand_gather_kernel``, all bit-exact (the JAX outputs are i32 and
-    bucket-padded: compared widened, sliced to the exact pair total)."""
+    bucket-padded: compared widened, sliced to the exact pair total);
+    ``expand_gather_buffer``'s views hold the same outputs."""
     rng = np.random.default_rng(61)
     hi, lo, q_hi, q_lo, m, n_valid = _probe_fixture(rng, case)
     cap, mq = len(hi), len(q_hi)
@@ -560,6 +596,11 @@ def test_join_probe_expand_gather_plain_match_jax_kernels(case):
     if not total:
         lidx, ridx = join_expand(start, cum, 0)
         assert lidx.shape == ridx.shape == (0,)
+        buf = expand_gather_buffer(start, cum, 0, *map(
+            torch.tensor, (hi, lo, q_hi, q_lo, fs, ist)))
+        assert buf.numel() == 0
+        assert [tuple(v.shape) for v in expand_views(buf, 0, nf, ni)] == [
+            (0,), (0,), (0,), (nf, 0), (ni, 0)]
         return
     mb = jax_join_bucket(total)
     jl, jr = _expand_kernel(mq, mb)(jnp.asarray(start.numpy()),
@@ -577,6 +618,12 @@ def test_join_probe_expand_gather_plain_match_jax_kernels(case):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w)[:total])
     for g, w in zip(got[3:], want[3:]):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w)[:, :total])
+    buf = expand_gather_buffer(start, cum, total, *map(
+        torch.tensor, (hi, lo, q_hi, q_lo, fs, ist)))
+    assert buf.dtype == torch.int64 and buf.numel() == (
+        (2 + nf + ni) * total + (total + 7) // 8)
+    for g, v in zip(got, expand_views(buf, total, nf, ni)):
+        assert g.dtype == v.dtype and torch.equal(g, v)
     valid = got[2].numpy()
     if case == "collide":
         assert valid.any() and not valid.all()

@@ -76,6 +76,12 @@ AGG_SETS = {
             ("count_distinct", "c", "nd", None)],
     # config5's: the kernel reduces a COUNT(*) channel with no value rows
     "config5": [("udaf", "v", "med", np.median), ("count", None, "n", None)],
+    # value channels only, no COUNT(*)
+    "columns": [("sum", "w", "total", None), ("min", "w", "lo", None),
+                ("max", "v", "hi", None), ("avg", "w", "mean", None),
+                ("count", "v", "nv", None)],
+    # no channel at all: the kernel writes the rows per key only
+    "median": [("udaf", "w", "med", np.median)],
 }
 
 
@@ -119,6 +125,35 @@ def test_segment_aggregate_matches_jax(agg_set):
     assert got[4].keys() == want[4].keys()
     for name in want[4]:
         np.testing.assert_array_equal(got[4][name], want[4][name])
+
+
+@pytest.mark.parametrize("n,n_keys", [(0, 1), (300, 300), (300, 1)])
+def test_segment_aggregate_batch_shapes_match_jax(n, n_keys):
+    """An empty batch (no segment), one row per key and one key for all
+    rows: the reduce's one upload, one launch and one readback give the
+    JAX package's values (rtol 1e-12 for sums, exact otherwise)."""
+    rng = np.random.default_rng(n + n_keys)
+    kh = rng.integers(0, 2**64, n_keys, dtype=np.uint64)
+    kh = rng.permutation(kh)[:n] if n_keys == n else kh[rng.integers(
+        0, n_keys, n)]
+    ts = rng.integers(0, 10 * SEC, n)
+    v = rng.normal(size=n) * 1e3
+    v[rng.random(n) < 0.1] = np.nan
+    specs = AGG_SETS["columns"] + [("count", None, "n", None)]
+    aggs, jaggs = _agg_pairs(specs)
+    got = segment_aggregate(kh, ts, {"v": v, "w": v}, tuple(aggs), "cpu")
+    want = jax_segment_aggregate(kh, ts, {"v": v, "w": v}, tuple(jaggs))
+    for i in (0, 2, 3):
+        np.testing.assert_array_equal(got[i], want[i])
+    for g_cols, w_cols in ((got[1], want[1]), (got[4], want[4])):
+        assert g_cols.keys() == w_cols.keys()
+        for name in w_cols:
+            g, w = np.asarray(g_cols[name]), np.asarray(w_cols[name])
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            np.testing.assert_allclose(g, w, rtol=1e-12, equal_nan=True,
+                                       err_msg=name)
+            if name not in ("total", "mean"):
+                np.testing.assert_array_equal(g, w, err_msg=name)
 
 
 def _interval_batches(rng, n_batches, max_span):
