@@ -3,13 +3,17 @@
 //
 // Replaces arroyo_tpu/ops/join.py:121 `_expand_kernel`.
 //
-// Semantics, for j < total = cum[mq - 1] (start i32[mq] and cum i64[mq]
+// Semantics, with total = cum[mq - 1] read on the device (0 when mq = 0)
+// and n = min(total, capacity), for j < n (start i32[mq] and cum i64[mq]
 // from join_probe):
 //   lidx[j] = #{i : cum[i] <= j}, clipped to [0, mq - 1]
 //   ridx[j] = start[lidx[j]] + j - (lidx[j] > 0 ? cum[lidx[j] - 1] : 0)
-// Both i64 (the JAX kernel's are i32; every reader widens them), sized to
-// the exact total (the JAX kernel pads to a power-of-two bucket and its
-// caller slices).
+// Both i64 (the JAX kernel's are i32; every reader widens them), in ONE
+// i64 buffer: word 0 the total, then lidx and ridx rows of `capacity`
+// words (the JAX kernel pads to a power-of-two bucket the host sized from
+// the total it read; here the host sizes the buffer before the probe has
+// run, and launches again at the header's total when it exceeds the
+// capacity).
 //
 // What bounds it on the H100: memory — 16 bytes written per pair and the
 // probe's 12 bytes per query read; at join-stress's hundreds of pairs per
@@ -33,33 +37,32 @@ constexpr int kThreads = 256;
 
 __global__ void join_expand_kernel(const int* __restrict__ start,
                                    const long long* __restrict__ cum,
-                                   long long mq, long long total,
-                                   long long* __restrict__ lidx,
-                                   long long* __restrict__ ridx) {
+                                   long long mq, long long capacity,
+                                   long long* __restrict__ out) {
   const long long j = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
-  if (j >= total) return;
+  const long long total = mq > 0 ? cum[mq - 1] : 0;
+  if (j == 0) out[0] = total;
+  if (j >= total || j >= capacity) return;
   long long l, r;
   expand_pair(start, cum, mq, j, &l, &r);
-  lidx[j] = l;
-  ridx[j] = r;
+  out[1 + j] = l;
+  out[1 + capacity + j] = r;
 }
 
 }  // namespace
 
-// start i32[mq], cum i64[mq] on the device; writes lidx and ridx
-// i64[total].  One launch on `stream`; returns cudaGetLastError().
+// start i32[mq], cum i64[mq] on the device; writes `out`: the total, then
+// lidx and ridx i64[capacity].  One launch on `stream` (at least one
+// block, for the header); returns cudaGetLastError().
 extern "C" int arroyo_join_expand(const void* start, const void* cum,
-                                  long long mq, long long total, void* lidx,
-                                  void* ridx, void* stream) {
-  if (mq < 0 || total < 0 || (total > 0 && mq == 0)) {
-    return cudaErrorInvalidValue;
-  }
-  if (total == 0) return cudaSuccess;
-  const unsigned blocks =
-      static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  join_expand_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                                  long long mq, long long capacity,
+                                  void* out, void* stream) {
+  if (mq < 0 || capacity < 0) return cudaErrorInvalidValue;
+  const long long blocks = (capacity + kThreads - 1) / kThreads;
+  join_expand_kernel<<<static_cast<unsigned>(blocks > 0 ? blocks : 1),
+                       kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(start), static_cast<const long long*>(cum), mq,
-      total, static_cast<long long*>(lidx), static_cast<long long*>(ridx));
+      capacity, static_cast<long long*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,33 +13,47 @@
 //   e = min(upper_bound(hi[0, cap), q_hi[i]), n_valid)
 //   start[i] = s, counts[i] = i < m ? e - s : 0 (both i32)
 //   cum[i] = counts[0] + ... + counts[i] (i64; the JAX kernel's is i32)
+// Because hi is sorted, both are the bounds in hi[0, n_valid): the
+// kernel never reads past n_valid.
 //
 // What bounds it on the H100: at join-stress's shapes (a few hundred
 // queries against rings of a few thousand rows) the launch; the bytes
-// (each query and ring row read once, 16 bytes written per query) are a
-// few kilobytes.  The searches are 2 * log2(cap) dependent loads per
-// query, latency that the other queries' threads hide.
+// (the queries, the ring rows the searches touch, 16 bytes written per
+// query) are kilobytes.  What the searches cost is latency: a binary
+// search over global memory is log2(n_valid) dependent loads.
 //
-// What the design does about it: one thread per query runs both binary
-// searches (searchsorted, not the TPU's merged sort: Hopper has no reason
-// to avoid it), then the prefix sum.  A block owns a tile of 1,024
-// queries (four per thread) and scans it with warp shuffles; when the
-// queries fill one tile — join-stress's partitions always do — that is
-// the only launch.  Larger inputs add two stream-ordered launches: one
-// block scans the tile totals into carries, a row-parallel pass adds
-// them.
+// What the design does about it:
+// - The block stages the ring's search tree in shared memory: the whole
+//   live `hi` plane (coalesced 16-byte loads) while it holds at most
+//   8,192 rows (32 KB; join-stress's 8a rings do) and 16 rows a real
+//   query, else every 2^shift-th row within that budget (at least 256
+//   rows), so the top levels of a search hit shared memory and only the
+//   last `shift` levels go to global memory.  A few queries on a large
+//   ring stage a few samples: staging is one strided load a row.
+// - No search where the answer is known: a query above hi[n_valid - 1]
+//   (every sentinel padding query, every query past the ring) has s = e
+//   = n_valid; a query equal to it has e = n_valid.  This holds for any
+//   input, so the semantics stay exact.
+// - The upper bound starts at the lower bound and gallops (1, 2, 4, ...
+//   rows) inside the stretch the staged rows bound, so an equal run of r
+//   rows costs about log2(r) reads and a miss one.
+// - A block owns a tile of 1,024 queries (four per thread) and scans it
+//   with warp shuffles; when the queries fill one tile — join-stress's
+//   probes always do — that is the only launch.  Larger inputs add two
+//   stream-ordered launches: one block scans the tile totals into
+//   carries, a row-parallel pass adds them.
 
 #include <cuda_runtime.h>
 
 #include <climits>
-
-#include "join_search.cuh"
+#include <cstdint>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kItems = 4;
 constexpr int kTile = kThreads * kItems;
+constexpr int kStage = 8192;  // ring rows a block stages (32 KB)
 
 // Exclusive sum of one value per thread across the block (blockDim.x a
 // multiple of 32); the block total goes to *total.  Ends with a barrier
@@ -74,16 +88,68 @@ __device__ long long block_exclusive_sum(long long x, long long* total) {
   return out;
 }
 
-// (1) per tile: both searches per query, the tile-local inclusive prefix
-// sum of the counts into cum, and the tile's total into tile_sum.
-__global__ void probe_tile(const int* __restrict__ q_hi, long long mq,
-                           const int* __restrict__ hi, long long cap,
-                           long long m, long long n_valid,
-                           int* __restrict__ start, int* __restrict__ counts,
-                           long long* __restrict__ cum,
-                           long long* __restrict__ tile_sum) {
+// #{t < n : a[t] < q} (Strict = false) or #{t < n : a[t] <= q} (Strict =
+// true) in the sorted a[0, n): a binary search.
+template <bool Strict>
+__device__ __forceinline__ long long count_below(const int* a, long long lo,
+                                                 long long hi, int q) {
+  while (lo < hi) {
+    const long long mid = lo + ((hi - lo) >> 1);
+    const int v = a[mid];
+    if (Strict ? v <= q : v < q) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// The first index in [lo, end) whose value exceeds q, or end — given
+// that none before lo does: gallop from lo (1, 2, 4, ... rows), then a
+// binary search inside the last step.
+__device__ __forceinline__ long long gallop_upper(const int* a, long long lo,
+                                                  long long end, int q) {
+  long long hi = end;  // the answer lies in [lo, hi]
+  for (long long step = 1; lo < hi; step <<= 1) {
+    const long long p = lo + step - 1;
+    if (p >= hi) break;
+    if (a[p] > q) {
+      hi = p;
+      break;
+    }
+    lo = p + 1;
+  }
+  return count_below<true>(a, lo, hi, q);
+}
+
+// (1) per tile: the staged search tree, the bounds per query, the
+// tile-local inclusive prefix sum of the counts into cum, and the tile's
+// total into tile_sum.  s_hi[t] = hi[t << shift] for t < ns.
+__global__ void __launch_bounds__(kThreads) probe_tile(
+    const int* __restrict__ q_hi, long long mq, const int* __restrict__ hi,
+    long long m, long long n_valid, int shift, int ns,
+    int* __restrict__ start, int* __restrict__ counts,
+    long long* __restrict__ cum, long long* __restrict__ tile_sum) {
+  extern __shared__ __align__(16) int s_hi[];
+  const int tid = threadIdx.x;
+  if (shift == 0 && (reinterpret_cast<uintptr_t>(hi) & 15) == 0) {
+    const int n4 = ns >> 2;
+    const int4* h4 = reinterpret_cast<const int4*>(hi);
+    int4* s4 = reinterpret_cast<int4*>(s_hi);
+    for (int t = tid; t < n4; t += kThreads) s4[t] = h4[t];
+    for (int t = (n4 << 2) + tid; t < ns; t += kThreads) s_hi[t] = hi[t];
+  } else {
+    for (int t = tid; t < ns; t += kThreads) {
+      s_hi[t] = hi[static_cast<long long>(t) << shift];
+    }
+  }
+  __syncthreads();
+  // staged whole, the staged rows ARE the plane: search them alone
+  const int* plane = shift == 0 ? s_hi : hi;
+  const int last = n_valid > 0 ? plane[n_valid - 1] : 0;
   const long long base = static_cast<long long>(blockIdx.x) * kTile;
-  const int t0 = threadIdx.x * kItems;
+  const int t0 = tid * kItems;
   long long c[kItems];
   long long agg = 0;
   for (int k = 0; k < kItems; ++k) {
@@ -91,10 +157,33 @@ __global__ void probe_tile(const int* __restrict__ q_hi, long long mq,
     c[k] = 0;
     if (i < mq) {
       const int q = q_hi[i];
-      long long s = bound<false>(hi, cap, q);
-      long long e = bound<true>(hi, cap, q);
-      s = s < n_valid ? s : n_valid;
-      e = e < n_valid ? e : n_valid;
+      long long s = n_valid;
+      long long e = n_valid;
+      if (n_valid > 0 && q <= last) {
+        // lower bound: staged rows t - 1 (< q) and t (>= q) bound it
+        const long long t = count_below<false>(s_hi, 0, ns, q);
+        if (shift == 0) {
+          s = t;
+        } else {
+          const long long a = t > 0 ? ((t - 1) << shift) + 1 : 0;
+          const long long b = t < ns ? t << shift : n_valid;
+          s = count_below<false>(hi, a, b, q);
+        }
+        if (i >= m) {
+          e = s;  // padding counts 0
+        } else if (q < last) {
+          long long lo = s;
+          long long end = n_valid;
+          if (shift > 0) {  // the stretch of the last staged row <= q
+            const long long t2 = count_below<true>(s_hi, t, ns, q);
+            if (t2 > 0 && ((t2 - 1) << shift) + 1 > lo) {
+              lo = ((t2 - 1) << shift) + 1;
+            }
+            if (t2 < ns) end = t2 << shift;
+          }
+          e = gallop_upper(plane, lo, end, q);
+        }
+      }
       c[k] = i < m ? e - s : 0;
       start[i] = static_cast<int>(s);
       counts[i] = static_cast<int>(c[k]);
@@ -108,7 +197,7 @@ __global__ void probe_tile(const int* __restrict__ q_hi, long long mq,
     run += c[k];
     if (i < mq) cum[i] = run;
   }
-  if (threadIdx.x == 0) tile_sum[blockIdx.x] = total;
+  if (tile_sum != nullptr && tid == 0) tile_sum[blockIdx.x] = total;
 }
 
 // (2) one block: tile_sum becomes, in place, each tile's carry — the
@@ -137,9 +226,10 @@ __global__ void probe_fixup(long long* __restrict__ cum, long long mq,
 
 // q_hi i32[mq], hi i32[cap] on the device; 0 <= m <= mq, 0 <= n_valid <=
 // cap.  Writes start i32[mq], counts i32[mq], cum i64[mq]; scratch
-// tile_sum i64[ceil(mq / 1024)].  One launch on `stream` when mq <= 1024,
-// three otherwise; returns cudaGetLastError() after the last (or the
-// first failing) one.
+// tile_sum i64[ceil(mq / 1024)], read only when mq > 1024 (it may be
+// null otherwise).  One launch on `stream` when mq <= 1024, three
+// otherwise; returns cudaGetLastError() after the last (or the first
+// failing) one.
 extern "C" int arroyo_join_probe(const void* q_hi, long long mq,
                                  const void* hi, long long cap, long long m,
                                  long long n_valid, void* start, void* counts,
@@ -151,12 +241,22 @@ extern "C" int arroyo_join_probe(const void* q_hi, long long mq,
   if (mq == 0) return cudaSuccess;
   const long long n_tiles = (mq + kTile - 1) / kTile;
   if (n_tiles > INT_MAX) return cudaErrorInvalidValue;
+  if (n_tiles > 1 && tile_sum == nullptr) return cudaErrorInvalidValue;
+  // stage every 2^shift-th live row: at most kStage rows, 16 a query
+  const long long budget = m * 16 < kThreads ? kThreads
+                           : (m * 16 > kStage ? kStage : m * 16);
+  int shift = 0;
+  while (((n_valid - 1) >> shift) + 1 > budget) ++shift;
+  const int ns = n_valid > 0 ? static_cast<int>(((n_valid - 1) >> shift) + 1)
+                             : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  long long* sums = static_cast<long long*>(tile_sum);
+  long long* sums = n_tiles > 1 ? static_cast<long long*>(tile_sum) : nullptr;
   long long* out = static_cast<long long*>(cum);
-  probe_tile<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(
-      static_cast<const int*>(q_hi), mq, static_cast<const int*>(hi), cap, m,
-      n_valid, static_cast<int*>(start), static_cast<int*>(counts), out, sums);
+  probe_tile<<<static_cast<unsigned>(n_tiles), kThreads,
+               static_cast<size_t>(ns) * sizeof(int), s>>>(
+      static_cast<const int*>(q_hi), mq, static_cast<const int*>(hi), m,
+      n_valid, shift, ns, static_cast<int*>(start), static_cast<int*>(counts),
+      out, sums);
   cudaError_t rc = cudaGetLastError();
   if (rc != cudaSuccess || n_tiles == 1) return static_cast<int>(rc);
   probe_carry<<<1, kThreads, 0, s>>>(sums, static_cast<int>(n_tiles));

@@ -10,8 +10,8 @@
 // rows are never uploaded):
 //   counts[s]  = off[s + 1] - off[s]
 //   out[c, s]  = sum_r values[v(c), r]         (kind sum,   identity 0)
-//              = min_r values[v(c), r]         (kind min,   identity +f64 max)
-//              = max_r values[v(c), r]         (kind max,   identity -f64 max)
+//              = min_r values[v(c), r]         (kind min,   identity +inf)
+//              = max_r values[v(c), r]         (kind max,   identity -inf)
 //              = (double) counts[s]            (kind count)
 // An empty segment (off[s] == off[s + 1]) gets the identities and count
 // 0.  The caller passes exact n and n_seg (no padding rows, no trash
@@ -62,7 +62,6 @@
 
 #include <cuda_runtime.h>
 
-#include <cfloat>
 
 #include "warp_search.cuh"
 
@@ -92,8 +91,11 @@ struct Spec {
 
 __device__ unsigned int g_tiles_done = 0;
 
+// An empty segment's MIN/MAX is XLA's segment_min/segment_max value:
+// +inf/-inf.
 __device__ __forceinline__ double identity(int kind) {
-  return kind == kSum ? 0.0 : (kind == kMin ? DBL_MAX : -DBL_MAX);
+  const double inf = __longlong_as_double(0x7FF0000000000000LL);
+  return kind == kSum ? 0.0 : (kind == kMin ? inf : -inf);
 }
 
 __device__ __forceinline__ double combine(int kind, double a, double b) {

@@ -46,3 +46,24 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t)
     return host.numpy()
+
+
+# the dtypes the port uploads (f64 payload rides i64 words)
+_TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
+                 np.dtype(np.int64): torch.int64}
+
+
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``arr`` as a tensor on ``device``.  On the card: one non-blocking
+    host-to-device copy from a pinned buffer of PyTorch's caching host
+    allocator, filled through its numpy view, so the upload does not
+    hold the host (a copy from pageable memory synchronizes the stream).
+    The allocator records the copy's event and hands the buffer out again
+    only after the copy has landed.  On the CPU: a plain copy (pinning
+    needs CUDA)."""
+    if device.type != "cuda":
+        return torch.tensor(arr)
+    host = torch.empty(arr.shape, dtype=_TORCH_DTYPES[np.dtype(arr.dtype)],
+                       pin_memory=True)
+    host.numpy()[...] = arr
+    return host.to(device, non_blocking=True)

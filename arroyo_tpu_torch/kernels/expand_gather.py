@@ -10,7 +10,7 @@ For pair j < total: ``lidx``/``ridx`` as :func:`join_expand` computes them,
 ``hi`` and ``lo`` planes both equal the query's (a top-32-equal but
 low-32-different row is a false candidate); ``gf`` f64[nf, total] and
 ``gi`` i64[ni, total] are the stacks at ``ridx`` (``gi[0]`` the event
-time).  ``nf`` may be 0.  All outputs are sized to the exact ``total``.
+time).  ``nf`` may be 0.
 
 On the H100 it is bound by memory (8 + 8 * (nf + ni) bytes read and 17 +
 8 * (nf + ni) written per pair) and, at join-stress's shapes, by its
@@ -19,12 +19,18 @@ block: it finds the block's queries with one warp-cooperative search and
 stages their ``cum``, ``start`` and keys in shared memory, so a thread's
 search stays off global memory; each thread writes column j of every
 output row, so stores coalesce.  Every output lands in ONE i64 buffer —
-rows ``lidx``, ``ridx``, ``gf`` (as its bits), ``gi``, then ``valid`` as
-bytes — so a probe makes one allocation, one launch and no host sync, and
-the join reads it back in one copy: :func:`expand_gather_buffer` returns
-the buffer and :func:`expand_views` splits it, on the card or on the
-host.  :func:`expand_gather` is the kernel's public function in the JAX
-kernel's form and returns the five views.
+the pair total in word 0, then rows ``lidx``, ``ridx``, ``gf`` (as its
+bits), ``gi`` of ``capacity`` words each, then ``valid`` as bytes — so a
+probe makes one allocation, one launch and no host sync.  The kernel
+reads the total on the device (``cum[mq - 1]``) and writes the first
+min(total, capacity) pairs: the join sizes the buffer from the ring's
+last totals, launches it right behind the probe, reads it back in one
+copy and launches again at the header's total only when that exceeds
+the capacity.  :func:`expand_gather_buffer` returns the buffer and
+:func:`expand_views` splits it, on the card or on the host.
+:func:`expand_gather` is the kernel's public function in the JAX
+kernel's form (the capacity is the known total) and returns the five
+views.
 
 ``expand_gather_reference`` is the plain PyTorch version; the wrappers
 take it only for tensors on the CPU."""
@@ -33,7 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,11 +51,13 @@ Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                 torch.Tensor]
 
 
-def _check(start, cum, total, hi, lo, q_hi, q_lo, fstack, istack
+def _check(start, cum, capacity, hi, lo, q_hi, q_lo, fstack, istack
            ) -> Tuple[int, int, int, int]:
     """What the C launcher cannot see: dtypes, shapes, one device and
     contiguity; returns (mq, cap, nf, ni)."""
-    mq = check_ranges(start, cum, total)
+    mq = check_ranges(start, cum, 0)
+    if capacity < 0:
+        raise ValueError(f"expand_gather: capacity {capacity} < 0")
     cap = hi.shape[0]
     i32 = torch.int32
     if not (hi.dtype == lo.dtype == q_hi.dtype == q_lo.dtype == i32
@@ -86,21 +94,24 @@ def expand_gather_reference(start, cum, total, hi, lo, q_hi, q_lo, fstack,
             istack.index_select(1, ridx))
 
 
-def buffer_words(total: int, nf: int, ni: int) -> int:
-    """i64 words of an :func:`expand_gather_buffer`: 2 + nf + ni rows of
-    ``total``, then ``total`` bytes of ``valid``."""
-    return (2 + nf + ni) * total + (total + 7) // 8
+def buffer_words(capacity: int, nf: int, ni: int) -> int:
+    """i64 words of an :func:`expand_gather_buffer`: the total, 2 + nf +
+    ni rows of ``capacity``, then ``capacity`` bytes of ``valid``."""
+    return 1 + (2 + nf + ni) * capacity + (capacity + 7) // 8
 
 
-def expand_views(buf, total: int, nf: int, ni: int) -> Outputs:
+def expand_views(buf, total: int, nf: int, ni: int,
+                 capacity: Optional[int] = None) -> Outputs:
     """(lidx, ridx, valid, gf f64[nf, total], gi i64[ni, total]) viewing an
-    :func:`expand_gather_buffer` — a tensor on the card or the host, or
-    its numpy copy."""
+    :func:`expand_gather_buffer` of ``capacity`` pairs (default: the
+    total) — a tensor on the card or the host, or its numpy copy;
+    ``total`` is at most the capacity."""
+    capacity = total if capacity is None else capacity
     rows = 2 + nf + ni
     f64, flag = ((np.float64, np.bool_) if isinstance(buf, np.ndarray)
                  else (torch.float64, torch.bool))
-    words = buf[:rows * total].reshape(rows, total)
-    valid = buf[rows * total:].view(flag)[:total]
+    words = buf[1:1 + rows * capacity].reshape(rows, capacity)[:, :total]
+    valid = buf[1 + rows * capacity:].view(flag)[:total]
     return (words[0], words[1], valid, words[2:2 + nf].view(f64),
             words[2 + nf:])
 
@@ -114,39 +125,44 @@ def _c_fn():
     return fn
 
 
-def _launch(start, cum, mq, total, hi, lo, cap, q_hi, q_lo, fstack, nf,
+def _launch(start, cum, mq, capacity, hi, lo, cap, q_hi, q_lo, fstack, nf,
             istack, ni, buf) -> None:
     """Launch the kernel into ``buf`` (checked arguments, a CUDA device)."""
     build.launch("expand_gather", _c_fn(), start.device, start.data_ptr(),
-                 cum.data_ptr(), mq, total, hi.data_ptr(), lo.data_ptr(), cap,
-                 q_hi.data_ptr(), q_lo.data_ptr(), fstack.data_ptr(), nf,
+                 cum.data_ptr(), mq, capacity, hi.data_ptr(), lo.data_ptr(),
+                 cap, q_hi.data_ptr(), q_lo.data_ptr(), fstack.data_ptr(), nf,
                  istack.data_ptr(), ni, buf.data_ptr())
 
 
-def expand_gather_buffer(start: torch.Tensor, cum: torch.Tensor, total: int,
-                         hi: torch.Tensor, lo: torch.Tensor,
+def expand_gather_buffer(start: torch.Tensor, cum: torch.Tensor,
+                         capacity: int, hi: torch.Tensor, lo: torch.Tensor,
                          q_hi: torch.Tensor, q_lo: torch.Tensor,
                          fstack: torch.Tensor, istack: torch.Tensor
                          ) -> torch.Tensor:
-    """The five outputs of :func:`expand_gather` in one i64 buffer of
-    :func:`buffer_words` words (split it with :func:`expand_views`)."""
-    mq, cap, nf, ni = _check(start, cum, total, hi, lo, q_hi, q_lo, fstack,
-                             istack)
+    """The pair total (word 0) and the five outputs of
+    :func:`expand_gather` for the first min(total, ``capacity``) pairs in
+    one i64 buffer of :func:`buffer_words` words (split it with
+    :func:`expand_views`); the total is read on the device, so the call
+    does not wait for the probe."""
+    mq, cap, nf, ni = _check(start, cum, capacity, hi, lo, q_hi, q_lo,
+                             fstack, istack)
     dev = start.device
-    buf = torch.empty(buffer_words(total, nf, ni), dtype=torch.int64,
+    buf = torch.empty(buffer_words(capacity, nf, ni), dtype=torch.int64,
                       device=dev)
     if dev.type == "cpu":
-        got = expand_gather_reference(start, cum, total, hi, lo, q_hi, q_lo,
+        total = int(cum[-1]) if mq else 0
+        n = min(total, capacity)
+        buf[0] = total
+        got = expand_gather_reference(start, cum, n, hi, lo, q_hi, q_lo,
                                       fstack, istack)
-        for view, part in zip(expand_views(buf, total, nf, ni), got):
+        for view, part in zip(expand_views(buf, n, nf, ni, capacity), got):
             view.copy_(part)
         return buf
     if dev.type != "cuda":
         raise ValueError(f"expand_gather: unsupported device {dev}")
-    if total:
-        _launch(start, cum, mq, total, hi, lo, cap, q_hi, q_lo, fstack, nf,
-                istack, ni, buf)
-        expand_gather.launches += 1
+    _launch(start, cum, mq, capacity, hi, lo, cap, q_hi, q_lo, fstack, nf,
+            istack, ni, buf)
+    expand_gather.launches += 1
     return buf
 
 
@@ -160,13 +176,20 @@ def expand_gather(start: torch.Tensor, cum: torch.Tensor, total: int,
     the ring planes ``hi``/``lo`` i32[cap] with payload stacks ``fstack``
     f64[nf, cap] and ``istack`` i64[ni, cap]; on the card, views of one
     :func:`expand_gather_buffer`."""
+    check_ranges(start, cum, total)
     if start.device.type == "cpu":
         _check(start, cum, total, hi, lo, q_hi, q_lo, fstack, istack)
         return expand_gather_reference(start, cum, total, hi, lo, q_hi,
                                        q_lo, fstack, istack)
+    nf, ni = fstack.shape[0], istack.shape[0]
+    if total == 0:  # nothing to launch
+        _check(start, cum, 0, hi, lo, q_hi, q_lo, fstack, istack)
+        return expand_views(torch.zeros(buffer_words(0, nf, ni),
+                                        dtype=torch.int64,
+                                        device=start.device), 0, nf, ni)
     buf = expand_gather_buffer(start, cum, total, hi, lo, q_hi, q_lo, fstack,
                                istack)
-    return expand_views(buf, total, fstack.shape[0], istack.shape[0])
+    return expand_views(buf, total, nf, ni)
 
 
 expand_gather.launches = 0

@@ -6,15 +6,19 @@ Replaces arroyo_tpu/ops/join.py:121 ``_expand_kernel``.
 
 For pair j < total: ``lidx[j]`` = #{i : cum[i] <= j} clipped to
 [0, mq - 1], ``ridx[j]`` = start[lidx[j]] + j - cum[lidx[j] - 1] (0 for
-the first query).  Both are i64 and sized to the exact ``total`` (the JAX
-kernel returns i32 padded to a power-of-two bucket; its caller widens and
-slices).
+the first query).  Both are i64 (the JAX kernel returns i32 padded to a
+power-of-two bucket; its caller widens and slices).
 
 On the H100 it is bound by memory (16 bytes written per pair) and, at
 join-stress's shapes, by its launch.  The CUDA kernel
 (``csrc/join_expand.cu``) runs one thread per pair with an upper-bound
 binary search over ``cum``, so a skewed query's pairs spread over as many
-threads as it has pairs.
+threads as it has pairs.  It reads the pair total on the device
+(``cum[mq - 1]``) and writes it, then the first min(total, capacity)
+pairs, into ONE i64 buffer (:func:`join_expand_buffer`; split it with
+:func:`pair_views`), so the join launches it right behind the probe and
+reads the buffer back in one copy; :func:`join_expand` is the JAX
+kernel's form, sized to a known total.
 
 ``join_expand_reference`` is the plain PyTorch version (the same search,
 vectorized over the pairs); the wrapper takes it only for tensors on the
@@ -24,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -65,30 +69,61 @@ def join_expand_reference(start: torch.Tensor, cum: torch.Tensor, total: int
 def _c_fn():
     fn = build.load().arroyo_join_expand
     p, ll = ctypes.c_void_p, ctypes.c_longlong
-    fn.argtypes = [p, p, ll, ll, p, p, p]
+    fn.argtypes = [p, p, ll, ll, p, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def pair_views(buf, total: int, capacity: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lidx, ridx) of ``total`` pairs viewing a :func:`join_expand_buffer`
+    of ``capacity`` pairs (default: the total) — a tensor or its numpy
+    copy."""
+    capacity = total if capacity is None else capacity
+    rows = buf[1:1 + 2 * capacity].reshape(2, capacity)
+    return rows[0, :total], rows[1, :total]
+
+
+def join_expand_buffer(start: torch.Tensor, cum: torch.Tensor, capacity: int
+                       ) -> torch.Tensor:
+    """i64[1 + 2 * capacity]: the pair total ``cum[mq - 1]``, read on the
+    device, then the lidx and ridx rows of the first min(total,
+    ``capacity``) pairs of the candidate ranges ``start`` i32[mq] /
+    ``cum`` i64[mq] that :func:`join_probe` returned."""
+    mq = check_ranges(start, cum, 0)
+    if capacity < 0:
+        raise ValueError(f"join_expand: capacity {capacity} < 0")
+    dev = start.device
+    buf = torch.empty(1 + 2 * capacity, dtype=torch.int64, device=dev)
+    if dev.type == "cpu":
+        total = int(cum[-1]) if mq else 0
+        n = min(total, capacity)
+        buf[0] = total
+        for view, part in zip(pair_views(buf, n, capacity),
+                              join_expand_reference(start, cum, n)):
+            view.copy_(part)
+        return buf
+    if dev.type != "cuda":
+        raise ValueError(f"join_expand: unsupported device {dev}")
+    build.launch("join_expand", _c_fn(), dev, start.data_ptr(), cum.data_ptr(),
+                 mq, capacity, buf.data_ptr())
+    join_expand.launches += 1
+    return buf
 
 
 def join_expand(start: torch.Tensor, cum: torch.Tensor, total: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lidx i64[total], ridx i64[total]) of the candidate ranges
     ``start`` i32[mq] / ``cum`` i64[mq] that :func:`join_probe`
-    returned; ``total`` is ``cum[mq - 1]``, which the caller has read."""
-    mq = check_ranges(start, cum, total)
+    returned; ``total`` is ``cum[mq - 1]``, which the caller has read.
+    On the card: views of one :func:`join_expand_buffer`."""
+    check_ranges(start, cum, total)
     dev = start.device
     if dev.type == "cpu":
         return join_expand_reference(start, cum, total)
-    if dev.type != "cuda":
-        raise ValueError(f"join_expand: unsupported device {dev}")
-    out = torch.empty((2, total), dtype=torch.int64, device=dev)
-    lidx, ridx = out[0], out[1]
-    if total == 0:
-        return lidx, ridx  # nothing to launch
-    build.launch("join_expand", _c_fn(), dev, start.data_ptr(), cum.data_ptr(),
-                 mq, total, lidx.data_ptr(), ridx.data_ptr())
-    join_expand.launches += 1
-    return lidx, ridx
+    if total == 0:  # nothing to launch
+        return pair_views(torch.zeros(1, dtype=torch.int64, device=dev), 0)
+    return pair_views(join_expand_buffer(start, cum, total), total)
 
 
 join_expand.launches = 0

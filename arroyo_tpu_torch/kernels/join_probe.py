@@ -15,10 +15,17 @@ JAX kernel and are held against them output for output, at 4 bytes
 written per query.
 
 On the H100 a probe at join-stress's shapes is bound by its launch (the
-bytes are kilobytes).  The CUDA kernel (``csrc/join_probe.cu``) runs one
-thread per query with two binary searches and scans the counts per 1,024
-query tile: one launch for up to 1,024 queries, three (tile scan, carry
-scan, fix-up) beyond.
+bytes are kilobytes) and by the latency of its searches.  The CUDA
+kernel (``csrc/join_probe.cu``) stages the ring's live ``hi`` rows in
+shared memory (all of them up to 8,192 and 16 a query, else evenly
+spaced samples, so only the last levels of a search read global
+memory), answers a query above the ring's last row (every sentinel
+padding query) without a search, and finds the upper bound by galloping
+from the lower bound.  It scans the counts per 1,024-query tile: one
+launch for up to 1,024 queries, three (tile scan, carry scan, fix-up)
+beyond.  The three outputs are views of ONE buffer (the tile totals'
+scratch after them only when there are several tiles): one allocation
+and no host sync a call.
 
 ``join_probe_reference`` is the plain PyTorch version (the same bisection,
 vectorized over the queries); the wrapper takes it only for tensors on
@@ -105,15 +112,17 @@ def join_probe(q_hi: torch.Tensor, hi: torch.Tensor, m: int, n_valid: int
     if dev.type != "cuda":
         raise ValueError(f"join_probe: unsupported device {dev}")
     n_tiles = (mq + TILE - 1) // TILE
-    i32 = torch.empty(2 * mq, dtype=torch.int32, device=dev)
-    i64 = torch.empty(mq + n_tiles, dtype=torch.int64, device=dev)
-    start, counts = i32[:mq], i32[mq:]
-    cum, tile_sum = i64[:mq], i64[mq:]
+    buf = torch.empty(2 * mq + (n_tiles if n_tiles > 1 else 0),
+                      dtype=torch.int64, device=dev)
+    cum, tile_sum = buf[:mq], buf[2 * mq:]
+    keys = buf[mq:2 * mq].view(torch.int32)
+    start, counts = keys[:mq], keys[mq:]
     if mq == 0:
         return start, counts, cum  # nothing to launch
     build.launch("join_probe", _c_fn(), dev, q_hi.data_ptr(), mq,
                  hi.data_ptr(), cap, m, n_valid, start.data_ptr(),
-                 counts.data_ptr(), cum.data_ptr(), tile_sum.data_ptr())
+                 counts.data_ptr(), cum.data_ptr(),
+                 tile_sum.data_ptr() if n_tiles > 1 else 0)
     join_probe.launches += 1
     return start, counts, cum
 

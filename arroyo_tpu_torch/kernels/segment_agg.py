@@ -34,7 +34,6 @@ import torch
 from . import build
 
 KIND_CODES = {"sum": 0, "min": 1, "max": 2, "count": 3}
-F64_MAX = float(np.finfo(np.float64).max)
 TILE_ROWS = 2048  # csrc/segment_agg.cu kTile
 
 
@@ -88,7 +87,7 @@ def segment_agg_reference(values: torch.Tensor, offsets: torch.Tensor,
             out[c] = torch.zeros(n_seg, dtype=torch.float64,
                                  device=dev).index_add_(0, seg, next(rows))
         else:
-            ident = F64_MAX if kind == "min" else -F64_MAX
+            ident = np.inf if kind == "min" else -np.inf
             out[c] = torch.full((n_seg,), ident, dtype=torch.float64,
                                 device=dev).scatter_reduce_(
                 0, seg, next(rows), "amin" if kind == "min" else "amax")

@@ -46,7 +46,9 @@ def get_note(key: str) -> Any:
 
 def timed_device(call, *args) -> Any:
     """Run one device-kernel call; with ``ARROYO_TIMING=1`` block until
-    the device is done and add the elapsed time to ``device_ns``."""
+    the device is done and add the elapsed time to ``device_ns`` and to
+    ``device_ns:<the call's name>`` (which also holds any copy queued on
+    the stream ahead of it, such as an upload from pinned memory)."""
     count("kernel_dispatches")
     if not timing_enabled():
         return call(*args)
@@ -54,5 +56,12 @@ def timed_device(call, *args) -> Any:
     out = call(*args)
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
-    count("device_ns", time.perf_counter_ns() - t0)
+    dt = time.perf_counter_ns() - t0
+    count("device_ns", dt)
+    count(f"device_ns:{call.__name__}", dt)
     return out
+
+
+def counters(prefix: str) -> Dict[str, int]:
+    """The counters whose names start with ``prefix``."""
+    return {k: v for k, v in _COUNTERS.items() if k.startswith(prefix)}

@@ -3,11 +3,12 @@
 
 Hot join-state partitions (``state/join_state.py``) keep their sorted key
 run on the device in a preallocated power-of-two ring, padded with
-sentinels, maintained by ONE scatter-merge launch per arriving delta
-(:func:`~arroyo_tpu_torch.kernels.ring_merge`; positions are computed on
-the host mirror, where the delta was already sorted).  Window fires match
-on the host mirror's full keys and gather the matched rows' payload from
-the ring in one launch and read both payload stacks back in one copy
+sentinels, maintained by ONE merge launch per arriving delta
+(:func:`~arroyo_tpu_torch.kernels.ring_merge`: the delta, sorted on the
+host, goes up in one upload with its insert positions, which place every
+resident entry too).  Window fires match on the host mirror's full keys
+and gather the matched rows' payload from the ring in one launch and
+read both payload stacks back in one copy
 (:func:`~arroyo_tpu_torch.kernels.ring_gather.ring_gather_rows`).
 
 SPLIT-HASH LAYOUT: the partition id fixes the low hash bits, and the top
@@ -23,19 +24,23 @@ event-time run).  The bit-views stay numpy on the host.  Payload planes
 are always on (the JAX package's ``payload_device_enabled`` holds
 whenever x64 does, and torch has native i64 and f64); strings cannot
 ride the device: the buffer's sticky fallback keeps such sides host.
+A ring's planes are views of one device buffer, staged in one upload.
 
 PROBES: joins with expiration probe an arriving batch's sorted keys
-against a hot ring in one launch (:func:`probe_ring` over
-:func:`~arroyo_tpu_torch.kernels.join_probe`: candidate ranges on the
-``hi`` plane, a superset of the true matches), read back the pair
-total to size the expansion, then either expand the ranges into
+against a hot ring: one upload of the queries, one launch of
+:func:`~arroyo_tpu_torch.kernels.join_probe` (candidate ranges on the
+``hi`` plane, a superset of the true matches) and, right behind it with
+no host sync, one expansion sized from the ring's last pair totals: the
 unverified (query, ring position) pairs (:func:`expand_hit`,
-:func:`~arroyo_tpu_torch.kernels.join_expand`) or expand, verify the full
-split key and gather both payload stacks in one more launch
-(:func:`expand_gather`, :func:`~arroyo_tpu_torch.kernels.expand_gather`)
-into one buffer that is read back in one copy.  ``join_ring_probes``
-counts the probes and ``join_probe_readbacks`` their device-to-host
-copies (the pair total, then the expansion's).
+:func:`~arroyo_tpu_torch.kernels.join_expand`) or the pairs with the
+full split key verified and both payload stacks gathered
+(:func:`expand_gather`, :func:`~arroyo_tpu_torch.kernels.expand_gather`).
+The expansion reads the pair total on the device and returns it in its
+buffer, which the join reads back in one copy; a total above the
+capacity costs a second launch and copy at the exact total.
+``join_ring_probes`` counts the probes, ``join_probe_readbacks`` their
+device-to-host copies, ``join_probe_overflows`` the second launches and
+``join_blocking_uploads`` the uploads that held the host.
 
 Left for later: the legacy layout's device ``join_pairs`` (the sort
 kernel; the port's ``join_pairs`` is host numpy, CPU only)."""
@@ -48,12 +53,13 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import to_host
+from ..device import to_device, to_host
 from ..kernels.expand_gather import expand_gather_buffer, expand_views
-from ..kernels.join_expand import join_expand
+from ..kernels.join_expand import join_expand_buffer, pair_views
 from ..kernels.join_probe import join_probe
 from ..kernels.ring_gather import ring_gather_rows
-from ..kernels.ring_merge import SENT32_HI, SENT32_LO, ring_merge
+from ..kernels.ring_merge import (SENT32_HI, SENT32_LO, ring_merge,
+                                  ring_planes, ring_words)
 from ..obs import perf
 from ..obs.perf import timed_device
 
@@ -182,13 +188,16 @@ def payload_plan(schema: Dict[str, np.dtype]) -> Optional[PayloadPlan]:
 class SplitRing:
     """One hot partition's device residency: split-hash key planes plus
     (optionally) the payload stacks, all in the host mirror's sorted-run
-    order and padded to one power-of-two ``cap``.  ``plan`` is None for a
-    keys-only ring."""
+    order and padded to one power-of-two ``cap``, as views of one device
+    buffer (``kernels.ring_merge.ring_planes``).  ``plan`` is None for a
+    keys-only ring.  ``pair_cap`` is the pair capacity its next probe's
+    expansion is sized to, from the last probes' pair totals."""
 
     __slots__ = ("hi", "lo", "cap", "fstack", "istack", "plan", "nf", "ni",
-                 "device")
+                 "device", "pair_cap")
 
-    def __init__(self, hi, lo, cap, fstack, istack, plan, nf, ni, device):
+    def __init__(self, hi, lo, cap, fstack, istack, plan, nf, ni, device,
+                 pair_cap=None):
         self.hi = hi
         self.lo = lo
         self.cap = cap
@@ -198,6 +207,7 @@ class SplitRing:
         self.nf = nf
         self.ni = ni
         self.device = device
+        self.pair_cap = _bucket(0) if pair_cap is None else pair_cap
 
     def plan_schema(self) -> Dict[str, Any]:
         return {name: dt for name, _s, _i, dt in (self.plan or ())}
@@ -212,23 +222,38 @@ def _plan_dims(plan: PayloadPlan) -> Tuple[int, int]:
     return nf, ni
 
 
-def _pack_stacks(plan: PayloadPlan, nf: int, ni: int, width: int, n: int,
-                 cols: Dict[str, np.ndarray], ts: np.ndarray
-                 ) -> Tuple[np.ndarray, np.ndarray]:
-    fv = np.zeros((nf, width), np.float64)
-    iv = np.zeros((ni, width), np.int64)
-    iv[0, :n] = ts
-    for name, stack, idx, _dt in plan:
-        if stack == "f":
-            fv[idx, :n] = cols[name]
-        else:
-            iv[idx, :n] = _pay_to_i64(cols[name])
-    return fv, iv
+def _pack(keys: np.ndarray, width: int, plan: Optional[PayloadPlan],
+          nf: int, ni: int, cols: Optional[Dict[str, np.ndarray]],
+          ts: Optional[np.ndarray], lead: int = 0) -> np.ndarray:
+    """One host i64 array: ``lead`` words for the caller, then a ring
+    buffer of ``width`` slots (``ring_planes``' layout) holding the sorted
+    ``keys`` split into ``hi``/``lo`` and, with a plan, the payload
+    stacks (i-stack slot 0 the event times), sentinel/zero padded."""
+    n = len(keys)
+    host = np.zeros(lead + ring_words(width, nf, ni), np.int64)
+    hi, lo, fv, iv = ring_planes(host[lead:], width, nf, ni,
+                                 plan is not None)
+    hi[n:], lo[n:] = SENT32_HI, SENT32_LO
+    hi[:n] = split_hi32(keys)
+    lo[:n] = split_lo32(keys)
+    if plan is not None:
+        iv[0, :n] = ts
+        for name, stack, idx, _dt in plan:
+            if stack == "f":
+                fv[idx, :n] = cols[name]
+            else:
+                iv[idx, :n] = _pay_to_i64(cols[name])
+    return host
 
 
-def _put(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    # torch.tensor copies, so read-only numpy views are fine
-    return torch.tensor(arr, device=device)
+def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``arr`` on the ring's device through ``device.to_device`` (on the
+    card one non-blocking copy from pinned memory).  An upload that holds
+    the host until the copy lands — a plain copy to a CPU device — counts
+    ``join_blocking_uploads``; the card's join paths make none."""
+    if device.type != "cuda":
+        perf.count("join_blocking_uploads")
+    return to_device(arr, device)
 
 
 def stage_ring(sorted_keys: np.ndarray, device: torch.device,
@@ -237,74 +262,56 @@ def stage_ring(sorted_keys: np.ndarray, device: torch.device,
                ) -> Optional[SplitRing]:
     """Upload a sorted key run (plus payload columns when given, in the
     same sorted-run order) into a fresh power-of-two sentinel-padded ring
-    on ``device``.  Returns None when the run is not stageable (top-32
-    sentinel collision)."""
+    on ``device``, in one copy.  Returns None when the run is not
+    stageable (top-32 sentinel collision)."""
     if not ring_stageable(sorted_keys):
         return None
-    n = len(sorted_keys)
-    cap = _bucket(max(n, 1))
-    hi = np.full(cap, SENT32_HI, np.int32)
-    lo = np.full(cap, SENT32_LO, np.int32)
-    hi[:n] = split_hi32(sorted_keys)
-    lo[:n] = split_lo32(sorted_keys)
+    device = torch.device(device)
+    cap = _bucket(max(len(sorted_keys), 1))
     plan = (payload_plan({c: v.dtype for c, v in sorted_cols.items()})
             if sorted_cols is not None else None)
-    fstack = istack = None
-    nf = ni = 0
-    if plan is not None:
-        nf, ni = _plan_dims(plan)
-        fv, iv = _pack_stacks(plan, nf, ni, cap, n, sorted_cols, sorted_ts)
-        fstack, istack = _put(fv, device), _put(iv, device)
-    return SplitRing(_put(hi, device), _put(lo, device), cap, fstack, istack,
-                     plan, nf, ni, device)
+    nf, ni = _plan_dims(plan) if plan is not None else (0, 0)
+    buf = _upload(_pack(sorted_keys, cap, plan, nf, ni, sorted_cols,
+                        sorted_ts), device)
+    hi, lo, fstack, istack = ring_planes(buf, cap, nf, ni, plan is not None)
+    return SplitRing(hi, lo, cap, fstack, istack, plan, nf, ni, device)
 
 
-def merge_ring(ring: SplitRing, res_pos: np.ndarray,
-               delta_sorted: np.ndarray, delta_pos: np.ndarray,
-               delta_ts: Optional[np.ndarray] = None,
+def merge_ring(ring: SplitRing, n_res: int, delta_sorted: np.ndarray,
+               delta_pos: np.ndarray, delta_ts: Optional[np.ndarray] = None,
                delta_cols: Optional[Dict[str, np.ndarray]] = None
                ) -> Optional[SplitRing]:
-    """ONE scatter-merge launch moving resident entries to ``res_pos`` and
-    landing the (already sorted) delta — keys AND payload planes in
-    lockstep — at ``delta_pos``.  Unused positions pad to ``cap`` and are
-    dropped.  Returns None when the delta is not stageable (the caller
-    demotes to host)."""
+    """ONE merge launch inserting the (already sorted) delta — keys AND
+    payload planes in lockstep — at ``delta_pos`` (strictly increasing in
+    [0, n_res + m)) between the ring's first ``n_res`` entries, which
+    keep their order.  The delta (its positions, then its planes in
+    ``ring_planes``' layout, m entries) goes up in one upload.  Returns
+    None when the delta is not stageable (the caller demotes to host)."""
     if not ring_stageable(delta_sorted):
         return None
-    cap, dev = ring.cap, ring.device
     m = len(delta_sorted)
-    db = _bucket(max(m, 1))
-    rp = np.full(cap, cap, np.int64)
-    rp[:len(res_pos)] = res_pos
-    d_hi = np.full(db, SENT32_HI, np.int32)
-    d_lo = np.full(db, SENT32_LO, np.int32)
-    d_hi[:m] = split_hi32(delta_sorted)
-    d_lo[:m] = split_lo32(delta_sorted)
-    dp = np.full(db, cap, np.int64)
-    dp[:len(delta_pos)] = delta_pos
-    d_f = d_i = None
-    if ring.plan is not None:
-        fv, iv = _pack_stacks(ring.plan, ring.nf, ring.ni, db, m,
-                              delta_cols, delta_ts)
-        d_f, d_i = _put(fv, dev), _put(iv, dev)
+    host = _pack(delta_sorted, m, ring.plan, ring.nf, ring.ni, delta_cols,
+                 delta_ts, lead=m)
+    host[:m] = delta_pos
+    delta = _upload(host, ring.device)
+    d_hi, d_lo, d_f, d_i = ring_planes(delta[m:], m, ring.nf, ring.ni,
+                                       ring.plan is not None)
     hi, lo, fstack, istack = timed_device(
-        ring_merge, ring.hi, ring.lo, ring.fstack, ring.istack,
-        _put(rp, dev), _put(d_hi, dev), _put(d_lo, dev), d_f, d_i,
-        _put(dp, dev))
-    return SplitRing(hi, lo, cap, fstack, istack, ring.plan, ring.nf,
-                     ring.ni, dev)
+        ring_merge, ring.hi, ring.lo, ring.fstack, ring.istack, n_res, d_hi,
+        d_lo, d_f, d_i, delta[:m])
+    return SplitRing(hi, lo, ring.cap, fstack, istack, ring.plan, ring.nf,
+                     ring.ni, ring.device, ring.pair_cap)
 
 
 class ProbeHit(NamedTuple):
-    """One ring probe's intermediates: candidate match ranges on the i32
-    ``hi`` plane (a SUPERSET of the true matches — hi-equal, full key
-    unverified), with ``start``/``cum`` and the padded queries left on
-    the ring's device for the expansion launch; ``total`` is the number
-    of candidate pairs, read back to size it."""
+    """One ring probe's intermediates, left on the ring's device for the
+    expansion launch: candidate match ranges on the i32 ``hi`` plane (a
+    SUPERSET of the true matches — hi-equal, full key unverified) as
+    ``start``/``cum``, and the padded queries.  The pair total stays on
+    the device: the expansion reads it there."""
 
     start_d: torch.Tensor
     cum_d: torch.Tensor
-    total: int
     q_hi: torch.Tensor
     q_lo: torch.Tensor
 
@@ -312,49 +319,77 @@ class ProbeHit(NamedTuple):
 def probe_ring(ring: SplitRing, qkeys_sorted: np.ndarray,
                n_valid: int) -> ProbeHit:
     """Candidate match ranges of sorted query keys against a resident
-    ring, one ``join_probe`` launch; the queries pad to a power-of-two
-    bucket with the ``hi`` sentinel.  Candidates still need the full-key
-    verify (:func:`expand_hit` / :func:`expand_gather`)."""
+    ring: one upload of the queries (padded to a power-of-two bucket with
+    the ``hi`` sentinel) and one ``join_probe`` launch, no host sync.
+    Candidates still need the full-key verify (:func:`expand_hit` /
+    :func:`expand_gather`)."""
     m = len(qkeys_sorted)
     mq = _bucket(max(m, 1))
     q = np.empty((2, mq), np.int32)
     q[0], q[1] = SENT32_HI, SENT32_LO
     q[0, :m] = split_hi32(qkeys_sorted)
     q[1, :m] = split_lo32(qkeys_sorted)
-    q_d = _put(q, ring.device)
+    q_d = _upload(q, ring.device)
     start_d, _counts, cum_d = timed_device(join_probe, q_d[0], ring.hi, m,
                                            n_valid)
     perf.count("join_ring_probes")
+    return ProbeHit(start_d, cum_d, q_d[0], q_d[1])
+
+
+def _expand(ring: SplitRing, kernel, head: tuple, tail: tuple,
+            capacity: Optional[int]) -> Tuple[np.ndarray, int, int]:
+    """Launch an expansion ``kernel(*head, capacity, *tail)`` right behind
+    the probe and read its buffer back in one copy; the header holds the
+    pair total the device read.  When it exceeds the capacity
+    (``ring.pair_cap`` unless given) the expansion runs again at the
+    exact total: a second counted readback (``join_probe_overflows``),
+    never a truncation.  The ring's next capacity is the bucket of twice
+    this total, or half the last capacity when that is larger: it grows
+    at once and shrinks slowly, since a partition's totals swing from
+    probe to probe (a Zipf head key) and grow with its state.  Returns
+    (host buffer, total, its capacity)."""
+    last = cap = ring.pair_cap if capacity is None else capacity
+    host = to_host(timed_device(kernel, *head, cap, *tail))
     perf.count("join_probe_readbacks")
-    # the padded queries count 0, so the last prefix sum is the total
-    return ProbeHit(start_d, cum_d, int(cum_d[-1]), q_d[0], q_d[1])
+    total = int(host[0])
+    if total > cap:
+        perf.count("join_probe_overflows")
+        cap = total
+        host = to_host(timed_device(kernel, *head, cap, *tail))
+        perf.count("join_probe_readbacks")
+    ring.pair_cap = max(_bucket(2 * total), last // 2)
+    return host, total, cap
 
 
-def expand_hit(hit: ProbeHit) -> Tuple[np.ndarray, np.ndarray]:
+def expand_hit(ring: SplitRing, hit: ProbeHit,
+               capacity: Optional[int] = None
+               ) -> Tuple[np.ndarray, np.ndarray]:
     """Keys-only expansion of candidate ranges: (query index, ring
     position) i64 pairs, UNVERIFIED — the caller kills i32 collisions
-    against its host mirror (``skeys[spos] == qkeys[qidx]``)."""
-    lidx, ridx = timed_device(join_expand, hit.start_d, hit.cum_d,
-                              hit.total)
-    perf.count("join_probe_readbacks", 2)
-    return lidx.cpu().numpy(), ridx.cpu().numpy()
+    against its host mirror (``skeys[spos] == qkeys[qidx]``).  One launch
+    into one buffer, read back in one copy (two on a capacity
+    overflow)."""
+    host, total, cap = _expand(ring, join_expand_buffer,
+                               (hit.start_d, hit.cum_d), (), capacity)
+    return pair_views(host, total, cap)
 
 
-def expand_gather(ring: SplitRing, hit: ProbeHit
+def expand_gather(ring: SplitRing, hit: ProbeHit,
+                  capacity: Optional[int] = None
                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray,
                              np.ndarray]:
     """probe -> expand -> payload materialization, fused: ONE launch turns
     the device-resident candidate ranges into pair indices, the full-key
     verify and the gathered payload stacks, in one buffer read back in
-    one copy.  Returns (qidx, ring_pos, valid, f_rows [nf, total], i_rows
-    [ni, total]) on the host, numpy views of that copy; ``valid`` is
-    False for i32-equal-but-u64-distinct candidates."""
-    buf = timed_device(
-        expand_gather_buffer, hit.start_d, hit.cum_d, hit.total, ring.hi,
-        ring.lo, hit.q_hi, hit.q_lo, ring.fstack, ring.istack)
-    perf.count("join_probe_readbacks")
-    return expand_views(to_host(buf), hit.total, ring.fstack.shape[0],
-                        ring.istack.shape[0])
+    one copy (two on a capacity overflow).  Returns (qidx, ring_pos,
+    valid, f_rows [nf, total], i_rows [ni, total]) on the host, numpy
+    views of that copy; ``valid`` is False for i32-equal-but-u64-distinct
+    candidates."""
+    host, total, cap = _expand(
+        ring, expand_gather_buffer, (hit.start_d, hit.cum_d),
+        (ring.hi, ring.lo, hit.q_hi, hit.q_lo, ring.fstack, ring.istack),
+        capacity)
+    return expand_views(host, total, ring.nf, ring.ni, cap)
 
 
 def gather_ring(ring: SplitRing, spos: np.ndarray
@@ -364,7 +399,8 @@ def gather_ring(ring: SplitRing, spos: np.ndarray
     mirror's full keys) in one launch, read back in one copy as (f_rows
     [nf, n], i_rows [ni, n])."""
     rows = timed_device(ring_gather_rows,
-                        _put(np.asarray(spos, dtype=np.int64), ring.device),
+                        _upload(np.asarray(spos, dtype=np.int64),
+                                ring.device),
                         ring.fstack, ring.istack).cpu().numpy()
     nf = ring.fstack.shape[0]
     return rows[:nf].view(np.float64), rows[nf:]

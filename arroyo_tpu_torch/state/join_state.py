@@ -10,8 +10,8 @@ expiration.
   only when they outnumber live rows;
 * **hot partitions** (EWMA of rows per operation, with hysteresis) keep
   their sorted key run and payload columns on the buffer's device in a
-  power-of-two ring (``ops/join.py``), maintained by one scatter-merge
-  launch per append; window fires gather matched rows from the ring in
+  power-of-two ring (``ops/join.py``), maintained by one merge launch
+  per append; window fires gather matched rows from the ring in
   one launch (``join_device_gather_rows`` vs ``join_host_gather_rows``
   count the split).  Object (string) columns flip the buffer's STICKY
   host-gather fallback.  Promotion depends only on the observed data
@@ -231,12 +231,12 @@ class _Partition:
             dts = ts[dorder]
             dcols = ({c: self.cols[c][n:n + m][dorder] for c in self.cols}
                      if self.dev.plan is not None else None)
-            self._device_merge(dkeys, dpos, keep, dts, dcols)
+            self._device_merge(dkeys, dpos, n, dts, dcols)
 
     # -- device residency --------------------------------------------------
 
     def _device_merge(self, dkeys: np.ndarray, dpos: np.ndarray,
-                      keep: np.ndarray, dts: np.ndarray,
+                      n_res: int, dts: np.ndarray,
                       dcols: Optional[Dict[str, np.ndarray]]) -> None:
         from ..ops import join as dj
 
@@ -259,8 +259,7 @@ class _Partition:
             if want_plan is None and ring.plan is not None:
                 self.promote()
                 return
-        res_pos = np.nonzero(keep)[0].astype(np.int64)
-        merged = dj.merge_ring(ring, res_pos, dkeys, dpos, delta_ts=dts,
+        merged = dj.merge_ring(ring, n_res, dkeys, dpos, delta_ts=dts,
                                delta_cols=dcols)
         if merged is None:  # delta hit the top-32 sentinel: exactness
             self.demote()   # over speed — the host mirror takes over
@@ -293,6 +292,8 @@ class _Partition:
             # partition stays host — exactness first
             self.dev = None
             return
+        if self.dev is not None:  # a restage keeps the probes' pair capacity
+            ring.pair_cap = self.dev.pair_cap
         self.dev = ring
         perf.count("join_state_promotions")
 
@@ -373,9 +374,9 @@ class _Partition:
         self.touches = 0.9 * self.touches + 0.1 * len(qkeys_sorted) * 10
         if self.dev is not None:
             hit = dj.probe_ring(self.dev, qkeys_sorted, n)
-            if hit.total == 0:
+            qidx, sidx = dj.expand_hit(self.dev, hit)
+            if not len(qidx):
                 return z, z
-            qidx, sidx = dj.expand_hit(hit)
             # full-key verify on the host mirror: the candidates are
             # top-32-equal ranges; i32-equal-but-u64-distinct rows die here
             ok = self.skeys[sidx] == qkeys_sorted[qidx]
@@ -417,9 +418,9 @@ class _Partition:
             return z, z, None, None
         self.touches = 0.9 * self.touches + 0.1 * len(qkeys_sorted) * 10
         hit = dj.probe_ring(ring, qkeys_sorted, n)
-        if hit.total == 0:
-            return z, z, None, None
         qidx, sidx, valid, gf, gi = dj.expand_gather(ring, hit)
+        if not len(qidx):
+            return z, z, None, None
         keep = valid
         if self.valid_from != _NEG_INF:
             keep = keep & (gi[0] >= self.valid_from)

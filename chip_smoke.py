@@ -7,24 +7,28 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 1. environment: torch/CUDA versions, the card, its power limit;
 2. build: the CUDA kernels from arroyo_tpu_torch/csrc with nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes nexmark q5, q8, config5 and hot items give it (and, for the
-   session kernels, at larger and skewed shapes), timed with CUDA events
-   beside its plain version, a PyTorch yardstick (one call per plane)
-   where one exists, and its least possible time on an H100 (bytes /
-   3.35 TB/s; pane_emit and bin_evict count the 32-byte sectors their
-   rows' columns touch); segment_top_k, ring_gather, pane_emit and
-   bin_evict are timed in turns with their yardstick (three rounds of
-   library, kernel, kernel, library), and so are segment_agg and
-   expand_gather; those six print their launches, host syncs and
-   allocations per call (the last two as PyTorch's sync debug mode and
+   the shapes nexmark q5, q8, config5, join-stress and hot items give it
+   (and, for the session kernels, at larger and skewed shapes), timed
+   with CUDA events beside its plain version, a PyTorch yardstick (one
+   call per plane) where one exists, and its least possible time on an
+   H100 (bytes / 3.35 TB/s; pane_emit and bin_evict count the 32-byte
+   sectors their rows' columns touch); segment_top_k, ring_gather,
+   pane_emit, bin_evict, segment_agg, expand_gather, ring_merge and
+   join_probe are timed in turns with their yardstick (three rounds of
+   library, kernel, kernel, library); the last six print their launches,
+   host syncs and allocations per call (as PyTorch's sync debug mode and
    caching allocator see them) and torch.profiler's device time per
-   launch; segment_agg's sums are held to math.fsum and to themselves
-   over two calls; ring_gather's and expand_gather's launch paths are
-   split into their host steps (expand_gather's with ctypes' cost of one
-   argument).  With ``--parent DIR`` (a ``git archive`` of the parent
-   commit unpacked at DIR) the parent's pane_emit, bin_evict, segment_agg
-   and expand_gather are built from DIR and timed in turns with this
-   tree's at the same shapes, and so are the reads their callers made;
+   launch, warm and cold; segment_agg's sums are held to math.fsum and to
+   themselves over two calls, and an empty segment's MIN/MAX to +/-inf;
+   ring_gather's and expand_gather's launch paths are split into their
+   host steps.  With ``--parent DIR`` (a ``git archive`` of the parent
+   commit unpacked at DIR) the parent's pane_emit, bin_evict,
+   segment_agg, expand_gather, ring_merge and join_probe are built from
+   DIR and timed in turns with this tree's at the same shapes (the
+   parent's ring_merge given its own resident positions), and so are
+   the callers: the reads the segment reduce and the join's emission
+   make, ``ops/join.merge_ring``, and ``probe_ring`` + ``expand_gather``
+   at join-stress's probes;
 4. state: the port's KeyedBinState (q5 aggregates, local argmax) over
    2,000,000 nexmark events on the card and on the CPU — every fire and
    the final snapshot identical, and a card snapshot restored into a
@@ -59,10 +63,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    counters) present, every row key-equal, no pair twice, bench.py's
    ``state_bounded`` true; 8b LEFT with the planner's 1 h TTL over
    400,000 events a side — the net rows (CREATE minus DELETE) equal a
-   numpy LEFT JOIN of the two streams; the device-to-host copies per hot
-   probe (at most two in 8a: the pair total, then the expansion's
-   buffer); each once more under ``ARROYO_TIMING=1`` for the device
-   share;
+   numpy LEFT JOIN of the two streams; in both, at most one
+   device-to-host copy a hot probe beyond the probes whose pair total
+   overflowed the expansion's capacity (``join_probe_overflows``), and no
+   blocking upload on the join paths (``join_blocking_uploads``); each
+   once more under ``ARROYO_TIMING=1`` for the device share;
 9. hot-items path: Nexmark hot items, top 10 per window (the ROW_NUMBER
    form of q5: a HOP(2 s, 10 s) COUNT(*) fused with a per-window TopN,
    then a global TopN stage) through ``LocalRunner`` at 40,000,000 events
@@ -111,7 +116,7 @@ from arroyo_tpu_torch.connectors.memory import clear_sink, sink_output  # noqa: 
 from arroyo_tpu_torch.connectors.nexmark import (  # noqa: E402
     EVENT_AUCTION, EVENT_BID, EVENT_PERSON, NexmarkConfig, NexmarkGenerator,
     make_splits)
-from arroyo_tpu_torch.device import to_host  # noqa: E402
+from arroyo_tpu_torch.device import to_device, to_host  # noqa: E402
 from arroyo_tpu_torch.engine.engine import LocalRunner  # noqa: E402
 from arroyo_tpu_torch.graph.logical import AggKind, AggSpec, JoinType  # noqa: E402
 from arroyo_tpu_torch.hot_items import SLIDE_MICROS as HOT_SLIDE  # noqa: E402
@@ -145,7 +150,6 @@ from arroyo_tpu_torch.kernels.ring_gather import (  # noqa: E402
     ring_gather, ring_gather_reference)
 from arroyo_tpu_torch.kernels.ring_merge import (  # noqa: E402
     ring_merge, ring_merge_reference)
-from arroyo_tpu_torch.kernels import join_expand as join_expand_mod  # noqa: E402
 from arroyo_tpu_torch.kernels.segment_agg import (  # noqa: E402
     segment_agg, segment_agg_buffer, segment_agg_reference)
 from arroyo_tpu_torch.kernels.segment_top_k import (  # noqa: E402
@@ -153,6 +157,7 @@ from arroyo_tpu_torch.kernels.segment_top_k import (  # noqa: E402
 from arroyo_tpu_torch.kernels.session_union import (  # noqa: E402
     session_union, session_union_reference)
 from arroyo_tpu_torch.obs import perf  # noqa: E402
+from arroyo_tpu_torch.ops import join as join_ops  # noqa: E402
 from arroyo_tpu_torch.ops.keyed_bins import KeyedBinState  # noqa: E402
 from arroyo_tpu_torch.ops.segment import _reduce as segment_reduce  # noqa: E402
 from arroyo_tpu_torch.q5 import SLIDE_MICROS, WIDTH_MICROS, q5_program  # noqa: E402
@@ -185,6 +190,14 @@ JS_BATCH = 8_192  # bench.py's join-stress batch
 # ring capacity and rows, padded and real queries; 100,000 keys over 16
 # join partitions leave 6,250 keys a partition
 JS_RING_CAP, JS_RING_ROWS, JS_MQ, JS_M = 8_192, 5_905, 1_024, 520
+# 8a's merges take that ring and a delta of JS_M rows.  8b's median hot
+# merge and probe, field by field over the 431 merges and 936 probes of a
+# CPU run of phase 8b (python3 -m arroyo_tpu_torch.tools.join_stress_shapes
+# 8b: ARROYO_DEVICE_JOIN=on makes the card's ring decisions on the CPU):
+# ring capacity, resident rows and delta rows; ring capacity and rows,
+# padded and real queries
+JS_B_MERGE_CAP, JS_B_MERGE_ROWS, JS_B_MERGE_M = 32_768, 16_480, 540
+JS_B_RING_CAP, JS_B_RING_ROWS, JS_B_MQ, JS_B_M = 16_384, 15_956, 512, 499
 JS_KEYS = 6_250
 HOT_EVENTS = 40_000_000  # the size at which hot items' fires turn sparse
 HOT_SMALL = 2_000_000
@@ -538,27 +551,30 @@ def atom_bound_ms(read_atoms, partial_atoms, full_bytes):
 
 
 def parent_kernels(parent):
-    """The parent commit's kernel modules, from a ``git archive`` of it
-    unpacked at ``parent``: its ``arroyo_tpu_torch/kernels`` imported as
-    the package ``parent_kernels`` and built from its own csrc/ into its
-    own build/ directory.  Returns a namespace of its pane_emit,
-    bin_evict, segment_agg and expand_gather and the build seconds."""
+    """The parent commit's package, from a ``git archive`` of it unpacked
+    at ``parent``: its ``arroyo_tpu_torch`` imported as the package
+    ``parent_torch``, its kernels built from its own csrc/ into its own
+    build/ directory.  Returns a namespace of its pane_emit, bin_evict,
+    segment_agg, expand_gather, join_probe and ring_merge, its
+    ``ops.join`` module (the join's callers) and the build seconds."""
     import importlib
     import importlib.util
-    pkg = os.path.join(os.path.abspath(parent), "arroyo_tpu_torch", "kernels")
+    pkg = os.path.join(os.path.abspath(parent), "arroyo_tpu_torch")
     spec = importlib.util.spec_from_file_location(
-        "parent_kernels", os.path.join(pkg, "__init__.py"),
+        "parent_torch", os.path.join(pkg, "__init__.py"),
         submodule_search_locations=[pkg])
     mod = importlib.util.module_from_spec(spec)
-    sys.modules["parent_kernels"] = mod
+    sys.modules["parent_torch"] = mod
     spec.loader.exec_module(mod)
     t0 = time.perf_counter()
-    importlib.import_module("parent_kernels.build").load()
+    importlib.import_module("parent_torch.kernels.build").load()
     secs = time.perf_counter() - t0
-    names = ("pane_emit", "bin_evict", "segment_agg", "expand_gather")
-    return argparse.Namespace(build_s=secs, **{
-        name: getattr(importlib.import_module(f"parent_kernels.{name}"), name)
-        for name in names})
+    names = ("pane_emit", "bin_evict", "segment_agg", "expand_gather",
+             "join_probe", "ring_merge")
+    return argparse.Namespace(
+        build_s=secs, join=importlib.import_module("parent_torch.ops.join"),
+        **{name: getattr(importlib.import_module(
+            f"parent_torch.kernels.{name}"), name) for name in names})
 
 
 def measured(fn, kernel):
@@ -766,51 +782,163 @@ def k4_case(rng, dev, kinds, C, B, first_bin, n_bins, rows, cdt, shape,
     return r
 
 
-def k5_case(rng, dev, cap, nf, ni, shape):
-    """Positions as the join state computes them for a resident run of
-    0.6 cap and a delta of 0.2 cap: a permutation of the merged run,
-    unused resident slots at cap, delta padding at cap and beyond."""
-    n_res, m = int(cap * 0.6), int(cap * 0.2)
-    db = 1 << (m - 1).bit_length()
-    perm = rng.permutation(n_res + m)
-    res_pos = np.full(cap, cap, np.int64)
-    res_pos[:n_res] = np.sort(perm[:n_res])
-    delta_pos = np.full(db, cap + 7, np.int64)
-    delta_pos[:m] = np.sort(perm[n_res:])
+def ring_keys(rng, n):
+    """n distinct sorted u64 join-key hashes whose top 32 bits stay off
+    the ring's sentinel."""
+    keys = np.unique(rng.integers(0, 2**63, n + n // 8 + 8, dtype=np.uint64))
+    return np.sort(rng.choice(keys, n, replace=False))
+
+
+def ring_columns(rng, nf, ni, n):
+    """Payload columns that ride a ring as nf f64 rows and ni i64 rows
+    (i-stack row 0 is the event time), or None for a keys-only ring."""
+    if not (nf or ni):
+        return None
+    cols = {f"f{k}": rng.normal(size=n) for k in range(nf)}
+    cols.update({f"i{k}": rng.integers(-2**62, 2**62, n)
+                 for k in range(1, ni)})
+    return cols
+
+
+def k5_case(rng, dev, cap, n_res, m, nf, ni, shape, parent=None):
+    """K5 on one merge as the join state makes it: a resident run of
+    ``n_res`` entries and a delta of ``m`` at insert positions spread
+    over the run.  Bit-equal to the plain version, one launch, the planes
+    views of one buffer, 1 allocation and 0 host syncs a call; timed in
+    turns with ``index_copy_`` per plane (given the residents' positions,
+    which the kernel does not take) and, with ``parent``, with the
+    parent commit's kernel (given its own ``res_pos`` i64[cap] and a
+    delta padded to a power of two, as its caller made them), and the
+    caller ``ops/join.merge_ring`` (one upload, the launch) with the
+    parent's (up to six blocking uploads, three launches)."""
+    dpos = np.sort(rng.choice(n_res + m, m, replace=False))
+    keep = np.ones(n_res + m, dtype=bool)
+    keep[dpos] = False
+    rpos = np.nonzero(keep)[0]
     t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
-    i32 = lambda n: t(rng.integers(-2**31, 2**31 - 1, n).astype(np.int32))  # noqa: E731
-    stacks = (None,) * 4
-    if nf or ni:
-        stacks = (t(rng.normal(size=(nf, cap))),
-                  t(rng.integers(-2**62, 2**62, (ni, cap))),
-                  t(rng.normal(size=(nf, db))),
-                  t(rng.integers(-2**62, 2**62, (ni, db))))
-    args = (i32(cap), i32(cap), stacks[0], stacks[1], t(res_pos), i32(db),
-            i32(db), stacks[2], stacks[3], t(delta_pos))
-    got, want = ring_merge(*args), ring_merge_reference(*args)
+    i32 = lambda n: rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)  # noqa: E731
+    hi_np, lo_np = i32(cap), i32(cap)
+    hi_np[n_res:], lo_np[n_res:] = 0x7FFFFFFF, -1
+    d_hi_np, d_lo_np = i32(m), i32(m)
+    payload = bool(nf or ni)
+    st = ((rng.normal(size=(nf, cap)), rng.integers(-2**62, 2**62, (ni, cap)),
+           rng.normal(size=(nf, m)), rng.integers(-2**62, 2**62, (ni, m)))
+          if payload else None)
+    stacks = tuple(t(x) for x in st) if payload else (None,) * 4
+    dp = t(dpos.astype(np.int64))
+    args = (t(hi_np), t(lo_np), stacks[0], stacks[1], n_res, t(d_hi_np),
+            t(d_lo_np), stacks[2], stacks[3], dp)
+    before = ring_merge.launches
+    got = ring_merge(*args)
+    launches = ring_merge.launches - before
+    want = ring_merge_reference(*args)
     torch.cuda.synchronize()
+    check(launches == 1, f"ring_merge made {launches} launches ({shape})")
     for g, w in zip(got, want):
         check((g is None and w is None) or torch.equal(g, w),
               f"ring_merge differs ({shape})")
-    ms = cuda_ms(lambda: ring_merge(*args))
-    plain = cuda_ms(lambda: ring_merge_reference(*args))
-    rp, dp = args[4][:n_res], args[9][:m]
+    check(len({g.untyped_storage().data_ptr() for g in got
+               if g is not None}) == 1,
+          "ring_merge's planes are not views of one buffer")
+
+    def kernel():
+        return ring_merge(*args)
+
+    rp = t(rpos)
     outs = [g.clone() for g in got if g is not None]
     srcs = [(args[0], args[5]), (args[1], args[6])]
-    if nf or ni:
+    if payload:
         srcs += [(args[2], args[7]), (args[3], args[8])]
 
     def library():  # index_copy_ per plane: resident, then delta
         for out, (res, delta) in zip(outs, srcs):
             dim = out.dim() - 1
             out.index_copy_(dim, rp, res[..., :n_res])
-            out.index_copy_(dim, dp, delta[..., :m])
+            out.index_copy_(dim, dp, delta)
 
-    lib = cuda_ms(library)
+    ms, lib, turns = in_turns(kernel, library)
+    plain = cuda_ms(lambda: ring_merge_reference(*args))
+    meas = measured(kernel, "merge_kernel")
+    check(meas["allocations_per_call"] == 1 and meas["syncs_per_call"] == 0,
+          f"ring_merge made {meas['allocations_per_call']} allocations and "
+          f"{meas['syncs_per_call']} host syncs ({shape})")
     width = 8 + 8 * (nf + ni)  # hi + lo + one 8-byte word per stack row
-    nbytes = cap * (2 * width + 8) + db * (width + 8)
-    return row("ring_merge", K5_SOURCE, K5_REPLACES, shape, 0.0, ms, plain,
-               nbytes, 0, lib, "index_copy_ per plane, resident then delta")
+    nbytes = n_res * width + m * (width + 8) + cap * width
+    r = row("ring_merge", K5_SOURCE, K5_REPLACES, shape, 0.0, ms, plain,
+            nbytes, 0, lib, "index_copy_ per plane, resident then delta")
+    r.update(turns_ms=turns, library_turns=turn_factors(turns),
+             launches_per_call=launches, bound_bytes=nbytes,
+             library_device_us=profile_kernels(library), **meas)
+    if parent is not None:
+        db = 1 << max(m - 1, 0).bit_length()
+        res_pos = np.full(cap, cap, np.int64)
+        res_pos[:n_res] = rpos
+        pad = lambda a, v: np.concatenate(  # noqa: E731
+            [a, np.full(a.shape[:-1] + (db - m,), v, a.dtype)], axis=-1)
+        p_args = (args[0], args[1], stacks[0], stacks[1], t(res_pos),
+                  t(pad(d_hi_np, 0x7FFFFFFF)), t(pad(d_lo_np, -1)),
+                  t(pad(st[2], 0.0)) if payload else None,
+                  t(pad(st[3], 0)) if payload else None,
+                  t(pad(dpos.astype(np.int64), cap)))
+        pm = parent.ring_merge
+        p_out = pm(*p_args)
+        torch.cuda.synchronize()
+        check(all((g is None and w is None) or torch.equal(g, w)
+                  for g, w in zip(p_out, got)),
+              f"ring_merge differs from the parent's ({shape})")
+        c_ms, p_ms, p_turns = in_turns(kernel, lambda: pm(*p_args))
+        r["parent"] = {"ms": p_ms, "kernel_ms_beside_it": c_ms,
+                       "turns_ms": p_turns, **turn_factors(p_turns),
+                       **measured(lambda: pm(*p_args), "_kernel"),
+                       "caller": merge_callers(rng, dev, cap, n_res, m, nf,
+                                               ni, dpos, rpos, parent,
+                                               shape)}
+    print(f"ring_merge {shape}: " + json.dumps(
+        {key: r[key] for key in ("ms", "library_ms", "turns_ms",
+                                 "library_turns", "bound_ms",
+                                 "library_device_us", "host_us_per_call",
+                                 "device_us_per_call", "device_us_cold",
+                                 "allocations_per_call", "syncs_per_call",
+                                 "parent") if key in r}))
+    return r
+
+
+def merge_callers(rng, dev, cap, n_res, m, nf, ni, dpos, rpos, parent,
+                  shape):
+    """``ops/join.merge_ring`` (the delta and its positions in one upload
+    from pinned memory, one launch) against the parent's (the residents'
+    positions, keys, stacks and positions in up to six blocking uploads,
+    three launches) on rings staged from the same sorted keys: equal
+    planes, then in turns, with allocations and host syncs a call."""
+    keys = ring_keys(rng, n_res + m)
+    cols = ring_columns(rng, nf, ni, n_res + m)
+    ts = rng.integers(0, 2**50, n_res + m)
+    part = lambda ix: (None if cols is None else  # noqa: E731
+                       {c: v[ix] for c, v in cols.items()})
+    pj, pp = join_ops, parent.join
+    rings = [mod.stage_ring(keys[rpos], dev, sorted_ts=ts[rpos],
+                            sorted_cols=part(rpos)) for mod in (pj, pp)]
+    check(rings[0].cap == rings[1].cap == cap,
+          f"staged rings of {rings[0].cap} / {rings[1].cap}, not {cap}")
+
+    def merge():
+        return pj.merge_ring(rings[0], n_res, keys[dpos], dpos,
+                             delta_ts=ts[dpos], delta_cols=part(dpos))
+
+    def parent_merge():
+        return pp.merge_ring(rings[1], rpos, keys[dpos], dpos,
+                             delta_ts=ts[dpos], delta_cols=part(dpos))
+
+    a, b = merge(), parent_merge()
+    torch.cuda.synchronize()
+    check(all(torch.equal(getattr(a, k), getattr(b, k)) for k in
+              ("hi", "lo") + (("fstack", "istack") if cols else ())),
+          f"merge_ring differs from the parent's ({shape})")
+    ms, p_ms, turns = in_turns(merge, parent_merge)
+    return {"ms": ms, "parent_ms": p_ms, "turns_ms": turns,
+            **turn_factors(turns),
+            "allocations_syncs": per_call(merge),
+            "parent_allocations_syncs": per_call(parent_merge)}
 
 
 def launch_split(idx, f, i):
@@ -1040,11 +1168,31 @@ def k8_case(rng, dev, n, n_seg, kinds, shape, parent=None):
     return r
 
 
+def empty_segments(dev):
+    """segment_agg over segments with no row, on the card: count 0, SUM 0,
+    MIN +inf and MAX -inf (XLA's segment_min/segment_max of no rows, as
+    the JAX kernel gives them), the other segments their rows'."""
+    kinds = ("min", "max", "sum", "count")
+    offsets = torch.tensor([0, 0, 3, 3, 5, 5], device=dev)
+    values = torch.arange(15, dtype=torch.float64, device=dev).reshape(3, 5)
+    out, counts = segment_agg(values, offsets, kinds)
+    want = segment_agg_reference(values, offsets, kinds)
+    torch.cuda.synchronize()
+    inf = float("inf")
+    check(counts.tolist() == [0, 3, 0, 2, 0]
+          and out[:, 0].tolist() == out[:, 2].tolist() == out[:, 4].tolist()
+          == [inf, -inf, 0.0, 0.0]
+          and out[:, 1].tolist() == [0.0, 7.0, 33.0, 3.0]
+          and torch.equal(out, want[0]),
+          f"segment_agg over empty segments: {out.tolist()}")
+
+
 def join_cases(rng, dev, cap, n_valid, mq, m, span, ni, shape,
-               parent=None):
+               parent=None, callers=False):
     """K9-K11 on one ring probe: a sorted ring of ``n_valid`` keys drawn
     from ``span`` values (repeats), sorted queries from the same values
-    (a fifth of them absent), a third sharing a ring row's lo."""
+    (a fifth of them absent), a third sharing a ring row's lo.  With
+    ``callers`` (and ``parent``) the join's probe path is timed too."""
     sent = 0x7FFFFFFF
     hi_np = np.full(cap, sent, np.int32)
     hi_np[:n_valid] = np.sort(rng.integers(0, span, n_valid) * 2)
@@ -1060,16 +1208,15 @@ def join_cases(rng, dev, cap, n_valid, mq, m, span, ni, shape,
     hi, lo, q_hi, q_lo = t(hi_np), t(lo_np), t(q_np), t(ql_np)
     ist = t(rng.integers(-2**62, 2**62, (ni, cap)))
     fst = torch.zeros((0, cap), dtype=torch.float64, device=dev)
-    got = join_probe(q_hi, hi, m, n_valid)
     want = join_probe_reference(q_hi, hi, m, n_valid)
-    torch.cuda.synchronize()
-    check(all(torch.equal(g, w) for g, w in zip(got, want)),
-          f"join_probe differs ({shape})")
     start, counts, cum = want
     total = int(cum[-1])
     check(total > 0, f"join case has no candidate pair ({shape})")
     n_q = int(torch.unique(q_hi).numel())  # distinct searched values
     shape = f"{shape} total={total}"
+    rows = [k9_case(q_hi, hi, m, n_valid, want, shape,
+                    4 * mq + searched(4 * cap, cap, 2 * n_q) + 16 * mq,
+                    parent)]
     pairs = join_expand(start, cum, total)
     check(all(torch.equal(g, w) for g, w in zip(
         pairs, join_expand_reference(start, cum, total))),
@@ -1079,11 +1226,6 @@ def join_cases(rng, dev, cap, n_valid, mq, m, span, ni, shape,
     distinct = int(torch.unique(want[1]).numel())
     used = int(torch.unique(want[0]).numel())  # queries with a pair
     c64 = counts.long()
-
-    def lib_probe():
-        s_ = torch.searchsorted(hi, q_hi)
-        e_ = torch.searchsorted(hi, q_hi, right=True)
-        return torch.cumsum(e_ - s_, 0)
 
     def lib_expand():
         lidx = torch.repeat_interleave(c64, output_size=total)
@@ -1096,62 +1238,167 @@ def join_cases(rng, dev, cap, n_valid, mq, m, span, ni, shape,
         ok = (hi[ridx] == q_hi[lidx]) & (lo[ridx] == q_lo[lidx])
         return ok, fst.index_select(1, ridx), ist.index_select(1, ridx)
 
-    rows = []
-    for name, src, rep, fn, plain, lib, call, nbytes in (
-            ("join_probe", K9_SOURCE, K9_REPLACES,
-             lambda: join_probe(q_hi, hi, m, n_valid),
-             lambda: join_probe_reference(q_hi, hi, m, n_valid), lib_probe,
-             "searchsorted x2 + cumsum",
-             4 * mq + searched(4 * cap, cap, 2 * n_q) + 16 * mq),
-            ("join_expand", K10_SOURCE, K10_REPLACES,
-             lambda: join_expand(start, cum, total),
-             lambda: join_expand_reference(start, cum, total), lib_expand,
-             "repeat_interleave + arange",
-             4 * used + searched(8 * mq, mq, used) + 16 * total)):
-        rows.append(row(name, src, rep, shape, 0.0, cuda_ms(fn),
-                        cuda_ms(plain), nbytes, 0, cuda_ms(lib), call))
+    rows.append(row("join_expand", K10_SOURCE, K10_REPLACES, shape, 0.0,
+                    cuda_ms(lambda: join_expand(start, cum, total)),
+                    cuda_ms(lambda: join_expand_reference(start, cum,
+                                                          total)),
+                    4 * used + searched(8 * mq, mq, used) + 16 * total, 0,
+                    cuda_ms(lib_expand), "repeat_interleave + arange"))
     rows.append(k11_case(eg_args, want, lib_gather, shape,
                          12 * used + searched(8 * mq, mq, used)
                          + distinct * (8 + 8 * ni) + total * (17 + 8 * ni),
                          parent))
+    if callers and parent is not None:
+        rows[0]["parent"]["caller"] = probe_callers(
+            hi_np, lo_np, q_np, ql_np, n_valid, m, ni, ist, dev, parent,
+            shape)
+        print(f"probe callers {shape}: "
+              + json.dumps(rows[0]["parent"]["caller"]))
     return rows
+
+
+def k9_case(q_hi, hi, m, n_valid, want, shape, nbytes, parent=None):
+    """K9 on one probe: its three outputs bit-equal to the plain version
+    as views of one buffer, 1 allocation and 0 host syncs a call; timed
+    in turns with ``searchsorted`` x2 + ``cumsum`` and, with ``parent``,
+    with the parent commit's kernel."""
+    before = join_probe.launches
+    got = join_probe(q_hi, hi, m, n_valid)
+    launches = join_probe.launches - before
+    torch.cuda.synchronize()
+    check(launches == 1, f"join_probe made {launches} launches ({shape})")
+    check(all(g.dtype == w.dtype and torch.equal(g, w)
+              for g, w in zip(got, want)), f"join_probe differs ({shape})")
+    check(len({g.untyped_storage().data_ptr() for g in got}) == 1,
+          "join_probe's outputs are not views of one buffer")
+
+    def kernel():
+        return join_probe(q_hi, hi, m, n_valid)
+
+    def library():
+        s_ = torch.searchsorted(hi, q_hi)
+        e_ = torch.searchsorted(hi, q_hi, right=True)
+        return torch.cumsum(e_ - s_, 0)
+
+    ms, lib, turns = in_turns(kernel, library)
+    plain = cuda_ms(lambda: join_probe_reference(q_hi, hi, m, n_valid))
+    meas = measured(kernel, "probe_tile")
+    check(meas["allocations_per_call"] == 1 and meas["syncs_per_call"] == 0,
+          f"join_probe made {meas['allocations_per_call']} allocations and "
+          f"{meas['syncs_per_call']} host syncs ({shape})")
+    r = row("join_probe", K9_SOURCE, K9_REPLACES, shape, 0.0, ms, plain,
+            nbytes, 0, lib, "searchsorted x2 + cumsum")
+    r.update(turns_ms=turns, library_turns=turn_factors(turns),
+             launches_per_call=launches, bound_bytes=nbytes,
+             library_device_us=profile_kernels(library), **meas)
+    if parent is not None:
+        pp = parent.join_probe
+        check(all(torch.equal(g, w) for g, w in zip(
+            pp(q_hi, hi, m, n_valid), got)),
+            f"join_probe differs from the parent's ({shape})")
+        c_ms, p_ms, p_turns = in_turns(kernel,
+                                       lambda: pp(q_hi, hi, m, n_valid))
+        r["parent"] = {"ms": p_ms, "kernel_ms_beside_it": c_ms,
+                       "turns_ms": p_turns, **turn_factors(p_turns),
+                       **measured(lambda: pp(q_hi, hi, m, n_valid),
+                                  "probe_tile")}
+    print(f"join_probe {shape}: " + json.dumps(
+        {key: r[key] for key in ("ms", "library_ms", "turns_ms",
+                                 "library_turns", "bound_ms",
+                                 "library_device_us", "host_us_per_call",
+                                 "device_us_per_call", "device_us_cold",
+                                 "allocations_per_call", "syncs_per_call",
+                                 "parent") if key in r}))
+    return r
+
+
+def probe_callers(hi_np, lo_np, q_np, ql_np, n_valid, m, ni, ist, dev,
+                  parent, shape):
+    """The join's hot probe, ``probe_ring`` + ``expand_gather`` (one
+    upload from pinned memory, the probe and the expansion launched back
+    to back, one readback), against the parent's (a blocking upload, the
+    probe, a sync on the pair total, the expansion, a readback), on
+    rings holding the same planes: the same five arrays, then in turns,
+    with allocations and host syncs a call."""
+    to_key = lambda h, l: ((h.view(np.uint32) ^ np.uint32(0x80000000))  # noqa: E731
+                           .astype(np.uint64) << np.uint64(32)) | \
+        l.view(np.uint32).astype(np.uint64)
+    q = to_key(q_np[:m], ql_np[:m])
+    cap = len(hi_np)
+    nf = 0
+    hi, lo = torch.tensor(hi_np, device=dev), torch.tensor(lo_np, device=dev)
+    fst = torch.zeros((nf, cap), dtype=torch.float64, device=dev)
+    pj, pp = join_ops, parent.join
+    plan = pj.payload_plan({f"i{k}": np.dtype(np.int64)
+                            for k in range(1, ni)})
+    ring = pj.SplitRing(hi, lo, cap, fst, ist, plan, nf, ni, dev)
+    pring = pp.SplitRing(hi, lo, cap, fst, ist, plan, nf, ni, dev)
+
+    def probe():
+        return pj.expand_gather(ring, pj.probe_ring(ring, q, n_valid))
+
+    def parent_probe():
+        return pp.expand_gather(pring, pp.probe_ring(pring, q, n_valid))
+
+    a, b = probe(), parent_probe()  # the first sizes the ring's capacity
+    check(all(np.array_equal(x, y) for x, y in zip(a, b)),
+          f"probe_ring + expand_gather differs from the parent's ({shape})")
+    ms, p_ms, turns = in_turns(probe, parent_probe)
+    return {"ms": ms, "parent_ms": p_ms, "turns_ms": turns,
+            **turn_factors(turns), "pair_cap": ring.pair_cap,
+            "allocations_syncs": per_call(probe),
+            "parent_allocations_syncs": per_call(parent_probe),
+            "host_split": probe_split(ring, q, n_valid, probe)}
+
+
+def probe_split(ring, q, n_valid, probe):
+    """Where the join's hot probe spends its host time: microseconds of
+    each step alone — the queries' i32 planes, their upload, the probe's
+    launch, the expansion's launch (these three queue on the card), the
+    readback of a finished buffer and its split — and of the whole
+    probe."""
+    m = len(q)
+    mq = join_ops._bucket(m)
+
+    def queries():
+        qp = np.empty((2, mq), np.int32)
+        qp[0], qp[1] = 0x7FFFFFFF, -1
+        qp[0, :m] = join_ops.split_hi32(q)
+        qp[1, :m] = join_ops.split_lo32(q)
+        return qp
+
+    qp = queries()
+    q_d = to_device(qp, ring.device)
+    start, _counts, cum = join_probe(q_d[0], ring.hi, m, n_valid)
+    cap = ring.pair_cap
+    args = (start, cum, cap, ring.hi, ring.lo, q_d[0], q_d[1], ring.fstack,
+            ring.istack)
+    buf = expand_gather_buffer(*args)
+    host = to_host(buf)
+    total = int(host[0])
+    return {"queries_us": host_us(queries, reps=500),
+            "upload_us": host_us(lambda: to_device(qp, ring.device),
+                                 reps=500),
+            "probe_launch_us": host_us(
+                lambda: join_probe(q_d[0], ring.hi, m, n_valid), reps=500),
+            "expand_launch_us": host_us(lambda: expand_gather_buffer(*args),
+                                        reps=500),
+            "readback_us": host_us(lambda: to_host(buf), reps=500),
+            "readback_bytes": buf.numel() * 8,
+            "views_us": host_us(lambda: expand_views(
+                host, total, ring.nf, ring.ni, cap), reps=500),
+            "probe_us": host_us(probe, reps=200)}
 
 
 def expand_gather_split(args):
     """Where an expand_gather call's host time goes: microseconds of its
     argument checks, its one allocation, the launch alone into a buffer
-    made beforehand (ctypes' conversion of its 15 arguments and
-    cudaLaunchKernel), the ctypes call alone (the same arguments with no
-    pairs: the launcher returns before launching), the whole wrapper and
-    the five views of the tuple form;
-    and the ctypes calls alone of three launchers that take 7, 9 and 15
-    arguments, with the slope of a line through them: ctypes' cost of one
-    argument."""
+    made beforehand (ctypes and cudaLaunchKernel), the whole wrapper and
+    the five views of the tuple form."""
     start, cum, total, hi, lo, q_hi, q_lo, fstack, istack = args
     mq, cap, nf, ni = expand_gather_mod._check(*args)
     words = expand_gather_mod.buffer_words(total, nf, ni)
     buf = torch.empty(words, dtype=torch.int64, device=start.device)
-    stream = torch._C._cuda_getCurrentRawStream(start.device.index)
-    eg = expand_gather_mod._c_fn()
-    eg_args = [start.data_ptr(), cum.data_ptr(), mq, total, hi.data_ptr(),
-               lo.data_ptr(), cap, q_hi.data_ptr(), q_lo.data_ptr(),
-               fstack.data_ptr(), nf, istack.data_ptr(), ni, buf.data_ptr(),
-               stream]
-    idle = {  # (arguments, the launcher called with no work)
-        7: (join_expand_mod._c_fn(), [start.data_ptr(), cum.data_ptr(), mq,
-                                      0, buf.data_ptr(), buf.data_ptr(),
-                                      stream]),
-        9: (ring_gather_mod._c_fn(), [buf.data_ptr(), 0, fstack.data_ptr(),
-                                      istack.data_ptr(), nf, ni, cap,
-                                      buf.data_ptr(), stream]),
-        15: (eg, eg_args[:3] + [0] + eg_args[4:])}
-    idle_us = {n_args: host_us(lambda fn=fn, a=a: fn(*a))
-               for n_args, (fn, a) in idle.items()}
-    xs = sorted(idle_us)
-    mx = statistics.fmean(xs)
-    my = statistics.fmean(idle_us[x] for x in xs)
-    slope = (sum((x - mx) * (idle_us[x] - my) for x in xs)
-             / sum((x - mx) ** 2 for x in xs))
     return {
         "check_us": host_us(lambda: expand_gather_mod._check(*args)),
         "alloc_us": host_us(lambda: torch.empty(words, dtype=torch.int64,
@@ -1159,9 +1406,6 @@ def expand_gather_split(args):
         "launch_us": host_us(lambda: expand_gather_mod._launch(
             start, cum, mq, total, hi, lo, cap, q_hi, q_lo, fstack, nf,
             istack, ni, buf)),
-        "bare_launch_us": host_us(lambda: eg(*eg_args)),
-        "ctypes_call_us_by_arguments": idle_us,
-        "ctypes_us_per_argument": slope,
         "wrapper_us": host_us(lambda: expand_gather_buffer(*args)),
         "views_us": host_us(lambda: expand_views(buf, total, nf, ni))}
 
@@ -1408,10 +1652,20 @@ def kernel_phase(parent=None):
                         HOT_ROWS, torch.int32,
                         f"hot items COUNT(*) C={C_HOT} B={B_HOT} 1 column "
                         f"rows={HOT_ROWS} int32", parent))
-    for cap in (16_384, RING_CAP):
-        rows.append(k5_case(rng, dev, cap, 0, 0, f"keys only cap={cap}"))
-        rows.append(k5_case(rng, dev, cap, 2, 6,
-                            f"q8 payload nf=2 ni=6 cap={cap}"))
+    for cap in (16_384, RING_CAP):  # q8's rings, 60% resident, 20% delta
+        n_res, m = int(cap * 0.6), int(cap * 0.2)
+        for nf, ni, what in ((0, 0, "keys only"),
+                             (2, 6, "q8 payload nf=2 ni=6")):
+            rows.append(k5_case(rng, dev, cap, n_res, m, nf, ni,
+                                f"{what} cap={cap} n_res={n_res} m={m}",
+                                parent))
+    for cap, n_res, m, what in (
+            (JS_RING_CAP, JS_RING_ROWS, JS_M, "join-stress 8a merge"),
+            (JS_B_MERGE_CAP, JS_B_MERGE_ROWS, JS_B_MERGE_M,
+             "join-stress 8b merge")):
+        rows.append(k5_case(rng, dev, cap, n_res, m, 0, 3,
+                            f"{what} cap={cap} n_res={n_res} m={m} nf=0 "
+                            "ni=3", parent))
     rows.append(k6_case(rng, dev, RING_CAP, 2, 6, 5_000,
                         f"q8 payload nf=2 ni=6 cap={RING_CAP} m=5000"))
     for n, n_keys in ((256, 64), (256, 1), (65_536, 4_096), (65_536, 1),
@@ -1427,13 +1681,17 @@ def kernel_phase(parent=None):
             (1_048_576, 1, mixed7, "one skewed segment k=7")):
         rows.append(k8_case(rng, dev, n, n_seg, kinds,
                             f"{what} n={n} n_seg={n_seg}", parent))
+    empty_segments(dev)
     for cap, n_valid, mq, m, span, what in (
             (JS_RING_CAP, JS_RING_ROWS, JS_MQ, JS_M, JS_KEYS,
-             "join-stress partition probe"),
+             "join-stress 8a partition probe"),
+            (JS_B_RING_CAP, JS_B_RING_ROWS, JS_B_MQ, JS_B_M, JS_KEYS,
+             "join-stress 8b partition probe"),
             (1 << 20, 1 << 20, 512, 1, 1, "one query spanning 2^20 rows")):
         rows += join_cases(rng, dev, cap, n_valid, mq, m, span, 3,
                            f"{what} cap={cap} n_valid={n_valid} mq={mq} "
-                           f"m={m} ni=3", parent)
+                           f"m={m} ni=3", parent,
+                           callers=what.startswith("join-stress"))
     for n, n_seg, what in ((TOPK_STEADY, 1, "hot items steady fire"),
                            (TOPK_FLUSH, 5, "hot items final flush")):
         rows.append(topk_case(rng, dev, n, n_seg,
@@ -1659,7 +1917,8 @@ def run_q8(num_events, sink, device):
 Q8_COUNTERS = ("join_state_promotions", "join_state_device_merges",
                "join_state_ring_regrows", "join_device_gather_rows",
                "join_host_gather_rows", "join_ring_probes",
-               "join_probe_readbacks", "kernel_dispatches")
+               "join_probe_readbacks", "join_probe_overflows",
+               "join_blocking_uploads", "kernel_dispatches")
 
 
 def q8_phase():
@@ -1827,7 +2086,8 @@ JS_COUNTERS = ("join_state_promotions", "join_state_demotions",
                "join_state_device_merges", "join_state_ring_regrows",
                "join_state_compactions", "join_device_gather_rows",
                "join_host_gather_rows", "join_ring_probes",
-               "join_probe_readbacks", "kernel_dispatches")
+               "join_probe_readbacks", "join_probe_overflows",
+               "join_blocking_uploads", "kernel_dispatches")
 
 
 def js_codes(v0, v1):
@@ -1930,7 +2190,9 @@ def js_variant(what, n, how, ttl, gate):
     gate(creates, deletes)
     device_s = perf.counter("device_ns") / 1e9
     res.update(timed_wall_s=dt_timed, timed_device_s=device_s,
-               device_share=device_s / dt_timed)
+               device_share=device_s / dt_timed,
+               device_s_by_call={k.split(":", 1)[1]: v / 1e9 for k, v in
+                                 perf.counters("device_ns:").items()})
     return res, launches, state
 
 
@@ -1976,17 +2238,24 @@ def js_phase():
     check(all(la[k] > 0 for k in ("join_probe", "expand_gather",
                                   "ring_merge")),
           f"join-stress inner did not launch its kernels: {la}")
-    # a hot probe reads back its pair total, then the expansion's buffer
-    probes = res_a["counters"]["join_ring_probes"]
-    check(probes > 0 and res_a["counters"]["join_probe_readbacks"]
-          <= 2 * probes, "join-stress inner made more than two "
-          f"device-to-host copies a hot probe: {res_a['counters']}")
     res_b, lb, _ = js_variant("left", JS_LEFT, JoinType.LEFT,
                               PLANNER_TTL_MICROS, gate_left)
     check(all(lb[k] > 0 for k in ("join_probe", "expand_gather",
                                   "join_expand", "ring_merge",
                                   "ring_gather")),
           f"join-stress left did not launch its kernels: {lb}")
+    for what, res in (("inner", res_a), ("left", res_b)):
+        # a hot probe reads back its expansion's buffer once, twice when
+        # its pair total overflowed the capacity; no upload blocks
+        c = res["counters"]
+        check(c["join_ring_probes"] > 0 and c["join_probe_readbacks"]
+              <= c["join_ring_probes"] + c["join_probe_overflows"],
+              f"join-stress {what} made more than one device-to-host copy "
+              f"a hot probe beyond its overflows: {c}")
+        check(c["join_blocking_uploads"] == 0,
+              f"join-stress {what} made blocking uploads: {c}")
+        res["overflows_per_hot_probe"] = (c["join_probe_overflows"]
+                                          / c["join_ring_probes"])
     print("join-stress path: " + json.dumps({
         "control_s": control_s, "inner": res_a, "left": res_b}))
     return la, lb
@@ -2142,8 +2411,9 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--parent", help="a directory holding a git archive of the parent "
-        "commit: phase 3 also times its pane_emit, bin_evict, segment_agg "
-        "and expand_gather in turns with this tree's")
+        "commit: phase 3 also times its pane_emit, bin_evict, segment_agg, "
+        "expand_gather, ring_merge and join_probe, and the join's callers, "
+        "in turns with this tree's")
     opts = parser.parse_args()
     smi = environment()
     parent = None

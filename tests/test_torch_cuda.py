@@ -27,7 +27,12 @@ from arroyo_tpu_torch.kernels.expand_gather import (
     expand_gather_reference,
     expand_views,
 )
-from arroyo_tpu_torch.kernels.join_expand import join_expand, join_expand_reference
+from arroyo_tpu_torch.kernels.join_expand import (
+    join_expand,
+    join_expand_buffer,
+    join_expand_reference,
+    pair_views,
+)
 from arroyo_tpu_torch.kernels.join_probe import join_probe, join_probe_reference
 from arroyo_tpu_torch.kernels.pane_emit import (
     fire_geometry,
@@ -225,34 +230,49 @@ def test_bin_evict_cuda_matches_plain(cuda_device, cdt, first_bin, n_bins):
                            torch.zeros_like(counts[rows:, 0]))
 
 
-def _merge_inputs(rng, dev, cap, n_res, m, nf, ni):
-    """Positions as the join state computes them: a permutation of
-    [0, n_res + m) split between resident and delta entries, padding at
-    and beyond cap."""
-    perm = rng.permutation(n_res + m)
-    res_pos = np.full(cap, cap, np.int64)
-    res_pos[:n_res] = np.sort(perm[:n_res])
-    db = 1 << max(int(m - 1).bit_length(), 3)
-    delta_pos = np.full(db, cap + 3, np.int64)
-    delta_pos[:m] = np.sort(perm[n_res:])
+def _merge_inputs(rng, dev, cap, n_res, m, nf, ni, layout="interleaved"):
+    """A resident run of n_res entries (sentinel keys past it), a delta of
+    m entries and its insert positions as the join state computes them:
+    strictly increasing in [0, n_res + m) — spread over the run, all
+    before the residents or all after them."""
+    if layout == "before":
+        dpos = np.arange(m)
+    elif layout == "after":
+        dpos = n_res + np.arange(m)
+    else:
+        dpos = np.sort(rng.choice(n_res + m, m, replace=False))
     t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
     i32 = lambda n: rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)  # noqa: E731
+    hi, lo = i32(cap), i32(cap)
+    hi[n_res:], lo[n_res:] = 0x7FFFFFFF, -1
     stacks = (None,) * 4
     if nf or ni:
         stacks = (t(rng.normal(size=(nf, cap))),
                   t(rng.integers(-2**62, 2**62, (ni, cap))),
-                  t(rng.normal(size=(nf, db))),
-                  t(rng.integers(-2**62, 2**62, (ni, db))))
-    return (t(i32(cap)), t(i32(cap)), stacks[0], stacks[1], t(res_pos),
-            t(i32(db)), t(i32(db)), stacks[2], stacks[3], t(delta_pos))
+                  t(rng.normal(size=(nf, m))).reshape(nf, m),
+                  t(rng.integers(-2**62, 2**62, (ni, m))).reshape(ni, m))
+    return (t(hi), t(lo), stacks[0], stacks[1], n_res, t(i32(m)), t(i32(m)),
+            stacks[2], stacks[3], t(dpos.astype(np.int64)))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nf,ni", [(0, 0), (2, 6)])
-def test_ring_merge_cuda_matches_plain(cuda_device, nf, ni):
-    """Bit-exact, keys-only and with payload stacks."""
-    rng = np.random.default_rng(37)
-    args = _merge_inputs(rng, cuda_device, 65536, 40000, 9000, nf, ni)
+@pytest.mark.parametrize("cap,n_res,m,nf,ni,layout", [
+    (65536, 39321, 13107, 0, 0, "interleaved"),  # q8's largest ring
+    (65536, 39321, 13107, 2, 6, "interleaved"),
+    (16384, 9830, 3276, 2, 6, "interleaved"),
+    (8192, 5905, 520, 0, 3, "interleaved"),  # a join-stress merge
+    (8192, 0, 520, 0, 3, "interleaved"),  # no residents
+    (8192, 5905, 0, 0, 3, "interleaved"),  # no delta
+    (8192, 5905, 520, 2, 6, "before"),
+    (8192, 5905, 520, 2, 6, "after"),
+    (8192, 7000, 1192, 2, 6, "interleaved"),  # n_res + m == cap
+    (300, 100, 77, 1, 1, "interleaved")])  # cap not a multiple of a block
+def test_ring_merge_cuda_matches_plain(cuda_device, cap, n_res, m, nf, ni,
+                                       layout):
+    """Bit-exact against the plain version, keys-only and with payload
+    stacks; one launch, and the four planes views of one buffer."""
+    rng = np.random.default_rng(cap + n_res + m + nf)
+    args = _merge_inputs(rng, cuda_device, cap, n_res, m, nf, ni, layout)
     before = ring_merge.launches
     got = ring_merge(*args)
     want = ring_merge_reference(*args)
@@ -260,6 +280,8 @@ def test_ring_merge_cuda_matches_plain(cuda_device, nf, ni):
     assert ring_merge.launches == before + 1
     for g, w in zip(got, want):
         assert (g is None and w is None) or torch.equal(g, w)
+    assert len({g.untyped_storage().data_ptr() for g in got
+                if g is not None}) == 1
 
 
 @pytest.mark.cuda
@@ -514,6 +536,30 @@ def test_segment_agg_cuda_straddles_tiles(cuda_device, case, kinds):
         r += k != "count"
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empties", "many_empties"])
+def test_segment_agg_cuda_empty_segments_are_infinite(cuda_device, case):
+    """An empty segment's MIN is +inf and its MAX -inf (XLA's
+    segment_min/segment_max of no rows), its SUM 0 and count 0, on the
+    card as in the plain version; the other segments hold their rows'."""
+    rng = np.random.default_rng(3)
+    kinds = ("min", "max", "sum", "count")
+    offs = _tile_layout(case)
+    offsets, values = _segments(rng, offs[-1], len(offs) - 1, kinds,
+                                cuda_device, offs)
+    got, counts = segment_agg(values, offsets, kinds)
+    want = segment_agg_reference(values, offsets, kinds)
+    torch.cuda.synchronize()
+    empty = counts == 0
+    assert bool(empty.any()) and bool((~empty).any())
+    assert bool((got[0][empty] == float("inf")).all())
+    assert bool((got[1][empty] == float("-inf")).all())
+    assert bool((got[2][empty] == 0).all())
+    assert torch.isfinite(got[:2, ~empty]).all()
+    for c in (0, 1, 3):
+        assert torch.equal(got[c], want[0][c])
+
+
 SENT32_HI = 0x7FFFFFFF
 
 
@@ -575,6 +621,151 @@ def test_join_kernels_cuda_match_plain(cuda_device, cap, n_valid, mq, m,
     assert (join_probe.launches, join_expand.launches,
             expand_gather.launches) == (before[0] + 1, before[1] + 1,
                                         before[2] + 2)
+
+
+def _probe_case(rng, case):
+    """(hi, q_hi, m, n_valid) for the inputs join_probe answers without a
+    full search, or stages samples for: queries above the ring's last row
+    (``past_last``), equal to it at the end of a run (``at_last``),
+    padding only, an empty ring, several scan tiles, rings past the 8,192
+    rows a block stages whole and a ring with few queries (every 2^k-th
+    row staged)."""
+    cap, n_valid, mq, m = {
+        "past_last": (8192, 5905, 1024, 520), "at_last": (8192, 5905, 1024,
+                                                          520),
+        "all_padding": (8192, 5905, 1024, 0), "no_rows": (8192, 0, 1024, 520),
+        "tiles": (8192, 8000, 4096, 3000),
+        "sampled": (1 << 17, 100_000, 1024, 1000),
+        "sampled_at_last": (1 << 17, 100_000, 1024, 1000),
+        "sampled_full": (1 << 20, 1 << 20, 2048, 2000),
+        "few_queries": (8192, 5905, 512, 3)}[case]
+    hi = np.full(cap, 0x7FFFFFFF, np.int32)
+    ring = np.sort(rng.integers(0, 2 * n_valid + 2, n_valid)).astype(np.int32)
+    if case.endswith("at_last"):
+        ring[-300:] = ring[-301]  # a run of 301 ends the ring
+    hi[:n_valid] = ring
+    q = rng.integers(0, 2 * n_valid + 2, m)
+    if case == "past_last":
+        q[: m // 3] = rng.integers(2 * n_valid + 2, 2**31 - 2, m // 3)
+    elif case.endswith("at_last"):
+        q[: m // 4] = ring[-1]
+    q_hi = np.full(mq, 0x7FFFFFFF, np.int32)
+    q_hi[:m] = np.sort(q)
+    return hi, q_hi, m, n_valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["past_last", "at_last", "all_padding",
+                                  "no_rows", "tiles", "sampled",
+                                  "sampled_at_last", "sampled_full",
+                                  "few_queries"])
+def test_join_probe_cuda_shortcuts_match_plain(cuda_device, case):
+    """join_probe bit-exact against its plain version where the kernel
+    skips or shortens searches, over several tiles and over rings staged
+    as samples; one launch a call below 1,024 queries, one allocation and
+    no host sync a call."""
+    rng = np.random.default_rng(len(case))
+    hi, q_hi, m, n_valid = (torch.tensor(x, device=cuda_device)
+                            if isinstance(x, np.ndarray) else x
+                            for x in _probe_case(rng, case))
+    before = join_probe.launches
+    got = join_probe(q_hi, hi, m, n_valid)
+    want = join_probe_reference(q_hi, hi, m, n_valid)
+    torch.cuda.synchronize()
+    assert join_probe.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert len({g.untyped_storage().data_ptr() for g in got}) == 1
+    assert _allocs_and_syncs(lambda: join_probe(q_hi, hi, m, n_valid)) == (
+        1, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", ["below", "exact", "above", "zero"])
+def test_expansion_buffers_cuda_capacity(cuda_device, capacity):
+    """expand_gather_buffer and join_expand_buffer at a capacity below, at
+    and above the pair total (and 0): the header holds the total the
+    kernel read on the device, and the first min(total, capacity) pairs
+    equal the plain version's; one allocation and no host sync a call."""
+    rng = np.random.default_rng(7)
+    t = lambda a: torch.tensor(a, device=cuda_device)  # noqa: E731
+    hi, lo, q_hi, q_lo = map(t, _ring_and_queries(rng, 8192, 5905, 1024,
+                                                  520, 6250))
+    start, _counts, cum = join_probe(q_hi, hi, 520, 5905)
+    total = int(cum[-1])
+    cap = {"below": total // 2, "exact": total, "above": 2 * total + 3,
+           "zero": 0}[capacity]
+    n = min(total, cap)
+    ist = t(rng.integers(-2**62, 2**62, (3, 8192)))
+    fst = t(rng.normal(size=(2, 8192)))
+    args = (hi, lo, q_hi, q_lo, fst, ist)
+    buf = expand_gather_buffer(start, cum, cap, *args)
+    pairs = join_expand_buffer(start, cum, cap)
+    want = expand_gather_reference(start, cum, n, *args)
+    torch.cuda.synchronize()
+    assert int(buf[0]) == int(pairs[0]) == total
+    for g, w in zip(expand_views(buf, n, 2, 3, cap), want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    for g, w in zip(pair_views(pairs, n, cap), want[:2]):
+        assert torch.equal(g, w)
+    assert _allocs_and_syncs(
+        lambda: expand_gather_buffer(start, cum, cap, *args)) == (1, 0)
+    assert _allocs_and_syncs(
+        lambda: join_expand_buffer(start, cum, cap)) == (1, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payload", [True, False])
+def test_join_ring_paths_cuda_sync_once_a_probe(cuda_device, payload):
+    """The hot join partition's ring paths on the card: staging and
+    merging upload without a host sync; a probe with its expansion makes
+    one (the buffer's readback), and two when the pair capacity is below
+    the total; the rows equal those of the same ring on the CPU."""
+    from arroyo_tpu_torch.ops import join as pj
+    rng = np.random.default_rng(11 + payload)
+    n, m, nq = 5905, 520, 520
+    keys = np.sort(rng.integers(0, 2**40, n + m, dtype=np.uint64)
+                   << np.uint64(20))
+    ts = rng.integers(0, 10**9, n + m)
+    cols = {"v": rng.integers(-2**62, 2**62, n + m)} if payload else None
+    delta = np.sort(rng.choice(n + m, m, replace=False))
+    res = np.setdiff1d(np.arange(n + m), delta)
+    dpos = np.searchsorted(keys[res], keys[delta], side="right") + np.arange(m)
+    q = np.sort(keys[rng.integers(0, n + m, nq)])
+    rows = []
+    for dev in (cuda_device, torch.device("cpu")):
+        pick = lambda ix: ({c: v[ix] for c, v in cols.items()}  # noqa: E731
+                           if payload else None)
+        ring = pj.stage_ring(keys[res], dev, sorted_ts=ts[res],
+                             sorted_cols=pick(res))
+        merge = lambda: pj.merge_ring(ring, n, keys[delta], dpos,  # noqa: E731
+                                      delta_ts=ts[delta],
+                                      delta_cols=pick(delta))
+        merged = merge()
+        expand = pj.expand_gather if payload else pj.expand_hit
+        probe = lambda cap=None: expand(  # noqa: E731
+            merged, pj.probe_ring(merged, q, n + m), cap)
+        got = probe()
+        if dev.type == "cuda":
+            assert _allocs_and_syncs(merge)[1] == 0
+            assert _allocs_and_syncs(probe)[1] == 1
+            assert _allocs_and_syncs(lambda: probe(len(got[0]) // 2))[1] == 2
+        rows.append(got)
+    for g, w in zip(*rows):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_to_device_cuda_does_not_sync(cuda_device):
+    """device.to_device: one non-blocking copy from pinned memory (no host
+    sync), equal to the array, from a read-only array too."""
+    from arroyo_tpu_torch.device import to_device
+    arr = np.arange(100_000, dtype=np.int64).reshape(2, 50_000)
+    arr.flags.writeable = False
+    got = to_device(arr, cuda_device)
+    assert got.device.type == "cuda"
+    assert np.array_equal(got.cpu().numpy(), arr)
+    assert _allocs_and_syncs(lambda: to_device(arr, cuda_device))[1] == 0
 
 
 @pytest.mark.cuda

@@ -65,10 +65,12 @@ def test_ring_round_trip_matches_jax(name):
     res_pos = np.nonzero(keep)[0]
 
     rings = []
-    for mod, dev in ((jj, None), (pj, "cpu")):
+    # the JAX merge takes the residents' positions, the port's their count
+    # (the positions are the complement of the delta's)
+    for mod, dev, res in ((jj, None, res_pos), (pj, "cpu", n)):
         ring = mod.stage_ring(rk, dev, sorted_ts=ts[resident],
                               sorted_cols=res_cols)
-        rings.append(mod.merge_ring(ring, res_pos, dk, dpos,
+        rings.append(mod.merge_ring(ring, res, dk, dpos,
                                     delta_ts=ts[delta], delta_cols=d_cols))
     jr, pr = rings
     assert (pr.cap, pr.nf, pr.ni, pr.plan) == (jr.cap, jr.nf, jr.ni, jr.plan)
@@ -91,7 +93,8 @@ def test_ring_round_trip_matches_jax(name):
 @pytest.mark.parametrize("queries", ["hits", "collide", "none"])
 def test_probe_expand_gather_matches_jax(name, queries):
     """probe_ring -> expand_gather on a resident ring: the port's one
-    readback of the kernel's buffer gives the JAX package's five arrays
+    readback of the kernel's buffer (sized from the ring's last totals,
+    the total read on the device) gives the JAX package's five arrays
     (query index, ring position, the full-key verify, both payload
     stacks), bit-exact; then unpack_payload gives the same columns.
     ``hits``: queries drawn from the ring's keys and others; ``collide``:
@@ -124,8 +127,8 @@ def test_probe_expand_gather_matches_jax(name, queries):
             total = int(np.asarray(hit.counts).sum())
             out = mod.expand_gather(ring, hit, total) if total else None
         else:
-            assert hit.total == total
-            out = mod.expand_gather(ring, hit) if total else None
+            out = mod.expand_gather(ring, hit)
+            assert len(out[0]) == total
         got.append((ring, out))
     (jr, jout), (pr, pout) = got
     assert (total == 0) == (queries == "none")
@@ -141,6 +144,77 @@ def test_probe_expand_gather_matches_jax(name, queries):
     pts, pcols = pj.unpack_payload(pr, pout[3][:, valid], pout[4][:, valid])
     np.testing.assert_array_equal(pts, jts)
     _same_cols(pcols, jcols)
+
+
+@pytest.mark.parametrize("capacity", ["below", "exact", "above", "ring"])
+@pytest.mark.parametrize("expansion", ["gather", "hit"])
+def test_probe_expansion_capacity_matches_jax(expansion, capacity):
+    """probe_ring -> expand_gather (payload ring) or expand_hit (keys-only
+    ring) with the expansion's pair capacity forced below, at and above
+    the pair total by the function's argument, or taken from the ring
+    (``pair_cap``): the JAX package's probe and expansion give the same
+    rows.  One device-to-host copy a probe; below the total the retry at
+    the exact total makes a second, counted as an overflow.  The ring's
+    next capacity is the bucket of twice the total, or half the capacity
+    just used when that is larger."""
+    from arroyo_tpu_torch.obs import perf
+    rng = np.random.default_rng(47)
+    n, m = 600, 200
+    keys = np.sort(rng.integers(0, 2**40, n, dtype=np.uint64) << np.uint64(
+        20))
+    q = np.sort(keys[rng.integers(0, n, m)])
+    ts = rng.integers(0, 10**9, n)
+    cols = {"i64": rng.integers(-2**62, 2**62, n)} \
+        if expansion == "gather" else None
+    jr = jj.stage_ring(keys, None, sorted_ts=ts, sorted_cols=cols)
+    jhit = jj.probe_ring(jr, q, n)
+    total = int(np.asarray(jhit.counts).sum())
+    assert total > 0
+    pr = pj.stage_ring(keys, "cpu", sorted_ts=ts, sorted_cols=cols)
+    cap = {"below": total // 3, "exact": total, "above": 2 * total + 5,
+           "ring": None}[capacity]
+    if capacity == "ring":
+        pr.pair_cap = total - 1  # as if the last probe had fewer pairs
+    perf.reset()
+    hit = pj.probe_ring(pr, q, n)
+    if expansion == "gather":
+        want = jj.expand_gather(jr, hit=jhit, total=total)
+        got = pj.expand_gather(pr, hit, cap)
+    else:
+        want = jj.expand_hit(jr, jhit, total)
+        got = pj.expand_hit(pr, hit, cap)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+    overflow = capacity in ("below", "ring")
+    assert perf.counter("join_ring_probes") == 1
+    assert perf.counter("join_probe_readbacks") == 1 + overflow
+    assert perf.counter("join_probe_overflows") == overflow
+    used = total - 1 if cap is None else cap
+    assert pr.pair_cap == max(pj._bucket(2 * total), used // 2)
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (np.int32, (2, 512)), (np.int64, (1000,)), (np.float64, (3, 7)),
+    (np.int64, (0,))])
+def test_to_device_copies_on_the_cpu(dtype, shape):
+    """device.to_device on the CPU: a plain copy, equal to the array and
+    not sharing its memory, also from a read-only array (no warning);
+    the join's upload of it counts one blocking upload there (the card's
+    uploads are non-blocking copies from pinned memory)."""
+    import torch
+    from arroyo_tpu_torch.device import to_device
+    from arroyo_tpu_torch.obs import perf
+    arr = np.arange(int(np.prod(shape))).astype(dtype).reshape(shape)
+    arr.flags.writeable = False
+    t = to_device(arr, torch.device("cpu"))
+    assert t.device.type == "cpu" and tuple(t.shape) == shape
+    np.testing.assert_array_equal(t.numpy(), arr)
+    assert not np.shares_memory(t.numpy(), arr)
+    perf.reset()
+    np.testing.assert_array_equal(
+        pj._upload(arr, torch.device("cpu")).numpy(), arr)
+    assert perf.counter("join_blocking_uploads") == 1
 
 
 def test_split_helpers_match_jax():

@@ -33,7 +33,9 @@ from arroyo_tpu_torch.kernels.bin_evict import bin_evict
 from arroyo_tpu_torch.kernels.bin_update import bin_update
 from arroyo_tpu_torch.kernels.expand_gather import (
     expand_gather, expand_gather_buffer, expand_views)
-from arroyo_tpu_torch.kernels.join_expand import join_expand
+from arroyo_tpu_torch.kernels.join_expand import (join_expand,
+                                                  join_expand_buffer,
+                                                  pair_views)
 from arroyo_tpu_torch.kernels.join_probe import join_probe
 from arroyo_tpu_torch.kernels.pane_emit import fire_geometry, pane_emit, pane_views
 from arroyo_tpu_torch.kernels.ring_gather import ring_gather, ring_gather_rows
@@ -254,23 +256,36 @@ def test_bin_evict_plain_matches_evict_kernel(kinds, _xfer, cdt):
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
 
-def _merge_fixture(rng, cap, n_res, m, nf, ni):
-    """A resident sorted run of n_res keys in a ring of cap, a sorted
-    delta of m keys, and the positions join_state computes for them
-    (unused resident slots and delta padding point at cap, plus two
-    explicit positions beyond cap, all dropped)."""
-    res_keys = np.sort(rng.integers(0, 2**63, n_res, dtype=np.uint64))
-    dkeys = np.sort(rng.integers(0, 2**63, m, dtype=np.uint64))
-    ins = np.searchsorted(res_keys, dkeys, side="right")
-    dpos = ins + np.arange(m)
+# (resident entries, delta entries, where the delta lands) in a ring of
+# 1,024: join_state's merge is an insert of the sorted delta
+MERGE_LAYOUTS = {"interleaved": (600, 300), "no_residents": (0, 300),
+                 "no_delta": (600, 0), "before": (600, 300),
+                 "after": (600, 300), "full": (700, 324)}
+
+
+def _merge_fixture(rng, cap, layout, nf, ni):
+    """A resident run of n_res entries in a ring of cap (sentinels past
+    it), a delta of m entries and its insert positions, strictly
+    increasing in [0, n_res + m) as join_state computes them; and the
+    JAX kernel's inputs for the same merge: ``res_pos`` the ascending
+    complement of the positions, the delta padded to a bucket, unused
+    resident slots and delta padding pointing at cap or beyond (dropped,
+    the JAX kernel's mode="drop")."""
+    n_res, m = MERGE_LAYOUTS[layout]
+    if layout == "before":
+        dpos = np.arange(m)
+    elif layout == "after":
+        dpos = n_res + np.arange(m)
+    else:
+        dpos = np.sort(rng.choice(n_res + m, m, replace=False))
     keep = np.ones(n_res + m, dtype=bool)
     keep[dpos] = False
     res_pos = np.full(cap, cap, np.int64)
     res_pos[:n_res] = np.nonzero(keep)[0]
-    db = _bucket(m, floor=8)
+    db = _bucket(max(m, 1), floor=8)
     delta_pos = np.full(db, cap, np.int64)
     delta_pos[:m] = dpos
-    delta_pos[m:m + 2] = cap + 5  # explicit out-of-range: dropped
+    delta_pos[m:m + 2] = cap + 5
     hi = np.full(cap, SENT32_HI, np.int32)
     lo = np.full(cap, SENT32_LO, np.int32)
     hi[:n_res] = rng.integers(-2**31, 2**31 - 1, n_res)
@@ -281,33 +296,55 @@ def _merge_fixture(rng, cap, n_res, m, nf, ni):
     ist = rng.integers(-2**62, 2**62, (ni, cap))
     d_f = rng.normal(size=(nf, db))
     d_i = rng.integers(-2**62, 2**62, (ni, db))
-    return hi, lo, fs, ist, res_pos, d_hi, d_lo, d_f, d_i, delta_pos
+    jax_args = (hi, lo, fs, ist, res_pos, d_hi, d_lo, d_f, d_i, delta_pos)
+    port_args = (hi, lo, fs, ist, n_res, d_hi[:m], d_lo[:m], d_f[:, :m],
+                 d_i[:, :m], delta_pos[:m])
+    return jax_args, port_args
 
 
+@pytest.mark.parametrize("layout", list(MERGE_LAYOUTS))
 @pytest.mark.parametrize("nf,ni", [(0, 0), (2, 6), (0, 3)])
-def test_ring_merge_plain_matches_merge32_kernel(nf, ni):
-    """Bit-exact, keys-only (nf = ni = 0) and with payload stacks, with
-    padding positions at and beyond cap dropped."""
-    rng = np.random.default_rng(29)
-    cap, n_res, m = 1024, 600, 300
-    a = _merge_fixture(rng, cap, n_res, m, nf, ni)
-    hi, lo, fs, ist, res_pos, d_hi, d_lo, d_f, d_i, delta_pos = a
-    db = len(d_hi)
+def test_ring_merge_plain_matches_merge32_kernel(layout, nf, ni):
+    """Bit-exact, keys-only (nf = ni = 0) and with payload stacks: the
+    port's merge from the delta positions and the resident count equals
+    the JAX kernel's scatter with ``res_pos`` the complement — no
+    residents, no delta, the delta all before or all after the residents,
+    interleaved, and a ring filled to its last slot."""
+    rng = np.random.default_rng(29 + len(layout) + nf)
+    cap = 1024
+    ja, pa = _merge_fixture(rng, cap, layout, nf, ni)
+    db = len(ja[5])
+    t = lambda x: torch.tensor(x) if isinstance(x, np.ndarray) else x  # noqa: E731
     if ni:
-        want = _merge32_kernel(cap, db, nf, ni)(*map(jnp.asarray, a))
-        got = ring_merge(*(torch.tensor(x) for x in a))
+        want = _merge32_kernel(cap, db, nf, ni)(*map(jnp.asarray, ja))
+        got = ring_merge(*map(t, pa))
     else:
+        hi, lo, _fs, _ist, res_pos, d_hi, d_lo, _df, _di, delta_pos = ja
         want = _merge32_kernel(cap, db, 0, 0)(
             jnp.asarray(hi), jnp.asarray(lo), 0, 0, jnp.asarray(res_pos),
             jnp.asarray(d_hi), jnp.asarray(d_lo), 0, 0,
             jnp.asarray(delta_pos))
-        got = ring_merge(torch.tensor(hi), torch.tensor(lo), None, None,
-                         torch.tensor(res_pos), torch.tensor(d_hi),
-                         torch.tensor(d_lo), None, None,
-                         torch.tensor(delta_pos))
+        got = ring_merge(t(pa[0]), t(pa[1]), None, None, pa[4], t(pa[5]),
+                         t(pa[6]), None, None, t(pa[9]))
         assert got[2] is None and got[3] is None
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("delta_pos,n_res", [
+    ([1, 1], 3),  # repeated
+    ([2, 1], 3),  # decreasing
+    ([0, 5], 3),  # past n_res + m
+    ([-1, 2], 3)])  # negative
+def test_ring_merge_plain_rejects_positions_that_are_not_an_insert(
+        delta_pos, n_res):
+    """The plain version holds its caller to the precondition the kernel
+    does not check: positions strictly increasing in [0, n_res + m)."""
+    hi = torch.zeros(8, dtype=torch.int32)
+    d = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="strictly"):
+        ring_merge(hi, hi, None, None, n_res, d, d, None, None,
+                   torch.tensor(delta_pos))
 
 
 @pytest.mark.parametrize("nf,ni", [(2, 6), (0, 3)])
@@ -369,11 +406,10 @@ def test_wrappers_run_plain_versions_on_cpu_and_reject_other_devices():
     assert cnts[1, 0] == 2 and outs.shape == (0, 8, 1)
     bin_evict(values, counts, 2, 1, 8, ("count",))
     assert int(counts.sum()) == 0 and float(values.sum()) == 0.0
-    hi = torch.full((4,), 7, dtype=torch.int32)
-    pos = torch.tensor([3, 0, 4, 4])
-    out_hi, _lo, _f, _i = ring_merge(hi, hi, None, None, pos, hi[:1],
-                                     hi[:1], None, None, pos[2:3])
-    assert out_hi.tolist() == [7, int(SENT32_HI), int(SENT32_HI), 7]
+    hi = torch.tensor([5, 6, 7, 8], dtype=torch.int32)
+    out_hi, _lo, _f, _i = ring_merge(hi, hi, None, None, 2, hi[3:],
+                                     hi[3:], None, None, torch.tensor([1]))
+    assert out_hi.tolist() == [5, 8, 6, int(SENT32_HI)]
     f = torch.arange(4, dtype=torch.float64)[None]
     gf, _gi = ring_gather(torch.tensor([3, 0]), f,
                           torch.zeros((1, 4), dtype=torch.int64))
@@ -468,9 +504,7 @@ def test_segment_agg_plain_matches_segment_agg_kernel(kinds, layout):
     """Exact counts, min, max and count channels; rtol 1e-12 for sums
     (XLA's segment_sum adds in another order).  The port takes value rows
     for the channels that are not counts only.  An empty segment gets
-    the identities and count 0.  Its MIN/MAX identities are the f64
-    extremes (the plain version's, ROADMAP C8) where the JAX kernel gives
-    XLA's empty-segment +/-inf; callers never pass an empty segment.
+    count 0, sum 0 and XLA's empty-segment MIN/MAX, +inf/-inf.
     ``segment_agg_buffer``'s rows (counts, then the channels as their
     bits) hold the same values."""
     rng = np.random.default_rng(len(kinds) * 7 + len(kinds[0]))
@@ -496,11 +530,7 @@ def test_segment_agg_plain_matches_segment_agg_kernel(kinds, layout):
         np.testing.assert_array_equal(cnt.numpy(),
                                       np.asarray(want_counts)[:n_seg])
         for c, k in enumerate(kinds):
-            w = np.asarray(want)[c, :n_seg].copy()
-            if k in ("min", "max"):
-                empty = np.diff(offsets) == 0
-                assert (w[empty] == (np.inf if k == "min" else -np.inf)).all()
-                w[empty] = POS_INF if k == "min" else NEG_INF
+            w = np.asarray(want)[c, :n_seg]
             if k == "sum":
                 np.testing.assert_allclose(out[c].numpy(), w, rtol=1e-12)
             else:
@@ -539,10 +569,19 @@ def _probe_fixture(rng, case):
     ``n_valid``; random ``lo``) and sorted queries padded to ``mq``:
     ``empty`` — no query matches; ``skew`` — one query spans the whole
     full ring; ``collide`` — hi-equal candidates whose lo mostly differs;
-    ``padded`` — a partly filled ring and many padding queries."""
+    ``padded`` — a partly filled ring and many padding queries;
+    ``past_last`` — a third of the queries above the ring's last row;
+    ``at_last`` — queries equal to the last row, which ends a run of
+    equal rows; ``all_padding`` — sentinel queries only; ``no_rows`` — an
+    empty ring; ``tiles`` — 2,048 queries, two scan tiles."""
     cap, mq = 1024, 512
     n_valid, m = {"empty": (900, 400), "skew": (cap, 1),
-                  "collide": (1000, 300), "padded": (700, 37)}[case]
+                  "collide": (1000, 300), "padded": (700, 37),
+                  "past_last": (800, 300), "at_last": (800, 300),
+                  "all_padding": (800, 0), "no_rows": (0, 300),
+                  "tiles": (1000, 1900)}[case]
+    if case == "tiles":
+        mq = 2048
     hi = np.full(cap, SENT32_HI, np.int32)
     lo = rng.integers(-2**31, 2**31 - 1, cap).astype(np.int32)
     q_hi = np.full(mq, SENT32_HI, np.int32)
@@ -554,10 +593,16 @@ def _probe_fixture(rng, case):
     else:
         span = 60 if case == "collide" else 2_000
         ring = np.sort(rng.integers(0, span, n_valid) * 2).astype(np.int32)
+        if case == "at_last":
+            ring[-40:] = ring[-41]  # the last row closes a run of 41
         hi[:n_valid] = ring
         q = rng.integers(0, span, m) * 2
         if case == "empty":
             q = q + 1  # odd: never in the ring
+        elif case == "past_last":
+            q[: m // 3] = rng.integers(2 * span, 3 * span, m // 3)
+        elif case == "at_last":
+            q[: m // 4] = ring[-1]
         order = np.argsort(q, kind="stable")
         q_hi[:m] = q[order]
         # a third of the queries copy the lo of a ring row with their hi
@@ -568,13 +613,19 @@ def _probe_fixture(rng, case):
     return hi, lo, q_hi, q_lo, m, n_valid
 
 
-@pytest.mark.parametrize("case", ["empty", "skew", "collide", "padded"])
+@pytest.mark.parametrize("case", ["empty", "skew", "collide", "padded",
+                                  "past_last", "at_last", "all_padding",
+                                  "no_rows", "tiles"])
 def test_join_probe_expand_gather_plain_match_jax_kernels(case):
     """K9 against ``_probe_kernel`` in both its searchsorted and
-    merged-rank forms, K10 against ``_expand_kernel`` and K11 against
-    ``_expand_gather_kernel``, all bit-exact (the JAX outputs are i32 and
-    bucket-padded: compared widened, sliced to the exact pair total);
-    ``expand_gather_buffer``'s views hold the same outputs."""
+    merged-rank forms — among them the inputs the CUDA kernel answers
+    without a search (queries above the ring's last row or equal to it,
+    padding only, an empty ring) and several scan tiles — K10 against
+    ``_expand_kernel`` and K11 against ``_expand_gather_kernel``, all
+    bit-exact (the JAX outputs are i32 and bucket-padded: compared
+    widened, sliced to the exact pair total); the buffer forms' views at
+    the total's capacity hold the same outputs under the total's header
+    word."""
     rng = np.random.default_rng(61)
     hi, lo, q_hi, q_lo, m, n_valid = _probe_fixture(rng, case)
     cap, mq = len(hi), len(q_hi)
@@ -591,14 +642,16 @@ def test_join_probe_expand_gather_plain_match_jax_kernels(case):
         for g, w in zip((start, counts, cum), want):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     total = int(cum[-1])
-    assert (total == 0) == (case == "empty")
+    assert (total == 0) == (case in ("empty", "all_padding", "no_rows"))
     assert case != "skew" or total == cap
+    if case == "past_last":
+        assert (start.numpy()[q_hi > hi[n_valid - 1]] == n_valid).all()
     if not total:
         lidx, ridx = join_expand(start, cum, 0)
         assert lidx.shape == ridx.shape == (0,)
         buf = expand_gather_buffer(start, cum, 0, *map(
             torch.tensor, (hi, lo, q_hi, q_lo, fs, ist)))
-        assert buf.numel() == 0
+        assert buf.tolist() == [0]
         assert [tuple(v.shape) for v in expand_views(buf, 0, nf, ni)] == [
             (0,), (0,), (0,), (nf, 0), (ni, 0)]
         return
@@ -621,9 +674,13 @@ def test_join_probe_expand_gather_plain_match_jax_kernels(case):
     buf = expand_gather_buffer(start, cum, total, *map(
         torch.tensor, (hi, lo, q_hi, q_lo, fs, ist)))
     assert buf.dtype == torch.int64 and buf.numel() == (
-        (2 + nf + ni) * total + (total + 7) // 8)
+        1 + (2 + nf + ni) * total + (total + 7) // 8) and buf[0] == total
     for g, v in zip(got, expand_views(buf, total, nf, ni)):
         assert g.dtype == v.dtype and torch.equal(g, v)
+    pairs = join_expand_buffer(start, cum, total)
+    assert pairs.numel() == 1 + 2 * total and pairs[0] == total
+    for g, v in zip((lidx, ridx), pair_views(pairs, total)):
+        assert torch.equal(g, v)
     valid = got[2].numpy()
     if case == "collide":
         assert valid.any() and not valid.all()
