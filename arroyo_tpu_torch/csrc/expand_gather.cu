@@ -23,30 +23,23 @@
 // and 8 * (nf + ni) payload bytes read, 17 + 8 * (nf + ni) bytes written;
 // at join-stress's few hundred pairs per partition probe, the launch.
 //
-// What the design does about it: a block expands 512 consecutive pairs.
-// It stages `cum` in shared memory with one coalesced load: all of it
-// when it holds at most 1,024 queries (join-stress's 1,024), else the
-// stretch of the block's queries, which two of its warps find first with
-// one warp-cooperative search of `cum` each (warp_search.cuh; a stretch
-// of more than 1,024 queries, which only runs of queries without pairs
-// make, is searched in global memory).  Each thread then finds its
-// pairs' queries by a binary search in shared memory instead of about
-// log2(mq) dependent loads of global memory (`start` and the query keys
-// it reads once a pair, from global memory), and writes column j of
-// every output row, so a warp's stores to one row coalesce while its
-// loads follow the sorted, mostly ascending ring positions.  One buffer:
-// the caller reads it back in one copy.
+// What the design does about it: the staged expansion join_expand also
+// runs (join_search.cuh): a block expands 512 consecutive pairs, `cum`
+// and `start` staged in shared memory in one round of copies (all of
+// them up to 1,024 queries, else the block's stretch, found by two
+// warp-cooperative searches), and a binary search in shared memory per
+// pair (the query keys it reads once a pair, from global memory).  Each
+// thread writes column j of every output row, so a warp's stores to one
+// row coalesce while its loads follow the sorted, mostly ascending ring
+// positions.  One buffer: the caller reads it back in one copy.
 
 #include <cuda_runtime.h>
 
 #include "join_search.cuh"
-#include "warp_search.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPairs = 512;   // pairs a block expands
-constexpr int kStage = 1024;  // queries a block stages
 
 __global__ void __launch_bounds__(kThreads) expand_gather_kernel(
     const int* __restrict__ start, const long long* __restrict__ cum,
@@ -55,50 +48,17 @@ __global__ void __launch_bounds__(kThreads) expand_gather_kernel(
     const int* __restrict__ q_lo, const long long* __restrict__ fstack,
     int nf, const long long* __restrict__ istack, int ni,
     long long* __restrict__ out) {
-  __shared__ long long s_cum[kStage];
-  __shared__ long long s_l[2];
-  const int tid = threadIdx.x;
-  const long long total = mq > 0 ? cum[mq - 1] : 0;
-  if (blockIdx.x == 0 && tid == 0) out[0] = total;
-  const long long n = min(total, capacity);
-  const long long j0 = static_cast<long long>(blockIdx.x) * kPairs;
-  if (j0 >= n) return;  // the whole block: past the pairs
-  const long long j1 = min(j0 + kPairs, n) - 1;
-  // the block's queries [l_lo, l_hi] and the stretch of cum staged from
-  // `first`: all of cum when it fits (one coalesced load, no search)
-  long long l_lo = 0;
-  long long l_hi = mq - 1;
-  long long first = 0;
-  long long span = mq;
-  if (mq > kStage) {
-    if (tid < 64) {
-      const long long l = warp_count_le(cum, mq, tid < 32 ? j0 : j1);
-      if ((tid & 31) == 0) s_l[tid >> 5] = l < mq - 1 ? l : mq - 1;
-    }
-    __syncthreads();
-    l_lo = s_l[0];
-    l_hi = s_l[1];
-    first = l_lo > 0 ? l_lo - 1 : 0;  // l_lo - 1's cum starts l_lo's pairs
-    span = l_hi - first + 1;
-  }
-  const bool staged = span <= kStage;
-  if (staged) {
-    for (long long x = tid; x < span; x += kThreads) {
-      s_cum[x] = cum[first + x];
-    }
-  }
-  __syncthreads();
-  const long long* c = staged ? s_cum : cum + first;
+  PairBlock pb;
+  const bool any = stage_pairs<kThreads>(start, cum, mq, capacity, &pb);
+  if (blockIdx.x == 0 && threadIdx.x == 0) out[0] = pb.total;
+  if (!any) return;
   long long* rows = out + 1;
   const long long n_rows = 2 + nf + ni;
   unsigned char* valid =
       reinterpret_cast<unsigned char*>(rows + n_rows * capacity);
-  for (long long j = j0 + tid; j <= j1; j += kThreads) {
-    // l = #{i : cum[i] <= j}: every query before l_lo counts, none past
-    // l_hi (cum[l_hi] > j1), so search [l_lo, l_hi) only
-    const long long l = l_lo + bound<true>(c + (l_lo - first), l_hi - l_lo, j);
-    const long long before = l > 0 ? c[l - first - 1] : 0;
-    long long r = static_cast<long long>(start[l]) + (j - before);
+  for (long long j = pb.j0 + threadIdx.x; j <= pb.j1; j += kThreads) {
+    long long r;
+    const long long l = pair_query(pb, j, &r);
     r = r < 0 ? 0 : (r >= cap ? cap - 1 : r);
     rows[j] = l;
     rows[capacity + j] = r;

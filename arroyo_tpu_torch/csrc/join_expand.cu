@@ -19,13 +19,15 @@
 // probe's 12 bytes per query read; at join-stress's hundreds of pairs per
 // partition probe, the launch.
 //
-// What the design does about it: one thread per output pair finds its
-// query by an upper-bound binary search over cum (join_search.cuh), so a
-// query with a huge fan-out (a Zipf head key) spreads over as many
-// threads as it has pairs; a thread or a warp per query would leave one
-// thread writing them all.  The TPU's scatter-histogram + cumsum form
-// existed only to keep XLA off its sequential searchsorted.  Stores
-// coalesce: neighbouring threads write neighbouring pairs.
+// What the design does about it: expand_gather's staged expansion
+// (join_search.cuh: a block of 512 pairs, `cum` and `start` in shared
+// memory, a binary search in them per pair, in 32-bit steps of a compare
+// and a select) followed by two coalesced stores a pair.  The total
+// comes from the staged copy (or once a warp when `cum` is too long to
+// stage), and blocks past it exit after that one load.  A query
+// with a huge fan-out (a Zipf head key) spreads over as many threads as
+// it has pairs.  The TPU's scatter-histogram + cumsum form existed only
+// to keep XLA off its sequential searchsorted.
 
 #include <cuda_runtime.h>
 
@@ -35,19 +37,18 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void join_expand_kernel(const int* __restrict__ start,
-                                   const long long* __restrict__ cum,
-                                   long long mq, long long capacity,
-                                   long long* __restrict__ out) {
-  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const long long total = mq > 0 ? cum[mq - 1] : 0;
-  if (j == 0) out[0] = total;
-  if (j >= total || j >= capacity) return;
-  long long l, r;
-  expand_pair(start, cum, mq, j, &l, &r);
-  out[1 + j] = l;
-  out[1 + capacity + j] = r;
+__global__ void __launch_bounds__(kThreads) join_expand_kernel(
+    const int* __restrict__ start, const long long* __restrict__ cum,
+    long long mq, long long capacity, long long* __restrict__ out) {
+  PairBlock pb;
+  const bool any = stage_pairs<kThreads>(start, cum, mq, capacity, &pb);
+  if (blockIdx.x == 0 && threadIdx.x == 0) out[0] = pb.total;
+  if (!any) return;
+  for (long long j = pb.j0 + threadIdx.x; j <= pb.j1; j += kThreads) {
+    long long r;
+    out[1 + j] = pair_query(pb, j, &r);
+    out[1 + capacity + j] = r;
+  }
 }
 
 }  // namespace
@@ -59,7 +60,7 @@ extern "C" int arroyo_join_expand(const void* start, const void* cum,
                                   long long mq, long long capacity,
                                   void* out, void* stream) {
   if (mq < 0 || capacity < 0) return cudaErrorInvalidValue;
-  const long long blocks = (capacity + kThreads - 1) / kThreads;
+  const long long blocks = (capacity + kPairs - 1) / kPairs;
   join_expand_kernel<<<static_cast<unsigned>(blocks > 0 ? blocks : 1),
                        kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(start), static_cast<const long long*>(cum), mq,

@@ -15,10 +15,11 @@ time).  ``nf`` may be 0.
 On the H100 it is bound by memory (8 + 8 * (nf + ni) bytes read and 17 +
 8 * (nf + ni) written per pair) and, at join-stress's shapes, by its
 launch.  The CUDA kernel (``csrc/expand_gather.cu``) expands 512 pairs a
-block: it finds the block's queries with one warp-cooperative search and
-stages their ``cum``, ``start`` and keys in shared memory, so a thread's
-search stays off global memory; each thread writes column j of every
-output row, so stores coalesce.  Every output lands in ONE i64 buffer —
+block with the staged expansion it shares with :func:`join_expand`
+(``csrc/join_search.cuh``): ``cum``, or the stretch of it that holds the
+block's queries, in shared memory, so a pair's search stays off global
+memory; each thread writes column j of every output row, so stores
+coalesce.  Every output lands in ONE i64 buffer —
 the pair total in word 0, then rows ``lidx``, ``ridx``, ``gf`` (as its
 bits), ``gi`` of ``capacity`` words each, then ``valid`` as bytes — so a
 probe makes one allocation, one launch and no host sync.  The kernel

@@ -11,8 +11,10 @@ power-of-two bucket; its caller widens and slices).
 
 On the H100 it is bound by memory (16 bytes written per pair) and, at
 join-stress's shapes, by its launch.  The CUDA kernel
-(``csrc/join_expand.cu``) runs one thread per pair with an upper-bound
-binary search over ``cum``, so a skewed query's pairs spread over as many
+(``csrc/join_expand.cu``) runs ``expand_gather``'s staged expansion
+(``csrc/join_search.cuh``): a block of 512 pairs stages ``cum`` (or its
+stretch of it) in shared memory and each pair finds its query by a
+binary search there, so a skewed query's pairs spread over as many
 threads as it has pairs.  It reads the pair total on the device
 (``cum[mq - 1]``) and writes it, then the first min(total, capacity)
 pairs, into ONE i64 buffer (:func:`join_expand_buffer`; split it with

@@ -13,22 +13,26 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    call per plane) where one exists, and its least possible time on an
    H100 (bytes / 3.35 TB/s; pane_emit and bin_evict count the 32-byte
    sectors their rows' columns touch); segment_top_k, ring_gather,
-   pane_emit, bin_evict, segment_agg, expand_gather, ring_merge and
-   join_probe are timed in turns with their yardstick (three rounds of
-   library, kernel, kernel, library); the last six print their launches,
-   host syncs and allocations per call (as PyTorch's sync debug mode and
-   caching allocator see them) and torch.profiler's device time per
-   launch, warm and cold; segment_agg's sums are held to math.fsum and to
-   themselves over two calls, and an empty segment's MIN/MAX to +/-inf;
-   ring_gather's and expand_gather's launch paths are split into their
-   host steps.  With ``--parent DIR`` (a ``git archive`` of the parent
-   commit unpacked at DIR) the parent's pane_emit, bin_evict,
-   segment_agg, expand_gather, ring_merge and join_probe are built from
-   DIR and timed in turns with this tree's at the same shapes (the
-   parent's ring_merge given its own resident positions), and so are
-   the callers: the reads the segment reduce and the join's emission
-   make, ``ops/join.merge_ring``, and ``probe_ring`` + ``expand_gather``
-   at join-stress's probes;
+   pane_emit, bin_evict, segment_agg, expand_gather, ring_merge,
+   join_probe and join_expand are timed in turns with their yardstick
+   (three rounds of library, kernel, kernel, library); those and
+   session_union print their launches, host syncs and allocations per
+   call (as PyTorch's sync debug mode and caching allocator see them)
+   and torch.profiler's device time per launch, warm and cold;
+   session_union's two forms are held to their plain versions at config5's
+   192-row merge and six larger or skewed shapes; segment_agg's sums are
+   held to math.fsum and to themselves over two calls, and an empty
+   segment's MIN/MAX to +/-inf; ring_gather's and expand_gather's launch
+   paths are split into their host steps.  With ``--parent DIR`` (a ``git
+   archive`` of the parent commit unpacked at DIR) the parent's
+   pane_emit, bin_evict, segment_agg, expand_gather, ring_merge,
+   join_probe, session_union and join_expand are built from DIR and
+   timed in turns with this tree's at the same shapes (the parent's
+   ring_merge given its own resident positions), and so are the callers:
+   the reads the segment reduce and the join's emission make,
+   ``ops/join.merge_ring``, ``probe_ring`` + ``expand_gather`` at
+   join-stress's probes, ``probe_ring`` + ``expand_hit`` at 8b's, and
+   ``ops/session.union_sorted_intervals`` at config5's merge;
 4. state: the port's KeyedBinState (q5 aggregates, local argmax) over
    2,000,000 nexmark events on the card and on the CPU — every fire and
    the final snapshot identical, and a card snapshot restored into a
@@ -52,7 +56,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    checkpoints every second into InMemoryBackend) on the card — sink rows
    equal to a numpy control computed here from the same producer (one
    session per key), session_union and segment_agg launched, interval
-   rows merged on the device, at least one checkpoint epoch completed;
+   rows merged on the device, one upload, one readback and no blocking
+   upload a union call (the rows of each call printed), at least one
+   checkpoint epoch completed;
    the device share in a separate ``ARROYO_TIMING=1`` run; and config5 at
    200,000 events on the card and on the CPU with identical rows;
 8. join-stress path: bench.py's join with expiration (two impulse streams
@@ -90,6 +96,7 @@ It needs one card and exits non-zero without one.
 
 import argparse
 import collections
+import functools
 import json
 import math
 import os
@@ -139,7 +146,7 @@ from arroyo_tpu_torch.kernels.expand_gather import (  # noqa: E402
     expand_gather, expand_gather_buffer, expand_gather_reference,
     expand_views)
 from arroyo_tpu_torch.kernels.join_expand import (  # noqa: E402
-    join_expand, join_expand_reference)
+    join_expand, join_expand_buffer, join_expand_reference, pair_views)
 from arroyo_tpu_torch.kernels.join_probe import (  # noqa: E402
     join_probe, join_probe_reference)
 from arroyo_tpu_torch.kernels.pane_emit import (  # noqa: E402
@@ -155,11 +162,13 @@ from arroyo_tpu_torch.kernels.segment_agg import (  # noqa: E402
 from arroyo_tpu_torch.kernels.segment_top_k import (  # noqa: E402
     _round_grid_cap, order_keys, segment_top_k, segment_top_k_reference)
 from arroyo_tpu_torch.kernels.session_union import (  # noqa: E402
-    session_union, session_union_reference)
+    session_union, session_union_buffer, session_union_buffer_reference,
+    session_union_reference, union_views)
 from arroyo_tpu_torch.obs import perf  # noqa: E402
 from arroyo_tpu_torch.ops import join as join_ops  # noqa: E402
 from arroyo_tpu_torch.ops.keyed_bins import KeyedBinState  # noqa: E402
 from arroyo_tpu_torch.ops.segment import _reduce as segment_reduce  # noqa: E402
+from arroyo_tpu_torch.ops import session as session_ops  # noqa: E402
 from arroyo_tpu_torch.q5 import SLIDE_MICROS, WIDTH_MICROS, q5_program  # noqa: E402
 from arroyo_tpu_torch.q8 import WIDTH_MICROS as Q8_WIDTH  # noqa: E402
 from arroyo_tpu_torch.q8 import q8_program  # noqa: E402
@@ -555,8 +564,9 @@ def parent_kernels(parent):
     at ``parent``: its ``arroyo_tpu_torch`` imported as the package
     ``parent_torch``, its kernels built from its own csrc/ into its own
     build/ directory.  Returns a namespace of its pane_emit, bin_evict,
-    segment_agg, expand_gather, join_probe and ring_merge, its
-    ``ops.join`` module (the join's callers) and the build seconds."""
+    segment_agg, expand_gather, join_probe, ring_merge, session_union and
+    join_expand, its ``ops.join`` and ``ops.session`` modules (the
+    callers) and the build seconds."""
     import importlib
     import importlib.util
     pkg = os.path.join(os.path.abspath(parent), "arroyo_tpu_torch")
@@ -570,9 +580,12 @@ def parent_kernels(parent):
     importlib.import_module("parent_torch.kernels.build").load()
     secs = time.perf_counter() - t0
     names = ("pane_emit", "bin_evict", "segment_agg", "expand_gather",
-             "join_probe", "ring_merge")
+             "join_probe", "ring_merge", "session_union", "join_expand")
     return argparse.Namespace(
         build_s=secs, join=importlib.import_module("parent_torch.ops.join"),
+        session=importlib.import_module("parent_torch.ops.session"),
+        join_expand_buffer=importlib.import_module(
+            "parent_torch.kernels.join_expand").join_expand_buffer,
         **{name: getattr(importlib.import_module(
             f"parent_torch.kernels.{name}"), name) for name in names})
 
@@ -807,10 +820,8 @@ def k5_case(rng, dev, cap, n_res, m, nf, ni, shape, parent=None):
     views of one buffer, 1 allocation and 0 host syncs a call; timed in
     turns with ``index_copy_`` per plane (given the residents' positions,
     which the kernel does not take) and, with ``parent``, with the
-    parent commit's kernel (given its own ``res_pos`` i64[cap] and a
-    delta padded to a power of two, as its caller made them), and the
-    caller ``ops/join.merge_ring`` (one upload, the launch) with the
-    parent's (up to six blocking uploads, three launches)."""
+    parent commit's kernel on the same arguments, and the caller
+    ``ops/join.merge_ring`` with the parent's."""
     dpos = np.sort(rng.choice(n_res + m, m, replace=False))
     keep = np.ones(n_res + m, dtype=bool)
     keep[dpos] = False
@@ -870,26 +881,16 @@ def k5_case(rng, dev, cap, n_res, m, nf, ni, shape, parent=None):
              launches_per_call=launches, bound_bytes=nbytes,
              library_device_us=profile_kernels(library), **meas)
     if parent is not None:
-        db = 1 << max(m - 1, 0).bit_length()
-        res_pos = np.full(cap, cap, np.int64)
-        res_pos[:n_res] = rpos
-        pad = lambda a, v: np.concatenate(  # noqa: E731
-            [a, np.full(a.shape[:-1] + (db - m,), v, a.dtype)], axis=-1)
-        p_args = (args[0], args[1], stacks[0], stacks[1], t(res_pos),
-                  t(pad(d_hi_np, 0x7FFFFFFF)), t(pad(d_lo_np, -1)),
-                  t(pad(st[2], 0.0)) if payload else None,
-                  t(pad(st[3], 0)) if payload else None,
-                  t(pad(dpos.astype(np.int64), cap)))
         pm = parent.ring_merge
-        p_out = pm(*p_args)
+        p_out = pm(*args)
         torch.cuda.synchronize()
         check(all((g is None and w is None) or torch.equal(g, w)
                   for g, w in zip(p_out, got)),
               f"ring_merge differs from the parent's ({shape})")
-        c_ms, p_ms, p_turns = in_turns(kernel, lambda: pm(*p_args))
+        c_ms, p_ms, p_turns = in_turns(kernel, lambda: pm(*args))
         r["parent"] = {"ms": p_ms, "kernel_ms_beside_it": c_ms,
                        "turns_ms": p_turns, **turn_factors(p_turns),
-                       **measured(lambda: pm(*p_args), "_kernel"),
+                       **measured(lambda: pm(*args), "_kernel"),
                        "caller": merge_callers(rng, dev, cap, n_res, m, nf,
                                                ni, dpos, rpos, parent,
                                                shape)}
@@ -906,10 +907,9 @@ def k5_case(rng, dev, cap, n_res, m, nf, ni, shape, parent=None):
 def merge_callers(rng, dev, cap, n_res, m, nf, ni, dpos, rpos, parent,
                   shape):
     """``ops/join.merge_ring`` (the delta and its positions in one upload
-    from pinned memory, one launch) against the parent's (the residents'
-    positions, keys, stacks and positions in up to six blocking uploads,
-    three launches) on rings staged from the same sorted keys: equal
-    planes, then in turns, with allocations and host syncs a call."""
+    from pinned memory, one launch) against the parent's on rings staged
+    from the same sorted keys: equal planes, then in turns, with
+    allocations and host syncs a call."""
     keys = ring_keys(rng, n_res + m)
     cols = ring_columns(rng, nf, ni, n_res + m)
     ts = rng.integers(0, 2**50, n_res + m)
@@ -926,7 +926,7 @@ def merge_callers(rng, dev, cap, n_res, m, nf, ni, dpos, rpos, parent,
                              delta_ts=ts[dpos], delta_cols=part(dpos))
 
     def parent_merge():
-        return pp.merge_ring(rings[1], rpos, keys[dpos], dpos,
+        return pp.merge_ring(rings[1], n_res, keys[dpos], dpos,
                              delta_ts=ts[dpos], delta_cols=part(dpos))
 
     a, b = merge(), parent_merge()
@@ -1009,33 +1009,153 @@ def k6_case(rng, dev, cap, nf, ni, m, shape):
     return r
 
 
-def k7_case(rng, dev, n, n_keys, shape):
+def union_rows(rng, n, n_keys, config5=False):
     """Interval rows sorted by (key, start) with u64-hash keys (as int64
-    bit views), micros starts, ends a gap past them, a tenth touching
-    their predecessor."""
-    keys = rng.integers(-2**63, 2**63 - 1, n_keys, dtype=np.int64)
-    kh = np.sort(rng.choice(keys, n))
-    st = rng.integers(1_700_000_000_000_000, 1_700_000_100_000_000, n)
+    bit views), micros starts, ends a gap past them.  Random keys: a tenth
+    of the starts touch their predecessor's end.  ``config5``: the mix of
+    config5's merges (n // 1.5 keys, half of them a resident session and
+    a delta interval inside it, the rest one interval: 192 rows, 128 keys,
+    128 sessions; a CPU run of phase 7's config5 at 200,000 events)."""
+    if config5:
+        k2 = n - 2 * (n // 3)  # keys with two rows
+        keys = np.sort(rng.integers(-2**63, 2**63 - 1, n - k2,
+                                    dtype=np.int64))
+        kh = np.concatenate([np.repeat(keys[:k2], 2), keys[k2:]])
+        st = rng.integers(1_700_000_000_000_000, 1_700_000_100_000_000, n)
+        en = st + GAP_MICROS + rng.integers(0, 640, n)
+        twin = np.arange(1, 2 * k2, 2)  # the delta: inside the session
+        st[twin] = st[twin - 1] + rng.integers(0, GAP_MICROS, k2)
+    else:
+        keys = rng.integers(-2**63, 2**63 - 1, n_keys, dtype=np.int64)
+        kh = np.sort(rng.choice(keys, n))
+        st = rng.integers(1_700_000_000_000_000, 1_700_000_100_000_000, n)
+        o = np.lexsort((st, kh))
+        kh, st = kh[o], st[o]
+        en = st + rng.integers(1, 2 * GAP_MICROS, n)
+        touch = np.nonzero(rng.random(n - 1) < 0.1)[0] + 1
+        st[touch] = en[touch - 1]
     o = np.lexsort((st, kh))
-    kh, st = kh[o], st[o]
-    en = st + rng.integers(1, 2 * GAP_MICROS, n)
-    touch = np.nonzero(rng.random(n - 1) < 0.1)[0] + 1
-    st[touch] = en[touch - 1]
-    o = np.lexsort((st, kh))
-    kh, st, en = (torch.tensor(a[o], device=dev) for a in (kh, st, en))
+    return kh[o], st[o], en[o]
+
+
+def union_callers(kh, st, en, dev, parent):
+    """``ops/session.union_sorted_intervals`` (the three columns in one
+    upload from pinned memory, one launch of the buffer form, one
+    readback) against the parent's (three blocking uploads, three
+    launches, a readback of the flags, the sessions reduced on the host)
+    on the same rows: the same five arrays, then in turns, with
+    allocations and host syncs a call."""
+    kh = kh.view(np.uint64)
+
+    def union():
+        return session_ops.union_sorted_intervals(kh, st, en, dev)
+
+    def parent_union():
+        return parent.session.union_sorted_intervals(kh, st, en, dev)
+
+    a, b = union(), parent_union()
+    check(all(x.dtype == y.dtype and np.array_equal(x, y)
+              for x, y in zip(a, b)),
+          "union_sorted_intervals differs from the parent's")
+    ms, p_ms, turns = in_turns(union, parent_union)
+    return {"ms": ms, "parent_ms": p_ms, "turns_ms": turns,
+            **turn_factors(turns),
+            "allocations_syncs": per_call(union),
+            "parent_allocations_syncs": per_call(parent_union),
+            "host_us": host_us(union, reps=500),
+            "parent_host_us": host_us(parent_union, reps=500)}
+
+
+def device_sum(meas):
+    """Device microseconds a call, warm and cold, summed over launches."""
+    return (sum(meas["device_us_per_call"].values()),
+            sum(meas["device_us_cold"].values()))
+
+
+def k7_case(rng, dev, n, n_keys, shape, parent=None, config5=False):
+    """K7 on one union: both forms bit-equal to their plain versions, one
+    kernel launch a call (and, above one 1,024-row tile, one zero-fill,
+    counted); up to one tile 0 host syncs and at most 2 allocations a
+    call.  The buffer form (the caller's) is the row's time and bound
+    (24n bytes read, 8 + 16S written); the (new, run_en) form's beside it
+    (33n).  With ``parent``: the (new, run_en) form in turns with the
+    parent commit's three-launch kernel, whose device time is summed over
+    its launches, and at config5's shape the caller
+    ``union_sorted_intervals`` in turns with the parent's."""
+    kh_np, st_np, en_np = union_rows(rng, n, n_keys, config5)
+    kh, st, en = (torch.tensor(a, device=dev) for a in (kh_np, st_np, en_np))
+    before = session_union.launches
     got = session_union(kh, st, en)
+    flags_launches = session_union.last_launches
+    buf = session_union_buffer(kh, st, en)
+    buf_launches = session_union.last_launches
+    kernels = session_union.launches - before
     want = session_union_reference(kh, st, en)
+    want_buf = session_union_buffer_reference(kh, st, en)
     torch.cuda.synchronize()
+    check(kernels == 2, f"session_union made {kernels} kernel launches in "
+          f"two calls ({shape})")
     check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
           f"session_union differs ({shape})")
-    ms = cuda_ms(lambda: session_union(kh, st, en))
-    plain = cuda_ms(lambda: session_union_reference(kh, st, en))
-    # three i64 planes read, one i64 plane and one flag byte written; the
-    # int64 compares and maxes have no published peak rate, so the bound
-    # counts bytes only
-    return row("session_union", K7_SOURCE, K7_REPLACES,
-               shape + f" sessions={int(got[0].sum())}", 0.0, ms, plain,
-               n * (3 * 8 + 8 + 1), 0, None, None)
+    s, first, m_en = union_views(buf, n)
+    want_s, want_first, want_en = union_views(want_buf, n)
+    check(s == want_s and torch.equal(first, want_first)
+          and torch.equal(m_en, want_en),
+          f"session_union_buffer differs ({shape})")
+
+    def kernel():  # the call the session union makes: one buffer
+        return session_union_buffer(kh, st, en)
+
+    def flags():
+        return session_union(kh, st, en)
+
+    ms = cuda_ms(kernel)
+    plain = cuda_ms(lambda: session_union_buffer_reference(kh, st, en))
+    meas = measured(kernel, "union")
+    flags_meas = measured(flags, "union")
+    if n <= 1024:
+        for form, m_ in (("buffer", meas), ("flags", flags_meas)):
+            check(m_["allocations_per_call"] <= 2
+                  and m_["syncs_per_call"] == 0,
+                  f"session_union {form} form made "
+                  f"{m_['allocations_per_call']} allocations and "
+                  f"{m_['syncs_per_call']} host syncs ({shape})")
+        check(buf_launches == flags_launches == 1,
+              f"session_union made {buf_launches} / {flags_launches} "
+              f"launches on one tile ({shape})")
+    nbytes = 24 * n + 8 + 16 * s
+    r = row("session_union", K7_SOURCE, K7_REPLACES,
+            shape + f" sessions={s}", 0.0, ms, plain, nbytes, 0, None, None)
+    r.update(launches_per_call=buf_launches,
+             zero_fills_per_call=buf_launches - 1, bound_bytes=nbytes,
+             device_us_sum=device_sum(meas), **meas)
+    r["flags_form"] = {"ms": cuda_ms(flags),
+                       "plain_ms": cuda_ms(lambda: session_union_reference(
+                           kh, st, en)),
+                       "bound_ms": bound(33 * n, 0, F64_OPS_PER_S)[0],
+                       "launches_per_call": flags_launches,
+                       "device_us_sum": device_sum(flags_meas), **flags_meas}
+    if parent is not None:
+        pu = parent.session_union
+        p_out = pu(kh, st, en)
+        torch.cuda.synchronize()
+        check(torch.equal(p_out[0], got[0]) and torch.equal(p_out[1], got[1]),
+              f"session_union differs from the parent's ({shape})")
+        c_ms, p_ms, p_turns = in_turns(flags, lambda: pu(kh, st, en))
+        p_meas = measured(lambda: pu(kh, st, en), "union")
+        r["parent"] = {"ms": p_ms, "flags_ms_beside_it": c_ms,
+                       "turns_ms": p_turns, **turn_factors(p_turns),
+                       "device_us_sum": device_sum(p_meas), **p_meas}
+        if config5:
+            r["parent"]["caller"] = union_callers(kh_np, st_np, en_np, dev,
+                                                  parent)
+    print(f"session_union {shape}: " + json.dumps(
+        {key: r[key] for key in ("ms", "bound_ms", "launches_per_call",
+                                 "host_us_per_call", "device_us_per_call",
+                                 "device_us_cold", "device_us_sum",
+                                 "allocations_per_call", "syncs_per_call",
+                                 "flags_form", "parent") if key in r}))
+    return r
 
 
 def k8_case(rng, dev, n, n_seg, kinds, shape, parent=None):
@@ -1188,11 +1308,12 @@ def empty_segments(dev):
 
 
 def join_cases(rng, dev, cap, n_valid, mq, m, span, ni, shape,
-               parent=None, callers=False):
+               parent=None, callers=False, hit_caller=False):
     """K9-K11 on one ring probe: a sorted ring of ``n_valid`` keys drawn
     from ``span`` values (repeats), sorted queries from the same values
     (a fifth of them absent), a third sharing a ring row's lo.  With
-    ``callers`` (and ``parent``) the join's probe path is timed too."""
+    ``callers`` (and ``parent``) the join's probe path with its fused
+    emission is timed too, with ``hit_caller`` its keys-only probe path."""
     sent = 0x7FFFFFFF
     hi_np = np.full(cap, sent, np.int32)
     hi_np[:n_valid] = np.sort(rng.integers(0, span, n_valid) * 2)
@@ -1217,10 +1338,6 @@ def join_cases(rng, dev, cap, n_valid, mq, m, span, ni, shape,
     rows = [k9_case(q_hi, hi, m, n_valid, want, shape,
                     4 * mq + searched(4 * cap, cap, 2 * n_q) + 16 * mq,
                     parent)]
-    pairs = join_expand(start, cum, total)
-    check(all(torch.equal(g, w) for g, w in zip(
-        pairs, join_expand_reference(start, cum, total))),
-        f"join_expand differs ({shape})")
     eg_args = (start, cum, total, hi, lo, q_hi, q_lo, fst, ist)
     want = expand_gather_reference(*eg_args)
     distinct = int(torch.unique(want[1]).numel())
@@ -1238,12 +1355,9 @@ def join_cases(rng, dev, cap, n_valid, mq, m, span, ni, shape,
         ok = (hi[ridx] == q_hi[lidx]) & (lo[ridx] == q_lo[lidx])
         return ok, fst.index_select(1, ridx), ist.index_select(1, ridx)
 
-    rows.append(row("join_expand", K10_SOURCE, K10_REPLACES, shape, 0.0,
-                    cuda_ms(lambda: join_expand(start, cum, total)),
-                    cuda_ms(lambda: join_expand_reference(start, cum,
-                                                          total)),
-                    4 * used + searched(8 * mq, mq, used) + 16 * total, 0,
-                    cuda_ms(lib_expand), "repeat_interleave + arange"))
+    rows.append(k10_case(start, cum, total, lib_expand, shape,
+                         4 * used + searched(8 * mq, mq, used) + 16 * total,
+                         parent))
     rows.append(k11_case(eg_args, want, lib_gather, shape,
                          12 * used + searched(8 * mq, mq, used)
                          + distinct * (8 + 8 * ni) + total * (17 + 8 * ni),
@@ -1254,7 +1368,66 @@ def join_cases(rng, dev, cap, n_valid, mq, m, span, ni, shape,
             shape)
         print(f"probe callers {shape}: "
               + json.dumps(rows[0]["parent"]["caller"]))
+    if hit_caller and parent is not None:
+        rows[1]["parent"]["caller"] = probe_callers(
+            hi_np, lo_np, q_np, ql_np, n_valid, m, ni, ist, dev, parent,
+            shape, "expand_hit")
+        print(f"keys-only probe callers {shape}: "
+              + json.dumps(rows[1]["parent"]["caller"]))
     return rows
+
+
+def k10_case(start, cum, total, library, shape, nbytes, parent=None):
+    """K10 on one probe's keys-only expansion, in the buffer form the
+    join's ``expand_hit`` launches (here at capacity = the total): bit-
+    equal to the plain version, the total in its header, one launch, one
+    allocation and no host sync a call; timed in turns with
+    ``repeat_interleave`` + ``arange`` and, with ``parent``, with the
+    parent commit's kernel."""
+    want = join_expand_reference(start, cum, total)
+    before = join_expand.launches
+    buf = join_expand_buffer(start, cum, total)
+    launches = join_expand.launches - before
+    torch.cuda.synchronize()
+    check(launches == 1, f"join_expand made {launches} launches ({shape})")
+    check(int(buf[0]) == total and all(
+        torch.equal(g, w) for g, w in zip(pair_views(buf, total), want)),
+        f"join_expand_buffer differs ({shape})")
+    check(all(torch.equal(g, w) for g, w in zip(
+        join_expand(start, cum, total), want)), f"join_expand differs "
+        f"({shape})")
+
+    def kernel():  # the call the join makes: one buffer
+        return join_expand_buffer(start, cum, total)
+
+    ms, lib, turns = in_turns(kernel, library)
+    plain = cuda_ms(lambda: join_expand_reference(start, cum, total))
+    meas = measured(kernel, "join_expand")
+    check(meas["allocations_per_call"] == 1 and meas["syncs_per_call"] == 0,
+          f"join_expand made {meas['allocations_per_call']} allocations and "
+          f"{meas['syncs_per_call']} host syncs ({shape})")
+    r = row("join_expand", K10_SOURCE, K10_REPLACES, shape, 0.0, ms, plain,
+            nbytes, 0, lib, "repeat_interleave + arange")
+    r.update(turns_ms=turns, library_turns=turn_factors(turns),
+             launches_per_call=launches, bound_bytes=nbytes,
+             library_device_us=profile_kernels(library), **meas)
+    if parent is not None:
+        pe = parent.join_expand_buffer
+        check(torch.equal(pe(start, cum, total), buf),
+              f"join_expand differs from the parent's ({shape})")
+        c_ms, p_ms, p_turns = in_turns(kernel, lambda: pe(start, cum, total))
+        r["parent"] = {"ms": p_ms, "kernel_ms_beside_it": c_ms,
+                       "turns_ms": p_turns, **turn_factors(p_turns),
+                       **measured(lambda: pe(start, cum, total),
+                                  "join_expand")}
+    print(f"join_expand {shape}: " + json.dumps(
+        {key: r[key] for key in ("ms", "library_ms", "turns_ms",
+                                 "library_turns", "bound_ms", "bound_bytes",
+                                 "library_device_us", "host_us_per_call",
+                                 "device_us_per_call", "device_us_cold",
+                                 "allocations_per_call", "syncs_per_call",
+                                 "parent") if key in r}))
+    return r
 
 
 def k9_case(q_hi, hi, m, n_valid, want, shape, nbytes, parent=None):
@@ -1313,13 +1486,13 @@ def k9_case(q_hi, hi, m, n_valid, want, shape, nbytes, parent=None):
 
 
 def probe_callers(hi_np, lo_np, q_np, ql_np, n_valid, m, ni, ist, dev,
-                  parent, shape):
-    """The join's hot probe, ``probe_ring`` + ``expand_gather`` (one
-    upload from pinned memory, the probe and the expansion launched back
-    to back, one readback), against the parent's (a blocking upload, the
-    probe, a sync on the pair total, the expansion, a readback), on
-    rings holding the same planes: the same five arrays, then in turns,
-    with allocations and host syncs a call."""
+                  parent, shape, expand="expand_gather"):
+    """The join's hot probe, ``probe_ring`` + ``expand`` (``expand_gather``
+    or the keys-only ``expand_hit``: one upload from pinned memory, the
+    probe and the expansion launched back to back, one readback), against
+    the parent's, on rings holding the same planes: the same arrays, then
+    in turns, with allocations and host syncs a call (and, for
+    ``expand_gather``, the host split of a probe)."""
     to_key = lambda h, l: ((h.view(np.uint32) ^ np.uint32(0x80000000))  # noqa: E731
                            .astype(np.uint64) << np.uint64(32)) | \
         l.view(np.uint32).astype(np.uint64)
@@ -1335,20 +1508,22 @@ def probe_callers(hi_np, lo_np, q_np, ql_np, n_valid, m, ni, ist, dev,
     pring = pp.SplitRing(hi, lo, cap, fst, ist, plan, nf, ni, dev)
 
     def probe():
-        return pj.expand_gather(ring, pj.probe_ring(ring, q, n_valid))
+        return getattr(pj, expand)(ring, pj.probe_ring(ring, q, n_valid))
 
     def parent_probe():
-        return pp.expand_gather(pring, pp.probe_ring(pring, q, n_valid))
+        return getattr(pp, expand)(pring, pp.probe_ring(pring, q, n_valid))
 
     a, b = probe(), parent_probe()  # the first sizes the ring's capacity
     check(all(np.array_equal(x, y) for x, y in zip(a, b)),
-          f"probe_ring + expand_gather differs from the parent's ({shape})")
+          f"probe_ring + {expand} differs from the parent's ({shape})")
     ms, p_ms, turns = in_turns(probe, parent_probe)
-    return {"ms": ms, "parent_ms": p_ms, "turns_ms": turns,
-            **turn_factors(turns), "pair_cap": ring.pair_cap,
-            "allocations_syncs": per_call(probe),
-            "parent_allocations_syncs": per_call(parent_probe),
-            "host_split": probe_split(ring, q, n_valid, probe)}
+    out = {"ms": ms, "parent_ms": p_ms, "turns_ms": turns,
+           **turn_factors(turns), "pair_cap": ring.pair_cap,
+           "allocations_syncs": per_call(probe),
+           "parent_allocations_syncs": per_call(parent_probe)}
+    if expand == "expand_gather":
+        out["host_split"] = probe_split(ring, q, n_valid, probe)
+    return out
 
 
 def probe_split(ring, q, n_valid, probe):
@@ -1668,11 +1843,12 @@ def kernel_phase(parent=None):
                             "ni=3", parent))
     rows.append(k6_case(rng, dev, RING_CAP, 2, 6, 5_000,
                         f"q8 payload nf=2 ni=6 cap={RING_CAP} m=5000"))
+    rows.append(k7_case(rng, dev, 192, 128, "n=192 keys=128 (config5 "
+                        "merge)", parent, config5=True))
     for n, n_keys in ((256, 64), (256, 1), (65_536, 4_096), (65_536, 1),
                       (1_048_576, 65_536), (1_048_576, 1)):
-        rows.append(k7_case(rng, dev, n, n_keys,
-                            f"n={n} keys={n_keys}"
-                            + (" (config5 batch)" if n == 256 else "")))
+        rows.append(k7_case(rng, dev, n, n_keys, f"n={n} keys={n_keys}",
+                            parent))
     mixed7 = ("sum", "min", "max", "count", "sum", "min", "max")
     for n, n_seg, kinds, what in (
             (8_192, 256, ("count",), "config5 fire COUNT(*)"),
@@ -1691,7 +1867,8 @@ def kernel_phase(parent=None):
         rows += join_cases(rng, dev, cap, n_valid, mq, m, span, 3,
                            f"{what} cap={cap} n_valid={n_valid} mq={mq} "
                            f"m={m} ni=3", parent,
-                           callers=what.startswith("join-stress"))
+                           callers=what.startswith("join-stress"),
+                           hit_caller=what.startswith("join-stress 8b"))
     for n, n_seg, what in ((TOPK_STEADY, 1, "hot items steady fire"),
                            (TOPK_FLUSH, 5, "hot items final flush")):
         rows.append(topk_case(rng, dev, n, n_seg,
@@ -1978,7 +2155,9 @@ def q8_phase():
 C5_COLS = ("k", "med", "cnt", "window_start", "window_end")
 C5_COUNTERS = ("session_merge_dispatches", "session_merge_device_dispatches",
                "session_device_merge_rows", "session_host_merge_rows",
-               "udaf_channel_rows", "kernel_dispatches")
+               "udaf_channel_rows", "kernel_dispatches",
+               "session_union_uploads", "session_union_readbacks",
+               "session_union_blocking_uploads")
 
 
 def c5_table(batches):
@@ -2035,10 +2214,23 @@ def c5_phase():
     t0 = time.perf_counter()
     control = c5_control(C5_EVENTS)
     control_s = time.perf_counter() - t0
-    perf.reset()
-    reset_launches()
-    dt, rows, fires, epochs = run_c5(C5_EVENTS, "c5-big", "c5-cuda", None)
-    launches = read_launches()
+    sizes = []  # rows of each union call
+    union = session_ops.session_union_buffer
+
+    @functools.wraps(union)
+    def recorded(kh, st, en):
+        sizes.append(kh.shape[0])
+        return union(kh, st, en)
+
+    session_ops.session_union_buffer = recorded
+    try:
+        perf.reset()
+        reset_launches()
+        dt, rows, fires, epochs = run_c5(C5_EVENTS, "c5-big", "c5-cuda",
+                                         None)
+        launches = read_launches()
+    finally:
+        session_ops.session_union_buffer = union
     counters = {k: perf.counter(k) for k in C5_COUNTERS}
     state = aggregate_session_registry(
         perf.get_note("session_state_registry"))
@@ -2050,6 +2242,18 @@ def c5_phase():
     check(counters["session_device_merge_rows"] > 0,
           "config5 merged no interval rows on the device")
     check(len(epochs) > 0, "config5 completed no checkpoint epoch")
+    calls = launches["session_union"]
+    check(len(sizes) == calls == counters["session_union_uploads"]
+          == counters["session_union_readbacks"]
+          and counters["session_union_blocking_uploads"] == 0,
+          f"config5's unions: {len(sizes)} calls, {calls} launches, "
+          f"{counters['session_union_uploads']} uploads, "
+          f"{counters['session_union_readbacks']} readbacks, "
+          f"{counters['session_union_blocking_uploads']} blocking uploads")
+    union_n = {"calls": len(sizes), "rows": int(sum(sizes)),
+               "min": min(sizes), "median": statistics.median(sizes),
+               "max": max(sizes),
+               "histogram": sorted(collections.Counter(sizes).items())}
     os.environ["ARROYO_TIMING"] = "1"
     perf.reset()
     try:
@@ -2072,6 +2276,7 @@ def c5_phase():
         "fire_batches": fires, "control_sessions": len(control),
         "produce_s": produce_s, "control_s": control_s,
         "checkpoint_epochs": len(epochs), "launches": launches,
+        "union_n": union_n,
         "counters": counters, "session_state": state,
         "timed_wall_s": dt_timed, "timed_device_s": device_s,
         "device_share": device_s / dt_timed,
@@ -2412,8 +2617,9 @@ def main():
     parser.add_argument(
         "--parent", help="a directory holding a git archive of the parent "
         "commit: phase 3 also times its pane_emit, bin_evict, segment_agg, "
-        "expand_gather, ring_merge and join_probe, and the join's callers, "
-        "in turns with this tree's")
+        "expand_gather, ring_merge, join_probe, session_union and "
+        "join_expand, and the join's and the session union's callers, in "
+        "turns with this tree's")
     opts = parser.parse_args()
     smi = environment()
     parent = None

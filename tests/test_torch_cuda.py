@@ -60,7 +60,10 @@ from arroyo_tpu_torch.kernels.segment_top_k import (
 )
 from arroyo_tpu_torch.kernels.session_union import (
     session_union,
+    session_union_buffer,
+    session_union_buffer_reference,
     session_union_reference,
+    union_views,
 )
 
 F64_MAX = torch.finfo(torch.float64).max
@@ -421,10 +424,14 @@ def _intervals(rng, n, n_keys):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,n_keys", [(1, 1), (256, 40), (65536, 3000),
                                       (65536, 1), (1_048_576, 200_000),
-                                      (1_048_576, 1)])
+                                      (1_048_576, 1), (192, 48), (1023, 70),
+                                      (1024, 70), (1025, 70), (3000, 1)])
 def test_session_union_cuda_matches_plain(cuda_device, n, n_keys):
-    """Exact flags and running ends, including one key spanning every
-    tile (the carry crosses all 1,024 blocks)."""
+    """Both forms exact against their plain versions — flags and running
+    ends; session count, first rows and merged ends — at the one-block
+    call's 1,024-row edge and across look-backs over up to 256 tiles,
+    with one key spanning every tile.  One kernel launch a call, and the
+    zero-fill of the look-back's status words only above one block."""
     rng = np.random.default_rng(n + n_keys)
     kh, st, en = (torch.tensor(a, device=cuda_device)
                   for a in _intervals(rng, n, n_keys))
@@ -433,7 +440,33 @@ def test_session_union_cuda_matches_plain(cuda_device, n, n_keys):
     want = session_union_reference(kh, st, en)
     torch.cuda.synchronize()
     assert session_union.launches == before + 1
+    assert session_union.last_launches == (1 if n <= 1024 else 2)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    buf = session_union_buffer(kh, st, en)
+    want_buf = session_union_buffer_reference(kh, st, en)
+    torch.cuda.synchronize()
+    assert session_union.launches == before + 2
+    assert tuple(buf.shape) == (1 + 2 * n,)
+    s, first, m_en = union_views(buf, n)
+    want_s, want_first, want_en = union_views(want_buf, n)
+    assert s == want_s == int(want[0].sum())
+    assert torch.equal(first, want_first) and torch.equal(m_en, want_en)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 192, 256, 1024])
+def test_session_union_cuda_one_tile_launch_allocations_syncs(cuda_device,
+                                                               n):
+    """Up to one tile (every config5 merge): one launch, one allocation
+    and no host sync a call, in both forms."""
+    rng = np.random.default_rng(n)
+    kh, st, en = (torch.tensor(a, device=cuda_device)
+                  for a in _intervals(rng, n, max(n // 4, 1)))
+    for fn in (session_union, session_union_buffer):
+        before = session_union.launches
+        assert _allocs_and_syncs(lambda: fn(kh, st, en)) == (1, 0)
+        assert session_union.launches == before + 2
+        assert session_union.last_launches == 1
 
 
 @pytest.mark.cuda
@@ -805,6 +838,43 @@ def test_expand_gather_cuda_block_edges(cuda_device, total, nf):
         assert torch.equal(g, w) and torch.equal(v, w)
     assert got[0].untyped_storage().data_ptr() == \
         got[4].untyped_storage().data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("total", [1, 512, 513, 2048, 2049, 5000])
+@pytest.mark.parametrize("mq", [1024, 3000])
+def test_join_expand_cuda_block_edges(cuda_device, total, mq):
+    """Pair totals of 1, expand_gather's block of 512 pairs and one more,
+    join_expand's block of 2,048 and one more, and many blocks, over
+    queries whose counts include long runs of zeros; with
+    3,000 queries a block stages its stretch of ``cum`` (found by the warp
+    searches), or searches it in global memory when a run of 1,500
+    queries without pairs makes it longer than 1,024: the buffer
+    bit-equal to the plain version, at the exact capacity and above
+    it."""
+    rng = np.random.default_rng(total + mq)
+    cap = 8192
+    counts = np.zeros(mq, np.int64)
+    # above 1,024 queries, none with a pair in [1000, 2500): a block
+    # across that run searches global memory
+    pool = np.r_[0:1000, 2500:mq] if mq > 1024 else np.arange(mq)
+    hit = np.sort(rng.choice(pool, min(total, 40), replace=False))
+    counts[hit] = rng.multinomial(total - len(hit), np.ones(len(hit))
+                                  / len(hit)) + 1
+    assert counts.sum() == total
+    cum = torch.tensor(np.cumsum(counts), device=cuda_device)
+    start = torch.tensor(np.minimum(rng.integers(0, cap, mq),
+                                    cap - counts).astype(np.int32),
+                         device=cuda_device)
+    want = join_expand_reference(start, cum, total)
+    before = join_expand.launches
+    for capacity in (total, total + 700):
+        buf = join_expand_buffer(start, cum, capacity)
+        torch.cuda.synchronize()
+        assert int(buf[0]) == total
+        for g, w in zip(pair_views(buf, total, capacity), want):
+            assert torch.equal(g, w)
+    assert join_expand.launches == before + 2
 
 
 @pytest.mark.cuda

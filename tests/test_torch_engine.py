@@ -87,9 +87,14 @@ def test_q5_checkpoint_stop_restore_is_exactly_once():
     """(f) a port run checkpointed (InMemoryBackend) mid-stream, stopped
     and restored emits exactly the rows of an uninterrupted run.  The
     slower event rate spreads 200k events over 4 s of event time, so
-    panes fire before and after the barrier."""
+    panes fire before and after the barrier.  The source is held after
+    its 15th batch (122,880 events) until the barrier is queued, so the
+    barrier enters the stream there on every run, however the host
+    schedules the tasks."""
+    batch, hold_after = 8_192, 15
+
     def prog(sink):
-        return q5_program(200_000, 8_192, sink, event_rate=50_000.0,
+        return q5_program(200_000, batch, sink, event_rate=50_000.0,
                           base_time_micros=0)
 
     clear_sink("q5-ref")
@@ -99,18 +104,32 @@ def test_q5_checkpoint_stop_restore_is_exactly_once():
 
     clear_sink("q5-rt")
     program = prog("q5-rt")
-    agg_id = next(n.operator_id for n in program.nodes()
-                  if "aggregator" in n.operator_id)
 
     async def phase1():
         engine = Engine(program, "q5-rt", InMemoryBackend(), device="cpu")
         running = engine.start()
-        state = engine.subtasks[(agg_id, 0)].runner.operator.state
-        while state.total_rows < 100_000:  # mid-stream, past a pane fire
-            await asyncio.sleep(0.001)
+        source = next(h.runner for h in engine.subtasks.values()
+                      if h.is_source)
+        poll = source.poll_source_control
+        held = asyncio.Event()
+        batches = [0]
+
+        async def hold_then_poll():
+            # the source polls once a batch; after the 15th it waits for
+            # the barrier before polling again
+            batches[0] += 1
+            if batches[0] == hold_after:
+                held.set()
+                while source.control_rx.empty():
+                    await asyncio.sleep(0.001)
+            return await poll()
+
+        source.poll_source_control = hold_then_poll
+        await held.wait()
         await running.checkpoint(1, then_stop=True)
         assert await running.wait_for_checkpoint(1, timeout=60)
         await running.join()
+        assert batches[0] == hold_after  # stopped at the barrier
 
     asyncio.run(phase1())
     emitted_before = len(_rows(sink_output("q5-rt")))

@@ -41,7 +41,9 @@ from arroyo_tpu_torch.kernels.pane_emit import fire_geometry, pane_emit, pane_vi
 from arroyo_tpu_torch.kernels.ring_gather import ring_gather, ring_gather_rows
 from arroyo_tpu_torch.kernels.ring_merge import SENT32_HI, SENT32_LO, ring_merge
 from arroyo_tpu_torch.kernels.segment_agg import segment_agg, segment_agg_buffer
-from arroyo_tpu_torch.kernels.session_union import session_union
+from arroyo_tpu_torch.kernels.session_union import (session_union,
+                                                    session_union_buffer,
+                                                    union_views)
 from arroyo_tpu_torch.ops.keyed_bins import NEG_INF, POS_INF
 
 # (channel kinds, COUNT(*) channels): q5's bare COUNT(*), and a mixed
@@ -451,10 +453,17 @@ def _union_fixture(rng, n, n_keys, touching):
     (300, 40, False),  # many keys
     (1000, 1, False),  # one key spanning the input
     (517, 9, True),  # touching intervals merge
-    (1, 1, False)])
+    (1, 1, False),
+    (192, 48, True),  # a config5-sized merge
+    (1023, 70, False),  # one row short of the kernel's 1,024-row tile
+    (1024, 70, True),  # one tile
+    (1025, 70, False),  # one row into a second tile
+    (3000, 1, True)])  # one key spanning three tiles
 def test_session_union_plain_matches_union_kernel(n, n_keys, touching):
     """Exact new-session flags and running ends on the first n rows of
-    the JAX kernel's padded scan."""
+    the JAX kernel's padded scan; the buffer form's sessions (first rows,
+    merged ends) equal the flags' heads and ``np.maximum.reduceat`` of
+    the ends over them, as the JAX package's caller reduces."""
     rng = np.random.default_rng(n + n_keys)
     kh, st, en = _union_fixture(rng, n, n_keys, touching)
     npad = max(1 << (n - 1).bit_length(), 2)
@@ -470,6 +479,14 @@ def test_session_union_plain_matches_union_kernel(n, n_keys, touching):
                              torch.tensor(st), torch.tensor(en))
     np.testing.assert_array_equal(new.numpy(), np.asarray(want_new)[:n])
     np.testing.assert_array_equal(run.numpy(), np.asarray(want_run)[:n])
+    buf = session_union_buffer(torch.tensor(kh.view(np.int64)),
+                               torch.tensor(st), torch.tensor(en))
+    assert buf.dtype == torch.int64 and tuple(buf.shape) == (1 + 2 * n,)
+    s, first, m_en = union_views(buf.numpy(), n)
+    heads = np.nonzero(np.asarray(want_new)[:n])[0]
+    np.testing.assert_array_equal(first, heads)
+    np.testing.assert_array_equal(m_en, np.maximum.reduceat(en, heads))
+    assert s == len(heads)
     if touching:
         assert new.sum() < n_keys + (n - n_keys) // 2  # merges happened
 
@@ -538,8 +555,9 @@ def test_segment_agg_plain_matches_segment_agg_kernel(kinds, layout):
 
 
 def test_session_kernels_run_plain_versions_on_cpu_and_reject_others():
-    """The session kernels' wrappers count no launch for CPU tensors and
-    raise for tensors on another non-CUDA device."""
+    """The session kernels' wrappers (both forms of session_union) count
+    no launch for CPU tensors and raise for tensors on another non-CUDA
+    device."""
     before = (session_union.launches, segment_agg.launches)
     kh = torch.tensor([5, 5, 5, 9])
     st = torch.tensor([0, 10, 30, 0])
@@ -547,6 +565,8 @@ def test_session_kernels_run_plain_versions_on_cpu_and_reject_others():
     new, run = session_union(kh, st, en)
     assert new.tolist() == [True, False, True, True]
     assert run.tolist() == [10, 20, 40, 3]
+    buf = session_union_buffer(kh, st, en)
+    assert buf.tolist() == [3, 0, 2, 3, 0, 20, 40, 3, 0]
     out, cnt = segment_agg(torch.tensor([[1.0, 2.0, 4.0]],
                                         dtype=torch.float64),
                            torch.tensor([0, 2, 3]), ("sum",))
@@ -555,6 +575,8 @@ def test_session_kernels_run_plain_versions_on_cpu_and_reject_others():
     with pytest.raises(ValueError):
         session_union(kh.to("meta"), st.to("meta"), en.to("meta"))
     with pytest.raises(ValueError):
+        session_union_buffer(kh.to("meta"), st.to("meta"), en.to("meta"))
+    with pytest.raises(ValueError):
         segment_agg(torch.zeros((1, 3), dtype=torch.float64, device="meta"),
                     torch.tensor([0, 3], device="meta"), ("sum",))
     with pytest.raises(ValueError, match="value rows"):  # count: no row
@@ -562,6 +584,8 @@ def test_session_kernels_run_plain_versions_on_cpu_and_reject_others():
                     torch.tensor([0, 3]), ("count",))
     with pytest.raises(TypeError):
         session_union(kh.to(torch.int32), st, en)
+    with pytest.raises(TypeError):
+        session_union_buffer(kh, st.to(torch.int32), en)
 
 
 def _probe_fixture(rng, case):

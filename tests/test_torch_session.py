@@ -51,14 +51,20 @@ def _intervals(rng, n, n_keys):
 @pytest.mark.parametrize("n,n_keys", [(1, 1), (2, 1), (700, 1), (900, 60)])
 def test_union_sorted_intervals_matches_jax(n, n_keys):
     """Merged keys, bounds, row->session ordinals and session heads
-    through the session_union plain version: equal to the JAX host path
-    and its jitted kernel."""
+    through the session_union buffer form's plain version: equal to the
+    JAX host path and its jitted kernel.  A call makes one upload and one
+    readback; on the CPU the upload is a plain copy, counted as
+    blocking."""
     rng = np.random.default_rng(n * 31 + n_keys)
     kh, st, en = _intervals(rng, n, n_keys)
     want = jax_union(kh.copy(), st.copy(), en.copy(), device=False)
     want_dev = jax_union(kh.copy(), st.copy(), en.copy(), device=True)
+    names = ("session_union_uploads", "session_union_readbacks",
+             "session_union_blocking_uploads")
+    before = [perf.counter(k) for k in names]
     got = union_sorted_intervals(kh.copy(), st.copy(), en.copy(),
                                  device=torch.device("cpu"))
+    assert [perf.counter(k) - b for k, b in zip(names, before)] == [1, 1, 1]
     for g, w, wd in zip(got, want, want_dev):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
