@@ -7,60 +7,79 @@
 // `update_bin_state`, pallas_kernels.py:212).
 //
 // Semantics (keyed_bins.py:67-104): for cell i with slot s, bin b and
-// rowcount rc = packed[0, i]:
+// rowcount rc:
 //   * rc <= 0.5 (padding) or s/b outside the planes: the cell is skipped,
 //     never clipped into a real cell;
 //   * counts[s, b] += (CountT)rc;
-//   * channel j reads packed[src_j, i], or rc itself for COUNT(*)
-//     channels (src_j < 0), and adds (sum/avg/count), or reduces with
-//     min/max, into values[j, s, b].
+//   * channel j takes rc itself when it is a COUNT(*) channel (bit j of
+//     `dup`), else the next transferred row, and adds it (sum/avg/count),
+//     or reduces it with min (bit j of `mn`) or max (bit j of `mx`), into
+//     values[j, s, b].  MIN/MAX order -0.0 below +0.0, as XLA does.
+//
+// The cells arrive as ONE i64 buffer [2 + n_xfer, m] (the caller's one
+// upload): row 0 holds i32 slots[m] then i32 bins[m], row 1 the f64
+// rowcounts, rows 2.. the transferred channels' f64 values.
 //
 // What bounds it on the H100: memory.  Each cell reads 8 B of indices and
-// 8 B per packed row, and read-modify-writes 8 B per channel plus 4/8 B
-// of counts at a scattered address; there are no operations to speak of.
-// At nexmark q5's few-thousand-cell flushes the whole call moves well
-// under a megabyte, so it is bound by the launch, not by bandwidth.
+// 8 B per f64 row, and read-modify-writes 8 B per channel plus 4/8 B of
+// counts at a scattered address; there are no operations to speak of.
+// At nexmark q5's flushes of up to 65,536 cells the call moves about a
+// megabyte, so the launch, not the bandwidth, sets its time.
 //
-// What the design does about it: one thread per cell and one launch per
-// flush, no shared-memory staging.  Duplicate cells stay correct without
-// sorting: sums use the native f64 atomicAdd, min/max an atomicCAS loop on
-// the 64-bit pattern, counts a 32- or 64-bit atomicAdd.  Faster variants
-// (warp-aggregated atomics, fusing consecutive flushes) are later work.
+// What the design does about it: one thread per cell, one launch per
+// flush, the channel plan as three 64-bit masks passed by value (no
+// per-call host arrays, no struct).  A warp reads each row of the buffer
+// as one coalesced run.  Duplicate cells stay exact without sorting:
+// sums use the f64 atomicAdd, whose result is unused (a fire-and-forget
+// reduction), counts a 32- or 64-bit atomicAdd, and MIN/MAX at most one
+// integer atomic on the f64 bit pattern: a value with the sign bit clear
+// orders like its bits as a signed integer (atomicMax / atomicMin), one
+// with the sign bit set in reverse of its bits as an unsigned integer
+// (atomicMin / atomicMax), and either kind of value compares right
+// against the other under both.  A plain read first skips the atomic
+// when the cell already holds a value at least as good, as a CAS loop
+// does: without it, flushes whose cells repeat issue an atomic for every
+// MIN/MAX value and ran slower than a CAS loop (PERF.md §6).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxChannels = 64;
 constexpr int kThreads = 256;
 
-enum Kind : int { kAdd = 0, kMin = 1, kMax = 2 };
+// An f64 as an integer key in the same order, -0.0 below +0.0.
+__device__ __forceinline__ long long order_key(long long bits) {
+  return bits ^ ((bits >> 63) & 0x7fffffffffffffffll);
+}
 
-struct ChannelSpec {
-  int n;
-  int kind[kMaxChannels];
-  int src[kMaxChannels];  // packed row, or -1 for the rowcount itself
-};
-
+// A cell under MIN only ever falls during a launch, so a value read from
+// it at any moment is at or above its value now: when that read is
+// already at or below v, v changes nothing and no atomic is issued.
 __device__ __forceinline__ void atomic_min_f64(double* addr, double v) {
-  unsigned long long* a = reinterpret_cast<unsigned long long*>(addr);
-  unsigned long long old = *a;
-  while (v < __longlong_as_double(static_cast<long long>(old))) {
-    unsigned long long assumed = old;
-    old = atomicCAS(a, assumed,
-                    static_cast<unsigned long long>(__double_as_longlong(v)));
-    if (old == assumed) break;
+  const long long bits = __double_as_longlong(v);
+  if (order_key(*reinterpret_cast<const long long*>(addr)) <=
+      order_key(bits)) {
+    return;
+  }
+  if (bits >= 0) {
+    atomicMin(reinterpret_cast<long long*>(addr), bits);
+  } else {
+    atomicMax(reinterpret_cast<unsigned long long*>(addr),
+              static_cast<unsigned long long>(bits));
   }
 }
 
 __device__ __forceinline__ void atomic_max_f64(double* addr, double v) {
-  unsigned long long* a = reinterpret_cast<unsigned long long*>(addr);
-  unsigned long long old = *a;
-  while (v > __longlong_as_double(static_cast<long long>(old))) {
-    unsigned long long assumed = old;
-    old = atomicCAS(a, assumed,
-                    static_cast<unsigned long long>(__double_as_longlong(v)));
-    if (old == assumed) break;
+  const long long bits = __double_as_longlong(v);
+  if (order_key(*reinterpret_cast<const long long*>(addr)) >=
+      order_key(bits)) {
+    return;
+  }
+  if (bits >= 0) {
+    atomicMax(reinterpret_cast<long long*>(addr), bits);
+  } else {
+    atomicMin(reinterpret_cast<unsigned long long*>(addr),
+              static_cast<unsigned long long>(bits));
   }
 }
 
@@ -74,31 +93,39 @@ __device__ __forceinline__ void add_count(long long* p, double rc) {
 }
 
 template <typename CountT>
-__global__ void bin_update_kernel(double* __restrict__ values,
-                                  CountT* __restrict__ counts,
-                                  const int* __restrict__ idx,
-                                  const double* __restrict__ packed,
-                                  ChannelSpec spec, int C, int B, int m) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(kThreads)
+    bin_update_kernel(double* __restrict__ values,
+                      CountT* __restrict__ counts,
+                      const long long* __restrict__ cells, long long m,
+                      int C, int B, int n_ch, unsigned long long dup,
+                      unsigned long long mn, unsigned long long mx) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= m) return;
-  const int s = idx[i];
-  const int b = idx[m + i];
-  const double rc = packed[i];
+  const int* idx = reinterpret_cast<const int*>(cells);
+  const double* rows = reinterpret_cast<const double*>(cells + m);
+  const int s = __ldg(idx + i);
+  const int b = __ldg(idx + m + i);
+  const double rc = __ldg(rows + i);
   if (!(rc > 0.5) || s < 0 || s >= C || b < 0 || b >= B) return;
   const long long cell = static_cast<long long>(s) * B + b;
   add_count(counts + cell, rc);
   const long long plane = static_cast<long long>(C) * B;
-  for (int j = 0; j < spec.n; ++j) {
-    const double x = spec.src[j] < 0
-        ? rc
-        : packed[static_cast<long long>(spec.src[j]) * m + i];
+  const double* src = rows + m + i;  // the next transferred row's value
+  for (int j = 0; j < n_ch; ++j) {
+    const unsigned long long bit = 1ull << j;
+    double x = rc;
+    if (!(dup & bit)) {
+      x = __ldg(src);
+      src += m;
+    }
     double* dst = values + j * plane + cell;
-    if (spec.kind[j] == kAdd) {
-      atomicAdd(dst, x);
-    } else if (spec.kind[j] == kMin) {
+    if (mn & bit) {
       atomic_min_f64(dst, x);
-    } else {
+    } else if (mx & bit) {
       atomic_max_f64(dst, x);
+    } else {
+      atomicAdd(dst, x);
     }
   }
 }
@@ -106,32 +133,31 @@ __global__ void bin_update_kernel(double* __restrict__ values,
 }  // namespace
 
 // values f64[n_ch, C, B], counts i32|i64[C, B] (both updated in place),
-// idx i32[2, m], packed f64[n_src, m]; kinds/srcs are HOST arrays of n_ch
-// ints.  Launches on `stream`; returns cudaGetLastError().
+// cells i64[2 + n_xfer, m] as above; `dup`, `mn`, `mx` the channel plan's
+// masks (n_ch <= 64; n_xfer = n_ch - popcount(dup)).  One launch on
+// `stream`; returns cudaGetLastError().
 extern "C" int arroyo_bin_update(void* values, void* counts, int counts_i64,
-                                 const void* idx, const void* packed,
-                                 const int* kinds, const int* srcs, int n_ch,
-                                 int C, int B, int m, void* stream) {
-  if (n_ch < 0 || n_ch > kMaxChannels) return cudaErrorInvalidValue;
-  ChannelSpec spec;
-  spec.n = n_ch;
-  for (int j = 0; j < n_ch; ++j) {
-    spec.kind[j] = kinds[j];
-    spec.src[j] = srcs[j];
-  }
-  if (m <= 0) return cudaSuccess;
-  const int blocks = (m + kThreads - 1) / kThreads;
+                                 const void* cells, long long m, int C,
+                                 int B, int n_ch, unsigned long long dup,
+                                 unsigned long long mn, unsigned long long mx,
+                                 void* stream) {
+  if (n_ch < 0 || n_ch > 64 || m < 0 || C < 0 || B < 0)
+    return cudaErrorInvalidValue;
+  if (m == 0) return cudaSuccess;
+  const long long blocks = (m + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* c = static_cast<const long long*>(cells);
   if (counts_i64) {
-    bin_update_kernel<long long><<<blocks, kThreads, 0, st>>>(
-        static_cast<double*>(values), static_cast<long long*>(counts),
-        static_cast<const int*>(idx), static_cast<const double*>(packed),
-        spec, C, B, m);
+    bin_update_kernel<long long><<<static_cast<unsigned>(blocks), kThreads,
+                                   0, st>>>(
+        static_cast<double*>(values), static_cast<long long*>(counts), c, m,
+        C, B, n_ch, dup, mn, mx);
   } else {
-    bin_update_kernel<int><<<blocks, kThreads, 0, st>>>(
-        static_cast<double*>(values), static_cast<int*>(counts),
-        static_cast<const int*>(idx), static_cast<const double*>(packed),
-        spec, C, B, m);
+    bin_update_kernel<int><<<static_cast<unsigned>(blocks), kThreads, 0,
+                             st>>>(
+        static_cast<double*>(values), static_cast<int*>(counts), c, m, C, B,
+        n_ch, dup, mn, mx);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -49,7 +49,8 @@ def to_host(t: torch.Tensor) -> np.ndarray:
 
 
 # the dtypes the port uploads (f64 payload rides i64 words)
-_TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
+_TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8,
+                 np.dtype(np.int32): torch.int32,
                  np.dtype(np.int64): torch.int64}
 
 

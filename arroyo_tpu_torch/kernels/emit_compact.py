@@ -6,14 +6,20 @@ Replace arroyo_tpu/ops/keyed_bins.py:198 ``_emit_count_kernel`` (pane
 counts and the live total) and :213 ``_emit_compact_kernel`` (the
 nonzero compaction and the channels' ``_pane_reduce`` at the live cells).
 
-On the H100 both are bound by memory: the count call reads the fire's W
+On the H100 both are bound by memory: the count call reads the fire's
 count columns of the occupied slots and writes one pane count a cell;
 the gather call re-reads those and, per live cell, W bins of each
 transferred channel.  The CUDA kernels (``csrc/emit_compact.cu``) never
 write the dense ``[channels, C, k]`` grid: channels are reduced at live
 cells only (with the dense fire's reduction, ``csrc/pane_reduce.cuh``, so
 the two branches' sums are bit-equal), and the outputs are sized to the
-live total, read back between the two calls (one sync, as in JAX).
+live total, read back between the two calls (one sync, as in JAX).  The
+count call is one launch and one allocation (``cnt`` and ``offsets``
+together): a block counts four groups of 256 cells, one thread a cell;
+the last block of a superblock's 64 groups to arrive scans them and
+finds the superblock's offset by a decoupled look-back, whose status
+words and arrival counters sit in a persistent per-device workspace (so
+never launch ``emit_count`` on two streams at once).
 
 ``emit_count_reference`` and ``emit_gather_reference`` are the plain
 PyTorch versions; the wrappers take them only for tensors on the CPU."""
@@ -22,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +37,9 @@ from . import build
 from .bin_update import KIND_CODES
 from .pane_emit import pane_reduce_reference
 
-THREADS = 256  # cells per block of the count/gather kernels
+THREADS = 256  # cells per offsets group; threads of the count/gather blocks
+SUPER = 64  # offsets groups a count superblock scans (csrc kSuper)
+EPOCHS = 1 << 30  # look-back epochs 1 .. EPOCHS - 1, then the words reset
 
 
 def _check_panes(ring: torch.Tensor, bin_ok: torch.Tensor, rows: int
@@ -58,6 +66,53 @@ def _same_device_contiguous(what: str, *tensors: torch.Tensor) -> None:
 
 def _nblocks(cells: int) -> int:
     return -(-cells // THREADS)
+
+
+def pack_panes(ring: np.ndarray, bin_ok: np.ndarray) -> np.ndarray:
+    """A fire's panes as one host byte buffer (one upload): ``ring`` i32
+    [k, W], then ``bin_ok`` bool [k, W]."""
+    return np.concatenate([np.ascontiguousarray(ring, dtype=np.int32)
+                           .reshape(-1).view(np.uint8),
+                           np.ascontiguousarray(bin_ok, dtype=bool)
+                           .reshape(-1).view(np.uint8)])
+
+
+def panes_views(buf: torch.Tensor, k: int, W: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ring i32[k, W], bin_ok bool[k, W]) views of :func:`pack_panes`'s
+    buffer as a u8 tensor."""
+    n = k * W
+    return (buf[:4 * n].view(torch.int32).view(k, W),
+            buf[4 * n:5 * n].view(torch.bool).view(k, W))
+
+
+class _Workspace:
+    """A device's look-back state for the count kernel
+    (``csrc/emit_compact.cu``): a status word and an arrival counter a
+    superblock of 64 groups, zero when made and grown.  The counters
+    return to zero at the end of every call; each call takes the next
+    epoch, and the status words are zeroed again only when the epochs
+    wrap."""
+
+    def __init__(self):
+        self.status: Optional[torch.Tensor] = None
+        self.arrived: Optional[torch.Tensor] = None
+        self.epoch = 0
+
+    def take(self, supers: int, dev: torch.device
+             ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        if self.status is None or self.status.numel() < supers:
+            n = max(supers, 1024)
+            self.status = torch.zeros(n, dtype=torch.int64, device=dev)
+            self.arrived = torch.zeros(n, dtype=torch.int32, device=dev)
+        self.epoch += 1
+        if self.epoch == EPOCHS:
+            self.status.zero_()
+            self.epoch = 1
+        return self.status, self.arrived, self.epoch
+
+
+_workspaces: Dict[int, _Workspace] = {}
 
 
 def emit_count_reference(counts: torch.Tensor, ring: torch.Tensor,
@@ -103,7 +158,7 @@ def _c_fns():
     lib = build.load()
     p, i = ctypes.c_void_p, ctypes.c_int
     count = lib.arroyo_emit_count
-    count.argtypes = [p, i, p, p, i, i, i, i, p, p, p, p]
+    count.argtypes = [p, i, p, p, i, i, i, i, p, p, p, p, ctypes.c_uint, p]
     count.restype = i
     gather = lib.arroyo_emit_gather
     gather.argtypes = [p, p, i, p, p, p, p, i, i, i, i, i, i, p, i, p, p, p,
@@ -132,14 +187,23 @@ def emit_count(counts: torch.Tensor, ring: torch.Tensor, bin_ok: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"emit_count: unsupported device {dev}")
     nb = _nblocks(rows * k)
-    cnt = torch.empty((rows, k), dtype=counts.dtype, device=dev)
-    scan = torch.empty(2 * nb + 1, dtype=torch.int32, device=dev)
+    # one allocation: cnt's words, then offsets
+    words = rows * k * (counts.element_size() // 4)
+    buf = torch.empty(words + nb + 1, dtype=torch.int32, device=dev)
+    cnt = buf[:words]
+    if counts.dtype == torch.int64:
+        cnt = cnt.view(torch.int64)
+    ws = _workspaces.get(dev.index)
+    if ws is None:
+        ws = _workspaces[dev.index] = _Workspace()
+    status, arrived, epoch = ws.take(-(-nb // SUPER), dev)
+    base = buf.data_ptr()
     build.launch("emit_count", _c_fns()[0], dev, counts.data_ptr(),
                  int(counts.dtype == torch.int64), ring.data_ptr(),
-                 bin_ok.data_ptr(), B, W, k, rows, cnt.data_ptr(),
-                 scan.data_ptr(), scan[nb:].data_ptr())
+                 bin_ok.data_ptr(), B, W, k, rows, base, base + 4 * words,
+                 status.data_ptr(), arrived.data_ptr(), epoch)
     emit_count.launches += 1
-    return cnt, scan[nb:]
+    return cnt.view(rows, k), buf[words:]
 
 
 def emit_gather(values: torch.Tensor, cnt: torch.Tensor, ring: torch.Tensor,

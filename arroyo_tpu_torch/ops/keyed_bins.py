@@ -39,12 +39,14 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, to_device, to_host
 from ..graph.logical import AggKind, AggSpec
 from ..kernels.argmax_fire import argmax_fire
 from ..kernels.bin_evict import bin_evict
-from ..kernels.bin_update import bin_update, channel_identity
-from ..kernels.emit_compact import emit_count, emit_gather
+from ..kernels.bin_update import (bin_update, channel_identity,
+                                  channel_plan, pack_cells)
+from ..kernels.emit_compact import (emit_count, emit_gather, pack_panes,
+                                    panes_views)
 from ..kernels.pane_emit import fire_geometry, pane_emit, pane_views
 from ..native import assign_bins
 
@@ -69,8 +71,24 @@ def _bucket(n: int, floor: int = 8) -> int:
 
 
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A whole plane on ``device`` (ring relayout, restore): a plain copy,
+    kept out of the pinned cache, which would hold up to its size."""
     # torch.tensor copies, so read-only numpy views are fine
     return torch.tensor(np.ascontiguousarray(arr), device=device)
+
+
+def _upload(arr: np.ndarray, device: torch.device, what: str
+            ) -> torch.Tensor:
+    """A flush's or a fire's one upload, through ``device.to_device`` (on
+    the card a non-blocking copy from pinned memory), counted as
+    ``<what>_uploads``; one that holds the host — a plain copy to a CPU
+    device — also as ``<what>_blocking_uploads``."""
+    from ..obs import perf
+
+    perf.count(f"{what}_uploads")
+    if device.type != "cuda":
+        perf.count(f"{what}_blocking_uploads")
+    return to_device(arr, device)
 
 
 def restored_count_state(raw_counts: np.ndarray, promote_at: int
@@ -247,6 +265,8 @@ class KeyedBinState:
         self._xfer_ch = tuple(j for j in range(len(self._ch_kinds))
                               if j not in dup_set)
         self._xfer_pos = {j: r for r, j in enumerate(self._xfer_ch)}
+        # the update kernel's channel plan (restore keeps the aggregates)
+        self._plan = channel_plan(self._ch_kinds, self._dup_ch)
         self.slide = slide_micros
         self.W = width_micros // slide_micros  # bins per window
         # ring holds W bins for the window plus out-of-order headroom
@@ -400,18 +420,11 @@ class KeyedBinState:
         from ..obs import perf
 
         perf.count("pane_update_dispatches")
-        m = len(slots_c)
-        # two host->device copies per flush: i32 indices and f64 values
-        idx = np.empty((2, m), dtype=np.int32)
-        idx[0] = slots_c
-        idx[1] = bins_c
-        packed = np.empty((len(self._xfer_ch) + 1, m), dtype=ACC_DTYPE)
-        packed[0] = rowcnt
-        packed[1:] = vals_c
-        perf.timed_device(
-            bin_update, self.values, self.counts,
-            _to_device(idx, self.device), _to_device(packed, self.device),
-            self._ch_kinds, self._dup_ch)
+        # one host->device copy a flush: indices and values in one buffer
+        cells = _upload(pack_cells(slots_c, bins_c, rowcnt, vals_c),
+                        self.device, "bin_flush")
+        perf.timed_device(bin_update, self.values, self.counts, cells,
+                          self._plan)
 
     def _grow_ring(self, needed: int) -> None:
         """Rare: data spans more bins than the ring; re-layout host-side."""
@@ -561,8 +574,9 @@ class KeyedBinState:
         row-major order (the dense branch's np.nonzero order)."""
         from ..obs import perf
 
-        ring_t = _to_device(ring, self.device)
-        ok_t = _to_device(bin_ok, self.device)
+        ring_t, ok_t = panes_views(
+            _upload(pack_panes(ring, bin_ok), self.device, "bin_compact_fire"),
+            *ring.shape)
         cnt, offsets = perf.timed_device(emit_count, self.counts, ring_t,
                                          ok_t, self.next_slot)
         nnz = int(offsets[-1].item())  # the one blocking scalar readback
@@ -573,9 +587,10 @@ class KeyedBinState:
         idx2, cnt_c, ch = perf.timed_device(
             emit_gather, self.values, cnt, ring_t, ok_t, self._ch_kinds,
             self._xfer_ch, offsets, nnz)
-        idx2 = idx2.cpu().numpy()
+        # pinned readbacks: a fire's rows run to tens of megabytes
+        idx2 = to_host(idx2)
         return (idx2[0].astype(np.int64), idx2[1].astype(np.int64),
-                cnt_c.cpu().numpy(), ch.cpu().numpy())
+                to_host(cnt_c), to_host(ch))
 
     def _evict(self, first_bin: int, n_bins: int) -> None:
         """Reset the ring columns of the expired absolute bins first_bin

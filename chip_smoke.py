@@ -8,17 +8,20 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 2. build: the CUDA kernels from arroyo_tpu_torch/csrc with nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes nexmark q5, q8, config5, join-stress and hot items give it
-   (and, for the session kernels, at larger and skewed shapes), timed
-   with CUDA events beside its plain version, a PyTorch yardstick (one
-   call per plane) where one exists, and its least possible time on an
-   H100 (bytes / 3.35 TB/s; pane_emit and bin_evict count the 32-byte
+   (and, for the session kernels, at larger and skewed shapes; for
+   bin_update at q5's and hot items' flush sizes and with duplicate
+   cells and MIN/MAX inputs of both signs and +/-0.0), timed with CUDA
+   events beside its plain version, a PyTorch yardstick (one call per
+   plane) where one exists, and its least possible time on an H100
+   (bytes / 3.35 TB/s; pane_emit and bin_evict count the 32-byte
    sectors their rows' columns touch); segment_top_k, ring_gather,
    pane_emit, bin_evict, segment_agg, expand_gather, ring_merge,
-   join_probe and join_expand are timed in turns with their yardstick
-   (three rounds of library, kernel, kernel, library); those and
-   session_union print their launches, host syncs and allocations per
-   call (as PyTorch's sync debug mode and caching allocator see them)
-   and torch.profiler's device time per launch, warm and cold;
+   join_probe, join_expand, bin_update and emit_count are timed in turns
+   with their yardstick (three rounds of library, kernel, kernel,
+   library); those and session_union print their launches, host syncs
+   and allocations per call (as PyTorch's sync debug mode and caching
+   allocator see them) and torch.profiler's device time per launch, warm
+   and cold;
    session_union's two forms are held to their plain versions at config5's
    192-row merge and six larger or skewed shapes; segment_agg's sums are
    held to math.fsum and to themselves over two calls, and an empty
@@ -26,22 +29,25 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    paths are split into their host steps.  With ``--parent DIR`` (a ``git
    archive`` of the parent commit unpacked at DIR) the parent's
    pane_emit, bin_evict, segment_agg, expand_gather, ring_merge,
-   join_probe, session_union and join_expand are built from DIR and
-   timed in turns with this tree's at the same shapes (the parent's
-   ring_merge given its own resident positions), and so are the callers:
-   the reads the segment reduce and the join's emission make,
-   ``ops/join.merge_ring``, ``probe_ring`` + ``expand_gather`` at
-   join-stress's probes, ``probe_ring`` + ``expand_hit`` at 8b's, and
-   ``ops/session.union_sorted_intervals`` at config5's merge;
+   join_probe, session_union, join_expand, bin_update and emit_count are
+   built from DIR and timed in turns with this tree's at the same shapes
+   (the parent's ring_merge given its own resident positions), and so
+   are the callers: the reads the segment reduce and the join's emission
+   make, ``ops/join.merge_ring``, ``probe_ring`` + ``expand_gather`` at
+   join-stress's probes, ``probe_ring`` + ``expand_hit`` at 8b's,
+   ``ops/session.union_sorted_intervals`` at config5's merge, and
+   ``KeyedBinState.flush_updates`` at q5's and hot items' flushes and
+   ``KeyedBinState._emit_compact`` at hot items' compact fires;
 4. state: the port's KeyedBinState (q5 aggregates, local argmax) over
    2,000,000 nexmark events on the card and on the CPU — every fire and
    the final snapshot identical, and a card snapshot restored into a
    fresh card state fires identically;
 5. main path: nexmark q5 through ``LocalRunner`` at bench.py's size
    (2,000,000 events, batches of 131,072) on the card and on the CPU —
-   identical sink rows, both kernels launched during the card run, and
-   the share of wall time spent in synchronized kernel calls
-   (``ARROYO_TIMING=1``, a separate run);
+   identical sink rows, both kernels launched during the card run, one
+   upload a keyed-bin flush and none of them blocking (the cells of each
+   flush printed), and the share of wall time spent in synchronized
+   kernel calls (``ARROYO_TIMING=1``, a separate run);
 6. q8 path: nexmark q8 through ``LocalRunner`` at 40,000,000 events
    (batches of 131,072, 1,000,000 events/s, so four 10 s windows) on the
    card — sink rows equal to a numpy control computed here from the same
@@ -81,7 +87,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    rows per window, each row's count and each window's multiset of counts
    equal to a numpy control from the same generator, segment_top_k
    launched on every fire and the compact fire (emit_count + emit_gather)
-   taken under ``ARROYO_EMIT_COMPACT=auto``, the state's bytes, the device
+   taken under ``ARROYO_EMIT_COMPACT=auto``, one upload a flush and a
+   compact fire and none of them blocking, the state's bytes, the device
    share in a separate ``ARROYO_TIMING=1`` run — and at 2,000,000 events
    the card's rows equal to the CPU's, also under
    ``ARROYO_EMIT_COMPACT=on``.
@@ -138,7 +145,8 @@ from arroyo_tpu_torch.kernels.argmax_fire import (  # noqa: E402
 from arroyo_tpu_torch.kernels.bin_evict import (  # noqa: E402
     bin_evict, bin_evict_reference)
 from arroyo_tpu_torch.kernels.bin_update import (  # noqa: E402
-    bin_update, bin_update_reference, channel_identity)
+    bin_update, bin_update_reference, channel_identity, channel_plan,
+    pack_cells)
 from arroyo_tpu_torch.kernels.emit_compact import (  # noqa: E402
     emit_count, emit_count_reference, emit_gather, emit_gather_reference)
 from arroyo_tpu_torch.kernels import expand_gather as expand_gather_mod  # noqa: E402
@@ -219,6 +227,10 @@ HOT_DENSITY = 0.25
 # its occupied slots (the auctions of a 40M-event run) and the dense
 # fire's c_slice for them (rounded up to 2,048)
 HOT_ROWS, C_SLICE_HOT = 2_398_860, 2_400_256
+# cells of a flush (``KeyedBinState._dispatch_cells``), the largest of
+# q5's at NUM_EVENTS (2 flushes: 70,738 and 49,289) and of hot items' at
+# HOT_EVENTS (40 flushes of 47,319-70,836), as phases 5 and 9 print them
+Q5_FLUSH, HOT_FLUSH = 70_738, 70_836
 SECTOR = 32  # bytes of the card's memory transaction
 ATOM = 64  # bytes HBM3 reads or writes at a time
 
@@ -419,63 +431,188 @@ def environment():
 # -- phase 3: kernels ---------------------------------------------------------------
 
 
-def k1_case(rng, dev, kinds, dup, m, cdt, unique, shape):
-    n_ch = len(kinds)
-    n_src = 1 + n_ch - len(dup)
+# MIN/MAX inputs a single integer atomic on the f64 bits must order right
+SIGNED = np.array([0.0, -0.0, 1.5, -1.5, 1e-300, -1e-300, 1e300, -1e300,
+                   3.0, -3.0])
+
+
+def flush_callers(cells, C, cdt, parent, dev):
+    """``KeyedBinState.flush_updates`` of one buffered COUNT(*) cell run
+    (q5's and hot items' aggregate) on a state of C slots: this tree's
+    (one pinned non-blocking upload, one launch) against the parent's (two
+    blocking uploads), the same planes after one flush each, then in
+    turns, with allocations, host syncs and uploads a flush."""
+    aggs = (AggSpec(AggKind.COUNT, None, "n"),)
+    p_aggs = (parent.logical.AggSpec(parent.logical.AggKind.COUNT, None,
+                                     "n"),)
+    states = []
+    for cls, a in ((KeyedBinState, aggs), (parent.keyed_bins.KeyedBinState,
+                                           p_aggs)):
+        st = cls(a, SLIDE_MICROS, WIDTH_MICROS, capacity=8, device=dev)
+        st.C = C
+        st.values = torch.zeros((1, C, st.B), dtype=torch.float64,
+                                device=dev)
+        st.counts = torch.zeros((C, st.B), dtype=cdt, device=dev)
+        states.append(st)
+    m = len(cells[0])
+
+    def flusher(st):
+        def flush():
+            st._pending = [cells]
+            st._pending_cells = m
+            st.flush_updates()
+        return flush
+
+    flush, parent_flush = flusher(states[0]), flusher(states[1])
+    perf.reset()
+    flush()
+    uploads = (perf.counter("bin_flush_uploads"),
+               perf.counter("bin_flush_blocking_uploads"))
+    parent_flush()
+    torch.cuda.synchronize()
+    check(uploads == (1, 0), f"a flush made {uploads} (uploads, blocking "
+          "uploads)")
+    check(torch.equal(states[0].counts, states[1].counts)
+          and torch.equal(states[0].values, states[1].values),
+          "flush_updates differs from the parent's")
+    ms, p_ms, turns = in_turns(flush, parent_flush)
+    return {"ms": ms, "parent_ms": p_ms, "turns_ms": turns,
+            **turn_factors(turns), "uploads_blocking": uploads,
+            "allocations_syncs": per_call(flush),
+            "parent_allocations_syncs": per_call(parent_flush),
+            "host_us": host_us(flush, reps=200),
+            "parent_host_us": host_us(parent_flush, reps=200)}
+
+
+def k1_case(rng, dev, kinds, dup, m, cdt, unique, shape, C=C_Q5,
+            parent=None, caller=False):
+    """K1 on one flush of ``m`` cells into C x B_Q5 planes: unique cells
+    sorted by (slot, bin), as the state sends them, or duplicates (runs of
+    one cell across warp boundaries) with padding rows and MIN/MAX inputs
+    of both signs and +/-0.0.  Counts and MIN/MAX bit-equal to the plain
+    version, sums too on unique cells, rtol 1e-12 on duplicates; one
+    launch, no allocation and no host sync a call.  With ``parent``: the
+    parent's kernel (its idx/packed arguments) in turns, and with
+    ``caller`` ``flush_updates`` in turns with the parent's."""
+    plan = channel_plan(kinds, dup)
+    n_ch, n_xfer = len(kinds), plan.n_xfer
     if unique:
-        cells = rng.choice(C_Q5 * B_Q5, m, replace=False)
+        cells = np.sort(rng.choice(C * B_Q5, m, replace=False))
         slots, bins = cells // B_Q5, cells % B_Q5
-    else:  # duplicate cells and padding rows
-        slots = rng.integers(0, C_Q5, m)
+    else:
+        slots = rng.integers(0, C, m)
         bins = rng.integers(0, B_Q5, m)
+        for lo in range(28, m - 8, 32):  # one cell over a warp boundary
+            slots[lo:lo + 8], bins[lo:lo + 8] = slots[lo], bins[lo]
     rowcnt = rng.integers(1, 40, m).astype(np.float64)
     if not unique:
         rowcnt[rng.random(m) < 0.1] = 0.0
-    packed = np.empty((n_src, m))
-    packed[0] = rowcnt
-    packed[1:] = rng.normal(size=(n_src - 1, m)) * 1e3
-    idx_t = torch.tensor(np.stack([slots, bins]).astype(np.int32), device=dev)
-    packed_t = torch.tensor(packed, device=dev)
-    values = torch.zeros((n_ch, C_Q5, B_Q5), dtype=torch.float64, device=dev)
+    vals = rng.normal(size=(n_xfer, m)) * 1e3
+    xfer_kinds = [k for j, k in enumerate(kinds) if j not in dup]
+    for r, k in enumerate(xfer_kinds):
+        if k in ("min", "max") and not unique:
+            vals[r] = rng.choice(SIGNED, m)
+    cells_t = torch.tensor(pack_cells(slots, bins, rowcnt, vals), device=dev)
+    values = torch.zeros((n_ch, C, B_Q5), dtype=torch.float64, device=dev)
     for j, k in enumerate(kinds):
         if k in ("min", "max"):
-            values[j] = torch.finfo(torch.float64).max * (1 if k == "min"
-                                                          else -1)
-    counts = torch.zeros((C_Q5, B_Q5), dtype=cdt, device=dev)
+            values[j] = channel_identity(k)
+            if not unique:
+                live = torch.rand((C, B_Q5), device=dev) < 0.3
+                values[j][live] = torch.tensor(
+                    rng.choice(SIGNED, int(live.sum())), device=dev)
+    counts = torch.zeros((C, B_Q5), dtype=cdt, device=dev)
     v_k, c_k = values.clone(), counts.clone()
     v_r, c_r = values.clone(), counts.clone()
-    bin_update(v_k, c_k, idx_t, packed_t, kinds, dup)
-    bin_update_reference(v_r, c_r, idx_t, packed_t, kinds, dup)
+    before = bin_update.launches
+    bin_update(v_k, c_k, cells_t, plan)
+    launches = bin_update.launches - before
+    bin_update_reference(v_r, c_r, cells_t, plan)
     torch.cuda.synchronize()
+    check(launches == 1, f"bin_update made {launches} launches ({shape})")
     check(torch.equal(c_k, c_r), f"bin_update counts differ ({shape})")
     err = 0.0
     for j, k in enumerate(kinds):
         if k in ("min", "max") or unique:
-            check(torch.equal(v_k[j], v_r[j]),
-                  f"bin_update channel {j} ({k}) not exact ({shape})")
+            check(torch.equal(v_k[j].view(torch.int64),
+                              v_r[j].view(torch.int64)),
+                  f"bin_update channel {j} ({k}) not bit-equal ({shape})")
         else:  # f64 sums of duplicate cells: atomics change the order
             torch.testing.assert_close(v_k[j], v_r[j], rtol=1e-12, atol=1e-9)
             err = max(err, float((v_k[j] - v_r[j]).abs().max()))
+    del v_r, c_r
 
-    ms = cuda_ms(lambda: bin_update(v_k, c_k, idx_t, packed_t, kinds, dup))
-    plain = cuda_ms(lambda: bin_update_reference(v_r, c_r, idx_t, packed_t,
-                                                 kinds, dup))
-    library = None
-    if all(k in ("count", "sum", "avg") for k in kinds) and n_ch == len(dup):
-        s, b = idx_t[0].long(), idx_t[1].long()
-        rc = packed_t[0].to(cdt)
-        library = cuda_ms(lambda: c_r.index_put_((s, b), rc,
-                                                 accumulate=True))
+    def kernel():
+        bin_update(v_k, c_k, cells_t, plan)
+
+    plain = cuda_ms(lambda: bin_update_reference(values, counts, cells_t,
+                                                 plan))
+    meas = measured(kernel, "bin_update")
+    check(meas["allocations_per_call"] == 0 and meas["syncs_per_call"] == 0,
+          f"bin_update made {meas['allocations_per_call']} allocations and "
+          f"{meas['syncs_per_call']} host syncs ({shape})")
+    library = turns = None
+    if kinds == ("count",) and dup == (0,):  # q5's and hot items' COUNT(*)
+        s_l, b_l = cells_t[0].view(torch.int32).long().view(2, m)
+        rc = cells_t[1].view(torch.float64)
+
+        def lib():  # the counts plane and the COUNT(*) channel
+            c_k.index_put_((s_l, b_l), rc.to(cdt), accumulate=True)
+            v_k[0].index_put_((s_l, b_l), rc, accumulate=True)
+
+        ms, library, turns = in_turns(kernel, lib)
+    else:
+        ms = cuda_ms(kernel)
     valid = rowcnt > 0.5
     touched = len(np.unique((slots * B_Q5 + bins)[valid]))
-    itemsize = torch.tensor([], dtype=cdt).element_size()
-    nbytes = m * (8 + 8 * n_src) + touched * (16 * n_ch + 2 * itemsize)
-    bms, by = bound(nbytes, int(valid.sum()) * n_ch, F64_OPS_PER_S)
-    return {"name": "bin_update", "route": "cuda", "source": K1_SOURCE,
-            "replaces": K1_REPLACES, "shape": shape,
-            "max_abs_err": err, "ms": ms, "kernel_ms": ms, "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by, "library_ms": library,
-            "library_call": "index_put_" if library is not None else None}
+    itemsize = counts.element_size()
+    nbytes = 8 * m * (2 + n_xfer) + touched * (16 * n_ch + 2 * itemsize)
+    r = row("bin_update", K1_SOURCE, K1_REPLACES, shape, err, ms, plain,
+            nbytes, int(valid.sum()) * n_ch, library,
+            "index_put_ x2 (counts, COUNT(*))")
+    r.update(launches_per_call=launches, bound_bytes=nbytes,
+             device_us_sum=device_sum(meas), **meas)
+    if turns is not None:
+        r.update(turns_ms=turns, library_turns=turn_factors(turns))
+    if parent is not None:
+        p_idx = torch.tensor(np.stack([slots, bins]).astype(np.int32),
+                             device=dev)
+        p_packed = torch.tensor(np.concatenate([rowcnt[None], vals]),
+                                device=dev)
+        pu = parent.bin_update
+        p_v, p_c = values.clone(), counts.clone()
+        pu(p_v, p_c, p_idx, p_packed, kinds, dup)
+        mine_v, mine_c = values.clone(), counts.clone()
+        bin_update(mine_v, mine_c, cells_t, plan)
+        torch.cuda.synchronize()
+        # equal as values: the parent's MIN/MAX keep whichever of -0.0 and
+        # +0.0 lands first
+        check(torch.equal(p_c, mine_c) and (
+            torch.equal(p_v, mine_v) if unique else
+            all(torch.equal(p_v[j], mine_v[j])
+                for j, k in enumerate(kinds) if k in ("min", "max"))),
+              f"bin_update differs from the parent's ({shape})")
+        del p_v, p_c, mine_v, mine_c
+
+        def parent_call():
+            pu(v_k, c_k, p_idx, p_packed, kinds, dup)
+
+        c_ms, p_ms, p_turns = in_turns(kernel, parent_call)
+        p_meas = measured(parent_call, "bin_update")
+        r["parent"] = {"ms": p_ms, "kernel_ms_beside_it": c_ms,
+                       "turns_ms": p_turns, **turn_factors(p_turns),
+                       "device_us_sum": device_sum(p_meas), **p_meas}
+        if caller:
+            r["parent"]["caller"] = flush_callers(
+                (slots, bins, rowcnt, vals), C, cdt, parent, dev)
+    print(f"bin_update {shape}: " + json.dumps(
+        {key: r[key] for key in ("ms", "library_ms", "library_turns",
+                                 "plain_ms", "bound_ms", "launches_per_call",
+                                 "host_us_per_call", "device_us_per_call",
+                                 "device_us_cold", "device_us_sum",
+                                 "allocations_per_call", "syncs_per_call",
+                                 "parent") if key in r}))
+    return r
 
 
 def k2_case(rng, dev, kpad, minmax, cdt):
@@ -564,9 +701,10 @@ def parent_kernels(parent):
     at ``parent``: its ``arroyo_tpu_torch`` imported as the package
     ``parent_torch``, its kernels built from its own csrc/ into its own
     build/ directory.  Returns a namespace of its pane_emit, bin_evict,
-    segment_agg, expand_gather, join_probe, ring_merge, session_union and
-    join_expand, its ``ops.join`` and ``ops.session`` modules (the
-    callers) and the build seconds."""
+    segment_agg, expand_gather, join_probe, ring_merge, session_union,
+    join_expand, bin_update and emit_count, its ``ops.join``,
+    ``ops.session`` and ``ops.keyed_bins`` modules (the callers), its
+    ``graph.logical`` (their aggregate specs) and the build seconds."""
     import importlib
     import importlib.util
     pkg = os.path.join(os.path.abspath(parent), "arroyo_tpu_torch")
@@ -580,10 +718,15 @@ def parent_kernels(parent):
     importlib.import_module("parent_torch.kernels.build").load()
     secs = time.perf_counter() - t0
     names = ("pane_emit", "bin_evict", "segment_agg", "expand_gather",
-             "join_probe", "ring_merge", "session_union", "join_expand")
+             "join_probe", "ring_merge", "session_union", "join_expand",
+             "bin_update")
     return argparse.Namespace(
         build_s=secs, join=importlib.import_module("parent_torch.ops.join"),
         session=importlib.import_module("parent_torch.ops.session"),
+        keyed_bins=importlib.import_module("parent_torch.ops.keyed_bins"),
+        logical=importlib.import_module("parent_torch.graph.logical"),
+        emit_count=importlib.import_module(
+            "parent_torch.kernels.emit_compact").emit_count,
         join_expand_buffer=importlib.import_module(
             "parent_torch.kernels.join_expand").join_expand_buffer,
         **{name: getattr(importlib.import_module(
@@ -595,14 +738,16 @@ def measured(fn, kernel):
     calls queued, no sync between them), torch.profiler's device
     microseconds of each launch — warm, and cold: after writing 64 MiB,
     more than the H100's 50 MB L2 holds, as a fire finds the planes after
-    a stretch of other work (``kernel``'s launches only) — and
-    allocations and host syncs a call."""
+    a stretch of other work (the launches whose names hold ``kernel``, a
+    name or a tuple of names) — and allocations and host syncs a call."""
     allocs, syncs = per_call(fn)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     cold = profile_kernels(fn, before=flush.zero_)
+    names = (kernel,) if isinstance(kernel, str) else kernel
     return {"host_us_per_call": host_us(fn, reps=200),
             "device_us_per_call": profile_kernels(fn),
-            "device_us_cold": {n: us for n, us in cold.items() if kernel in n},
+            "device_us_cold": {n: us for n, us in cold.items()
+                               if any(k in n for k in names)},
             "allocations_per_call": allocs, "syncs_per_call": syncs}
 
 
@@ -1718,11 +1863,93 @@ def topk_case(rng, dev, n, n_seg, shape):
     return r
 
 
-def compact_cases(rng, dev, k, rows, shape):
+def compact_callers(counts, rows, ring_np, ok_np, parent):
+    """``KeyedBinState._emit_compact`` at a hot-items fire (COUNT(*),
+    ``rows`` occupied slots of ``counts``): this tree's (the panes in one
+    pinned upload, one count launch) against the parent's (two blocking
+    uploads, two count launches), the same rows, then in turns, with
+    allocations, host syncs and uploads a fire."""
+    aggs = (AggSpec(AggKind.COUNT, None, "n"),)
+    p_aggs = (parent.logical.AggSpec(parent.logical.AggKind.COUNT, None,
+                                     "n"),)
+    C, B = counts.shape
+    fires = []
+    for cls, a in ((KeyedBinState, aggs), (parent.keyed_bins.KeyedBinState,
+                                           p_aggs)):
+        st = cls(a, HOT_SLIDE, HOT_WIDTH, capacity=8, device=counts.device)
+        st.C, st.B, st.next_slot, st.counts = C, B, rows, counts
+        st.values = torch.zeros((1, C, B), dtype=torch.float64,
+                                device=counts.device)
+        fires.append(functools.partial(st._emit_compact, ring_np, ok_np))
+    fire, parent_fire = fires
+    perf.reset()
+    got = fire()
+    uploads = (perf.counter("bin_compact_fire_uploads"),
+               perf.counter("bin_compact_fire_blocking_uploads"))
+    want = parent_fire()
+    check(uploads == (1, 0), f"a compact fire made {uploads} (uploads, "
+          "blocking uploads)")
+    check(all(np.array_equal(x, y) for x, y in zip(got, want)),
+          "_emit_compact differs from the parent's")
+    ms, p_ms, turns = in_turns(fire, parent_fire)
+    return {"ms": ms, "parent_ms": p_ms, "turns_ms": turns,
+            **turn_factors(turns), "uploads_blocking": uploads,
+            "allocations_syncs": per_call(fire),
+            "parent_allocations_syncs": per_call(parent_fire),
+            "host_us": host_us(fire, reps=100),
+            "parent_host_us": host_us(parent_fire, reps=100),
+            "steps_ms": compact_split(fire.func.__self__, ring_np, ok_np)}
+
+
+def synced_ms(fn, reps=10):
+    """Median host milliseconds of ``fn`` followed by a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def compact_split(st, ring_np, ok_np):
+    """Where ``st._emit_compact`` spends its time, each step synchronized
+    on its own: the panes' one upload, emit_count, the live total's
+    readback, emit_gather, and the rows' readbacks through pinned memory
+    (``device.to_host``) and through ``.cpu()``, pageable."""
+    from arroyo_tpu_torch.kernels.emit_compact import pack_panes, panes_views
+    dev = st.counts.device
+    ring_t, ok_t = panes_views(to_device(pack_panes(ring_np, ok_np), dev),
+                               *ring_np.shape)
+    cnt, offsets = emit_count(st.counts, ring_t, ok_t, st.next_slot)
+    nnz = int(offsets[-1].item())
+    outs = emit_gather(st.values, cnt, ring_t, ok_t, st._ch_kinds,
+                       st._xfer_ch, offsets, nnz)
+    return {
+        "upload": synced_ms(lambda: panes_views(
+            to_device(pack_panes(ring_np, ok_np), dev), *ring_np.shape)),
+        "emit_count": synced_ms(lambda: emit_count(st.counts, ring_t, ok_t,
+                                                   st.next_slot)),
+        "live_total": synced_ms(lambda: int(offsets[-1].item())),
+        "emit_gather": synced_ms(lambda: emit_gather(
+            st.values, cnt, ring_t, ok_t, st._ch_kinds, st._xfer_ch,
+            offsets, nnz)),
+        "readbacks_pinned": synced_ms(lambda: [to_host(t) for t in outs]),
+        "readbacks_pageable": synced_ms(lambda: [t.cpu().numpy()
+                                                 for t in outs]),
+        "rows": nnz}
+
+
+def compact_cases(rng, dev, k, rows, shape, parent=None):
     """K13/K14 at hot items' compact fires: C_HOT slots, the first
     ``rows`` occupied, a COUNT(*) counts plane whose pane cells are live
     with probability HOT_DENSITY.  Exact against the plain versions and
-    against the dense fire (pane_emit) at the live cells."""
+    against the dense fire (pane_emit) at the live cells; emit_count one
+    launch, at most one allocation and no host sync a call, timed in
+    turns with the library call and, with ``parent``, with the parent's
+    emit_count (two launches) and its caller ``_emit_compact``."""
     q = 1 - (1 - HOT_DENSITY) ** (1 / W_HOT)  # a bin holds rows
     cells = np.where(rng.random((rows, B_HOT)) < q,
                      rng.integers(1, 9, (rows, B_HOT)), 0)
@@ -1736,9 +1963,12 @@ def compact_cases(rng, dev, k, rows, shape):
     ring = torch.tensor(ring_np, device=dev)
     ok = torch.tensor(ok_np, device=dev)
     kinds, xfer = ("count",), ()
+    before = emit_count.launches
     cnt, offsets = emit_count(counts, ring, ok, rows)
+    launches = emit_count.launches - before
     cnt_r, offsets_r = emit_count_reference(counts, ring, ok, rows)
     torch.cuda.synchronize()
+    check(launches == 1, f"emit_count made {launches} launches ({shape})")
     check(torch.equal(cnt, cnt_r) and torch.equal(offsets, offsets_r),
           f"emit_count differs ({shape})")
     nnz = int(offsets[-1])
@@ -1755,6 +1985,9 @@ def compact_cases(rng, dev, k, rows, shape):
     shape = f"{shape} density={nnz / (rows * k):.4f} nnz={nnz}"
     ring_l = ring.long()
 
+    def count():
+        return emit_count(counts, ring, ok, rows)
+
     def lib_count():  # the masked gather-sum of the pane counts
         return torch.where(ok[None], counts[:rows][:, ring_l], 0).sum(-1)
 
@@ -1762,21 +1995,57 @@ def compact_cases(rng, dev, k, rows, shape):
         flat = torch.nonzero(cnt.reshape(-1) > 0).squeeze(1)
         return flat, cnt.reshape(-1).index_select(0, flat)
 
+    ms, lib, turns = in_turns(count, lib_count)
+    meas = measured(count, "count_kernel")
+    check(meas["allocations_per_call"] <= 1 and meas["syncs_per_call"] == 0,
+          f"emit_count made {meas['allocations_per_call']} allocations and "
+          f"{meas['syncs_per_call']} host syncs ({shape})")
     item = counts.element_size()
     nb = offsets.numel()
     cols = len(np.unique(ring_np))
-    return [
-        row("emit_count", K13_SOURCE, K13_REPLACES, shape, 0.0,
-            cuda_ms(lambda: emit_count(counts, ring, ok, rows)),
+    r = row("emit_count", K13_SOURCE, K13_REPLACES, shape, 0.0, ms,
             cuda_ms(lambda: emit_count_reference(counts, ring, ok, rows)),
             rows * cols * item + rows * k * item + 4 * nb,
-            rows * k * W_HOT, cuda_ms(lib_count),
-            "counts[:, ring] masked sum"),
-        row("emit_gather", K14_SOURCE, K14_REPLACES, shape, 0.0,
-            cuda_ms(lambda: emit_gather(*g_args)),
-            cuda_ms(lambda: emit_gather_reference(*g_args)),
-            rows * k * item + 4 * nb + nnz * (8 + item), 0,
-            cuda_ms(lib_gather), "nonzero + index_select")]
+            rows * k * W_HOT, lib, "counts[:, ring] masked sum")
+    # the least time IF memory moves whole 64-byte atoms: each row's live
+    # columns cost its atoms, the pane counts and offsets stream out
+    r.update(launches_per_call=launches, turns_ms=turns,
+             library_turns=turn_factors(turns),
+             atom_bound_ms=atom_bound_ms(
+                 rows * row_atoms(item, B_HOT, np.unique(ring_np)), 0,
+                 rows * k * item + 4 * nb),
+             device_us_sum=device_sum(meas), **meas)
+    if parent is not None:
+        pc = parent.emit_count
+        p_cnt, p_off = pc(counts, ring, ok, rows)
+        torch.cuda.synchronize()
+        check(torch.equal(p_cnt, cnt) and torch.equal(p_off, offsets),
+              f"emit_count differs from the parent's ({shape})")
+
+        def parent_count():
+            return pc(counts, ring, ok, rows)
+
+        c_ms, p_ms, p_turns = in_turns(count, parent_count)
+        p_meas = measured(parent_count, ("count_kernel", "exclusive_scan"))
+        r["parent"] = {"ms": p_ms, "kernel_ms_beside_it": c_ms,
+                       "turns_ms": p_turns, **turn_factors(p_turns),
+                       "device_us_sum": device_sum(p_meas), **p_meas,
+                       "caller": compact_callers(counts, rows, ring_np,
+                                                 ok_np, parent)}
+    print(f"emit_count {shape}: " + json.dumps(
+        {key: r[key] for key in ("ms", "library_ms", "library_turns",
+                                 "plain_ms", "bound_ms", "atom_bound_ms",
+                                 "launches_per_call",
+                                 "host_us_per_call", "device_us_per_call",
+                                 "device_us_cold", "device_us_sum",
+                                 "allocations_per_call", "syncs_per_call",
+                                 "parent") if key in r}))
+    return [r,
+            row("emit_gather", K14_SOURCE, K14_REPLACES, shape, 0.0,
+                cuda_ms(lambda: emit_gather(*g_args)),
+                cuda_ms(lambda: emit_gather_reference(*g_args)),
+                rows * k * item + 4 * nb + nnz * (8 + item), 0,
+                cuda_ms(lib_gather), "nonzero + index_select")]
 
 
 def kernel_phase(parent=None):
@@ -1787,11 +2056,18 @@ def kernel_phase(parent=None):
                    (65536, torch.int64)):
         rows.append(k1_case(rng, dev, ("count",), (0,), m, cdt, True,
                             f"q5 COUNT(*) C={C_Q5} B={B_Q5} m={m} "
-                            f"unique {cdt}"))
+                            f"unique {cdt}", parent=parent))
+    for C, m, what in ((C_Q5, Q5_FLUSH, "q5 flush"),
+                       (C_HOT, HOT_FLUSH, "hot items flush")):
+        rows.append(k1_case(rng, dev, ("count",), (0,), m, torch.int32,
+                            True, f"{what} COUNT(*) C={C} B={B_Q5} m={m} "
+                            "unique int32", C=C, parent=parent,
+                            caller=parent is not None))
     mixed = ("count", "sum", "sum", "count", "min", "max", "sum", "sum")
     rows.append(k1_case(rng, dev, mixed, (0,), 65536, torch.int32, False,
                         f"mixed sum/avg/count/min/max C={C_Q5} B={B_Q5} "
-                        "m=65536 duplicates+padding int32"))
+                        "m=65536 duplicates+padding +/-0.0 int32",
+                        parent=parent))
     for kpad in (1, 8):
         for minmax in ("max", "min"):
             for cdt in (torch.int32, torch.int64):
@@ -1876,7 +2152,7 @@ def kernel_phase(parent=None):
     for k in (1, 5):
         rows += compact_cases(rng, dev, k, 3_000_000,
                               f"hot items COUNT(*) C={C_HOT} B={B_HOT} "
-                              f"W={W_HOT} k={k} rows=3000000 int32")
+                              f"W={W_HOT} k={k} rows=3000000 int32", parent)
     return rows
 
 
@@ -1968,6 +2244,42 @@ def state_phase():
 # -- phase 5: main path --------------------------------------------------------------
 
 
+def flushing(run, *args):
+    """``run(*args)`` with the cells of every keyed-bin flush recorded and
+    the perf counters reset first: (its result, the flush sizes, the
+    flushes' uploads and blocking uploads, the compact fires' uploads and
+    blocking uploads)."""
+    sizes = []
+    dispatch = KeyedBinState._dispatch_cells
+
+    def recorded(self, slots_c, *rest):
+        sizes.append(len(slots_c))
+        return dispatch(self, slots_c, *rest)
+
+    KeyedBinState._dispatch_cells = recorded
+    perf.reset()
+    try:
+        out = run(*args)
+    finally:
+        KeyedBinState._dispatch_cells = dispatch
+    counts = {k: perf.counter(k) for k in (
+        "pane_update_dispatches", "bin_flush_uploads",
+        "bin_flush_blocking_uploads", "bin_compact_fire_uploads",
+        "bin_compact_fire_blocking_uploads")}
+    check(len(sizes) == counts["pane_update_dispatches"]
+          == counts["bin_flush_uploads"]
+          and counts["bin_flush_blocking_uploads"] == 0
+          and counts["bin_compact_fire_blocking_uploads"] == 0,
+          f"keyed-bin flushes: {len(sizes)} recorded, {counts}")
+    return out, sizes, counts
+
+
+def flush_summary(sizes, counts):
+    return {"flushes": len(sizes), "cells_min": min(sizes, default=0),
+            "cells_median": statistics.median(sizes) if sizes else 0,
+            "cells_max": max(sizes, default=0), "cells": sizes, **counts}
+
+
 def run_q5(sink, device):
     clear_sink(sink)
     t0 = time.perf_counter()
@@ -1986,8 +2298,10 @@ def run_q5(sink, device):
 def main_path():
     run_q5("smoke-warm", None)  # CUDA context, allocator, library load
     reset_launches()
-    dt, rows = run_q5("smoke-cuda", None)  # device=None: the card
+    (dt, rows), sizes, counts = flushing(run_q5, "smoke-cuda", None)  # card
     launches = read_launches()
+    check(counts["pane_update_dispatches"] == launches["bin_update"],
+          f"q5: {counts} against {launches['bin_update']} launches")
     # device-time share: the same run with every kernel call synchronized
     # (ARROYO_TIMING=1 serializes dispatch, so it is timed apart)
     os.environ["ARROYO_TIMING"] = "1"
@@ -2010,7 +2324,8 @@ def main_path():
         "launches": launches, "cpu_wall_s": dt_cpu,
         "timed_wall_s": dt_timed, "timed_device_s": device_s,
         "device_share": device_s / dt_timed,
-        "kernel_dispatches": perf.counter("kernel_dispatches")}))
+        "kernel_dispatches": perf.counter("kernel_dispatches"),
+        "flush": flush_summary(sizes, counts)}))
     return launches
 
 
@@ -2566,10 +2881,14 @@ def hot_phase():
     t0 = time.perf_counter()
     control = hot_control(HOT_EVENTS)
     control_s = time.perf_counter() - t0
-    perf.reset()
     reset_launches()
-    dt, rows, state = run_hot(HOT_EVENTS, "hot-cuda", None)  # the card
+    (dt, rows, state), sizes, counts = flushing(run_hot, HOT_EVENTS,
+                                                "hot-cuda", None)  # the card
     launches = read_launches()
+    check(counts["pane_update_dispatches"] == launches["bin_update"]
+          and counts["bin_compact_fire_uploads"] == launches["emit_count"],
+          f"hot items: flushes and compact fires {counts} against "
+          f"launches {launches}")
     windows = hot_gate(rows, control)
     fires = launches["pane_emit"] + launches["emit_count"]
     check(launches["segment_top_k"] == fires > 0,
@@ -2605,6 +2924,7 @@ def hot_phase():
         "events_per_s": HOT_EVENTS / dt, "rows": len(rows),
         "windows": windows, "fires": fires, "control_s": control_s,
         "launches": launches, "state": state,
+        "flush": flush_summary(sizes, counts),
         "timed_wall_s": dt_timed, "timed_device_s": device_s,
         "device_share": device_s / dt_timed,
         "small_events": HOT_SMALL, "small_rows": len(small),
@@ -2617,9 +2937,9 @@ def main():
     parser.add_argument(
         "--parent", help="a directory holding a git archive of the parent "
         "commit: phase 3 also times its pane_emit, bin_evict, segment_agg, "
-        "expand_gather, ring_merge, join_probe, session_union and "
-        "join_expand, and the join's and the session union's callers, in "
-        "turns with this tree's")
+        "expand_gather, ring_merge, join_probe, session_union, join_expand, "
+        "bin_update and emit_count, and the join's, the session union's and "
+        "the keyed-bin state's callers, in turns with this tree's")
     opts = parser.parse_args()
     smi = environment()
     parent = None

@@ -14,7 +14,12 @@ import torch
 
 from arroyo_tpu_torch.kernels.argmax_fire import argmax_fire, argmax_fire_reference
 from arroyo_tpu_torch.kernels.bin_evict import bin_evict, bin_evict_reference
-from arroyo_tpu_torch.kernels.bin_update import bin_update, bin_update_reference
+from arroyo_tpu_torch.kernels.bin_update import (
+    bin_update,
+    bin_update_reference,
+    channel_plan,
+    pack_cells,
+)
 from arroyo_tpu_torch.kernels.emit_compact import (
     emit_count,
     emit_count_reference,
@@ -103,12 +108,13 @@ def test_bin_update_cuda_matches_plain(cuda_device, kinds, dup, cdt):
     counts = torch.tensor(rng.integers(0, 100, (C, B)), dtype=cdt,
                           device=cuda_device)
     v = torch.tensor(values, device=cuda_device)
-    idx_t = torch.tensor(idx.astype(np.int32), device=cuda_device)
-    packed_t = torch.tensor(packed, device=cuda_device)
+    cells = torch.tensor(pack_cells(idx[0], idx[1], packed[0], packed[1:]),
+                         device=cuda_device)
+    plan = channel_plan(kinds, dup)
     v_ref, c_ref = v.clone(), counts.clone()
     before = bin_update.launches
-    bin_update(v, counts, idx_t, packed_t, kinds, dup)
-    bin_update_reference(v_ref, c_ref, idx_t, packed_t, kinds, dup)
+    bin_update(v, counts, cells, plan)
+    bin_update_reference(v_ref, c_ref, cells, plan)
     torch.cuda.synchronize()
     assert bin_update.launches == before + 1
     assert torch.equal(counts, c_ref)
@@ -117,6 +123,77 @@ def test_bin_update_cuda_matches_plain(cuda_device, kinds, dup, cdt):
             assert torch.equal(v[j], v_ref[j])
         else:
             torch.testing.assert_close(v[j], v_ref[j], rtol=1e-12, atol=1e-9)
+
+
+# hot items' key capacity and ring at 40,000,000 events; the largest
+# flush of q5 at 2,000,000 events and of hot items at 40,000,000 (cells
+# per flush printed by chip_smoke.py's q5 and hot-items phases)
+C_HOT, B_HOT = 4_194_304, 16
+FLUSHES = [(131_072, 70_738), (C_HOT, 70_836)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,m", FLUSHES)
+@pytest.mark.parametrize("cdt", [torch.int32, torch.int64])
+def test_bin_update_cuda_at_flush_sizes(cuda_device, C, m, cdt):
+    """A COUNT(*) flush as the state makes it — unique cells sorted by
+    (slot, bin) — at the flush sizes of q5 and hot items: counts and the
+    channel bit-equal to the plain version; one launch, no allocation
+    and no host sync a call."""
+    rng = np.random.default_rng(m)
+    cells = np.sort(rng.choice(C * B_HOT, m, replace=False))
+    buf = pack_cells(cells // B_HOT, cells % B_HOT,
+                     rng.integers(1, 40, m).astype(np.float64),
+                     np.zeros((0, m)))
+    cells_t = torch.tensor(buf, device=cuda_device)
+    plan = channel_plan(("count",), (0,))
+    v = torch.zeros((1, C, B_HOT), dtype=torch.float64, device=cuda_device)
+    counts = torch.zeros((C, B_HOT), dtype=cdt, device=cuda_device)
+    v_ref, c_ref = v.clone(), counts.clone()
+    before = bin_update.launches
+    bin_update(v, counts, cells_t, plan)
+    bin_update_reference(v_ref, c_ref, cells_t, plan)
+    torch.cuda.synchronize()
+    assert bin_update.launches == before + 1
+    assert torch.equal(counts, c_ref) and torch.equal(v, v_ref)
+    assert _allocs_and_syncs(lambda: bin_update(v, counts, cells_t,
+                                                plan)) == (0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.int32, torch.int64])
+def test_bin_update_cuda_signed_minmax_and_warp_duplicates(cuda_device, cdt):
+    """MIN/MAX over values of both signs and +/-0.0, in the cells and in
+    the planes, with runs of one cell straddling warp boundaries (cells
+    28-35 and 60-67 the same): counts and MIN/MAX bit-equal to the plain
+    version (-0.0 below +0.0), sums within rtol 1e-12."""
+    rng = np.random.default_rng(12)
+    kinds, dup = ("count", "min", "max", "sum"), (0,)
+    C, B, m = 64, 16, 4096
+    slots = rng.integers(0, C, m)
+    bins = rng.integers(0, B, m)
+    for lo in range(28, m - 8, 32):
+        slots[lo:lo + 8], bins[lo:lo + 8] = slots[lo], bins[lo]
+    signed = np.array([0.0, -0.0, -1.5, 1.5, -1e300, 1e300, 4.0, -4.0])
+    rows = rng.choice(signed, (4, m))
+    rows[0] = rng.integers(0, 5, m)  # rowcounts, some padding
+    rows[3] = rng.normal(size=m) * 1e3  # the sum: no cancelling extremes
+    values = np.zeros((4, C, B))
+    values[1:3] = rng.choice(signed, (2, C, B))
+    v = torch.tensor(values, device=cuda_device)
+    counts = torch.zeros((C, B), dtype=cdt, device=cuda_device)
+    cells = torch.tensor(pack_cells(slots, bins, rows[0], rows[1:]),
+                         device=cuda_device)
+    plan = channel_plan(kinds, dup)
+    v_ref, c_ref = v.clone(), counts.clone()
+    bin_update(v, counts, cells, plan)
+    bin_update_reference(v_ref, c_ref, cells, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, c_ref)
+    for j in (1, 2):
+        assert torch.equal(v[j].view(torch.int64), v_ref[j].view(torch.int64))
+    torch.testing.assert_close(v[3], v_ref[3], rtol=1e-12, atol=1e-9)
+    assert torch.equal(v[0], v_ref[0])  # small integer sums are exact
 
 
 @pytest.mark.cuda
@@ -789,6 +866,63 @@ def test_join_ring_paths_cuda_sync_once_a_probe(cuda_device, payload):
 
 
 @pytest.mark.cuda
+def test_keyed_bins_cuda_flush_and_compact_fire_upload_once(cuda_device,
+                                                            monkeypatch):
+    """KeyedBinState on the card: each flush is one upload from pinned
+    memory and no host sync; the compact fire uploads its panes once; the
+    fires equal a CPU state's on the same stream (MIN over +/-0.0 too)."""
+    from arroyo_tpu_torch.graph.logical import AggKind, AggSpec
+    from arroyo_tpu_torch.obs import perf
+    from arroyo_tpu_torch.ops.keyed_bins import KeyedBinState
+
+    monkeypatch.setenv("ARROYO_EMIT_COMPACT", "on")
+    aggs = (AggSpec(AggKind.COUNT, None, "n"),
+            AggSpec(AggKind.MIN, "price", "lo"))
+    card = KeyedBinState(aggs, 1_000, 3_000, capacity=4_096,
+                         device=cuda_device)
+    host = KeyedBinState(aggs, 1_000, 3_000, capacity=4_096, device="cpu")
+    rng = np.random.default_rng(8)
+    perf.reset()
+    now, n = 20_000, 5_000
+
+    def batch():
+        keys = rng.integers(0, 3_000, n).astype(np.uint64)
+        ts = (now + rng.integers(-2_500, 1_500, n)).astype(np.int64)
+        return keys, ts, {"price": rng.choice([0.0, -0.0, -3.5, 3.5], n)}
+
+    names = ("bin_flush_uploads", "bin_flush_blocking_uploads",
+             "bin_compact_fire_uploads", "bin_compact_fire_blocking_uploads")
+    compact = 0
+    for i in range(6):
+        b = batch()
+        for _ in range(3 if i % 2 else 1):  # the card's flushes, one a run
+            host.update(*b)
+            host.flush_updates()
+        before = [perf.counter(x) for x in names]
+        card.update(*b)
+        card.flush_updates()
+        if i % 2:  # two more runs, each flushed alone: no host sync
+            assert _allocs_and_syncs(lambda: (card.update(*b),
+                                              card.flush_updates()))[1] == 0
+        got = card.fire_panes(now - 3_000)
+        delta = [perf.counter(x) - y for x, y in zip(names, before)]
+        assert delta[:2] == [3 if i % 2 else 1, 0] and delta[3] == 0
+        compact += delta[2]
+        want = host.fire_panes(now - 3_000)
+        assert (got is None) == (want is None)
+        if got is not None:
+            for x, y in ((got[0], want[0]), (got[2], want[2]),
+                         (got[3], want[3])):
+                np.testing.assert_array_equal(x, y)
+            for name in got[1]:
+                np.testing.assert_array_equal(
+                    np.asarray(got[1][name]).view(np.int64),
+                    np.asarray(want[1][name]).view(np.int64))
+        now += 1_500
+    assert compact > 0
+
+
+@pytest.mark.cuda
 def test_to_device_cuda_does_not_sync(cuda_device):
     """device.to_device: one non-blocking copy from pinned memory (no host
     sync), equal to the array, from a read-only array too."""
@@ -986,6 +1120,42 @@ def test_segment_top_k_cuda_path_tallies(cuda_device):
     assert syncs == 2 and launches >= 7
     launches, syncs = run(1_410_844, 100_000, 10)
     assert syncs == 3 and launches >= 4 + 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,B,cdt", [
+    (3_000_000, 1, 16, torch.int32),  # hot items' compact fires
+    (3_000_000, 5, 16, torch.int32),
+    (1, 3, 16, torch.int32),
+    (255, 1, 16, torch.int64),
+    (257, 7, 8, torch.int32),
+    (50_001, 3, 16, torch.int64),
+    (20_000, 60, 256, torch.int64),  # a wide ring, 60 panes
+])
+def test_emit_count_cuda_one_launch(cuda_device, rows, k, B, cdt):
+    """emit_count is one launch, one allocation and no host sync a call;
+    cnt and offsets equal the plain version's, over one tile, ragged
+    groups, thousands of tiles chained by the look-back and tiles that do
+    not align with the 256-cell groups, and again on the next calls (new
+    look-back epochs over the same status words)."""
+    g = torch.Generator(device=cuda_device).manual_seed(rows + k)
+    C = rows + 100
+    live = torch.rand((C, B), generator=g, device=cuda_device) < 0.06
+    counts = torch.where(live, torch.randint(1, 9, (C, B), generator=g,
+                                             device=cuda_device), 0).to(cdt)
+    W = min(5, B)
+    ring_np, ok_np = fire_geometry(B - 2, B - 1, B + k + W, W, k, B)
+    ring = torch.tensor(ring_np, device=cuda_device)
+    ok = torch.tensor(ok_np, device=cuda_device)
+    want = emit_count_reference(counts, ring, ok, rows)
+    for _ in range(3):
+        before = emit_count.launches
+        got = emit_count(counts, ring, ok, rows)
+        torch.cuda.synchronize()
+        assert emit_count.launches == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _allocs_and_syncs(lambda: emit_count(counts, ring, ok,
+                                                rows)) == (1, 0)
 
 
 @pytest.mark.cuda

@@ -30,7 +30,8 @@ from arroyo_tpu.ops.segment import _segment_agg_kernel
 from arroyo_tpu.ops.session import _union_kernel
 from arroyo_tpu_torch.kernels.argmax_fire import argmax_fire
 from arroyo_tpu_torch.kernels.bin_evict import bin_evict
-from arroyo_tpu_torch.kernels.bin_update import bin_update
+from arroyo_tpu_torch.kernels.bin_update import (bin_update, cell_views,
+                                                  channel_plan, pack_cells)
 from arroyo_tpu_torch.kernels.expand_gather import (
     expand_gather, expand_gather_buffer, expand_views)
 from arroyo_tpu_torch.kernels.join_expand import (join_expand,
@@ -77,6 +78,12 @@ def _update_fixture(rng, kinds, dup, C, B, m, dup_cells):
     return values, counts, idx, packed
 
 
+def _cells(idx, packed):
+    """The one-buffer form of (idx i32[2, m], packed f64[1 + n_xfer, m])."""
+    idx, packed = np.asarray(idx), np.asarray(packed)
+    return torch.tensor(pack_cells(idx[0], idx[1], packed[0], packed[1:]))
+
+
 @pytest.mark.parametrize("kinds,dup", KIND_SETS)
 @pytest.mark.parametrize("cdt", [np.int32, np.int64])
 @pytest.mark.parametrize("dup_cells", [False, True])
@@ -92,7 +99,7 @@ def test_bin_update_plain_matches_update_kernel(kinds, dup, cdt, dup_cells):
         jnp.asarray(values), jnp.asarray(counts), jnp.asarray(idx),
         jnp.asarray(packed))
     tv, tc = torch.tensor(values), torch.tensor(counts)
-    bin_update(tv, tc, torch.tensor(idx), torch.tensor(packed), kinds, dup)
+    bin_update(tv, tc, _cells(idx, packed), channel_plan(kinds, dup))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     for j, k in enumerate(kinds):
         if k in ("min", "max") or not dup_cells:
@@ -114,7 +121,7 @@ def test_bin_update_skips_invalid_rows_and_uses_f64_extremes():
     packed = torch.tensor([[3.0, 2.0, 2.0, 2.0, 0.4],
                            [5.0, -1.0, -1.0, -1.0, -7.0]],
                           dtype=torch.float64)
-    bin_update(values, counts, idx, packed, ("min",))
+    bin_update(values, counts, _cells(idx, packed), channel_plan(("min",)))
     want = torch.zeros((C, B), dtype=torch.int32)
     want[0, 1] = 3
     assert torch.equal(counts, want)
@@ -139,12 +146,77 @@ def test_bin_update_plain_matches_pallas_scatter(C, B, n, k):
     want = np.asarray(scatter_add_channels(s, b, wp, C, B))
     values = torch.zeros((k - 1, C, B), dtype=torch.float64)
     counts = torch.zeros((C, B), dtype=torch.int32)
-    bin_update(values, counts, torch.tensor(np.stack([s, b])),
-               torch.tensor(wp.astype(np.float64)), ("sum",) * (k - 1))
+    bin_update(values, counts, _cells(np.stack([s, b]), wp),
+               channel_plan(("sum",) * (k - 1)))
     np.testing.assert_allclose(counts.numpy(), want[0], rtol=1e-4, atol=1e-3)
     for j in range(k - 1):
         np.testing.assert_allclose(values[j].numpy(), want[j + 1],
                                    rtol=1e-4, atol=1e-3)
+
+
+# values whose MIN/MAX a single integer atomic on the f64 bits must order
+# right: both signs, +/-0.0, tiny and huge magnitudes (no subnormals: XLA
+# on the CPU flushes them to zero)
+SIGNED = np.array([0.0, -0.0, 1.5, -1.5, 1e-300, -1e-300, 1e300, -1e300,
+                   3.0, -3.0])
+
+
+@pytest.mark.parametrize("cdt", [np.int32, np.int64])
+@pytest.mark.parametrize("dup_cells", [False, True])
+def test_bin_update_signed_minmax_bit_equal_to_update_kernel(cdt, dup_cells):
+    """MIN/MAX over values of both signs and +/-0.0, in the cells and in
+    the planes, beside padding rows and slots past the planes: counts and
+    MIN/MAX bit for bit equal to ``_update_kernel`` (XLA orders -0.0
+    below +0.0), the sum exact on unique cells, rtol 1e-12 on duplicates."""
+    rng = np.random.default_rng(23)
+    kinds, dup = ("count", "min", "max", "min", "max", "sum"), (0,)
+    C, B, m = 64, 16, 700
+    values, counts, idx, packed = _update_fixture(rng, kinds, dup, C, B, m,
+                                                  dup_cells)
+    packed[1:5] = rng.choice(SIGNED, (4, m))
+    live = rng.random((4, C, B)) < 0.4
+    values[1:5][live] = rng.choice(SIGNED, int(live.sum()))
+    idx[0, :25] = C + 3  # past the planes: skipped
+    counts = counts.astype(cdt)
+    jv, jc = _update_kernel(kinds, C, B, m, dup)(
+        jnp.asarray(values), jnp.asarray(counts), jnp.asarray(idx),
+        jnp.asarray(packed))
+    tv, tc = torch.tensor(values), torch.tensor(counts)
+    bin_update(tv, tc, _cells(idx, packed), channel_plan(kinds, dup))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    for j, k in enumerate(kinds):
+        if k == "sum" and dup_cells:
+            np.testing.assert_allclose(tv[j].numpy(), np.asarray(jv[j]),
+                                       rtol=1e-12, atol=1e-9)
+        else:
+            np.testing.assert_array_equal(
+                tv[j].numpy().view(np.int64),
+                np.asarray(jv[j]).view(np.int64), err_msg=f"channel {j} {k}")
+
+
+def test_channel_plan_and_cell_buffer():
+    """The plan's masks and transferred rows, and the one cell buffer's
+    views (i32 slots and bins in row 0, f64 rows after) on numpy arrays
+    and tensors alike."""
+    plan = channel_plan(("count", "sum", "min", "count", "max", "avg"),
+                        (0, 3))
+    assert plan == (6, 0b1001, 0b100, 0b10000) and plan.n_xfer == 4
+    assert channel_plan(()) == (0, 0, 0, 0)
+    with pytest.raises(ValueError):
+        channel_plan(("median",))
+    with pytest.raises(ValueError):
+        channel_plan(("sum",) * 65)
+    slots = np.array([4, 0, 7], dtype=np.int64)
+    bins = np.array([1, 2, 3], dtype=np.int64)
+    rows = np.array([[2.0, 1.0, 9.0], [-0.0, 0.5, -7.25]])
+    buf = pack_cells(slots, bins, rows[0], rows[1:])
+    assert buf.dtype == np.int64 and buf.shape == (3, 3)
+    for views in (cell_views(buf), cell_views(torch.tensor(buf))):
+        got = [np.asarray(v) for v in views]
+        np.testing.assert_array_equal(got[0], slots)
+        np.testing.assert_array_equal(got[1], bins)
+        np.testing.assert_array_equal(got[2].view(np.int64),
+                                      rows.view(np.int64))
 
 
 def _argmax_fixture(rng, C, B, W, kpad, cdt):
@@ -397,9 +469,9 @@ def test_wrappers_run_plain_versions_on_cpu_and_reject_other_devices():
               bin_evict.launches, ring_merge.launches, ring_gather.launches)
     values = torch.zeros((1, 8, 8), dtype=torch.float64)
     counts = torch.zeros((8, 8), dtype=torch.int32)
-    idx = torch.tensor([[1], [2]], dtype=torch.int32)
-    packed = torch.tensor([[2.0]], dtype=torch.float64)
-    bin_update(values, counts, idx, packed, ("count",), (0,))
+    cells = _cells([[1], [2]], [[2.0]])
+    plan = channel_plan(("count",), (0,))
+    bin_update(values, counts, cells, plan)
     assert counts[1, 2] == 2 and values[0, 1, 2] == 2.0
     argmax_fire(counts, torch.zeros((1, 1), dtype=torch.int32),
                 torch.ones((1, 1), dtype=torch.bool), "max")
@@ -419,9 +491,9 @@ def test_wrappers_run_plain_versions_on_cpu_and_reject_other_devices():
     assert (bin_update.launches, argmax_fire.launches, pane_emit.launches,
             bin_evict.launches, ring_merge.launches,
             ring_gather.launches) == before
-    meta = [t.to("meta") for t in (values, counts, idx, packed)]
+    meta = [t.to("meta") for t in (values, counts, cells)]
     with pytest.raises(ValueError):
-        bin_update(*meta, ("count",), (0,))
+        bin_update(*meta, plan)
     with pytest.raises(ValueError):
         pane_emit(meta[0], meta[1], 2, 0, 2, 1, 1, ("count",), (), 8)
     with pytest.raises(ValueError):

@@ -143,3 +143,56 @@ def test_ring_mode_on_is_refused(monkeypatch):
     monkeypatch.setenv("ARROYO_RING", "on")
     with pytest.raises(NotImplementedError):
         p.fire_panes(10_000)
+
+
+SIGNED_AGGS = [("count", None, "n"), ("min", "price", "lo"),
+               ("max", "price", "hi"), ("sum", "price", "total")]
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view(np.int64) if a.dtype == np.float64 else a
+
+
+@pytest.mark.parametrize("compact", ["on", "off"])
+def test_flushes_and_fires_match_jax_with_signed_zeros(numpy_host_helpers,
+                                                       monkeypatch, compact):
+    """Prices of both signs and +/-0.0 under MIN/MAX/SUM, two update runs
+    a flush (merged on the host), through both packages' states: every
+    fire equal, the canonical snapshots bit for bit equal (MIN/MAX order
+    -0.0 below +0.0 in both); one upload a flush and one a compact fire
+    (counted as blocking: a CPU device copies plainly)."""
+    from arroyo_tpu_torch.obs import perf
+
+    monkeypatch.setenv("ARROYO_EMIT_COMPACT", compact)
+    rng = np.random.default_rng(5)
+    j, p = _pair(SIGNED_AGGS, None, capacity=64)
+    perf.reset()
+    signed = np.array([0.0, -0.0, -2.5, 2.5, -1e300, 1e300, 7.0, -7.0])
+    now, fires = 20_000, 0
+    for _ in range(10):
+        n = int(rng.integers(60, 200))
+        keys = rng.integers(0, 40, n).astype(np.uint64) * np.uint64(
+            0x9E3779B97F4A7C15)
+        ts = (now + rng.integers(-2_500, 1_500, n)).astype(np.int64)
+        price = rng.choice(signed, n)
+        for st in (j, p):  # two runs before the fire: merged cells
+            st.update(keys[: n // 2], ts[: n // 2], {"price": price[: n // 2]})
+            st.update(keys[n // 2:], ts[n // 2:], {"price": price[n // 2:]})
+        out = [st.fire_panes(now - 3_000) for st in (j, p)]
+        _assert_fires_equal(*out)
+        fires += out[1] is not None
+        now += int(rng.integers(500, 2_500))
+        sj, sp = j.snapshot(), p.snapshot()
+        assert sj.keys() == sp.keys()
+        for name in sj:
+            np.testing.assert_array_equal(_bits(sj[name]), _bits(sp[name]),
+                                          err_msg=name)
+    assert fires > 3
+    flushes = perf.counter("pane_update_dispatches")
+    assert flushes > 3
+    assert perf.counter("bin_flush_uploads") == flushes
+    assert perf.counter("bin_flush_blocking_uploads") == flushes
+    compact_fires = perf.counter("bin_compact_fire_uploads")
+    assert compact_fires == (fires if compact == "on" else 0)
+    assert perf.counter("bin_compact_fire_blocking_uploads") == compact_fires

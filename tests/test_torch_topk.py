@@ -52,7 +52,8 @@ from arroyo_tpu_torch.engine.operators_window import (BinAggOperator,
                                                       _apply_top_n)
 from arroyo_tpu_torch.graph.logical import AggKind, AggSpec
 from arroyo_tpu_torch.hot_items import hot_items_program, hot_items_sql
-from arroyo_tpu_torch.kernels.emit_compact import emit_count, emit_gather
+from arroyo_tpu_torch.kernels.emit_compact import (emit_count, emit_gather,
+                                                   pack_panes, panes_views)
 from arroyo_tpu_torch.kernels.segment_top_k import (segment_top_k,
                                                     segment_top_k_reference)
 from arroyo_tpu_torch.ops.keyed_bins import KeyedBinState as PortState
@@ -177,6 +178,48 @@ def test_emit_compact_plain_matches_jax_kernels(cdt, k):
     starts = np.arange(0, C * k, 256)
     np.testing.assert_array_equal(
         offsets.numpy()[:-1], [int(live[:s].sum()) for s in starts])
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+def test_emit_count_plain_matches_jax_at_ragged_rows(k):
+    """emit_count (plain) against ``_emit_count_kernel``'s (cnt, total)
+    over a row count that is not a multiple of the 256-cell group, for 1
+    to 8 panes whose bins wrap around the ring and lose an evicted bin;
+    the offsets are the live cells before each group, ending in the
+    total."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(40 + k)
+    C, B, W = 400, 16, 5
+    rows = 257 + 13 * k  # a ragged last group for every k
+    counts = np.where(rng.random((C, B)) < 0.3,
+                      rng.integers(1, 9, (C, B)), 0).astype(np.int32)
+    ring = ((np.arange(k)[:, None] + np.arange(W)[None, :] + 13)
+            % B).astype(np.int32)
+    bin_ok = np.ones((k, W), dtype=bool)
+    bin_ok[0, 0] = False
+    cnt_j, nnz_j = jax_kb._emit_count_kernel(rows, B, W, k)(
+        jnp.asarray(counts[:rows]), jnp.asarray(ring), jnp.asarray(bin_ok))
+    cnt, offsets = emit_count(torch.tensor(counts), torch.tensor(ring),
+                              torch.tensor(bin_ok), rows)
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(cnt_j))
+    live = cnt.numpy().reshape(-1) > 0
+    starts = np.arange(0, rows * k, 256)
+    np.testing.assert_array_equal(
+        offsets.numpy(), [int(live[:s].sum()) for s in starts] + [int(nnz_j)])
+
+
+def test_pane_buffer_round_trip():
+    """A fire's ring and bin_ok travel as one byte buffer (one upload):
+    its two views give them back."""
+    ring = np.array([[3, 4, 5], [4, 5, 6]], dtype=np.int32)
+    bin_ok = np.array([[False, True, True], [True, True, False]])
+    buf = pack_panes(ring, bin_ok)
+    assert buf.dtype == np.uint8 and buf.shape == (5 * ring.size,)
+    r, o = panes_views(torch.tensor(buf), *ring.shape)
+    assert r.dtype == torch.int32 and o.dtype == torch.bool
+    np.testing.assert_array_equal(r.numpy(), ring)
+    np.testing.assert_array_equal(o.numpy(), bin_ok)
 
 
 def test_new_wrappers_run_plain_versions_on_cpu_and_reject_others():
