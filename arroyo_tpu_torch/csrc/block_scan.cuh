@@ -1,6 +1,6 @@
 // The scans and the ballot-rank write position shared by the kernels that
-// compact flagged items in their original order (argmax_fire.cu,
-// emit_compact.cu, segment_top_k.cu).
+// compact flagged items in their original order (emit_compact.cu's count
+// call, segment_top_k.cu).
 //
 // exclusive_scan_kernel, launched as ONE block of kScanThreads threads:
 // offsets[i] = sum(counts[:i]) for i < n and offsets[n] = the total.  Each

@@ -10,8 +10,9 @@
 // Semantics, for s < rows and p < k, t = s * k + p:
 //   cnt[t] = sum_w ok[p, w] ? counts[s, ring[p, w]] : 0
 // and, for the live cells (cnt[t] > 0) in ascending t, at output position
-// j: idx2[0, j] = s, idx2[1, j] = p, out_cnt[j] = cnt[t], out[r, j] = the
-// pane reduction of channel ch_r (pane_reduce.cuh, the dense fire's).
+// j: key[j] = s, pane[j] = p, out_cnt[j] = cnt[t], out[r, j] = the pane
+// reduction of the r-th transferred channel (pane_reduce.cuh, the dense
+// fire's).
 //
 // What bounds it on the H100: memory.  The count call reads the live
 // count columns of `rows` slots and writes the pane counts (4-8 bytes a
@@ -43,9 +44,20 @@
 //   grid of the blocks the card holds at once with a look-back a block's
 //   chunk, or the rows staged in shared memory first, were slower
 //   (tools/emit_count_variants.py; PERF.md §6).
-// - The gather call: each live cell lands at its 256-cell group's offset
-//   plus its ballot rank (block_scan.cuh), so rows come out in
-//   np.nonzero's order.
+// - The gather call is ONE launch writing ONE buffer
+//   (kernels/emit_compact.py compact_layout): the key row, the pane row,
+//   the counts, then the transferred channels.  A warp takes one
+//   256-cell group and skips it when its offsets say it has no live cell
+//   (cnt is not read); otherwise a lane loads 8 consecutive pane counts
+//   with 16-byte loads, the warp ranks the live ones by a shuffle scan of
+//   the lanes' counts (row-major order, np.nonzero's), stages their cells
+//   in shared memory, and writes the group's outputs at its offset with
+//   consecutive lanes on consecutive positions, so every row is stored
+//   coalesced.  Index math is 32-bit (rows * k < 2^31).  The channels
+//   come as the state's channel plan (kernels/bin_update.py
+//   ChannelPlan: `dup` channels are not transferred, `mn`/`mx` reduce by
+//   min/max), three 64-bit scalars built once per state, not a per-call
+//   struct; with no transferred channel `values` is never touched.
 
 #include <cuda_runtime.h>
 
@@ -150,33 +162,103 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kGatherWarps = 8;            // groups a gather block takes
+constexpr int kLaneCells = kThreads / 32;  // cells a lane loads
+
 template <typename CountT>
-__global__ void gather_kernel(const double* __restrict__ values,
-                              const CountT* __restrict__ cnt,
-                              const int* __restrict__ ring,
-                              const bool* __restrict__ ok, XferSpec spec,
-                              int C, int B, int W, int k, long long total,
-                              const int* __restrict__ offsets, int nnz,
-                              int* __restrict__ idx2,
-                              CountT* __restrict__ out_cnt,
-                              double* __restrict__ out) {
-  const long long t =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const CountT c = t < total ? cnt[t] : 0;
-  const int live = c > 0;
-  const int pos = compact_position<kThreads>(live, offsets);
-  if (!live) return;
-  const long long s = t / k;
-  const int p = static_cast<int>(t - s * k);
-  idx2[pos] = static_cast<int>(s);
-  idx2[nnz + pos] = p;
-  out_cnt[pos] = c;
-  const long long plane = static_cast<long long>(C) * B;
-  const int* pr = ring + static_cast<long long>(p) * W;
-  const bool* po = ok + static_cast<long long>(p) * W;
-  for (int r = 0; r < spec.n; ++r) {
-    out[static_cast<long long>(r) * nnz + pos] = pane_reduce(
-        values + spec.ch[r] * plane + s * B, pr, po, W, spec.kind[r]);
+__device__ __forceinline__ void load_cells(const CountT* __restrict__ p,
+                                           CountT (&c)[kLaneCells]) {
+  if constexpr (sizeof(CountT) == 4) {
+    const int4* v = reinterpret_cast<const int4*>(p);
+#pragma unroll
+    for (int i = 0; i < kLaneCells / 4; ++i) {
+      const int4 x = __ldg(v + i);
+      c[4 * i] = x.x;
+      c[4 * i + 1] = x.y;
+      c[4 * i + 2] = x.z;
+      c[4 * i + 3] = x.w;
+    }
+  } else {
+    const longlong2* v = reinterpret_cast<const longlong2*>(p);
+#pragma unroll
+    for (int i = 0; i < kLaneCells / 2; ++i) {
+      const longlong2 x = __ldg(v + i);
+      c[2 * i] = x.x;
+      c[2 * i + 1] = x.y;
+    }
+  }
+}
+
+// one warp a 256-cell group of the offsets
+template <typename CountT>
+__global__ void __launch_bounds__(kGatherWarps * 32)
+    gather_kernel(const double* __restrict__ values,
+                  const CountT* __restrict__ cnt,
+                  const int* __restrict__ ring, const bool* __restrict__ ok,
+                  int n_ch, unsigned long long dup, unsigned long long mn,
+                  unsigned long long mx, long long plane, int B, int W,
+                  int k, int total, int groups,
+                  const int* __restrict__ offsets, int nnz,
+                  int* __restrict__ key, int* __restrict__ pane,
+                  CountT* __restrict__ out_cnt, double* __restrict__ out) {
+  __shared__ int s_t[kGatherWarps][kThreads];
+  __shared__ CountT s_c[kGatherWarps][kThreads];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = blockIdx.x * kGatherWarps + warp;
+  if (g >= groups) return;
+  const int base = __ldg(offsets + g);
+  if (__ldg(offsets + g + 1) == base) return;  // no live cell
+  const int t0 = g * kThreads + lane * kLaneCells;
+  CountT c[kLaneCells];
+  if (t0 + kLaneCells <= total) {
+    load_cells(cnt + t0, c);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kLaneCells; ++i) {
+      c[i] = t0 + i < total ? cnt[t0 + i] : CountT(0);
+    }
+  }
+  int n = 0;
+#pragma unroll
+  for (int i = 0; i < kLaneCells; ++i) n += c[i] > 0;
+  int incl = n;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += o;
+  }
+  const int live = __shfl_sync(0xffffffffu, incl, 31);
+  int at = incl - n;
+#pragma unroll
+  for (int i = 0; i < kLaneCells; ++i) {
+    if (c[i] > 0) {
+      s_t[warp][at] = t0 + i;
+      s_c[warp][at] = c[i];
+      ++at;
+    }
+  }
+  __syncwarp();
+  for (int i = lane; i < live; i += 32) {
+    const int t = s_t[warp][i];
+    const int s = t / k;
+    const int p = t - s * k;
+    const int o = base + i;
+    key[o] = s;
+    pane[o] = p;
+    out_cnt[o] = s_c[warp][i];
+    const int* pr = ring + p * W;
+    const bool* po = ok + p * W;
+    long long r = 0;
+    for (int j = 0; j < n_ch; ++j) {
+      if ((dup >> j) & 1ull) continue;
+      const int kind =
+          (mn >> j) & 1ull ? kMin : ((mx >> j) & 1ull ? kMax : kAdd);
+      out[r * nnz + o] = pane_reduce(
+          values + j * plane + static_cast<long long>(s) * B, pr, po, W,
+          kind);
+      ++r;
+    }
   }
 }
 
@@ -221,37 +303,49 @@ extern "C" int arroyo_emit_count(const void* counts, int counts_i64,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Gather call.  values f64[n_ch, C, B]; cnt and offsets from the count
-// call; chans/kinds are HOST arrays of n_xfer ints.  Writes idx2 i32[2,
-// nnz], out_cnt[nnz] (the counts dtype) and out f64[n_xfer, nnz].
+// Gather call, one launch.  values f64[n_ch, C, B]; cnt (16-byte
+// aligned) and offsets from the count call; the channel plan as masks
+// over the n_ch channels: `dup` channels are not transferred, the others
+// are, in channel order, reduced by min (`mn`), max (`mx`) or addition.
+// Writes ONE buffer of i32 words at `out` (kernels/emit_compact.py
+// compact_layout): key[nnz], pane[nnz], the counts (nnz of the counts
+// dtype), then, from an even word, the transferred channels f64[n_xfer,
+// nnz].
 extern "C" int arroyo_emit_gather(const void* values, const void* cnt,
                                   int counts_i64, const void* ring,
-                                  const void* ok, const int* chans,
-                                  const int* kinds, int n_xfer, int C, int B,
-                                  int W, int k, int rows, const void* offsets,
-                                  int nnz, void* idx2, void* out_cnt,
-                                  void* out, void* stream) {
-  XferSpec spec;
-  if (!make_spec(chans, kinds, n_xfer, &spec) || rows > C || k <= 0)
+                                  const void* ok, int n_ch,
+                                  unsigned long long dup,
+                                  unsigned long long mn,
+                                  unsigned long long mx, int C, int B, int W,
+                                  int k, int rows, const void* offsets,
+                                  int nnz, void* out, void* stream) {
+  if (rows <= 0 || rows > C || k <= 0 || W < 0 || n_ch < 0 || n_ch > 64 ||
+      static_cast<long long>(rows) * k >= (1ll << 31) ||
+      reinterpret_cast<unsigned long long>(cnt) % 16)
     return cudaErrorInvalidValue;
   if (nnz <= 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long total = static_cast<long long>(rows) * k;
-  const int nblocks = static_cast<int>((total + kThreads - 1) / kThreads);
+  const int total = rows * k;
+  const int groups = (total + kThreads - 1) / kThreads;
+  const int blocks = (groups + kGatherWarps - 1) / kGatherWarps;
+  const long long plane = static_cast<long long>(C) * B;
+  int* key = static_cast<int*>(out);
+  int* pane = key + nnz;
+  const long long words = (counts_i64 ? 4ll : 3ll) * nnz;
+  double* ch = reinterpret_cast<double*>(key + words + (words & 1));
+  const auto* v = static_cast<const double*>(values);
+  const auto* r = static_cast<const int*>(ring);
+  const auto* o = static_cast<const bool*>(ok);
+  const auto* off = static_cast<const int*>(offsets);
   if (counts_i64) {
-    gather_kernel<long long><<<nblocks, kThreads, 0, st>>>(
-        static_cast<const double*>(values),
-        static_cast<const long long*>(cnt), static_cast<const int*>(ring),
-        static_cast<const bool*>(ok), spec, C, B, W, k, total,
-        static_cast<const int*>(offsets), nnz, static_cast<int*>(idx2),
-        static_cast<long long*>(out_cnt), static_cast<double*>(out));
+    gather_kernel<long long><<<blocks, kGatherWarps * 32, 0, st>>>(
+        v, static_cast<const long long*>(cnt), r, o, n_ch, dup, mn, mx,
+        plane, B, W, k, total, groups, off, nnz, key, pane,
+        reinterpret_cast<long long*>(pane + nnz), ch);
   } else {
-    gather_kernel<int><<<nblocks, kThreads, 0, st>>>(
-        static_cast<const double*>(values), static_cast<const int*>(cnt),
-        static_cast<const int*>(ring), static_cast<const bool*>(ok), spec, C,
-        B, W, k, total, static_cast<const int*>(offsets), nnz,
-        static_cast<int*>(idx2), static_cast<int*>(out_cnt),
-        static_cast<double*>(out));
+    gather_kernel<int><<<blocks, kGatherWarps * 32, 0, st>>>(
+        v, static_cast<const int*>(cnt), r, o, n_ch, dup, mn, mx, plane, B,
+        W, k, total, groups, off, nnz, key, pane, pane + nnz, ch);
   }
   return static_cast<int>(cudaGetLastError());
 }

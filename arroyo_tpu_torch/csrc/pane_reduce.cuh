@@ -21,8 +21,8 @@ constexpr int kMaxChannels = 64;
 
 enum Kind : int { kAdd = 0, kMin = 1, kMax = 2 };
 
-// the transferred channels of a fire: the channel read for each output
-// row and its reduction, passed by value
+// the transferred channels of a dense fire (pane_emit.cu): the channel
+// read for each output row and its reduction, passed by value
 struct XferSpec {
   int n;
   int ch[kMaxChannels];
@@ -52,19 +52,6 @@ __device__ __forceinline__ double pane_reduce(const double* __restrict__ row,
     if (po[w]) acc = kind_fold(kind, acc, row[pr[w]]);
   }
   return acc;
-}
-
-// host side: fill a spec from the caller's arrays; false when n_xfer is
-// out of range
-inline bool make_spec(const int* chans, const int* kinds, int n_xfer,
-                      XferSpec* spec) {
-  if (n_xfer < 0 || n_xfer > kMaxChannels) return false;
-  spec->n = n_xfer;
-  for (int r = 0; r < n_xfer; ++r) {
-    spec->ch[r] = chans[r];
-    spec->kind[r] = kinds[r];
-  }
-  return true;
 }
 
 }  // namespace

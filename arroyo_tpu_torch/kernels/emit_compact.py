@@ -12,17 +12,25 @@ the gather call re-reads those and, per live cell, W bins of each
 transferred channel.  The CUDA kernels (``csrc/emit_compact.cu``) never
 write the dense ``[channels, C, k]`` grid: channels are reduced at live
 cells only (with the dense fire's reduction, ``csrc/pane_reduce.cuh``, so
-the two branches' sums are bit-equal), and the outputs are sized to the
-live total, read back between the two calls (one sync, as in JAX).  The
-count call is one launch and one allocation (``cnt`` and ``offsets``
-together): a block counts four groups of 256 cells, one thread a cell;
-the last block of a superblock's 64 groups to arrive scans them and
-finds the superblock's offset by a decoupled look-back, whose status
-words and arrival counters sit in a persistent per-device workspace (so
-never launch ``emit_count`` on two streams at once).
+the two branches' sums are bit-equal), and the gather's output is sized
+to the live total, read between the two calls (one sync, as in JAX).
+The count call is one launch and one allocation (``cnt`` and
+``offsets`` together): a block counts four groups of 256 cells, one
+thread a cell; the last block of a superblock's 64 groups to arrive
+scans them and finds the superblock's offset by a decoupled look-back,
+whose status words and arrival counters sit in a persistent per-device
+workspace (so never launch ``emit_count`` on two streams at once).  The
+gather call, :func:`emit_gather_buffer`, is one launch into ONE buffer
+(:func:`compact_layout`: the key row, the pane row, the counts, the
+transferred channels; :func:`compact_views` splits it, on the card or
+after one readback): a warp a 256-cell group, skipped when its offsets
+hold no live cell, 16-byte loads of the counts and a shuffle-scan rank;
+the channels come as the state's :class:`~.bin_update.ChannelPlan`,
+built once, not as per-call arrays.
 
-``emit_count_reference`` and ``emit_gather_reference`` are the plain
-PyTorch versions; the wrappers take them only for tensors on the CPU."""
+``emit_count_reference``, ``emit_gather_reference`` and
+``emit_gather_buffer_reference`` are the plain PyTorch versions; the
+wrappers take them only for tensors on the CPU."""
 
 from __future__ import annotations
 
@@ -34,7 +42,7 @@ import numpy as np
 import torch
 
 from . import build
-from .bin_update import KIND_CODES
+from .bin_update import KIND_CODES, Array, ChannelPlan, channel_plan
 from .pane_emit import pane_reduce_reference
 
 THREADS = 256  # cells per offsets group; threads of the count/gather blocks
@@ -161,8 +169,9 @@ def _c_fns():
     count.argtypes = [p, i, p, p, i, i, i, i, p, p, p, p, ctypes.c_uint, p]
     count.restype = i
     gather = lib.arroyo_emit_gather
-    gather.argtypes = [p, p, i, p, p, p, p, i, i, i, i, i, i, p, i, p, p, p,
-                       p]
+    u64 = ctypes.c_ulonglong
+    gather.argtypes = [p, p, i, p, p, i, u64, u64, u64, i, i, i, i, i, p, i,
+                       p, p]
     gather.restype = i
     return count, gather
 
@@ -206,15 +215,71 @@ def emit_count(counts: torch.Tensor, ring: torch.Tensor, bin_ok: torch.Tensor,
     return cnt.view(rows, k), buf[words:]
 
 
-def emit_gather(values: torch.Tensor, cnt: torch.Tensor, ring: torch.Tensor,
-                bin_ok: torch.Tensor, kinds: Sequence[str],
-                xfer: Sequence[int], offsets: torch.Tensor, nnz: int
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(idx2 i32[2, nnz] = (key slot, pane) rows, counts[nnz],
-    outs f64[len(xfer), nnz]) for the ``nnz`` live cells of ``cnt`` (from
-    :func:`emit_count`, with its ``offsets``), in row-major order; each
-    transferred channel ``xfer`` of ``values`` f64[n_ch, C, B] is reduced
-    by its kind (sum/avg/count add, min, max) over the pane's bins."""
+def compact_layout(nnz: int, n_xfer: int, itemsize: int
+                   ) -> Tuple[int, int, int]:
+    """(first word of the counts, first word of the channels, i32 words)
+    of an :func:`emit_gather_buffer` of ``nnz`` cells: the key row, the
+    pane row, the counts (``itemsize`` bytes each), then, from an even
+    word, the ``n_xfer`` channels f64[n_xfer, nnz]."""
+    cnt_word = 2 * nnz
+    ch_word = cnt_word + nnz * itemsize // 4
+    ch_word += ch_word & 1
+    return cnt_word, ch_word, ch_word + 2 * n_xfer * nnz
+
+
+def compact_views(buf: Array, nnz: int, n_xfer: int, count_dtype
+                  ) -> Tuple[Array, Array, Array, Array]:
+    """(key i32[nnz], pane i32[nnz], counts[nnz], outs f64[n_xfer, nnz])
+    viewing an :func:`emit_gather_buffer` (a tensor, or its numpy copy);
+    ``count_dtype`` is the counts plane's torch dtype."""
+    itemsize = torch.empty(0, dtype=count_dtype).element_size()
+    cnt_word, ch_word, words = compact_layout(nnz, n_xfer, itemsize)
+    if isinstance(buf, torch.Tensor):
+        cdt, f64 = count_dtype, torch.float64
+    else:
+        cdt, f64 = np.dtype(str(count_dtype).split(".")[-1]), np.float64
+    return (buf[:nnz], buf[nnz:cnt_word], buf[cnt_word:cnt_word + nnz *
+                                              itemsize // 4].view(cdt),
+            buf[ch_word:words].view(f64).reshape(n_xfer, nnz))
+
+
+def _plan_channels(plan: ChannelPlan) -> Tuple[Tuple[str, ...],
+                                               Tuple[int, ...]]:
+    """(reduction kind a channel, the transferred channels) of a plan."""
+    kinds = tuple("min" if plan.mn >> j & 1 else
+                  "max" if plan.mx >> j & 1 else "sum"
+                  for j in range(plan.n_ch))
+    return kinds, tuple(j for j in range(plan.n_ch) if not plan.dup >> j & 1)
+
+
+def emit_gather_buffer_reference(values: torch.Tensor, cnt: torch.Tensor,
+                                 ring: torch.Tensor, bin_ok: torch.Tensor,
+                                 plan: ChannelPlan, offsets: torch.Tensor,
+                                 nnz: int) -> torch.Tensor:
+    """Plain version of :func:`emit_gather_buffer`, from
+    :func:`emit_gather_reference`."""
+    kinds, xfer = _plan_channels(plan)
+    idx2, cc, outs = emit_gather_reference(values, cnt, ring, bin_ok, kinds,
+                                           xfer, offsets, nnz)
+    cnt_word, ch_word, words = compact_layout(nnz, len(xfer),
+                                              cnt.element_size())
+    buf = torch.zeros(words, dtype=torch.int32, device=cnt.device)
+    buf[:cnt_word] = idx2.reshape(-1)
+    buf[cnt_word:ch_word].view(cnt.dtype)[:nnz] = cc
+    buf[ch_word:].view(torch.float64)[:] = outs.reshape(-1)
+    return buf
+
+
+def emit_gather_buffer(values: torch.Tensor, cnt: torch.Tensor,
+                       ring: torch.Tensor, bin_ok: torch.Tensor,
+                       plan: ChannelPlan, offsets: torch.Tensor, nnz: int
+                       ) -> torch.Tensor:
+    """The ``nnz`` live cells of ``cnt`` (from :func:`emit_count`, with its
+    ``offsets``) in row-major order as ONE i32 buffer on the input device
+    (:func:`compact_layout`): their (key slot, pane) rows, counts and the
+    pane aggregates of the channels ``plan`` transfers (its non-``dup``
+    channels of ``values`` f64[n_ch, C, B], reduced by min, max or
+    addition).  One launch, no host sync."""
     if values.dtype != torch.float64 or values.dim() != 3:
         raise TypeError("values must be f64 [n_ch, C, B]")
     n_ch, C, B = values.shape
@@ -224,34 +289,57 @@ def emit_gather(values: torch.Tensor, cnt: torch.Tensor, ring: torch.Tensor,
     if _check_panes(ring, bin_ok, rows)[0] != k or rows > C:
         raise ValueError(f"cnt [{rows}, {k}] does not fit ring "
                          f"{tuple(ring.shape)} and {C} slots")
-    if len(kinds) != n_ch or any(x not in KIND_CODES for x in kinds):
-        raise ValueError(f"kinds {kinds!r} do not match {n_ch} channels")
-    if any(not 0 <= j < n_ch for j in xfer):
-        raise ValueError(f"xfer channels {xfer!r} outside {n_ch} channels")
+    if plan.n_ch != n_ch:
+        raise ValueError(f"a plan of {plan.n_ch} channels for {n_ch}")
     if offsets.dtype != torch.int32 or offsets.shape[0] != \
             _nblocks(rows * k) + 1:
         raise TypeError("offsets must be emit_count's i32 [nblocks + 1]")
+    if nnz < 0:
+        raise ValueError(f"nnz {nnz}")
     _same_device_contiguous("emit_gather", values, cnt, ring, bin_ok,
                             offsets)
     dev = values.device
     if dev.type == "cpu":
-        return emit_gather_reference(values, cnt, ring, bin_ok, kinds, xfer,
-                                     offsets, nnz)
+        return emit_gather_buffer_reference(values, cnt, ring, bin_ok, plan,
+                                            offsets, nnz)
     if dev.type != "cuda":
         raise ValueError(f"emit_gather: unsupported device {dev}")
-    idx2 = torch.empty((2, nnz), dtype=torch.int32, device=dev)
-    out_cnt = torch.empty(nnz, dtype=cnt.dtype, device=dev)
-    outs = torch.empty((len(xfer), nnz), dtype=torch.float64, device=dev)
-    chans = np.asarray(list(xfer), dtype=np.int32)
-    codes = np.asarray([KIND_CODES[kinds[j]] for j in xfer], dtype=np.int32)
+    if cnt.data_ptr() % 16:
+        raise ValueError("emit_gather reads cnt in 16-byte loads: it must "
+                         "start on 16 bytes (emit_count's does)")
+    _c, _x, words = compact_layout(nnz, plan.n_xfer, cnt.element_size())
+    buf = torch.empty(words, dtype=torch.int32, device=dev)
+    if nnz == 0:
+        return buf
     build.launch("emit_gather", _c_fns()[1], dev, values.data_ptr(),
                  cnt.data_ptr(), int(cnt.dtype == torch.int64),
-                 ring.data_ptr(), bin_ok.data_ptr(), chans.ctypes.data,
-                 codes.ctypes.data, len(xfer), C, B, ring.shape[1], k, rows,
-                 offsets.data_ptr(), nnz, idx2.data_ptr(), out_cnt.data_ptr(),
-                 outs.data_ptr())
+                 ring.data_ptr(), bin_ok.data_ptr(), n_ch, plan.dup, plan.mn,
+                 plan.mx, C, B, ring.shape[1], k, rows, offsets.data_ptr(),
+                 nnz, buf.data_ptr())
     emit_gather.launches += 1
-    return idx2, out_cnt, outs
+    return buf
+
+
+def emit_gather(values: torch.Tensor, cnt: torch.Tensor, ring: torch.Tensor,
+                bin_ok: torch.Tensor, kinds: Sequence[str],
+                xfer: Sequence[int], offsets: torch.Tensor, nnz: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(idx2 i32[2, nnz] = (key slot, pane) rows, counts[nnz],
+    outs f64[len(xfer), nnz]) for the ``nnz`` live cells of ``cnt``: the
+    views of :func:`emit_gather_buffer` with the plan that transfers the
+    channels ``xfer`` (ascending) of ``values`` f64[n_ch, C, B], each
+    reduced by its kind (sum/avg/count add, min, max)."""
+    n_ch = values.shape[0] if values.dim() == 3 else -1
+    if len(kinds) != n_ch or any(x not in KIND_CODES for x in kinds):
+        raise ValueError(f"kinds {kinds!r} do not match {n_ch} channels")
+    if any(not 0 <= j < n_ch for j in xfer) or \
+            list(xfer) != sorted(set(xfer)):
+        raise ValueError(f"xfer channels {xfer!r}: ascending, within "
+                         f"{n_ch} channels")
+    plan = channel_plan(kinds, [j for j in range(n_ch) if j not in xfer])
+    buf = emit_gather_buffer(values, cnt, ring, bin_ok, plan, offsets, nnz)
+    _key, _pane, cc, outs = compact_views(buf, nnz, len(xfer), cnt.dtype)
+    return buf[:2 * nnz].view(2, nnz), cc, outs
 
 
 emit_count.launches = 0

@@ -12,10 +12,12 @@
   launch;
 * pane emission on watermark advance runs one device pass over all
   pending panes: the q5 argmax branch through
-  :func:`~arroyo_tpu_torch.kernels.argmax_fire`; every other fire through
-  the compact branch (:func:`~arroyo_tpu_torch.kernels.emit_count` +
-  :func:`~arroyo_tpu_torch.kernels.emit_gather`, live cells only) when
-  the last fire was sparse enough, else the dense branch,
+  :func:`~arroyo_tpu_torch.kernels.argmax_fire.argmax_fire_buffer` (one
+  upload, one launch, one readback); every other fire through the
+  compact branch (:func:`~arroyo_tpu_torch.kernels.emit_count` +
+  :func:`~arroyo_tpu_torch.kernels.emit_compact.emit_gather_buffer`, live
+  cells only, two syncs) when the last fire was sparse enough, else the
+  dense branch,
   :func:`~arroyo_tpu_torch.kernels.pane_emit` — the JAX package's choice,
   fire for fire.  A fire's geometry is a few scalars (first bin, live
   range, W, k); the dense branch passes them to its kernel, the other
@@ -41,11 +43,12 @@ import torch
 
 from ..device import DeviceLike, resolve_device, to_device, to_host
 from ..graph.logical import AggKind, AggSpec
-from ..kernels.argmax_fire import argmax_fire
+from ..kernels.argmax_fire import argmax_fire_buffer, argmax_views
 from ..kernels.bin_evict import bin_evict
 from ..kernels.bin_update import (bin_update, channel_identity,
                                   channel_plan, pack_cells)
-from ..kernels.emit_compact import (emit_count, emit_gather, pack_panes,
+from ..kernels.emit_compact import (compact_views, emit_count,
+                                    emit_gather_buffer, pack_panes,
                                     panes_views)
 from ..kernels.pane_emit import fire_geometry, pane_emit, pane_views
 from ..native import assign_bins
@@ -57,6 +60,9 @@ POS_INF = channel_identity("min")
 
 # every channel accumulates in f64: int64 SUM/COUNT stay exact to 2^53
 ACC_DTYPE = np.float64
+
+# the least candidate capacity of an argmax fire's buffer
+ARGMAX_MIN_CAP = 1024
 
 
 def _init_value(kind: AggKind) -> float:
@@ -265,7 +271,8 @@ class KeyedBinState:
         self._xfer_ch = tuple(j for j in range(len(self._ch_kinds))
                               if j not in dup_set)
         self._xfer_pos = {j: r for r, j in enumerate(self._xfer_ch)}
-        # the update kernel's channel plan (restore keeps the aggregates)
+        # the channel plan of the update kernel and of the compact fire's
+        # gather (restore keeps the aggregates)
         self._plan = channel_plan(self._ch_kinds, self._dup_ch)
         self.slide = slide_micros
         self.W = width_micros // slide_micros  # bins per window
@@ -290,6 +297,9 @@ class KeyedBinState:
         # promoted to i64 before the rows land
         self.total_rows = 0
         self._argmax_local: Optional[str] = None  # 'max' | 'min'
+        # candidates the argmax fire's buffer holds: max(1,024, twice the
+        # last fire's total); a fire past it launches again at its total
+        self._argmax_cap = ARGMAX_MIN_CAP
         # live cells over (keys x panes) of the last fire: picks the
         # compact or the dense branch of the next one
         self._fire_density: Optional[float] = None
@@ -473,16 +483,32 @@ class KeyedBinState:
                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
                                 np.ndarray]:
         """Candidate-only emission: (key_idx, pane_idx, counts, empty
-        channel block) for cells at their pane's count extremum."""
+        channel block) for cells at their pane's count extremum, over the
+        occupied slots.  The panes go up in one pinned upload, the kernel
+        writes the total and up to ``_argmax_cap`` candidates into one
+        buffer, read back once; a total past the capacity launches once
+        more at its size (``bin_argmax_fire_overflows``)."""
         from ..obs import perf
 
-        idx2, cnt = perf.timed_device(
-            argmax_fire, self.counts, _to_device(ring, self.device),
-            _to_device(bin_ok, self.device), self._argmax_local)
-        idx2 = idx2.cpu().numpy()
-        return (idx2[0].astype(np.int64), idx2[1].astype(np.int64),
-                cnt.cpu().numpy().astype(np.int64),
-                np.zeros((len(self._xfer_ch), idx2.shape[1])))
+        ring_t, ok_t = panes_views(
+            _upload(pack_panes(ring, bin_ok), self.device, "bin_argmax_fire"),
+            *ring.shape)
+        cap = self._argmax_cap
+        while True:
+            buf = perf.timed_device(argmax_fire_buffer, self.counts, ring_t,
+                                    ok_t, self.next_slot,
+                                    self._argmax_local, cap)
+            host = to_host(buf)
+            perf.count("bin_argmax_fire_readbacks")
+            total = int(host[0])
+            if total <= cap:
+                break
+            perf.count("bin_argmax_fire_overflows")
+            cap = total
+        self._argmax_cap = max(ARGMAX_MIN_CAP, 2 * total)
+        key, pane, cnt = argmax_views(host, total, cap, self.counts.dtype)
+        return (key.astype(np.int64), pane.astype(np.int64),
+                cnt.astype(np.int64), np.zeros((len(self._xfer_ch), total)))
 
     def fire_panes(self, watermark: int, final: bool = False
                    ) -> Optional[Tuple[np.ndarray, Dict[str, np.ndarray],
@@ -571,7 +597,10 @@ class KeyedBinState:
                                  np.ndarray]:
         """(key_idx, pane_idx, counts, channel values [n_xfer, m]) for the
         live cells of the occupied slots only, compacted on the device in
-        row-major order (the dense branch's np.nonzero order)."""
+        row-major order (the dense branch's np.nonzero order).  Two syncs:
+        the live total, then the one readback of the gather's buffer
+        (``bin_compact_fire_readbacks``); the panes go up in one pinned
+        upload."""
         from ..obs import perf
 
         ring_t, ok_t = panes_views(
@@ -579,18 +608,19 @@ class KeyedBinState:
             *ring.shape)
         cnt, offsets = perf.timed_device(emit_count, self.counts, ring_t,
                                          ok_t, self.next_slot)
-        nnz = int(offsets[-1].item())  # the one blocking scalar readback
+        nnz = int(offsets[-1].item())  # the live total, as in JAX
         if nnz == 0:
             return (np.zeros(0, np.int64), np.zeros(0, np.int64),
                     np.zeros(0, np.int64),
                     np.zeros((len(self._xfer_ch), 0)))
-        idx2, cnt_c, ch = perf.timed_device(
-            emit_gather, self.values, cnt, ring_t, ok_t, self._ch_kinds,
-            self._xfer_ch, offsets, nnz)
-        # pinned readbacks: a fire's rows run to tens of megabytes
-        idx2 = to_host(idx2)
-        return (idx2[0].astype(np.int64), idx2[1].astype(np.int64),
-                to_host(cnt_c), to_host(ch))
+        buf = perf.timed_device(emit_gather_buffer, self.values, cnt, ring_t,
+                                ok_t, self._plan, offsets, nnz)
+        # one readback, pinned: a fire's rows run to tens of megabytes
+        host = to_host(buf)
+        perf.count("bin_compact_fire_readbacks")
+        # i32 views of the one host copy: fire_panes only indexes with them
+        return compact_views(host, nnz, len(self._xfer_ch),
+                             self.counts.dtype)
 
     def _evict(self, first_bin: int, n_bins: int) -> None:
         """Reset the ring columns of the expired absolute bins first_bin

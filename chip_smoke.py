@@ -16,9 +16,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    (bytes / 3.35 TB/s; pane_emit and bin_evict count the 32-byte
    sectors their rows' columns touch); segment_top_k, ring_gather,
    pane_emit, bin_evict, segment_agg, expand_gather, ring_merge,
-   join_probe, join_expand, bin_update and emit_count are timed in turns
-   with their yardstick (three rounds of library, kernel, kernel,
-   library); those and session_union print their launches, host syncs
+   join_probe, join_expand, bin_update, emit_count and emit_gather are
+   timed in turns with their yardstick (three rounds of library, kernel,
+   kernel, library); those, argmax_fire (at eight full-state shapes and
+   q5's real fire) and session_union print their launches, host syncs
    and allocations per call (as PyTorch's sync debug mode and caching
    allocator see them) and torch.profiler's device time per launch, warm
    and cold;
@@ -29,14 +30,16 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    paths are split into their host steps.  With ``--parent DIR`` (a ``git
    archive`` of the parent commit unpacked at DIR) the parent's
    pane_emit, bin_evict, segment_agg, expand_gather, ring_merge,
-   join_probe, session_union, join_expand, bin_update and emit_count are
-   built from DIR and timed in turns with this tree's at the same shapes
-   (the parent's ring_merge given its own resident positions), and so
-   are the callers: the reads the segment reduce and the join's emission
-   make, ``ops/join.merge_ring``, ``probe_ring`` + ``expand_gather`` at
-   join-stress's probes, ``probe_ring`` + ``expand_hit`` at 8b's,
+   join_probe, session_union, join_expand, bin_update, argmax_fire,
+   emit_count and emit_gather are built from DIR and timed in turns with
+   this tree's at the same shapes (the parent's ring_merge given its own
+   resident positions), and so are the callers: the reads the segment
+   reduce and the join's emission make, ``ops/join.merge_ring``,
+   ``probe_ring`` + ``expand_gather`` at join-stress's probes,
+   ``probe_ring`` + ``expand_hit`` at 8b's,
    ``ops/session.union_sorted_intervals`` at config5's merge, and
-   ``KeyedBinState.flush_updates`` at q5's and hot items' flushes and
+   ``KeyedBinState.flush_updates`` at q5's and hot items' flushes,
+   ``KeyedBinState._emit_argmax`` at q5's fire and
    ``KeyedBinState._emit_compact`` at hot items' compact fires;
 4. state: the port's KeyedBinState (q5 aggregates, local argmax) over
    2,000,000 nexmark events on the card and on the CPU — every fire and
@@ -46,8 +49,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    (2,000,000 events, batches of 131,072) on the card and on the CPU —
    identical sink rows, both kernels launched during the card run, one
    upload a keyed-bin flush and none of them blocking (the cells of each
-   flush printed), and the share of wall time spent in synchronized
-   kernel calls (``ARROYO_TIMING=1``, a separate run);
+   flush printed), one upload, none blocking, and one readback an argmax
+   fire, and the share of wall time spent in synchronized kernel calls
+   (``ARROYO_TIMING=1``, a separate run);
 6. q8 path: nexmark q8 through ``LocalRunner`` at 40,000,000 events
    (batches of 131,072, 1,000,000 events/s, so four 10 s windows) on the
    card — sink rows equal to a numpy control computed here from the same
@@ -141,14 +145,17 @@ from arroyo_tpu_torch.join_stress import (  # noqa: E402
     join_stress_keys, join_stress_program, state_bounded)
 from arroyo_tpu_torch.kernels import build  # noqa: E402
 from arroyo_tpu_torch.kernels.argmax_fire import (  # noqa: E402
-    argmax_fire, argmax_fire_reference)
+    argmax_fire, argmax_fire_buffer, argmax_fire_buffer_reference,
+    argmax_fire_reference, argmax_views)
 from arroyo_tpu_torch.kernels.bin_evict import (  # noqa: E402
     bin_evict, bin_evict_reference)
 from arroyo_tpu_torch.kernels.bin_update import (  # noqa: E402
     bin_update, bin_update_reference, channel_identity, channel_plan,
     pack_cells)
+from arroyo_tpu_torch.kernels.emit_compact import THREADS as EMIT_GROUP  # noqa: E402
 from arroyo_tpu_torch.kernels.emit_compact import (  # noqa: E402
-    emit_count, emit_count_reference, emit_gather, emit_gather_reference)
+    compact_views, emit_count, emit_count_reference, emit_gather,
+    emit_gather_buffer, emit_gather_buffer_reference, emit_gather_reference)
 from arroyo_tpu_torch.kernels import expand_gather as expand_gather_mod  # noqa: E402
 from arroyo_tpu_torch.kernels.expand_gather import (  # noqa: E402
     expand_gather, expand_gather_buffer, expand_gather_reference,
@@ -174,7 +181,8 @@ from arroyo_tpu_torch.kernels.session_union import (  # noqa: E402
     session_union_reference, union_views)
 from arroyo_tpu_torch.obs import perf  # noqa: E402
 from arroyo_tpu_torch.ops import join as join_ops  # noqa: E402
-from arroyo_tpu_torch.ops.keyed_bins import KeyedBinState  # noqa: E402
+from arroyo_tpu_torch.ops.keyed_bins import (  # noqa: E402
+    ARGMAX_MIN_CAP, KeyedBinState)
 from arroyo_tpu_torch.ops.segment import _reduce as segment_reduce  # noqa: E402
 from arroyo_tpu_torch.ops import session as session_ops  # noqa: E402
 from arroyo_tpu_torch.q5 import SLIDE_MICROS, WIDTH_MICROS, q5_program  # noqa: E402
@@ -237,6 +245,14 @@ ATOM = 64  # bytes HBM3 reads or writes at a time
 K1_SOURCE = "arroyo_tpu_torch/csrc/bin_update.cu"
 K1_REPLACES = ("arroyo_tpu/ops/keyed_bins.py:62 _update_kernel; "
                "arroyo_tpu/ops/pallas_kernels.py:77 _scatter_kernel")
+# q5's one argmax fire at NUM_EVENTS (a CPU run of its path): 119,938
+# occupied slots of C_Q5, one live ring bin (column 0) in each of the
+# first five of eight panes
+Q5_ARGMAX_ROWS = 119_938
+Q5_ARGMAX_RING = [[12, 13, 14, 15, 0], [13, 14, 15, 0, 1], [14, 15, 0, 1, 2],
+                  [15, 0, 1, 2, 3], [0, 1, 2, 3, 4]] + [[0] * 5] * 3
+Q5_ARGMAX_OK = [[w == 4 - p for w in range(5)] if p < 5 else [False] * 5
+                for p in range(8)]
 K2_SOURCE = "arroyo_tpu_torch/csrc/argmax_fire.cu"
 K2_REPLACES = ("arroyo_tpu/ops/keyed_bins.py:157 _argmax_nnz_kernel + "
                ":180 _argmax_gather_kernel")
@@ -375,13 +391,17 @@ def profile_kernels(fn, reps=20, before=None):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if before is not None:
-                before()
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(3):  # now and then a profile records no device activity
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if before is not None:
+                    before()
+                fn()
+            torch.cuda.synchronize()
+        if any(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events()):
+            break
     runs = collections.defaultdict(list)
     for ev in sorted((e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA),
@@ -575,27 +595,24 @@ def k1_case(rng, dev, kinds, dup, m, cdt, unique, shape, C=C_Q5,
     if turns is not None:
         r.update(turns_ms=turns, library_turns=turn_factors(turns))
     if parent is not None:
-        p_idx = torch.tensor(np.stack([slots, bins]).astype(np.int32),
-                             device=dev)
-        p_packed = torch.tensor(np.concatenate([rowcnt[None], vals]),
-                                device=dev)
         pu = parent.bin_update
+        p_plan = parent.channel_plan(kinds, dup)
         p_v, p_c = values.clone(), counts.clone()
-        pu(p_v, p_c, p_idx, p_packed, kinds, dup)
+        pu(p_v, p_c, cells_t, p_plan)
         mine_v, mine_c = values.clone(), counts.clone()
         bin_update(mine_v, mine_c, cells_t, plan)
         torch.cuda.synchronize()
-        # equal as values: the parent's MIN/MAX keep whichever of -0.0 and
-        # +0.0 lands first
+        # MIN/MAX bit-equal; sums of duplicate cells land in atomic order
         check(torch.equal(p_c, mine_c) and (
             torch.equal(p_v, mine_v) if unique else
-            all(torch.equal(p_v[j], mine_v[j])
+            all(torch.equal(p_v[j].view(torch.int64),
+                            mine_v[j].view(torch.int64))
                 for j, k in enumerate(kinds) if k in ("min", "max"))),
               f"bin_update differs from the parent's ({shape})")
         del p_v, p_c, mine_v, mine_c
 
         def parent_call():
-            pu(v_k, c_k, p_idx, p_packed, kinds, dup)
+            pu(v_k, c_k, cells_t, p_plan)
 
         c_ms, p_ms, p_turns = in_turns(kernel, parent_call)
         p_meas = measured(parent_call, "bin_update")
@@ -615,34 +632,191 @@ def k1_case(rng, dev, kinds, dup, m, cdt, unique, shape, C=C_Q5,
     return r
 
 
-def k2_case(rng, dev, kpad, minmax, cdt):
+def argmax_callers(counts, rows, ring_np, ok_np, parent):
+    """``KeyedBinState._emit_argmax`` at q5's fire (a COUNT(*) state of
+    ``rows`` occupied slots of ``counts``): this tree's (the panes in one
+    pinned upload, one launch, one readback) against the parent's (two
+    blocking uploads, four launches, three syncs more), the same rows,
+    then in turns, with allocations, host syncs, uploads and readbacks a
+    fire."""
+    aggs = (AggSpec(AggKind.COUNT, None, "n"),)
+    p_aggs = (parent.logical.AggSpec(parent.logical.AggKind.COUNT, None,
+                                     "n"),)
+    C, B = counts.shape
+    fires = []
+    for cls, a in ((KeyedBinState, aggs), (parent.keyed_bins.KeyedBinState,
+                                           p_aggs)):
+        st = cls(a, SLIDE_MICROS, WIDTH_MICROS, capacity=8,
+                 device=counts.device)
+        st.C, st.B, st.next_slot, st.counts = C, B, rows, counts
+        st.values = torch.zeros((1, C, B), dtype=torch.float64,
+                                device=counts.device)
+        st.set_argmax_local("n", "max")
+        fires.append(functools.partial(st._emit_argmax, ring_np, ok_np))
+    fire, parent_fire = fires
+    perf.reset()
+    got = fire()
+    names = ("bin_argmax_fire_uploads", "bin_argmax_fire_blocking_uploads",
+             "bin_argmax_fire_readbacks", "bin_argmax_fire_overflows")
+    counters = tuple(perf.counter(x) for x in names)
+    want = parent_fire()
+    check(counters == (1, 0, 1, 0), f"an argmax fire made {counters} "
+          "(uploads, blocking uploads, readbacks, overflows)")
+    check(all(np.array_equal(x, y) for x, y in zip(got, want)),
+          "_emit_argmax differs from the parent's")
+    ms, p_ms, turns = in_turns(fire, parent_fire)
+    return {"ms": ms, "parent_ms": p_ms, "turns_ms": turns,
+            **turn_factors(turns), "counters": dict(zip(names, counters)),
+            "allocations_syncs": per_call(fire),
+            "parent_allocations_syncs": per_call(parent_fire),
+            "host_us": host_us(fire, reps=100),
+            "parent_host_us": host_us(parent_fire, reps=100)}
+
+
+def k2_case(rng, dev, kpad, minmax, cdt, parent=None, q5=False):
+    """K2 on C_Q5 x B_Q5 counts: all slots occupied and panes over
+    consecutive ring columns, or (``q5``) q5's real fire — Q5_ARGMAX_ROWS
+    occupied slots, zeros past them, one live bin in five of eight panes.
+    The buffer form (the caller's) equal to the plain version over all
+    slots, in one launch, one allocation and no host sync; with
+    ``parent`` the parent's four-launch, one-sync call in turns and, at
+    q5's fire, the caller ``_emit_argmax`` in turns with the parent's."""
     W = WIDTH_MICROS // SLIDE_MICROS
-    counts = torch.tensor(rng.poisson(2.0, (C_Q5, B_Q5)), dtype=cdt,
-                          device=dev)
-    ring_np = ((np.arange(kpad)[:, None] + np.arange(W)[None, :])
-               % B_Q5).astype(np.int32)
-    ok_np = np.ones((kpad, W), dtype=bool)
-    ok_np[0, :2] = False  # the oldest bins of the first pane were evicted
+    if q5:
+        kpad, rows = len(Q5_ARGMAX_RING), Q5_ARGMAX_ROWS
+        ring_np = np.array(Q5_ARGMAX_RING, dtype=np.int32)
+        ok_np = np.array(Q5_ARGMAX_OK)
+    else:
+        rows = C_Q5
+        ring_np = ((np.arange(kpad)[:, None] + np.arange(W)[None, :])
+                   % B_Q5).astype(np.int32)
+        ok_np = np.ones((kpad, W), dtype=bool)
+        ok_np[0, :2] = False  # the oldest bins of the first pane evicted
+    cells = rng.poisson(2.0, (C_Q5, B_Q5))
+    cells[rows:] = 0  # the slots past next_slot
+    counts = torch.tensor(cells, dtype=cdt, device=dev)
     ring = torch.tensor(ring_np, device=dev)
     ok = torch.tensor(ok_np, device=dev)
-    got = argmax_fire(counts, ring, ok, minmax)
-    want = argmax_fire_reference(counts, ring, ok, minmax)
-    torch.cuda.synchronize()
-    shape = f"C={C_Q5} B={B_Q5} W={W} kpad={kpad} {minmax} {cdt}"
-    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+    want = argmax_fire_reference(counts, ring, ok, minmax)  # all C slots
+    # the caller's capacity after a fire of this many candidates
+    cap = max(ARGMAX_MIN_CAP, 2 * want[0].shape[1])
+
+    def kernel():  # the call the argmax fire makes: one buffer
+        return argmax_fire_buffer(counts, ring, ok, rows, minmax, cap)
+
+    before = argmax_fire.launches
+    buf = kernel()
+    launches = argmax_fire.launches - before
+    total = int(buf[0])
+    shape = (f"{'q5 fire ' if q5 else ''}C={C_Q5} rows={rows} B={B_Q5} "
+             f"W={W} kpad={kpad} live_bins={int(ok_np.sum())} {minmax} "
+             f"{cdt} nnz={total}")
+    check(launches == 1, f"argmax_fire made {launches} launches ({shape})")
+    check(total == want[0].shape[1] <= cap
+          and all(torch.equal(x, y) for x, y in zip(
+              argmax_views(buf, total, cap, cdt),
+              (want[0][0], want[0][1], want[1]))),
           f"argmax_fire differs ({shape})")
-    ms = cuda_ms(lambda: argmax_fire(counts, ring, ok, minmax))
-    plain = cuda_ms(lambda: argmax_fire_reference(counts, ring, ok, minmax))
+    got = argmax_fire(counts, ring, ok, minmax)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"argmax_fire's tuple form differs ({shape})")
+    meas = measured(kernel, "argmax_kernel")
+    check(meas["allocations_per_call"] == 1 and meas["syncs_per_call"] == 0,
+          f"argmax_fire made {meas['allocations_per_call']} allocations and "
+          f"{meas['syncs_per_call']} host syncs ({shape})")
     itemsize = counts.element_size()
-    nnz = got[0].shape[1]
-    cols_read = len(np.unique(ring_np[ok_np]))
-    nbytes = C_Q5 * cols_read * itemsize + nnz * (8 + itemsize)
-    bms, by = bound(nbytes, C_Q5 * int(ok_np.sum()), F64_OPS_PER_S)
-    return {"name": "argmax_fire", "route": "cuda", "source": K2_SOURCE,
-            "replaces": K2_REPLACES, "shape": shape + f" nnz={nnz}",
-            "max_abs_err": 0.0, "ms": ms, "kernel_ms": ms, "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "library_call": None}
+    cols = np.unique(ring_np[ok_np])
+    out_bytes = 4 + total * (8 + itemsize)
+    r = row("argmax_fire", K2_SOURCE, K2_REPLACES, shape, 0.0,
+            cuda_ms(kernel),
+            cuda_ms(lambda: argmax_fire_buffer_reference(
+                counts, ring, ok, rows, minmax, cap)),
+            rows * len(cols) * itemsize + out_bytes, rows * int(ok_np.sum()),
+            None, None)
+    # the least time IF memory moves whole 64-byte atoms: a row's live
+    # columns cost its atoms
+    r.update(launches_per_call=launches,
+             atom_bound_ms=atom_bound_ms(
+                 rows * row_atoms(itemsize, B_Q5, cols), 0, out_bytes),
+             device_us_sum=device_sum(meas), **meas)
+    if parent is not None:
+        pa = parent.argmax_fire
+        p_got = pa(counts, ring, ok, minmax)
+        torch.cuda.synchronize()
+        check(torch.equal(p_got[0], want[0]) and torch.equal(p_got[1],
+                                                             want[1]),
+              f"the parent's argmax_fire differs ({shape})")
+
+        def parent_call():
+            return pa(counts, ring, ok, minmax)
+
+        c_ms, p_ms, p_turns = in_turns(kernel, parent_call)
+        p_meas = measured(parent_call, (
+            "pane_counts", "select_count", "exclusive_scan", "gather_kernel",
+            "elementwise"))
+        r["parent"] = {"ms": p_ms, "kernel_ms_beside_it": c_ms,
+                       "turns_ms": p_turns, **turn_factors(p_turns),
+                       "device_us_sum": device_sum(p_meas), **p_meas}
+        if q5:
+            r["parent"]["caller"] = argmax_callers(counts, rows, ring_np,
+                                                   ok_np, parent)
+    print(f"argmax_fire {shape}: " + json.dumps(
+        {key: r[key] for key in ("ms", "plain_ms", "bound_ms",
+                                 "atom_bound_ms", "launches_per_call",
+                                 "host_us_per_call", "device_us_per_call",
+                                 "device_us_cold", "device_us_sum",
+                                 "allocations_per_call", "syncs_per_call",
+                                 "parent") if key in r}))
+    return r
+
+
+# (name, C, occupied rows, kpad, B, W, live panes) of argmax fires past
+# q5's: more than 256 live panes (pane tiles), 2,048 panes staged past
+# 48 KiB, a 120-bin window's final fire, and panes too wide for shared
+# memory (read from global memory) in one and in eight tiles
+K2_BRANCHES = (("tiles", 20_000, 19_000, 512, 16, 3, 300),
+               ("panes_2048", 4096, 4000, 2048, 16, 5, 2048),
+               ("final_w120", 8_192, 8_000, 128, 128, 120, 122),
+               ("unstaged", 2_048, 2_000, 128, 512, 500, 128),
+               ("unstaged_tiles", 1_024, 1_000, 2048, 64, 40, 2048))
+
+
+def k2_branches(rng, dev):
+    """argmax_fire's buffer form at K2_BRANCHES, max and min, i32 and
+    i64: one launch each, every candidate equal to the plain version's
+    (no timing)."""
+    cap = 1 << 17  # above every total here
+    for name, C, rows, kpad, B, W, live in K2_BRANCHES:
+        ring = torch.tensor(((np.arange(kpad)[:, None] + np.arange(W)[None, :])
+                             % B).astype(np.int32), device=dev)
+        ok_np = np.ones((kpad, W), dtype=bool)
+        if name == "final_w120":  # pane p holds bins p .. p + 119 of 0 .. 124
+            ok_np = (np.arange(kpad)[:, None] + np.arange(W)[None, :]) <= 124
+        ok_np[0, :2] = False
+        ok_np[live:] = False
+        ok = torch.tensor(ok_np, device=dev)
+        cells = rng.poisson(2.0, (C, B))
+        cells[rows:] = 0
+        totals = []
+        for cdt in (torch.int32, torch.int64):
+            counts = torch.tensor(cells, dtype=cdt, device=dev)
+            for minmax in ("max", "min"):
+                want = argmax_fire_buffer_reference(counts, ring, ok, rows,
+                                                    minmax, cap)
+                before = argmax_fire.launches
+                got = argmax_fire_buffer(counts, ring, ok, rows, minmax, cap)
+                total = int(want[0])
+                check(argmax_fire.launches == before + 1
+                      and int(got[0]) == total <= cap
+                      and all(torch.equal(x, y) for x, y in zip(
+                          argmax_views(got, total, cap, cdt),
+                          argmax_views(want, total, cap, cdt))),
+                      f"argmax_fire differs at {name} ({minmax} {cdt})")
+                totals.append(total)
+            del counts
+        print(f"argmax_fire {name}: C={C} rows={rows} kpad={kpad} B={B} "
+              f"W={W} live panes={live}: equal to the plain version, max "
+              f"and min, int32 and int64, candidates {totals}")
 
 
 def row(name, source, replaces, shape, err, ms, plain, nbytes, ops,
@@ -702,9 +876,10 @@ def parent_kernels(parent):
     ``parent_torch``, its kernels built from its own csrc/ into its own
     build/ directory.  Returns a namespace of its pane_emit, bin_evict,
     segment_agg, expand_gather, join_probe, ring_merge, session_union,
-    join_expand, bin_update and emit_count, its ``ops.join``,
-    ``ops.session`` and ``ops.keyed_bins`` modules (the callers), its
-    ``graph.logical`` (their aggregate specs) and the build seconds."""
+    join_expand, bin_update, argmax_fire, emit_count and emit_gather, its
+    ``ops.join``, ``ops.session`` and ``ops.keyed_bins`` modules (the
+    callers), its ``graph.logical`` (their aggregate specs) and the build
+    seconds."""
     import importlib
     import importlib.util
     pkg = os.path.join(os.path.abspath(parent), "arroyo_tpu_torch")
@@ -719,7 +894,7 @@ def parent_kernels(parent):
     secs = time.perf_counter() - t0
     names = ("pane_emit", "bin_evict", "segment_agg", "expand_gather",
              "join_probe", "ring_merge", "session_union", "join_expand",
-             "bin_update")
+             "bin_update", "argmax_fire")
     return argparse.Namespace(
         build_s=secs, join=importlib.import_module("parent_torch.ops.join"),
         session=importlib.import_module("parent_torch.ops.session"),
@@ -727,6 +902,10 @@ def parent_kernels(parent):
         logical=importlib.import_module("parent_torch.graph.logical"),
         emit_count=importlib.import_module(
             "parent_torch.kernels.emit_compact").emit_count,
+        emit_gather=importlib.import_module(
+            "parent_torch.kernels.emit_compact").emit_gather,
+        channel_plan=importlib.import_module(
+            "parent_torch.kernels.bin_update").channel_plan,
         join_expand_buffer=importlib.import_module(
             "parent_torch.kernels.join_expand").join_expand_buffer,
         **{name: getattr(importlib.import_module(
@@ -1866,9 +2045,10 @@ def topk_case(rng, dev, n, n_seg, shape):
 def compact_callers(counts, rows, ring_np, ok_np, parent):
     """``KeyedBinState._emit_compact`` at a hot-items fire (COUNT(*),
     ``rows`` occupied slots of ``counts``): this tree's (the panes in one
-    pinned upload, one count launch) against the parent's (two blocking
-    uploads, two count launches), the same rows, then in turns, with
-    allocations, host syncs and uploads a fire."""
+    pinned upload, one count launch, the live total, the gather into one
+    buffer and its one readback: two syncs) against the parent's (the
+    gather's three outputs read back: four syncs), the same rows, then in
+    turns, with allocations, host syncs and uploads a fire."""
     aggs = (AggSpec(AggKind.COUNT, None, "n"),)
     p_aggs = (parent.logical.AggSpec(parent.logical.AggKind.COUNT, None,
                                      "n"),)
@@ -1917,28 +2097,27 @@ def synced_ms(fn, reps=10):
 def compact_split(st, ring_np, ok_np):
     """Where ``st._emit_compact`` spends its time, each step synchronized
     on its own: the panes' one upload, emit_count, the live total's
-    readback, emit_gather, and the rows' readbacks through pinned memory
-    (``device.to_host``) and through ``.cpu()``, pageable."""
+    readback, the gather into one buffer, and that buffer's one readback
+    through pinned memory (``device.to_host``) and through ``.cpu()``,
+    pageable."""
     from arroyo_tpu_torch.kernels.emit_compact import pack_panes, panes_views
     dev = st.counts.device
     ring_t, ok_t = panes_views(to_device(pack_panes(ring_np, ok_np), dev),
                                *ring_np.shape)
     cnt, offsets = emit_count(st.counts, ring_t, ok_t, st.next_slot)
     nnz = int(offsets[-1].item())
-    outs = emit_gather(st.values, cnt, ring_t, ok_t, st._ch_kinds,
-                       st._xfer_ch, offsets, nnz)
+    buf = emit_gather_buffer(st.values, cnt, ring_t, ok_t, st._plan, offsets,
+                             nnz)
     return {
         "upload": synced_ms(lambda: panes_views(
             to_device(pack_panes(ring_np, ok_np), dev), *ring_np.shape)),
         "emit_count": synced_ms(lambda: emit_count(st.counts, ring_t, ok_t,
                                                    st.next_slot)),
         "live_total": synced_ms(lambda: int(offsets[-1].item())),
-        "emit_gather": synced_ms(lambda: emit_gather(
-            st.values, cnt, ring_t, ok_t, st._ch_kinds, st._xfer_ch,
-            offsets, nnz)),
-        "readbacks_pinned": synced_ms(lambda: [to_host(t) for t in outs]),
-        "readbacks_pageable": synced_ms(lambda: [t.cpu().numpy()
-                                                 for t in outs]),
+        "emit_gather": synced_ms(lambda: emit_gather_buffer(
+            st.values, cnt, ring_t, ok_t, st._plan, offsets, nnz)),
+        "readback_pinned": synced_ms(lambda: to_host(buf)),
+        "readback_pageable": synced_ms(lambda: buf.cpu().numpy()),
         "rows": nnz}
 
 
@@ -1946,10 +2125,11 @@ def compact_cases(rng, dev, k, rows, shape, parent=None):
     """K13/K14 at hot items' compact fires: C_HOT slots, the first
     ``rows`` occupied, a COUNT(*) counts plane whose pane cells are live
     with probability HOT_DENSITY.  Exact against the plain versions and
-    against the dense fire (pane_emit) at the live cells; emit_count one
-    launch, at most one allocation and no host sync a call, timed in
-    turns with the library call and, with ``parent``, with the parent's
-    emit_count (two launches) and its caller ``_emit_compact``."""
+    against the dense fire (pane_emit) at the live cells; emit_count and
+    emit_gather each one launch, one allocation and no host sync a call,
+    each timed in turns with its library call and, with ``parent``, with
+    the parent's (emit_count: two launches; emit_gather: three outputs)
+    and their caller ``_emit_compact``."""
     q = 1 - (1 - HOT_DENSITY) ** (1 / W_HOT)  # a bin holds rows
     cells = np.where(rng.random((rows, B_HOT)) < q,
                      rng.integers(1, 9, (rows, B_HOT)), 0)
@@ -2040,12 +2220,75 @@ def compact_cases(rng, dev, k, rows, shape, parent=None):
                                  "device_us_cold", "device_us_sum",
                                  "allocations_per_call", "syncs_per_call",
                                  "parent") if key in r}))
-    return [r,
-            row("emit_gather", K14_SOURCE, K14_REPLACES, shape, 0.0,
-                cuda_ms(lambda: emit_gather(*g_args)),
-                cuda_ms(lambda: emit_gather_reference(*g_args)),
-                rows * k * item + 4 * nb + nnz * (8 + item), 0,
-                cuda_ms(lib_gather), "nonzero + index_select")]
+    return [r, gather_case(values, cnt, ring, ok, offsets, nnz, lib_gather,
+                           shape, parent)]
+
+
+def gather_case(values, cnt, ring, ok, offsets, nnz, lib_gather, shape,
+                parent):
+    """K14 at a hot-items compact fire (COUNT(*): no transferred channel):
+    the buffer form (the caller's) equal to the plain version, one launch,
+    one allocation and no host sync a call, timed in turns with the
+    library call and, with ``parent``, with the parent's gather (its
+    three outputs, two numpy arrays and a 516-byte spec a call)."""
+    kinds, xfer = ("count",), ()
+    plan = channel_plan(kinds, (0,))
+    g_args = (values, cnt, ring, ok, plan, offsets, nnz)
+
+    def gather():  # the call the compact fire makes: one buffer
+        return emit_gather_buffer(*g_args)
+
+    before = emit_gather.launches
+    got = compact_views(gather(), nnz, 0, cnt.dtype)
+    launches = emit_gather.launches - before
+    want = compact_views(emit_gather_buffer_reference(*g_args), nnz, 0,
+                         cnt.dtype)
+    torch.cuda.synchronize()
+    check(launches == 1 and all(torch.equal(a, b)
+                                for a, b in zip(got, want)),
+          f"emit_gather's buffer differs ({shape}), {launches} launches")
+    meas = measured(gather, "gather_kernel")
+    check(meas["allocations_per_call"] == 1 and meas["syncs_per_call"] == 0,
+          f"emit_gather made {meas['allocations_per_call']} allocations and "
+          f"{meas['syncs_per_call']} host syncs ({shape})")
+    ms, lib, turns = in_turns(gather, lib_gather)
+    rows, k = cnt.shape
+    item = cnt.element_size()
+    nb = offsets.numel()
+    # the groups with a live cell read their counts; all read offsets
+    live_groups = int((offsets[1:] > offsets[:-1]).sum())
+    read = min(rows * k, live_groups * EMIT_GROUP) * item + 4 * nb
+    r = row("emit_gather", K14_SOURCE, K14_REPLACES, shape, 0.0, ms,
+            cuda_ms(lambda: emit_gather_buffer_reference(*g_args)),
+            read + nnz * (8 + item), 0, lib, "nonzero + index_select")
+    r.update(launches_per_call=launches, turns_ms=turns,
+             library_turns=turn_factors(turns), live_groups=live_groups,
+             device_us_sum=device_sum(meas), **meas)
+    if parent is not None:
+        pg = parent.emit_gather
+        p_args = (values, cnt, ring, ok, kinds, xfer, offsets, nnz)
+        p_got = pg(*p_args)
+        torch.cuda.synchronize()
+        check(torch.equal(p_got[0][0], got[0]) and torch.equal(
+            p_got[0][1], got[1]) and torch.equal(p_got[1], got[2]),
+              f"emit_gather differs from the parent's ({shape})")
+
+        def parent_gather():
+            return pg(*p_args)
+
+        c_ms, p_ms, p_turns = in_turns(gather, parent_gather)
+        p_meas = measured(parent_gather, "gather_kernel")
+        r["parent"] = {"ms": p_ms, "kernel_ms_beside_it": c_ms,
+                       "turns_ms": p_turns, **turn_factors(p_turns),
+                       "device_us_sum": device_sum(p_meas), **p_meas}
+    print(f"emit_gather {shape}: " + json.dumps(
+        {key: r[key] for key in ("ms", "library_ms", "library_turns",
+                                 "plain_ms", "bound_ms", "launches_per_call",
+                                 "host_us_per_call", "device_us_per_call",
+                                 "device_us_cold", "device_us_sum",
+                                 "allocations_per_call", "syncs_per_call",
+                                 "parent") if key in r}))
+    return r
 
 
 def kernel_phase(parent=None):
@@ -2071,7 +2314,9 @@ def kernel_phase(parent=None):
     for kpad in (1, 8):
         for minmax in ("max", "min"):
             for cdt in (torch.int32, torch.int64):
-                rows.append(k2_case(rng, dev, kpad, minmax, cdt))
+                rows.append(k2_case(rng, dev, kpad, minmax, cdt, parent))
+    rows.append(k2_case(rng, dev, 8, "max", torch.int32, parent, q5=True))
+    k2_branches(rng, dev)
     # q8's tumbling fire: one live bin; the mixed fire: panes wrapping
     # the ring, bins 0 and 1 evicted; hot items' sliding fire: 5 live bins
     q8_bin = 8 * 5_000 + 3
@@ -2248,7 +2493,8 @@ def flushing(run, *args):
     """``run(*args)`` with the cells of every keyed-bin flush recorded and
     the perf counters reset first: (its result, the flush sizes, the
     flushes' uploads and blocking uploads, the compact fires' uploads and
-    blocking uploads)."""
+    blocking uploads, the argmax fires' uploads, blocking uploads,
+    readbacks and overflows)."""
     sizes = []
     dispatch = KeyedBinState._dispatch_cells
 
@@ -2265,11 +2511,14 @@ def flushing(run, *args):
     counts = {k: perf.counter(k) for k in (
         "pane_update_dispatches", "bin_flush_uploads",
         "bin_flush_blocking_uploads", "bin_compact_fire_uploads",
-        "bin_compact_fire_blocking_uploads")}
+        "bin_compact_fire_blocking_uploads", "bin_argmax_fire_uploads",
+        "bin_argmax_fire_blocking_uploads", "bin_argmax_fire_readbacks",
+        "bin_argmax_fire_overflows")}
     check(len(sizes) == counts["pane_update_dispatches"]
           == counts["bin_flush_uploads"]
           and counts["bin_flush_blocking_uploads"] == 0
-          and counts["bin_compact_fire_blocking_uploads"] == 0,
+          and counts["bin_compact_fire_blocking_uploads"] == 0
+          and counts["bin_argmax_fire_blocking_uploads"] == 0,
           f"keyed-bin flushes: {len(sizes)} recorded, {counts}")
     return out, sizes, counts
 
@@ -2302,6 +2551,15 @@ def main_path():
     launches = read_launches()
     check(counts["pane_update_dispatches"] == launches["bin_update"],
           f"q5: {counts} against {launches['bin_update']} launches")
+    # an argmax fire: one pinned upload, one launch, one readback (and
+    # one of each more when its candidates overflow the buffer)
+    fires = counts["bin_argmax_fire_uploads"]
+    over = counts["bin_argmax_fire_overflows"]
+    check(fires > 0 and launches["argmax_fire"] == fires + over
+          and counts["bin_argmax_fire_readbacks"] == fires + over
+          and counts["bin_argmax_fire_blocking_uploads"] == 0,
+          f"q5 argmax fires: {counts} against {launches['argmax_fire']} "
+          "launches")
     # device-time share: the same run with every kernel call synchronized
     # (ARROYO_TIMING=1 serializes dispatch, so it is timed apart)
     os.environ["ARROYO_TIMING"] = "1"
@@ -2938,8 +3196,9 @@ def main():
         "--parent", help="a directory holding a git archive of the parent "
         "commit: phase 3 also times its pane_emit, bin_evict, segment_agg, "
         "expand_gather, ring_merge, join_probe, session_union, join_expand, "
-        "bin_update and emit_count, and the join's, the session union's and "
-        "the keyed-bin state's callers, in turns with this tree's")
+        "bin_update, argmax_fire, emit_count and emit_gather, and the "
+        "join's, the session union's and the keyed-bin state's callers, in "
+        "turns with this tree's")
     opts = parser.parse_args()
     smi = environment()
     parent = None

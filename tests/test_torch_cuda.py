@@ -12,7 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from arroyo_tpu_torch.kernels.argmax_fire import argmax_fire, argmax_fire_reference
+from arroyo_tpu_torch.kernels.argmax_fire import (
+    argmax_fire,
+    argmax_fire_buffer,
+    argmax_fire_buffer_reference,
+    argmax_fire_reference,
+    argmax_views,
+)
 from arroyo_tpu_torch.kernels.bin_evict import bin_evict, bin_evict_reference
 from arroyo_tpu_torch.kernels.bin_update import (
     bin_update,
@@ -23,7 +29,10 @@ from arroyo_tpu_torch.kernels.bin_update import (
 from arroyo_tpu_torch.kernels.emit_compact import (
     emit_count,
     emit_count_reference,
+    compact_views,
     emit_gather,
+    emit_gather_buffer,
+    emit_gather_buffer_reference,
     emit_gather_reference,
 )
 from arroyo_tpu_torch.kernels.expand_gather import (
@@ -72,6 +81,15 @@ from arroyo_tpu_torch.kernels.session_union import (
 )
 
 F64_MAX = torch.finfo(torch.float64).max
+
+# q5's one argmax fire at 2,000,000 events (a CPU run of its path):
+# 119,938 occupied slots of 131,072, one live ring bin (column 0) in each
+# of the first five of eight panes
+Q5_ROWS = 119_938
+Q5_RING = [[12, 13, 14, 15, 0], [13, 14, 15, 0, 1], [14, 15, 0, 1, 2],
+           [15, 0, 1, 2, 3], [0, 1, 2, 3, 4]] + [[0] * 5] * 3
+Q5_OK = [[w == 4 - p for w in range(5)] if p < 5 else [False] * 5
+         for p in range(8)]
 
 # (channel kinds, COUNT(*) channels): q5's bare COUNT(*), and a mixed
 # SUM/AVG/COUNT(col)/MIN/MAX set with validity channels beside a COUNT(*)
@@ -214,6 +232,128 @@ def test_argmax_fire_cuda_matches_plain(cuda_device, kpad, minmax, cdt):
     got = argmax_fire(counts, ring, ok, minmax)
     want = argmax_fire_reference(counts, ring, ok, minmax)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+
+
+# (C, occupied rows, kpad, B, W) of the named fires past q5's
+ARGMAX_CASES = {
+    "recount": (1 << 21, 1 << 21, 8, 16, 5),
+    "empty": (4096, 4000, 4, 16, 5),
+    "overflow": (65_536, 60_000, 2, 16, 5),
+    "ragged": (9_000, 8_191, 3, 16, 5),
+    # 300 live panes of 512: two pane tiles a slot
+    "tiles": (20_000, 19_000, 512, 16, 3),
+    # 2,048 panes staged past 48 KiB of shared memory, eight tiles
+    "panes_2048": (4096, 4000, 2048, 16, 5),
+    # a 120-bin window's final fire: 122 panes, the last ones short
+    "final_w120": (8_192, 8_000, 128, 128, 120),
+    # panes too wide for shared memory: ring and ok read from global
+    # memory, one tile, then eight
+    "unstaged": (2_048, 2_000, 128, 512, 500),
+    "unstaged_tiles": (1_024, 1_000, 2048, 64, 40),
+}
+
+
+def _argmax_case(rng, dev, case, cdt):
+    """(counts, ring, ok, rows, capacity) of a named argmax fire: q5's
+    real fire; a full 2^21-slot state whose blocks count their chunks
+    again after the barrier; a fire with no candidate; ties past the
+    capacity; a ragged occupied prefix; more than 256 live panes; 2,048
+    panes; a 120-bin window's final fire; panes that do not fit in
+    shared memory."""
+    if case == "q5":
+        C, rows, kpad, B, W = 131_072, Q5_ROWS, 8, 16, 5
+        ring_np, ok_np = np.array(Q5_RING, np.int32), np.array(Q5_OK)
+    else:
+        C, rows, kpad, B, W = ARGMAX_CASES[case]
+        ring_np = ((np.arange(kpad)[:, None] + np.arange(W)[None, :])
+                   % B).astype(np.int32)
+        ok_np = np.ones((kpad, W), dtype=bool)
+        ok_np[0, :2] = False
+        if case == "tiles":
+            ok_np[300:] = False  # padded panes
+        if case == "final_w120":
+            ok_np = (np.arange(kpad)[:, None] + np.arange(W)[None, :]) <= 124
+            ok_np[122:] = False
+    cells = rng.poisson(2.0, (C, B))
+    if case == "empty":
+        cells[:] = 0
+    elif case == "overflow":
+        cells = np.minimum(cells, 1)  # ties by the thousand at count W
+    cells[rows:] = 0  # the unoccupied slots of a state
+    counts = torch.tensor(cells, dtype=cdt, device=dev)
+    # the fires past q5's shapes hold every candidate (up to ~89,000)
+    capacity = {"overflow": 100, "q5": 1024, "recount": 1024, "empty": 1024,
+                "ragged": 1024}.get(case, 1 << 17)
+    return (counts, torch.tensor(ring_np, device=dev),
+            torch.tensor(ok_np, device=dev), rows, capacity)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["q5", *ARGMAX_CASES])
+@pytest.mark.parametrize("minmax", ["max", "min"])
+@pytest.mark.parametrize("cdt", [torch.int32, torch.int64])
+def test_argmax_fire_buffer_cuda(cuda_device, case, minmax, cdt):
+    """The buffer form: one launch, one allocation and no host sync a
+    call; its total and candidates equal the plain version's over the
+    occupied rows and over all C, on consecutive calls (each finds the
+    workspace as the last left it); past the capacity the total is whole
+    and the first candidates are kept."""
+    rng = np.random.default_rng(17)
+    counts, ring, ok, rows, cap = _argmax_case(rng, cuda_device, case, cdt)
+    want_all = argmax_fire_reference(counts, ring, ok, minmax)
+    want = argmax_fire_buffer_reference(counts, ring, ok, rows, minmax, cap)
+    total = int(want[0])
+    assert total == want_all[0].shape[1]
+    if case == "empty":
+        assert total == 0
+    if case == "overflow":
+        assert total > cap
+    for _ in range(3):
+        before = argmax_fire.launches
+        got = argmax_fire_buffer(counts, ring, ok, rows, minmax, cap)
+        torch.cuda.synchronize()
+        assert argmax_fire.launches == before + 1
+        assert int(got[0]) == total
+        for g, w in zip(argmax_views(got, total, cap, cdt),
+                        argmax_views(want, total, cap, cdt)):
+            assert torch.equal(g, w)
+    n = min(total, cap)
+    key, pane, cnt = argmax_views(got, total, cap, cdt)
+    assert torch.equal(key, want_all[0][0, :n])
+    assert torch.equal(pane, want_all[0][1, :n])
+    assert torch.equal(cnt, want_all[1][:n])
+    assert _allocs_and_syncs(lambda: argmax_fire_buffer(
+        counts, ring, ok, rows, minmax, cap)) == (1, 0)
+
+
+@pytest.mark.cuda
+def test_argmax_fire_workspace_cuda(cuda_device):
+    """Calls of several shapes in turn, on the current stream and on a
+    second one: a fire of 2,048 panes grows the stream's workspace, a
+    fire that does not fit in shared memory folds its extrema there, and
+    every call equals the plain version."""
+    rng = np.random.default_rng(23)
+    cases = [_argmax_case(rng, cuda_device, c, torch.int32)
+             for c in ("q5", "panes_2048", "unstaged", "tiles")]
+    side = torch.cuda.Stream()
+    for _ in range(2):
+        for stream in (torch.cuda.current_stream(), side):
+            with torch.cuda.stream(stream):
+                for counts, ring, ok, rows, cap in cases:
+                    for minmax in ("max", "min"):
+                        got = argmax_fire_buffer(counts, ring, ok, rows,
+                                                 minmax, cap)
+                        want = argmax_fire_buffer_reference(
+                            counts, ring, ok, rows, minmax, cap)
+                        stream.synchronize()
+                        total = int(want[0])
+                        assert int(got[0]) == total
+                        for g, w in zip(
+                                argmax_views(got, total, cap, torch.int32),
+                                argmax_views(want, total, cap, torch.int32)):
+                            assert torch.equal(g, w)
 
 
 def _planes(rng, dev, kinds, C, B, cdt):
@@ -1208,3 +1348,107 @@ def test_emit_compact_cuda_matches_plain_and_pane_emit(cuda_device, k, cdt):
                                     xfer, rows), len(xfer), rows, k, cdt)
     s, p = got[0][0].long(), got[0][1].long()
     assert torch.equal(got[2], dense[:, s, p])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kinds,dup", [(("count",), (0,)),
+                                       (("count", "sum", "min", "max"), (0,)),
+                                       (("sum", "count", "max"), ())])
+@pytest.mark.parametrize("cdt", [torch.int32, torch.int64])
+@pytest.mark.parametrize("rows", [1, 255, 50_001])
+def test_emit_gather_buffer_cuda(cuda_device, kinds, dup, cdt, rows):
+    """The buffer form: one launch, one allocation and no host sync a
+    call; its views equal the plain version's with and without transferred
+    channels, over one group, a ragged last group and many skipped
+    groups."""
+    g = torch.Generator(device=cuda_device).manual_seed(rows)
+    C, B, W, k = rows + 77, 16, 5, 3
+    dev = cuda_device
+    plan = channel_plan(kinds, dup)
+    values = torch.randn((len(kinds), C, B), generator=g,
+                         dtype=torch.float64, device=dev)
+    live = torch.rand((C, B), generator=g, device=dev) < 0.02
+    counts = torch.where(live, torch.randint(1, 9, (C, B), generator=g,
+                                             device=dev), 0).to(cdt)
+    counts[0] = 1  # slot 0 is live in every pane
+    ring_np, ok_np = fire_geometry(2, 3, 2 + k + W, W, k, B)
+    ring = torch.tensor(ring_np, device=dev)
+    ok = torch.tensor(ok_np, device=dev)
+    cnt, offsets = emit_count(counts, ring, ok, rows)
+    nnz = int(offsets[-1])
+    assert nnz >= k
+    want = compact_views(emit_gather_buffer_reference(
+        values, cnt, ring, ok, plan, offsets, nnz), nnz, plan.n_xfer, cdt)
+    before = emit_gather.launches
+    got = compact_views(emit_gather_buffer(values, cnt, ring, ok, plan,
+                                           offsets, nnz),
+                        nnz, plan.n_xfer, cdt)
+    torch.cuda.synchronize()
+    assert emit_gather.launches == before + 1
+    for x, y in zip(got[:3], want[:3]):
+        assert torch.equal(x, y)
+    for r, j in enumerate(j for j in range(len(kinds)) if j not in dup):
+        if kinds[j] in ("min", "max"):
+            assert torch.equal(got[3][r], want[3][r])
+        else:
+            torch.testing.assert_close(got[3][r], want[3][r], rtol=1e-12,
+                                       atol=1e-9)
+    assert _allocs_and_syncs(lambda: emit_gather_buffer(
+        values, cnt, ring, ok, plan, offsets, nnz)) == (1, 0)
+
+
+@pytest.mark.cuda
+def test_keyed_bins_cuda_fires_read_back_once(cuda_device, monkeypatch):
+    """KeyedBinState on the card: an argmax fire is one pinned upload, no
+    blocking one and one readback (two, and one overflow, when its
+    candidates pass the capacity); a compact fire syncs twice (its live
+    total and its one readback); the rows equal a CPU state's."""
+    from arroyo_tpu_torch.graph.logical import AggKind, AggSpec
+    from arroyo_tpu_torch.obs import perf
+    from arroyo_tpu_torch.ops.keyed_bins import KeyedBinState
+
+    rng = np.random.default_rng(21)
+    aggs = (AggSpec(AggKind.COUNT, None, "n"),)
+    names = ("bin_argmax_fire_uploads", "bin_argmax_fire_blocking_uploads",
+             "bin_argmax_fire_readbacks", "bin_argmax_fire_overflows")
+    monkeypatch.setenv("ARROYO_EMIT_COMPACT", "on")
+    for mode in ("argmax", "compact"):
+        states = [KeyedBinState(aggs, 1_000, 3_000, capacity=8_192,
+                                device=d) for d in (cuda_device, "cpu")]
+        if mode == "argmax":
+            for st in states:
+                st.set_argmax_local("n", "min")  # ties by the hundred
+        now, fired, overflows = 20_000, 0, 0
+        for i in range(6):
+            keys = rng.integers(0, 6_000, 5_000)
+            ts = (now + rng.integers(-2_500, 1_500, 5_000)).astype(np.int64)
+            for st in states:
+                st.update(keys.astype(np.uint64), ts, {})
+                st.flush_updates()
+            card = states[0]
+            if mode == "argmax" and i == 3:
+                card._argmax_cap = 1  # the fire's candidates overflow it
+            if mode == "compact":
+                geometry = fire_geometry(card.min_bin, card.min_bin,
+                                         card.max_bin, card.W, 2, card.B)
+                assert _allocs_and_syncs(
+                    lambda: card._emit_compact(*geometry))[1] == 2
+            cap = card._argmax_cap
+            perf.reset()
+            got = card.fire_panes(now - 3_000)
+            ups, blocking, reads, over = (perf.counter(x) for x in names)
+            if mode == "argmax":
+                n = 0 if got is None else len(got[0])
+                assert ups in (0, 1) and blocking == 0
+                assert reads == ups + over
+                assert over == (1 if n > cap else 0)
+                fired += ups
+                overflows += over
+            want = states[1].fire_panes(now - 3_000)
+            assert (got is None) == (want is None)
+            if got is not None:
+                for x, y in zip((got[0], got[2], got[3]),
+                                (want[0], want[2], want[3])):
+                    np.testing.assert_array_equal(x, y)
+            now += 1_500
+        assert mode == "compact" or (fired >= 3 and overflows >= 1)

@@ -28,7 +28,9 @@ from arroyo_tpu.ops.keyed_bins import (NEG_INF as JAX_NEG_INF,
 from arroyo_tpu.ops.pallas_kernels import HAVE_PALLAS, pad_batch, scatter_add_channels
 from arroyo_tpu.ops.segment import _segment_agg_kernel
 from arroyo_tpu.ops.session import _union_kernel
-from arroyo_tpu_torch.kernels.argmax_fire import argmax_fire
+from arroyo_tpu_torch.kernels.argmax_fire import (argmax_fire,
+                                                 argmax_fire_buffer,
+                                                 argmax_views)
 from arroyo_tpu_torch.kernels.bin_evict import bin_evict
 from arroyo_tpu_torch.kernels.bin_update import (bin_update, cell_views,
                                                   channel_plan, pack_cells)
@@ -247,6 +249,82 @@ def test_argmax_fire_plain_matches_jax(kpad, minmax, cdt):
         np.testing.assert_array_equal(idx2.numpy(), np.asarray(jidx)[:, :nnz])
         np.testing.assert_array_equal(got_cnt.numpy(),
                                       np.asarray(jcnt)[:nnz])
+
+
+def _argmax_buffer_case(rng, case, cdt):
+    """(counts, ring, bin_ok, rows, capacity) of a fire whose slots past
+    ``rows`` hold zeros (a state's unoccupied slots): panes with every
+    bin live, padded panes and a middle pane with no live bin, no
+    candidate at all, ties past the capacity, 2,048 panes, or a final
+    fire of a 120-bin window (122 panes, the last ones short of bins)."""
+    C, B, W = 300, 16, 5
+    kpad = {"ragged_rows": 4, "padded_panes": 8, "no_candidate": 2,
+            "overflow": 4, "panes_2048": 2048, "final_w120": 128}[case]
+    if case == "final_w120":
+        B, W = 128, 120
+    counts = rng.poisson(0.8, (C, B)).astype(cdt)
+    ring = ((np.arange(kpad)[:, None] + np.arange(W)[None, :] + 7)
+            % B).astype(np.int32)
+    bin_ok = np.ones((kpad, W), dtype=bool)
+    bin_ok[0, :2] = False
+    if case == "final_w120":
+        # pane p holds bins p .. p + 119 of a stream whose last bin is 124
+        bin_ok = (np.arange(kpad)[:, None] + np.arange(W)[None, :]) <= 124
+        bin_ok[122:] = False
+    if case == "padded_panes":
+        bin_ok[5:] = False  # kpad pads k = 5 panes
+        bin_ok[2] = False  # a pane with no live bin
+    if case == "no_candidate":
+        counts[:] = 0
+    if case == "overflow":
+        counts = np.minimum(counts, 1)  # ties by the dozen
+    rows = 211
+    counts[rows:] = 0
+    return counts, ring, bin_ok, rows, (5 if case == "overflow" else 64)
+
+
+@pytest.mark.parametrize("case", ["ragged_rows", "padded_panes",
+                                  "no_candidate", "overflow", "panes_2048",
+                                  "final_w120"])
+@pytest.mark.parametrize("minmax", ["max", "min"])
+@pytest.mark.parametrize("cdt", [np.int32, np.int64])
+def test_argmax_fire_buffer_plain_matches_jax(case, minmax, cdt):
+    """The buffer form over the occupied rows only equals the JAX kernels
+    over all C slots: word 0 the whole candidate total, then the first
+    ``capacity`` candidates in row-major order; the tuple form equals
+    them all."""
+    rng = np.random.default_rng(31)
+    counts, ring, bin_ok, rows, cap = _argmax_buffer_case(rng, case, cdt)
+    C, B = counts.shape
+    kpad, W = ring.shape
+    cnt, sel, nnz = _argmax_nnz_kernel(C, B, W, kpad, minmax)(
+        jnp.asarray(counts), jnp.asarray(ring), jnp.asarray(bin_ok))
+    nnz = int(nnz)
+    t = torch.tensor
+    buf = argmax_fire_buffer(t(counts), t(ring), t(bin_ok), rows, minmax,
+                             cap)
+    assert buf.dtype == torch.int32 and int(buf[0]) == nnz
+    key, pane, got_cnt = argmax_views(buf.numpy(), nnz, cap,
+                                      torch.int64 if cdt == np.int64
+                                      else torch.int32)
+    idx2, tuple_cnt = argmax_fire(t(counts), t(ring), t(bin_ok), minmax)
+    assert idx2.shape == (2, nnz)
+    if case == "no_candidate":
+        assert nnz == 0 and len(key) == 0
+        return
+    if case == "overflow":
+        assert nnz > cap and len(key) == cap
+    jidx, jcnt = _argmax_gather_kernel(C, B, W, kpad, _bucket(nnz))(cnt, sel)
+    jidx, jcnt = np.asarray(jidx)[:, :nnz], np.asarray(jcnt)[:nnz]
+    n = min(nnz, cap)
+    np.testing.assert_array_equal(key, jidx[0, :n])
+    np.testing.assert_array_equal(pane, jidx[1, :n])
+    np.testing.assert_array_equal(got_cnt, jcnt[:n])
+    assert got_cnt.dtype == cdt
+    np.testing.assert_array_equal(idx2.numpy(), jidx)
+    np.testing.assert_array_equal(tuple_cnt.numpy(), jcnt)
+    if case == "padded_panes":
+        assert set(np.unique(pane)) <= {0, 1, 3, 4}
 
 
 def _planes(rng, kinds, C, B, cdt):

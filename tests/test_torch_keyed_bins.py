@@ -196,3 +196,98 @@ def test_flushes_and_fires_match_jax_with_signed_zeros(numpy_host_helpers,
     compact_fires = perf.counter("bin_compact_fire_uploads")
     assert compact_fires == (fires if compact == "on" else 0)
     assert perf.counter("bin_compact_fire_blocking_uploads") == compact_fires
+
+
+@pytest.mark.parametrize("shape", ["q5", "hot_items"])
+def test_argmax_and_compact_fires_read_back_once(numpy_host_helpers,
+                                                  monkeypatch, shape):
+    """The two fires of a COUNT(*) state against the JAX state's on the
+    same stream: q5's argmax fire (``_emit_argmax``, one fire forced past
+    its capacity) and hot items' compact fire (``_emit_compact``).  Rows
+    equal; every argmax fire is one upload and one readback (two and one
+    overflow past the capacity); every compact fire one upload and, when
+    it has rows, one readback of its buffer.  A CPU device copies
+    plainly, so the uploads count as blocking here."""
+    from arroyo_tpu_torch.obs import perf
+
+    monkeypatch.setenv("ARROYO_EMIT_COMPACT", "on")
+    argmax = "max" if shape == "q5" else None
+    j, p = _pair([("count", None, "n")], argmax, capacity=4_096)
+    what = "bin_argmax_fire" if argmax else "bin_compact_fire"
+    rng = np.random.default_rng(13)
+    now, fires, overflows = 20_000, 0, 0
+    for i in range(10):
+        n = 3_000
+        keys = rng.integers(0, 2_000, n).astype(np.uint64) * np.uint64(
+            0x9E3779B97F4A7C15)
+        ts = (now + rng.integers(-2_500, 1_500, n)).astype(np.int64)
+        for st in (j, p):
+            st.update(keys, ts, {})
+        if argmax and i >= 5 and not overflows:
+            p._argmax_cap = 1  # until a fire's candidates overflow it
+        cap = p._argmax_cap
+        perf.reset()
+        out = [st.fire_panes(now - 3_000) for st in (j, p)]
+        _assert_fires_equal(*out)
+        ups = perf.counter(f"{what}_uploads")
+        reads = perf.counter(f"{what}_readbacks")
+        over = perf.counter("bin_argmax_fire_overflows")
+        rows = 0 if out[1] is None else len(out[1][0])
+        assert ups in (0, 1) and perf.counter(f"{what}_blocking_uploads") \
+            == ups
+        if argmax:
+            assert over == (1 if rows > cap else 0) and reads == ups + over
+        else:
+            assert reads == (1 if rows else 0) and over == 0
+        fires += ups
+        overflows += over
+        now += 1_500
+    assert fires >= 5 and (overflows == 1 if argmax else overflows == 0)
+    _assert_fires_equal(j.fire_panes(0, final=True),
+                        p.fire_panes(0, final=True))
+
+
+@pytest.mark.parametrize("width,span,shape", [
+    (120_000, 30, (256, 120)),  # a 120-bin window's final fire
+    (3_000, 1_500, (2048, 3)),  # 1,500 bins of data fired at the end
+])
+def test_argmax_final_fire_of_many_panes_matches_jax(numpy_host_helpers,
+                                                     monkeypatch, width,
+                                                     span, shape):
+    """q5-shaped argmax states (COUNT(*), local max) whose only fire is
+    the final one, over every pane of the stream: rows equal the JAX
+    state's, and the fire reached ``argmax_fire_buffer`` with a pane ring
+    of ``shape`` (kpad, W) — wide windows and more than 1,024 pending
+    panes take the same kernel as q5's fire (the 1,500 panes' ties
+    overflow the first capacity, so that fire launches twice)."""
+    from arroyo_tpu_torch.ops import keyed_bins as kb
+
+    # conftest's 8 CPU devices would send the JAX state's W >= 64 fire to
+    # its bin-sharded ring branch; one device (the port's) never takes it
+    monkeypatch.setenv("ARROYO_RING", "off")
+    seen = []
+    real = kb.argmax_fire_buffer
+
+    def spy(counts, ring, bin_ok, *rest):
+        seen.append(tuple(ring.shape))
+        return real(counts, ring, bin_ok, *rest)
+
+    monkeypatch.setattr(kb, "argmax_fire_buffer", spy)
+    j = JaxState((JAggSpec(JAggKind.COUNT, None, "n"),), SLIDE, width,
+                 capacity=64)
+    p = PortState((AggSpec(AggKind.COUNT, None, "n"),), SLIDE, width,
+                  capacity=64, device="cpu")
+    for st in (j, p):
+        st.set_argmax_local("n", "max")
+    rng = np.random.default_rng(41)
+    for _ in range(4):
+        keys = rng.integers(0, 150, 2_000).astype(np.uint64) * np.uint64(
+            0x9E3779B97F4A7C15)
+        ts = (20_000 + rng.integers(0, span * SLIDE, 2_000)).astype(
+            np.int64)
+        for st in (j, p):
+            st.update(keys, ts, {})
+            assert st.fire_panes(0) is None
+    _assert_fires_equal(j.fire_panes(0, final=True),
+                        p.fire_panes(0, final=True))
+    assert seen and set(seen) == {shape}  # a second call on overflow

@@ -52,7 +52,10 @@ from arroyo_tpu_torch.engine.operators_window import (BinAggOperator,
                                                       _apply_top_n)
 from arroyo_tpu_torch.graph.logical import AggKind, AggSpec
 from arroyo_tpu_torch.hot_items import hot_items_program, hot_items_sql
-from arroyo_tpu_torch.kernels.emit_compact import (emit_count, emit_gather,
+from arroyo_tpu_torch.kernels.bin_update import channel_plan
+from arroyo_tpu_torch.kernels.emit_compact import (compact_views, emit_count,
+                                                   emit_gather,
+                                                   emit_gather_buffer,
                                                    pack_panes, panes_views)
 from arroyo_tpu_torch.kernels.segment_top_k import (segment_top_k,
                                                     segment_top_k_reference)
@@ -178,6 +181,65 @@ def test_emit_compact_plain_matches_jax_kernels(cdt, k):
     starts = np.arange(0, C * k, 256)
     np.testing.assert_array_equal(
         offsets.numpy()[:-1], [int(live[:s].sum()) for s in starts])
+
+
+@pytest.mark.parametrize("cdt", ["int32", "int64"])
+@pytest.mark.parametrize("kinds,dup", [
+    (("count", "sum", "min", "max", "count"), (0,)),  # hot items + columns
+    (("count",), (0,)),  # hot items: nothing transferred
+    (("sum", "count", "max"), ()),
+])
+def test_emit_gather_buffer_plain_matches_jax(cdt, kinds, dup):
+    """The gather's one buffer, split by ``compact_views``, against
+    ``_emit_compact_kernel`` with the state's channel plan (its non-dup
+    channels transferred): rows and counts exact, min/max exact, sums to
+    rtol 1e-12; the count channel of a column (not COUNT(*)) rides as a
+    sum."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(23 + len(kinds))
+    C, B, W, k = 300, 16, 5, 3
+    values, counts = _bin_planes(rng, kinds, C, B, cdt)
+    ring = ((np.arange(k)[:, None] + np.arange(W)[None, :] + 9)
+            % B).astype(np.int32)
+    bin_ok = np.ones((k, W), dtype=bool)
+    bin_ok[0, :3] = False
+    rows = 287
+    plan = channel_plan(kinds, dup)
+    xfer = tuple(j for j in range(len(kinds)) if j not in dup)
+    t = torch.tensor
+    cnt, offsets = emit_count(t(counts), t(ring), t(bin_ok), rows)
+    nnz = int(offsets[-1])
+    cnt_j, nnz_j = jax_kb._emit_count_kernel(rows, B, W, k)(
+        jnp.asarray(counts[:rows]), jnp.asarray(ring), jnp.asarray(bin_ok))
+    assert nnz == int(nnz_j) > 0
+    idx2_j, cc_j, ch_j = jax_kb._emit_compact_kernel(
+        kinds, rows, B, W, k, xfer, jax_kb._bucket(nnz, floor=256))(
+            jnp.asarray(values[:, :rows]), cnt_j, jnp.asarray(ring),
+            jnp.asarray(bin_ok))
+    buf = emit_gather_buffer(t(values), cnt, t(ring), t(bin_ok), plan,
+                             offsets, nnz)
+    assert buf.dtype == torch.int32
+    key, pane, cc, ch = compact_views(buf.numpy(), nnz, len(xfer),
+                                      torch.int64 if cdt == "int64"
+                                      else torch.int32)
+    np.testing.assert_array_equal(key, np.asarray(idx2_j)[0, :nnz])
+    np.testing.assert_array_equal(pane, np.asarray(idx2_j)[1, :nnz])
+    np.testing.assert_array_equal(cc, np.asarray(cc_j)[:nnz])
+    assert cc.dtype == np.dtype(cdt) and ch.shape == (len(xfer), nnz)
+    ch_j = np.asarray(ch_j)[:, :nnz]
+    for r, j in enumerate(xfer):
+        if kinds[j] in ("min", "max"):
+            np.testing.assert_array_equal(ch[r], ch_j[r])
+        else:
+            np.testing.assert_allclose(ch[r], ch_j[r], rtol=1e-12)
+    # the tensor views and the tuple form give the same rows
+    tk, tp, tc, tch = compact_views(buf, nnz, len(xfer), cnt.dtype)
+    idx2, cc2, ch2 = emit_gather(t(values), cnt, t(ring), t(bin_ok), kinds,
+                                 xfer, offsets, nnz)
+    np.testing.assert_array_equal(idx2.numpy(), np.stack([tk, tp]))
+    np.testing.assert_array_equal(cc2.numpy(), tc.numpy())
+    np.testing.assert_array_equal(ch2.numpy(), tch.numpy())
 
 
 @pytest.mark.parametrize("k", range(1, 9))
