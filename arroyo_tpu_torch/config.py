@@ -21,6 +21,13 @@ class Config:
     # rows per source batch when a connector config does not say
     target_batch_size: int = field(
         default_factory=lambda: _env_int("BATCH_SIZE", 8192))
+    # input coalescing (engine/coalesce.py): the target rows of a merged
+    # batch (0: target_batch_size) and how long a partial buffer may
+    # wait for more input; ARROYO_COALESCE=0 turns it off
+    coalesce_target: int = field(
+        default_factory=lambda: _env_int("COALESCE_TARGET", 0))
+    coalesce_linger_micros: int = field(
+        default_factory=lambda: _env_int("COALESCE_LINGER_MICROS", 2_000))
     # initial per-subtask keyed-state slots (doubles on overflow)
     state_capacity: int = field(
         default_factory=lambda: _env_int("STATE_CAPACITY", 1 << 12))

@@ -1,17 +1,18 @@
 """Engine: physical graph construction and execution (port of
 ``arroyo_tpu.engine.engine``).
 
-Expands the logical graph by parallelism into subtasks, wires forward
-(1:1) and shuffle (all-to-all) channels as bounded asyncio queues, runs
-one asyncio task per subtask and exposes control handles
-(:class:`RunningEngine`).  :class:`LocalRunner` runs a bounded pipeline
-to completion in-process.
+Expands the logical graph by parallelism into subtasks, fuses maximal
+linear runs of operators into chains (graph/chaining.py; one runner and
+no queue between members, engine/chained.py; ``ARROYO_CHAIN=0`` builds one
+runner per operator), wires forward (1:1) and shuffle (all-to-all)
+channels between runners as bounded asyncio queues, runs one asyncio task
+per runner and exposes control handles (:class:`RunningEngine`).
+:class:`LocalRunner` runs a bounded pipeline to completion in-process.
 
 Left out of the port for now, none of which changes the rows a pipeline
 emits: factor-window rewriting, the plan validator, the runtime
-sanitizer, the phase profiler, the latency observatory, operator chaining
-(the JAX package documents ``ARROYO_CHAIN=0`` as bit-for-bit), metrics
-gauges and multi-worker network edges."""
+sanitizer, the phase profiler, the latency observatory, metrics gauges
+and multi-worker network edges."""
 
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from typing import Dict, List, Optional, Tuple
 
 from ..config import config
 from ..device import DeviceLike, resolve_device
+from ..graph.chaining import plan_chains, validate_chain_plan
 from ..graph.logical import EdgeType, Program
 from ..state.backend import BackingStore, InMemoryBackend
 from ..state.store import StateStore
@@ -32,8 +34,9 @@ from ..types import (
     now_micros,
 )
 from .build import build_operator
+from .chained import ChainedOperator
 from .context import Collector, Context, OutQueue
-from .operator import SourceOperator
+from .operator import Operator, SourceOperator
 from .task import TaskRunner
 
 
@@ -43,6 +46,8 @@ class SubtaskHandle:
     runner: TaskRunner
     control_tx: asyncio.Queue  # ControlMessage -> task
     is_source: bool
+    # the logical operators this runner executes, head first
+    member_ids: List[str] = field(default_factory=list)
     task: Optional[asyncio.Task] = None
 
 
@@ -60,12 +65,21 @@ class Engine:
             raise ValueError("; ".join(errors))
         self.device = resolve_device(self.device)
         self.control_resp: asyncio.Queue = asyncio.Queue()
+        # runners by (head operator id, subtask index)
         self.subtasks: Dict[Tuple[str, int], SubtaskHandle] = {}
+        # every operator, chained or not, with its context, by
+        # (operator id, subtask index)
+        self.members: Dict[Tuple[str, int], Tuple[Operator, Context]] = {}
         self.resps: List[ControlResp] = []
 
     def start(self) -> "RunningEngine":
-        """Build the physical graph and spawn all subtask loops."""
+        """Build the physical graph and spawn all subtask loops: one
+        runner per chain head (graph/chaining.py) and per unchained
+        operator, at each subtask index."""
         prog = self.program
+        plan = plan_chains(prog)
+        validate_chain_plan(prog, plan)
+        interior = {m for grp in plan.groups for m in grp[1:]}
         queues: Dict[Tuple[str, int, str, int], asyncio.Queue] = {}
         qsize = config().queue_size
 
@@ -75,62 +89,80 @@ class Engine:
             return queues[quad]
 
         for op_id in prog.topo_order():
-            node = prog.node(op_id)
-            par = node.parallelism
-            for idx in range(par):
-                edge_groups: List[List[OutQueue]] = []
-                for _, dst, edge in prog.graph.out_edges(op_id):
-                    dst_par = prog.node(dst).parallelism
-                    if edge.typ == EdgeType.FORWARD:
-                        # equal parallelism: 1:1; mismatched: fan-in
-                        # (src i -> dst i % dst_par) or fan-out (src i ->
-                        # every dst j with j % par == i, round-robined)
-                        if dst_par > par:
-                            group = [OutQueue(queue_for((op_id, idx, dst, j)))
-                                     for j in range(dst_par)
-                                     if j % par == idx]
-                        else:
-                            group = [OutQueue(queue_for(
-                                (op_id, idx, dst, idx % dst_par)))]
-                    else:
-                        group = [OutQueue(queue_for((op_id, idx, dst, j)))
-                                 for j in range(dst_par)]
-                    edge_groups.append(group)
-                # (side, queue) per upstream subtask: shuffle-join edges
-                # feed their side of a two-input operator
-                inputs: List[Tuple[int, asyncio.Queue]] = []
-                for src, _, edge in prog.graph.in_edges(op_id):
-                    src_par = prog.node(src).parallelism
-                    side = edge.typ.join_side or 0
-                    if edge.typ == EdgeType.FORWARD and par > src_par:
-                        inputs.append((side, queue_for(
-                            (src, idx % src_par, op_id, idx))))
-                    else:
-                        for j in range(src_par):
-                            if (edge.typ != EdgeType.FORWARD
-                                    or j % par == idx):
-                                inputs.append((side, queue_for(
-                                    (src, j, op_id, idx))))
-                info = TaskInfo(self.job_id, op_id, node.operator.name, idx,
-                                par)
-                store = StateStore(info, self.backend, self.restore_epoch,
-                                   self.device)
-                operator = build_operator(node.operator, self.device)
-                ctx = Context(info, Collector(edge_groups),
-                              n_inputs=len(inputs), state_store=store,
-                              control_tx=self.control_resp,
-                              restore_watermark=store.restore_watermark())
-                control_rx: asyncio.Queue = asyncio.Queue()
-                runner = TaskRunner(info, operator, ctx, inputs, control_rx,
-                                    self.control_resp)
-                ctx._runner = runner
-                self.subtasks[(op_id, idx)] = SubtaskHandle(
-                    info, runner, control_rx,
-                    isinstance(operator, SourceOperator))
+            if op_id not in interior:
+                for idx in range(prog.node(op_id).parallelism):
+                    self._build_subtask(plan.members_of.get(op_id, [op_id]),
+                                        idx, queue_for)
 
         for handle in self.subtasks.values():
             handle.task = asyncio.ensure_future(handle.runner.start())
         return RunningEngine(self)
+
+    def _build_subtask(self, ms: List[str], idx: int, queue_for) -> None:
+        """One runner for the member run ``ms`` (a chain, or a single
+        operator) at subtask index ``idx``: inputs into the head, outputs
+        from the tail."""
+        prog = self.program
+        head, tail = ms[0], ms[-1]
+        par = prog.node(head).parallelism
+        edge_groups: List[List[OutQueue]] = []
+        for _, dst, edge in prog.graph.out_edges(tail):
+            dst_par = prog.node(dst).parallelism
+            if edge.typ == EdgeType.FORWARD:
+                # equal parallelism: 1:1; mismatched: fan-in (src i ->
+                # dst i % dst_par) or fan-out (src i -> every dst j with
+                # j % par == i, round-robined)
+                if dst_par > par:
+                    group = [OutQueue(queue_for((tail, idx, dst, j)))
+                             for j in range(dst_par) if j % par == idx]
+                else:
+                    group = [OutQueue(queue_for(
+                        (tail, idx, dst, idx % dst_par)))]
+            else:
+                group = [OutQueue(queue_for((tail, idx, dst, j)))
+                         for j in range(dst_par)]
+            edge_groups.append(group)
+        # (side, queue) per upstream subtask: shuffle-join edges feed
+        # their side of a two-input operator
+        inputs: List[Tuple[int, asyncio.Queue]] = []
+        for src, _, edge in prog.graph.in_edges(head):
+            src_par = prog.node(src).parallelism
+            side = edge.typ.join_side or 0
+            if edge.typ == EdgeType.FORWARD and par > src_par:
+                inputs.append((side, queue_for((src, idx % src_par, head,
+                                                idx))))
+            else:
+                for j in range(src_par):
+                    if edge.typ != EdgeType.FORWARD or j % par == idx:
+                        inputs.append((side, queue_for((src, j, head,
+                                                        idx))))
+        infos = [TaskInfo(self.job_id, m, prog.node(m).operator.name, idx,
+                          par) for m in ms]
+        ops = [build_operator(prog.node(m).operator, self.device)
+               for m in ms]
+        collector = Collector(edge_groups)
+        ctxs: List[Context] = []
+        operator = ops[0] if len(ms) == 1 else ChainedOperator(ops)
+        for i, info in enumerate(infos):
+            store = StateStore(info, self.backend, self.restore_epoch,
+                               self.device)
+            coll = (collector if i == len(ms) - 1
+                    else operator.make_link(i))
+            ctxs.append(Context(info, coll,
+                                n_inputs=len(inputs) if i == 0 else 1,
+                                state_store=store,
+                                control_tx=self.control_resp,
+                                restore_watermark=store.restore_watermark()))
+            self.members[(ms[i], idx)] = (ops[i], ctxs[i])
+        if len(ms) > 1:
+            operator.bind(ctxs)
+        control_rx: asyncio.Queue = asyncio.Queue()
+        runner = TaskRunner(infos[0], operator, ctxs[0], inputs, control_rx,
+                            self.control_resp)
+        ctxs[0]._runner = runner  # sources poll control through it
+        self.subtasks[(head, idx)] = SubtaskHandle(
+            infos[0], runner, control_rx,
+            isinstance(operator, SourceOperator), list(ms))
 
 
 class RunningEngine:
@@ -155,7 +187,9 @@ class RunningEngine:
         """Block until every subtask reported ``epoch`` complete; False on
         timeout or when every subtask has exited first."""
         loop = asyncio.get_running_loop()
-        expected = set(self.engine.subtasks)
+        # one completion per (member, subtask): a chained runner reports
+        # each member
+        expected = set(self.engine.members)
         deadline = loop.time() + timeout
         done = {(r.operator_id, r.task_index) for r in self.engine.resps
                 if r.kind == "checkpoint_completed"

@@ -11,7 +11,8 @@
   merge after a fused one, with the materialized ROW_NUMBER());
 * :class:`WindowArgmaxOperator` — the fused per-window argmax stage that
   consumes the aggregate's (pre-filtered) panes and settles the global
-  answer;
+  answer, or in raw mode (q7) filters raw rows against each window's
+  running and final extremum;
 * :class:`WindowJoinOperator` — the windowed stream-stream equi-join over
   partition-adaptive join state (``state/join_state.py``), whose hot
   partitions live on the device;
@@ -41,6 +42,7 @@ from ..graph.logical import (
     SlidingWindow,
     TumblingWindow,
 )
+from ..obs import perf
 from ..ops.expr import CompiledExpr, eval_record_expr
 from ..ops.keyed_bins import KeyedBinState, filter_canonical_snapshot
 from ..ops.segment import segment_aggregate
@@ -325,28 +327,98 @@ class WindowArgmaxOperator(Operator):
     passes, then emit exactly the rows achieving the window's max/min of
     ``value_col`` (ties included) plus the pruned side's synthesized
     columns.  Sound at any upstream parallelism: every global argmax row
-    is also a local argmax row upstream."""
+    is also a local argmax row upstream.
+
+    Raw mode (q7): rows are raw stream rows.  Rows strictly dominated by
+    their window's running extremum drop before buffering, and a late
+    row matches its released window's final extremum (table ``f``, kept
+    for the late TTL, at least one window span) and emits at once."""
 
     def __init__(self, name: str, value_col: str, minmax: str,
-                 synth_cols: Tuple[Tuple[str, str], ...], width_micros: int):
+                 synth_cols: Tuple[Tuple[str, str], ...], width_micros: int,
+                 raw: bool = False, late_ttl_micros: int = 0):
         super().__init__(name)
         self.value_col = value_col
         self.minmax = minmax
         self.synth_cols = synth_cols
         self.width = max(int(width_micros), 1)
+        self.raw = raw
+        self.late_ttl = (max(int(late_ttl_micros), self.width)
+                         if raw else max(int(late_ttl_micros), 0))
+        # raw mode: each live window's running extremum (sign-adjusted),
+        # memory only: after a restore the first batch of a window is
+        # admitted unfiltered, which changes no emitted row
+        self._running: Dict[int, float] = {}
         self._released_wm: Optional[int] = None
 
     def tables(self) -> List[TableDescriptor]:
-        return [TableDescriptor("b", TableType.BATCH_BUFFER,
-                                "per-window candidate rows",
-                                retention_micros=self.width)]
+        tables = [TableDescriptor("b", TableType.BATCH_BUFFER,
+                                  "per-window candidate rows",
+                                  retention_micros=self.width)]
+        if self.raw:
+            tables.append(TableDescriptor(
+                "f", TableType.TIME_KEY_MAP, "released-window final extrema",
+                retention_micros=self.late_ttl))
+        return tables
 
     async def on_start(self, ctx: Context) -> None:
         self.buf = ctx.state.get_batch_buffer("b")
+        self.final = ctx.state.get_time_key_map("f") if self.raw else None
         if ctx.last_watermark is not None:
             # windows at or below the checkpoint watermark fired before
-            # the restore
+            # the restore; a late replayed row matches ``f`` instead
             self._released_wm = ctx.last_watermark
+
+    def ctx_watermark(self, ctx: Context) -> Optional[int]:
+        """Release threshold: the current input watermark, floored by the
+        last window end a timer released."""
+        wm = ctx.last_watermark
+        if self._released_wm is not None:
+            wm = (self._released_wm if wm is None
+                  else max(wm, self._released_wm))
+        return wm
+
+    async def _admit(self, batch: Batch, ctx: Context) -> Optional[Batch]:
+        """Raw-mode admission; returns the rows to buffer.  NaN values
+        drop; rows of windows at or below the watermark are late and emit
+        now iff they equal the window's final extremum (a late row of a
+        window that never fired matches nothing); live rows strictly
+        dominated by the running extremum drop, ties stay."""
+        ends = np.asarray(batch.columns["window_end"], dtype=np.int64)
+        vals = np.asarray(batch.columns[self.value_col])
+        keep = (~np.isnan(vals) if vals.dtype.kind == "f"
+                else np.ones(len(vals), dtype=bool))
+        released = self.ctx_watermark(ctx)
+        if released is not None:
+            late = keep & (ends <= released)
+            if late.any():
+                keep &= ~late
+                hit = np.zeros(len(ends), dtype=bool)
+                for e in np.unique(ends[late]).tolist():
+                    best = self.final.get(e, "x")
+                    if best is not None:
+                        hit |= late & (ends == e) & (vals == best)
+                perf.count("window_argmax_late_rows", int(late.sum()))
+                if hit.any():
+                    perf.count("window_argmax_late_hits", int(hit.sum()))
+                    await self._emit(batch.select(np.nonzero(hit)[0]), ctx)
+        sign = 1.0 if self.minmax == "max" else -1.0
+        for e in np.unique(ends[keep]).tolist():
+            m = keep & (ends == e)
+            best = self._running.get(e)
+            if best is not None:
+                m_new = m & (sign * vals >= best)
+                keep &= ~m | m_new
+                m = m_new
+            if m.any():
+                local = (sign * vals[m]).max()
+                self._running[e] = (local if best is None
+                                    else max(best, local))
+        if keep.all():
+            return batch
+        if not keep.any():
+            return None
+        return batch.select(np.nonzero(keep)[0])
 
     async def _emit(self, rows: Batch, ctx: Context) -> None:
         cols = dict(rows.columns)
@@ -357,9 +429,13 @@ class WindowArgmaxOperator(Operator):
 
     async def process_batch(self, batch: Batch, ctx: Context,
                             side: int = 0) -> None:
+        if self.raw:
+            batch = await self._admit(batch, ctx)
+            if batch is None:
+                return
         self.buf.append(batch)
-        # one timer per distinct window end; aggregate rows stamp
-        # timestamp = window_end - 1
+        # one timer per distinct window end; rows stamp timestamp =
+        # window_end - 1
         for e in np.unique(np.asarray(batch.columns["window_end"],
                                       dtype=np.int64)).tolist():
             ctx.timers.schedule(int(e), ("am", int(e)))
@@ -369,6 +445,7 @@ class WindowArgmaxOperator(Operator):
         end = key[1]
         rows = self.buf.query_range(end - 1, end)  # ts == end - 1
         self.buf.evict_before(end)
+        self._running.pop(end, None)
         self._released_wm = (end if self._released_wm is None
                              else max(self._released_wm, end))
         if rows is None or not len(rows):
@@ -381,6 +458,10 @@ class WindowArgmaxOperator(Operator):
             return
         vv = vals[valid]
         best = vv.max() if self.minmax == "max" else vv.min()
+        if self.final is not None:
+            self.final.insert(end, "x", best)
+            if self.late_ttl:
+                self.final.evict_before(end - self.late_ttl)
         await self._emit(rows.select(np.nonzero(valid & (vals == best))[0]),
                          ctx)
 
@@ -1185,7 +1266,7 @@ def _build_window_argmax(op: LogicalOperator, device: DeviceLike
                          ) -> Operator:
     s = op.spec
     return WindowArgmaxOperator(op.name, s.value_col, s.minmax, s.synth_cols,
-                                s.width_micros)
+                                s.width_micros, s.raw, s.late_ttl_micros)
 
 
 @register_builder(OpKind.WINDOW_JOIN)

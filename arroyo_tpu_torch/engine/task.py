@@ -1,18 +1,27 @@
 """TaskRunner — the generic per-subtask event loop (port of
-``arroyo_tpu.engine.task``): fair input fan-in, barrier alignment,
-control messages, checkpoints and watermark-driven timers.
+``arroyo_tpu.engine.task``): fair input fan-in, input coalescing,
+barrier alignment, control messages, checkpoints and watermark-driven
+timers.  It drives one operator or a chain (engine/chained.py): the
+chain head's context aligns inputs and fires the head's timers, later
+members' timers fire as the watermark passes down the chain, and
+barriers, stop and end of data leave from the tail's context.
 
 A barrier arriving on one input parks that input's pump until barriers
 have arrived on all inputs; then state snapshots and the barrier is
-rebroadcast downstream."""
+rebroadcast downstream.  Record batches pass through a
+:class:`~arroyo_tpu_torch.engine.coalesce.BatchCoalescer` (unless
+``ARROYO_COALESCE=0``), which is flushed before any watermark, barrier
+or end of stream is handled and when its linger expires."""
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import time as _time
 import traceback
 from typing import Dict, List, Optional, Tuple
 
+from ..config import config
 from ..types import (
     MAX_TIMESTAMP,
     CheckpointBarrier,
@@ -24,6 +33,7 @@ from ..types import (
     TaskInfo,
     Watermark,
 )
+from .coalesce import BatchCoalescer, coalescing_enabled
 from .context import Context
 from .operator import Operator, SourceFinishType, SourceOperator
 
@@ -61,6 +71,8 @@ class TaskRunner:
         self.task_info = task_info
         self.operator = operator
         self.ctx = ctx
+        # a chain's downstream broadcasts leave from its tail member
+        self.out_ctx: Context = getattr(operator, "tail_ctx", None) or ctx
         self.inputs = inputs
         self.control_rx = control_rx
         self.control_tx = control_tx
@@ -84,7 +96,7 @@ class TaskRunner:
                 error=f"{type(e).__name__}: {e}"))
             # drain downstream so a local run can't wait forever on inputs
             # that will never end
-            await self.ctx.broadcast(Message.end_of_data())
+            await self.out_ctx.broadcast(Message.end_of_data())
 
     async def _run(self) -> None:
         await self.operator.open(self.ctx)
@@ -139,15 +151,30 @@ class TaskRunner:
         pending_barriers: Dict[int, CheckpointBarrier] = {}
         get_merged: Optional[asyncio.Future] = None
         get_control: Optional[asyncio.Future] = None
+        coal = self._make_coalescer()
+
+        async def flush() -> None:
+            for cside, cbatch in coal.flush_all():
+                await self.operator.process_batch(cbatch, self.ctx, cside)
+
         try:
             while ended < len(self.inputs):
                 if get_merged is None or get_merged.done():
                     get_merged = asyncio.ensure_future(self.merged.get())
                 if get_control is None or get_control.done():
                     get_control = asyncio.ensure_future(self.control_rx.get())
+                timeout = None
+                if coal is not None and coal.pending:
+                    # bounded linger: wake to flush even with no input
+                    timeout = max(coal.deadline - _time.monotonic(), 0.0)
                 done, _ = await asyncio.wait(
                     [get_merged, get_control],
-                    return_when=asyncio.FIRST_COMPLETED)
+                    return_when=asyncio.FIRST_COMPLETED, timeout=timeout)
+                if (coal is not None and coal.pending
+                        and _time.monotonic() >= coal.deadline):
+                    await flush()
+                if not done:
+                    continue
                 if get_control in done:
                     cm = get_control.result()
                     if (cm.kind == "stop"
@@ -158,15 +185,27 @@ class TaskRunner:
                 idx, side, msg = get_merged.result()
 
                 if msg.kind == MessageKind.RECORD:
-                    await self.operator.process_batch(msg.batch, self.ctx,
-                                                      side)
-                elif msg.kind == MessageKind.WATERMARK:
+                    if coal is None:
+                        await self.operator.process_batch(msg.batch,
+                                                          self.ctx, side)
+                    else:
+                        for cside, cbatch in coal.add(side, msg.batch):
+                            await self.operator.process_batch(
+                                cbatch, self.ctx, cside)
+                    continue
+                # records buffered before a watermark, barrier or end of
+                # stream go first: a window must not fire without them,
+                # and a snapshot must hold them
+                if coal is not None and coal.pending:
+                    await flush()
+                if msg.kind == MessageKind.WATERMARK:
                     advanced = self.ctx.observe_watermark(idx, msg.watermark)
                     if advanced is not None:
                         await self._advance_watermark(advanced)
                     elif (msg.watermark.is_idle
                           and self.ctx.watermarks.all_idle()):
-                        await self.ctx.broadcast(Message.wm(Watermark.idle()))
+                        await self.out_ctx.broadcast(
+                            Message.wm(Watermark.idle()))
                 elif msg.kind == MessageKind.BARRIER:
                     b = msg.barrier
                     pending_barriers[b.epoch] = b
@@ -208,9 +247,17 @@ class TaskRunner:
 
         await self.operator.on_close(self.ctx)
         if then_stop or stop_mode is not None:
-            await self.ctx.broadcast(Message.stop())
+            await self.out_ctx.broadcast(Message.stop())
         else:
-            await self.ctx.broadcast(Message.end_of_data())
+            await self.out_ctx.broadcast(Message.end_of_data())
+
+    def _make_coalescer(self) -> Optional[BatchCoalescer]:
+        """The input coalescer; None under ``ARROYO_COALESCE=0``."""
+        if not coalescing_enabled():
+            return None
+        cfg = config()
+        return BatchCoalescer(cfg.coalesce_target or cfg.target_batch_size,
+                              cfg.coalesce_linger_micros / 1e6)
 
     async def _advance_watermark(self, wm: int) -> None:
         # expired event-time timers fire first
@@ -228,4 +275,4 @@ class TaskRunner:
                 operator_id=metadata.operator_id,
                 task_index=metadata.subtask_index,
                 subtask_metadata=metadata))
-        await self.ctx.broadcast(Message.barrier_msg(barrier))
+        await self.out_ctx.broadcast(Message.barrier_msg(barrier))

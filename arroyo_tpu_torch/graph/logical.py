@@ -169,13 +169,22 @@ class WindowArgmaxSpec:
     """Fusion of ``A JOIN (SELECT max(x), window FROM A GROUP BY window)
     ON x = mx`` (nexmark q5's hot-items shape): buffer A's rows per
     window, emit the rows achieving the window's max (ties included) and
-    synthesize the pruned side's columns (``synth_cols``: (out, src))."""
+    synthesize the pruned side's columns (``synth_cols``: (out, src)).
+
+    ``raw`` is q7's shape (bids JOIN per-window max ON price = mx with a
+    window-range WHERE): rows are raw rows, not aggregate outputs, so the
+    operator drops rows below the window's running extremum before
+    buffering and matches late rows against the released window's final
+    extremum, kept for ``late_ttl_micros`` (the TTL of the join this
+    fusion replaces)."""
 
     value_col: str
     minmax: str
     synth_cols: Tuple[Tuple[str, str], ...]
     width_micros: int  # buffer retention: one window span
     agg_out: str = ""
+    raw: bool = False
+    late_ttl_micros: int = 0
 
 
 @dataclass
@@ -527,12 +536,13 @@ class Stream:
                       synth_cols: Tuple[Tuple[str, str], ...],
                       width_micros: int, name: str = "window_argmax",
                       parallelism: Optional[int] = None,
-                      agg_out: str = "") -> "Stream":
+                      agg_out: str = "", raw: bool = False,
+                      late_ttl_micros: int = 0) -> "Stream":
         """Per-window argmax/argmin filter (see WindowArgmaxSpec).  The
         stream must be keyed by the window column so every row of one
         window lands on one subtask."""
         spec = WindowArgmaxSpec(value_col, minmax, tuple(synth_cols),
-                                width_micros, agg_out)
+                                width_micros, agg_out, raw, late_ttl_micros)
         op = LogicalOperator(OpKind.WINDOW_ARGMAX, name, spec=spec)
         return self._chain(op, parallelism, EdgeType.SHUFFLE)
 

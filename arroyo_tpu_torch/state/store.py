@@ -19,6 +19,7 @@ from .tables import (
     KeyedState,
     TableDescriptor,
     TableType,
+    TimeKeyMap,
 )
 
 
@@ -70,6 +71,11 @@ class StateStore:
     def get_global_keyed_state(self, name: str, desc: str = ""
                                ) -> GlobalKeyedState:
         return self.register(TableDescriptor(name, TableType.GLOBAL, desc))
+
+    def get_time_key_map(self, name: str, desc: str = "",
+                         retention_micros: int = 0) -> TimeKeyMap:
+        return self.register(TableDescriptor(name, TableType.TIME_KEY_MAP,
+                                             desc, retention_micros))
 
     def get_keyed_state(self, name: str, desc: str = "") -> KeyedState:
         return self.register(TableDescriptor(name, TableType.KEYED, desc))

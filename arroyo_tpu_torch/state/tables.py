@@ -1,10 +1,11 @@
 """State tables — the port of ``arroyo_tpu.state.tables`` for the tables
 the port's operators use: :class:`GlobalKeyedState` (source offsets and
 timers), :class:`KeyedState` (per-key values with update times: session
-windows), :class:`BatchBuffer` (buffered window rows) and
-:class:`DeviceTable` (device-resident operator state that checkpoints
-through snapshot()/restore() of numpy arrays).  The time-key tables
-arrive with the operators that use them."""
+windows), :class:`TimeKeyMap` (time -> key -> value: the released
+window extrema of a raw-mode window argmax), :class:`BatchBuffer`
+(buffered window rows) and :class:`DeviceTable` (device-resident operator
+state that checkpoints through snapshot()/restore() of numpy arrays).
+``KeyTimeMultiMap`` arrives with the operators that use it."""
 
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from ..types import Batch
 
 class TableType(Enum):
     GLOBAL = "global"
+    TIME_KEY_MAP = "time_key_map"
     KEYED = "keyed"
     BATCH_BUFFER = "batch_buffer"
     DEVICE = "device"
@@ -66,6 +68,42 @@ class GlobalKeyedState:
             if int(t) >= self._version.get(k, -1):
                 self._version[k] = int(t)
                 self._data[k] = v
+
+
+class TimeKeyMap:
+    """time -> key -> value, evicted by time.  Snapshots are the same
+    ``[(time, key, value)]`` entries as the JAX package's ``TimeKeyMap``,
+    so the table restores across packages in both directions."""
+
+    def __init__(self) -> None:
+        self._data: Dict[int, Dict[Any, Any]] = {}
+
+    def insert(self, time: int, key: Any, value: Any) -> None:
+        self._data.setdefault(int(time), {})[key] = value
+
+    def get(self, time: int, key: Any) -> Any:
+        return self._data.get(int(time), {}).get(key)
+
+    def get_all_for_time(self, time: int) -> Dict[Any, Any]:
+        return self._data.get(int(time), {})
+
+    def all_times(self) -> List[int]:
+        return sorted(self._data)
+
+    def evict_before(self, time: int) -> None:
+        for t in [t for t in self._data if t < time]:
+            del self._data[t]
+
+    def snapshot(self) -> List[Tuple[int, Any, Any]]:
+        return [(t, k, v) for t, kv in self._data.items()
+                for k, v in kv.items()]
+
+    def restore(self, entries: Iterable[Tuple[int, Any, Any]]) -> None:
+        for t, k, v in entries:
+            self._data.setdefault(int(t), {})[k] = v
+
+    def __len__(self) -> int:
+        return sum(len(kv) for kv in self._data.values())
 
 
 class KeyedState:
@@ -193,6 +231,7 @@ class DeviceTable:
 
 TABLE_CLASSES = {
     TableType.GLOBAL: GlobalKeyedState,
+    TableType.TIME_KEY_MAP: TimeKeyMap,
     TableType.KEYED: KeyedState,
     TableType.BATCH_BUFFER: BatchBuffer,
 }

@@ -47,7 +47,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    fresh card state fires identically;
 5. main path: nexmark q5 through ``LocalRunner`` at bench.py's size
    (2,000,000 events, batches of 131,072) on the card and on the CPU —
-   identical sink rows, both kernels launched during the card run, one
+   identical sink rows, also on the card under ``ARROYO_CHAIN=0
+   ARROYO_COALESCE=0`` (one runner per operator, no input coalescing;
+   every other run in this script is chained and coalesced, as the JAX
+   package runs by default), both kernels launched during the card run, one
    upload a keyed-bin flush and none of them blocking (the cells of each
    flush printed), one upload, none blocking, and one readback an argmax
    fire, and the share of wall time spent in synchronized kernel calls
@@ -68,7 +71,7 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    session per key), session_union and segment_agg launched, interval
    rows merged on the device, one upload, one readback and no blocking
    upload a union call (the rows of each call printed), at least one
-   checkpoint epoch completed;
+   checkpoint epoch completed (the completed epochs printed);
    the device share in a separate ``ARROYO_TIMING=1`` run; and config5 at
    200,000 events on the card and on the CPU with identical rows;
 8. join-stress path: bench.py's join with expiration (two impulse streams
@@ -95,10 +98,25 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    compact fire and none of them blocking, the state's bytes, the device
    share in a separate ``ARROYO_TIMING=1`` run — and at 2,000,000 events
    the card's rows equal to the CPU's, also under
-   ``ARROYO_EMIT_COMPACT=on``.
+   ``ARROYO_EMIT_COMPACT=on``;
+10. q1 path: nexmark q1 (every bid, its price * 0.908) through
+    ``LocalRunner`` at bench.py's size (2,000,000 events, batches of
+    131,072, 1,000,000 events/s) on the card — sink rows equal to a numpy
+    control from the same generator (every column, ``price_dol`` in f64)
+    and to the CPU run and an ``ARROYO_CHAIN=0`` run; events/s and the
+    runners chained and unchained printed;
+11. q7 path: nexmark q7 (the bids at their 10 s tumbling window's max
+    price, ties included: a raw-mode window argmax) through
+    ``LocalRunner`` at 2,000,000 events (one window) and 40,000,000 (four
+    windows) on the card — sink rows equal to a numpy control from the
+    same generator at both sizes and to the CPU run at 2,000,000; the
+    rows that took the late path (``window_argmax_late_rows`` and the
+    ones that matched a released maximum, ``window_argmax_late_hits``)
+    printed.
 
 Launch counts are set to 0 just before each main-path run (q5, q8,
-config5, 8a, 8b, hot items) and read just after it.  It prints a
+config5, 8a, 8b, hot items, q1, q7) and read just after it; q1 and q7
+launch no kernel.  It prints a
 ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi gives them, and, last, ``{"ok": true, "device": ...}``.
 It needs one card and exits non-zero without one.
@@ -185,7 +203,10 @@ from arroyo_tpu_torch.ops.keyed_bins import (  # noqa: E402
     ARGMAX_MIN_CAP, KeyedBinState)
 from arroyo_tpu_torch.ops.segment import _reduce as segment_reduce  # noqa: E402
 from arroyo_tpu_torch.ops import session as session_ops  # noqa: E402
+from arroyo_tpu_torch.q1 import q1_program  # noqa: E402
 from arroyo_tpu_torch.q5 import SLIDE_MICROS, WIDTH_MICROS, q5_program  # noqa: E402
+from arroyo_tpu_torch.q7 import WIDTH_MICROS as Q7_WIDTH  # noqa: E402
+from arroyo_tpu_torch.q7 import q7_program  # noqa: E402
 from arroyo_tpu_torch.q8 import WIDTH_MICROS as Q8_WIDTH  # noqa: E402
 from arroyo_tpu_torch.q8 import q8_program  # noqa: E402
 from arroyo_tpu_torch.state.join_state import (  # noqa: E402
@@ -200,6 +221,7 @@ NUM_EVENTS = 2_000_000  # bench.py:35
 BATCH = 131_072  # bench.py:38
 C_Q5, B_Q5 = 131_072, 16  # q5's key capacity and ring at that size
 Q8_EVENTS = 40_000_000  # four 10 s windows at bench.py's rate
+Q7_EVENTS = 40_000_000  # four 10 s windows, as q8 and hot items use
 Q8_SMALL = 2_000_000
 C_Q8, B_Q8 = 1_048_576, 8  # q8's person-side state at Q8_EVENTS
 C_SLICE_Q8 = 800_768  # its occupied slots, rounded as a dense fire reads
@@ -284,7 +306,8 @@ K14_REPLACES = "arroyo_tpu/ops/keyed_bins.py:213 _emit_compact_kernel"
 KERNELS = (bin_update, argmax_fire, pane_emit, bin_evict, ring_merge,
            ring_gather, session_union, segment_agg, join_probe, join_expand,
            expand_gather, segment_top_k, emit_count, emit_gather)
-PATHS = ("q5", "q8", "config5", "join_inner", "join_left", "hot_items")
+PATHS = ("q5", "q8", "config5", "join_inner", "join_left", "hot_items",
+         "q1", "q7")
 
 
 def reset_launches():
@@ -2529,25 +2552,40 @@ def flush_summary(sizes, counts):
             "cells_max": max(sizes, default=0), "cells": sizes, **counts}
 
 
-def run_q5(sink, device):
-    clear_sink(sink)
+def operators(runner):
+    """(operator id, operator) of every operator a run built, chained or
+    not."""
+    return [(op_id, op) for (op_id, _idx), (op, _ctx)
+            in runner.engine.members.items()]
+
+
+def run_program(program, device):
+    """``program`` through LocalRunner; (wall s, the runner)."""
+    runner = LocalRunner(program, device=device)
     t0 = time.perf_counter()
-    LocalRunner(q5_program(NUM_EVENTS, BATCH, sink, base_time_micros=0),
-                device=device).run()
+    runner.run()
     if device != "cpu":
         torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    return time.perf_counter() - t0, runner
+
+
+def run_q5(sink, device):
+    """q5; (wall s, sorted rows, number of runners)."""
+    clear_sink(sink)
+    dt, runner = run_program(
+        q5_program(NUM_EVENTS, BATCH, sink, base_time_micros=0), device)
     rows = sorted(
         (int(b.timestamp[i]), int(b.columns["auction"][i]),
          int(b.columns["num"][i]))
         for b in sink_output(sink) for i in range(len(b)))
-    return dt, rows
+    return dt, rows, len(runner.engine.subtasks)
 
 
 def main_path():
     run_q5("smoke-warm", None)  # CUDA context, allocator, library load
     reset_launches()
-    (dt, rows), sizes, counts = flushing(run_q5, "smoke-cuda", None)  # card
+    (dt, rows, tasks), sizes, counts = flushing(run_q5, "smoke-cuda",
+                                                None)  # the card
     launches = read_launches()
     check(counts["pane_update_dispatches"] == launches["bin_update"],
           f"q5: {counts} against {launches['bin_update']} launches")
@@ -2565,14 +2603,24 @@ def main_path():
     os.environ["ARROYO_TIMING"] = "1"
     perf.reset()
     try:
-        dt_timed, rows_timed = run_q5("smoke-timed", None)
+        dt_timed, rows_timed, _ = run_q5("smoke-timed", None)
     finally:
         del os.environ["ARROYO_TIMING"]
     device_s = perf.counter("device_ns") / 1e9
     check(rows_timed == rows, "q5 rows differ under ARROYO_TIMING")
-    dt_cpu, rows_cpu = run_q5("smoke-cpu", "cpu")
+    dt_cpu, rows_cpu, _ = run_q5("smoke-cpu", "cpu")
     check(rows, "q5 emitted no rows on the card")
     check(rows == rows_cpu, "q5 rows differ between card and cpu")
+    # the JAX package's escape hatches: one runner per operator, no input
+    # coalescing
+    os.environ.update(ARROYO_CHAIN="0", ARROYO_COALESCE="0")
+    try:
+        dt_unchained, rows_unchained, tasks_unchained = run_q5(
+            "smoke-unchained", None)
+    finally:
+        del os.environ["ARROYO_CHAIN"], os.environ["ARROYO_COALESCE"]
+    check(rows_unchained == rows, "q5 rows differ between the chained, "
+          "coalesced run and ARROYO_CHAIN=0 ARROYO_COALESCE=0")
     check(all(launches[k] > 0 for k in ("bin_update", "argmax_fire",
                                          "bin_evict")),
           f"q5 main path did not launch every kernel: {launches}")
@@ -2583,6 +2631,9 @@ def main_path():
         "timed_wall_s": dt_timed, "timed_device_s": device_s,
         "device_share": device_s / dt_timed,
         "kernel_dispatches": perf.counter("kernel_dispatches"),
+        "tasks": tasks, "unchained_tasks": tasks_unchained,
+        "unchained_wall_s": dt_unchained,
+        "unchained_events_per_s": NUM_EVENTS / dt_unchained,
         "flush": flush_summary(sizes, counts)}))
     return launches
 
@@ -2640,16 +2691,10 @@ def q8_control(num_events):
 def run_q8(num_events, sink, device):
     """q8 through LocalRunner; returns (wall s, sorted rows, state shape)."""
     clear_sink(sink)
-    runner = LocalRunner(q8_program(num_events, BATCH, sink,
-                                    base_time_micros=0), device=device)
-    t0 = time.perf_counter()
-    runner.run()
-    if device != "cpu":
-        torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    dt, runner = run_program(q8_program(num_events, BATCH, sink,
+                                        base_time_micros=0), device)
     shape = {}
-    for (op_id, _idx), h in runner.engine.subtasks.items():
-        op = h.runner.operator
+    for op_id, op in operators(runner):
         st = getattr(op, "state", None)
         if st is not None:
             shape[op_id] = {
@@ -2770,10 +2815,12 @@ def run_c5(num_events, broker, sink, device):
     if device != "cpu":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    # an epoch is complete when every operator (every chain member)
+    # reported it
     done = collections.Counter(r.subtask_metadata.epoch for r in resps
                                if r.kind == "checkpoint_completed")
     epochs = sorted(e for e, c in done.items()
-                    if c == len(runner.engine.subtasks))
+                    if c == len(runner.engine.members))
     batches = sink_output(sink)
     rows = c5_table(batches)
     clear_sink(sink)
@@ -2848,7 +2895,8 @@ def c5_phase():
         "events_per_s": C5_EVENTS / dt, "sessions": len(rows),
         "fire_batches": fires, "control_sessions": len(control),
         "produce_s": produce_s, "control_s": control_s,
-        "checkpoint_epochs": len(epochs), "launches": launches,
+        "checkpoint_epochs": len(epochs), "completed_epochs": epochs,
+        "launches": launches,
         "union_n": union_n,
         "counters": counters, "session_state": state,
         "timed_wall_s": dt_timed, "timed_device_s": device_s,
@@ -3113,17 +3161,11 @@ def run_hot(num_events, sink, device):
     """Hot items through LocalRunner; returns (wall s, sorted rows, the
     fused aggregate's state)."""
     clear_sink(sink)
-    runner = LocalRunner(hot_items_program(num_events, BATCH, sink=sink,
-                                           base_time_micros=0),
-                         device=device)
-    t0 = time.perf_counter()
-    runner.run()
-    if device != "cpu":
-        torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    dt, runner = run_program(hot_items_program(num_events, BATCH, sink=sink,
+                                               base_time_micros=0), device)
     state = {}
-    for h in runner.engine.subtasks.values():
-        st = getattr(h.runner.operator, "state", None)
+    for _op_id, op in operators(runner):
+        st = getattr(op, "state", None)
         if st is not None:
             state = {"C": st.C, "B": st.B, "keys": st.next_slot,
                      "counts_bytes": st.counts.numel()
@@ -3190,6 +3232,172 @@ def hot_phase():
     return launches
 
 
+# -- phases 10 and 11: q1 and q7 ----------------------------------------------------------
+
+Q7_COUNTERS = ("window_argmax_late_rows", "window_argmax_late_hits")
+
+
+def nexmark_bids(num_events):
+    """The bids of the port's generator at bench.py's rate and batch, as
+    the q1 and q7 programs read them: {column: array}."""
+    cfg = NexmarkConfig(num_events=num_events, rate_limited=False,
+                        event_rate=1_000_000.0, batch_size=BATCH,
+                        projection=["bid_auction", "bid_bidder",
+                                    "bid_datetime", "bid_price",
+                                    "event_type"])
+    first, n, num = make_splits(cfg, 0, 1)[0]
+    gen = NexmarkGenerator(cfg, 0, first, n, num, seed=0)
+    gen.set_rate(cfg.event_rate, 1)
+    parts = collections.defaultdict(list)
+    while gen.has_next:
+        b, _ = gen.next_batch(BATCH)
+        bid = b.columns["event_type"] == EVENT_BID
+        parts["ts"].append(b.timestamp[bid])
+        for c in ("bid_auction", "bid_bidder", "bid_datetime", "bid_price"):
+            parts[c].append(b.columns[c][bid])
+    return {c: np.concatenate(v) for c, v in parts.items()}
+
+
+def sorted_columns(cols, order_by):
+    """``cols`` ({name: array}) sorted by the ``order_by`` names, the
+    first the primary key."""
+    order = np.lexsort([cols[c] for c in reversed(order_by)])
+    return {c: v[order] for c, v in cols.items()}
+
+
+def same_columns(a, b):
+    return a.keys() == b.keys() and all(
+        a[c].shape == b[c].shape and np.array_equal(a[c], b[c]) for c in a)
+
+
+def sink_columns(sink, names):
+    batches = sink_output(sink)
+    cols = {"ts": np.concatenate([b.timestamp for b in batches])}
+    for c in names:
+        cols[c] = np.concatenate([b.columns[c] for b in batches])
+    clear_sink(sink)
+    return cols
+
+
+Q1_COLS = ("auction", "bidder", "price_dol", "datetime")
+
+
+def q1_control(num_events):
+    """bench.py's control_q1 as rows: every bid, its price * 0.908."""
+    bids = nexmark_bids(num_events)
+    return sorted_columns({
+        "ts": bids["ts"], "auction": bids["bid_auction"],
+        "bidder": bids["bid_bidder"],
+        "price_dol": bids["bid_price"] * 0.908,
+        "datetime": bids["bid_datetime"]}, ("ts",) + Q1_COLS)
+
+
+def run_q1(num_events, sink, device):
+    """q1; (wall s, sorted sink columns, number of runners)."""
+    clear_sink(sink)
+    dt, runner = run_program(q1_program(num_events, BATCH, sink,
+                                        base_time_micros=0), device)
+    return (dt, sorted_columns(sink_columns(sink, Q1_COLS),
+                               ("ts",) + Q1_COLS),
+            len(runner.engine.subtasks))
+
+
+def q1_phase():
+    t0 = time.perf_counter()
+    control = q1_control(NUM_EVENTS)
+    control_s = time.perf_counter() - t0
+    reset_launches()
+    dt, cols, tasks = run_q1(NUM_EVENTS, "q1-cuda", None)  # the card
+    launches = read_launches()
+    check(len(cols["ts"]) > 0 and same_columns(cols, control),
+          f"q1 rows differ from the numpy control ({len(cols['ts'])} vs "
+          f"{len(control['ts'])})")
+    dt_cpu, cols_cpu, _ = run_q1(NUM_EVENTS, "q1-cpu", "cpu")
+    check(same_columns(cols_cpu, cols), "q1 rows differ between card and "
+          "cpu")
+    os.environ["ARROYO_CHAIN"] = "0"
+    try:
+        dt_unchained, cols_unchained, tasks_unchained = run_q1(
+            NUM_EVENTS, "q1-unchained", None)
+    finally:
+        del os.environ["ARROYO_CHAIN"]
+    check(same_columns(cols_unchained, cols), "q1 rows differ under "
+          "ARROYO_CHAIN=0")
+    print("q1 path: " + json.dumps({
+        "events": NUM_EVENTS, "batch": BATCH, "wall_s": dt,
+        "events_per_s": NUM_EVENTS / dt, "rows": len(cols["ts"]),
+        "control_s": control_s, "launches": launches, "tasks": tasks,
+        "cpu_wall_s": dt_cpu, "unchained_tasks": tasks_unchained,
+        "unchained_wall_s": dt_unchained,
+        "unchained_events_per_s": NUM_EVENTS / dt_unchained}))
+    return launches
+
+
+Q7_COLS = ("auction", "price", "bidder")
+
+
+def q7_control(num_events):
+    """bench.py's control_q7 as rows: every bid whose price equals its
+    10 s tumbling window's max, stamped window end - 1."""
+    bids = nexmark_bids(num_events)
+    price = bids["bid_price"]
+    wend = (bids["ts"] // Q7_WIDTH + 1) * Q7_WIDTH
+    ends, inv = np.unique(wend, return_inverse=True)
+    best = np.full(len(ends), np.iinfo(np.int64).min, dtype=np.int64)
+    np.maximum.at(best, inv, price)
+    hit = price == best[inv]
+    return sorted_columns({
+        "ts": wend[hit] - 1, "auction": bids["bid_auction"][hit],
+        "price": price[hit], "bidder": bids["bid_bidder"][hit]},
+        ("ts",) + Q7_COLS)
+
+
+def run_q7(num_events, sink, device):
+    """q7; (wall s, sorted sink columns, number of runners)."""
+    clear_sink(sink)
+    dt, runner = run_program(q7_program(num_events, BATCH, sink,
+                                        base_time_micros=0), device)
+    return (dt, sorted_columns(sink_columns(sink, Q7_COLS),
+                               ("ts",) + Q7_COLS),
+            len(runner.engine.subtasks))
+
+
+def q7_phase():
+    out = {}
+    launches = None
+    for n in (NUM_EVENTS, Q7_EVENTS):
+        t0 = time.perf_counter()
+        control = q7_control(n)
+        control_s = time.perf_counter() - t0
+        perf.reset()
+        reset_launches()
+        dt, cols, tasks = run_q7(n, f"q7-cuda-{n}", None)  # the card
+        got = read_launches()
+        launches = (got if launches is None
+                    else {k: launches[k] + v for k, v in got.items()})
+        counters = {k: perf.counter(k) for k in Q7_COUNTERS}
+        windows = len(np.unique(cols["ts"]))
+        check(len(cols["ts"]) > 0 and same_columns(cols, control),
+              f"q7 at {n} events: rows differ from the numpy control "
+              f"({len(cols['ts'])} vs {len(control['ts'])}; late path "
+              f"{counters})")
+        entry = {"events": n, "wall_s": dt, "events_per_s": n / dt,
+                 "rows": len(cols["ts"]), "windows": windows,
+                 "control_s": control_s, "tasks": tasks, **counters}
+        if n == NUM_EVENTS:
+            dt_cpu, cols_cpu, _ = run_q7(n, "q7-cpu", "cpu")
+            check(same_columns(cols_cpu, cols), "q7 rows differ between "
+                  "card and cpu")
+            entry["cpu_wall_s"] = dt_cpu
+        out[str(n)] = entry
+    check(out[str(Q7_EVENTS)]["windows"] == 4,
+          f"q7 at {Q7_EVENTS} events: {out[str(Q7_EVENTS)]['windows']} "
+          "windows, expected 4")
+    print("q7 path: " + json.dumps({"batch": BATCH, "launches": launches,
+                                    "runs": out}))
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -3211,6 +3419,7 @@ def main():
     launches = dict(zip(PATHS, (main_path(), q8_phase(), c5_phase())))
     launches["join_inner"], launches["join_left"] = js_phase()
     launches["hot_items"] = hot_phase()
+    launches["q1"], launches["q7"] = q1_phase(), q7_phase()
     for r in kernels:
         for path in PATHS:
             r[f"launches_{path}"] = launches[path][r["name"]]

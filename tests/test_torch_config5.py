@@ -186,25 +186,31 @@ def test_json_decode_matches_jax_batch_route_on_config5_payloads():
         np.testing.assert_array_equal(got.columns[c], ref.columns[c])
 
 
-def test_kafka_source_reads_each_offset_once_and_validates_config():
+def test_kafka_source_reads_each_offset_once_and_validates_config(
+        monkeypatch):
     """The source reads the topic in batches of batch_size, stops at
-    max_messages, and a bad config raises at build time."""
+    max_messages, and a bad config raises at build time.  The sink's
+    batches are the source's with input coalescing off; with it on (the
+    default) they may merge, and carry the same rows in order."""
     InMemoryKafkaBroker.reset("kt")
     b = InMemoryKafkaBroker.get("kt")
     for i in range(1000):
         b.produce("t", f'{{"i": {i}}}'.encode(), partition=0)
     jb = JaxBroker.get("kt")
     assert jb is not b  # the two packages keep separate brokers
-    clear_sink("kt-out")
-    prog = (Stream.source("kafka", {"bootstrap_servers": "memory://kt",
-                                    "topic": "t", "batch_size": 300,
-                                    "max_messages": 1000})
-            .sink("memory", {"name": "kt-out"}))
-    LocalRunner(prog, device="cpu").run()
-    outs = sink_output("kt-out")
-    assert [len(o) for o in outs] == [300, 300, 300, 100]
-    assert np.concatenate([o.columns["i"] for o in outs]).tolist() == \
-        list(range(1000))
+    for coalesce in ("0", "1"):
+        monkeypatch.setenv("ARROYO_COALESCE", coalesce)
+        clear_sink("kt-out")
+        prog = (Stream.source("kafka", {"bootstrap_servers": "memory://kt",
+                                        "topic": "t", "batch_size": 300,
+                                        "max_messages": 1000})
+                .sink("memory", {"name": "kt-out"}))
+        LocalRunner(prog, device="cpu").run()
+        outs = sink_output("kt-out")
+        if coalesce == "0":
+            assert [len(o) for o in outs] == [300, 300, 300, 100]
+        assert np.concatenate([o.columns["i"] for o in outs]).tolist() == \
+            list(range(1000))
     with pytest.raises(ValueError, match="offset"):
         KafkaConfig(bootstrap_servers="memory://kt", topic="t",
                     offset="middle")

@@ -23,7 +23,9 @@ from arroyo_tpu_torch.connectors.memory import clear_sink, sink_output
 from arroyo_tpu_torch.connectors.nexmark import NexmarkConfig, NexmarkGenerator
 from arroyo_tpu_torch.device import resolve_device
 from arroyo_tpu_torch.engine.engine import Engine, LocalRunner
+from arroyo_tpu_torch.q1 import q1_program
 from arroyo_tpu_torch.q5 import q5_program
+from arroyo_tpu_torch.q7 import q7_program
 from arroyo_tpu_torch.state.backend import InMemoryBackend
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -155,6 +157,16 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         resolve_device(None)
     with pytest.raises(RuntimeError, match="CUDA"):
         LocalRunner(q5_program(1000, 500, "unused"))
+    for program in (q1_program, q7_program):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            LocalRunner(program(1000, 500, "unused"))
+
+
+# modules the walk below must reach (added with q1/q7 and chaining)
+NEW_MODULES = ("arroyo_tpu_torch.q1", "arroyo_tpu_torch.q7",
+               "arroyo_tpu_torch.graph.chaining",
+               "arroyo_tpu_torch.engine.chained",
+               "arroyo_tpu_torch.engine.coalesce")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -171,8 +183,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'arroyo_tpu', 'pydantic', 'pyarrow'))\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 20 else 0)\n")
+        "missing = sorted({" + ", ".join(repr(m) for m in NEW_MODULES)
+        + "} - set(names))\n"
+        "print(len(names), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(names) < 20 else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)

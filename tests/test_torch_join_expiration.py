@@ -241,12 +241,17 @@ def test_join_stress_checkpoint_stop_restore_is_exactly_once(
         ring_knobs, monkeypatch):
     """A run checkpointed into InMemoryBackend mid-stream, stopped and
     restored emits exactly the rows of an uninterrupted run: the impulse
-    sources resume from their counters and the join state restores."""
+    sources resume from their counters and the join state restores.
+    Each source is held after its 16th batch until the barrier is
+    queued, so the barrier lands mid-stream however the host schedules
+    the tasks (the sink's first rows are no signal of that: chained and
+    coalesced, they may arrive only near the end)."""
     from arroyo_tpu_torch.config import reset_config
 
     monkeypatch.setenv("QUEUE_SIZE", "4")  # keep the sources close
     reset_config()
     n, batch = 8_000, 256  # 32 batches a side: the barrier lands mid-stream
+    hold_after = 16
     program = join_stress_program(n, JoinType.INNER, PLANNER_TTL_MICROS,
                                   "js-rt", batch)
     clear_sink("js-ref")
@@ -258,8 +263,25 @@ def test_join_stress_checkpoint_stop_restore_is_exactly_once(
     async def phase1():
         engine = Engine(program, "js-rt", InMemoryBackend(), device="cpu")
         running = engine.start()
-        while not sink_output("js-rt"):
-            await asyncio.sleep(0.001)
+        held = []
+        for h in engine.subtasks.values():
+            if not h.is_source:
+                continue
+            source, ev, polls = h.runner, asyncio.Event(), [0]
+            held.append(ev)
+
+            async def hold_then_poll(_s=source, _poll=source.poll_source_control,
+                                     _ev=ev, _n=polls):
+                _n[0] += 1
+                if _n[0] == hold_after:
+                    _ev.set()
+                    while _s.control_rx.empty():
+                        await asyncio.sleep(0.001)
+                return await _poll()
+
+            source.poll_source_control = hold_then_poll
+        for ev in held:
+            await ev.wait()
         await running.checkpoint(1, then_stop=True)
         assert await running.wait_for_checkpoint(1, timeout=60)
         await running.join()

@@ -44,6 +44,7 @@ from arroyo_tpu.sql import plan_sql
 from arroyo_tpu.state.tables import BatchBuffer as JaxBatchBuffer
 from arroyo_tpu.types import Batch as JaxBatch
 from arroyo_tpu.types import TaskInfo as JaxTaskInfo
+from arroyo_tpu_torch.config import reset_config
 from arroyo_tpu_torch.connectors.memory import clear_sink, sink_output
 from arroyo_tpu_torch.engine.context import TimerHeap
 from arroyo_tpu_torch.engine.engine import Engine, LocalRunner
@@ -666,10 +667,25 @@ def test_hot_items_port_matches_jax_sql_plan(jax_like_port, monkeypatch,
     assert len(got) <= 10 * len(windows)
 
 
-def test_hot_items_checkpoint_stop_restore_is_exactly_once():
+@pytest.fixture
+def no_linger(monkeypatch):
+    """The input coalescer's linger pinned at 0: a buffered batch is
+    processed at the task loop's next turn, before another can merge."""
+    monkeypatch.setenv("COALESCE_LINGER_MICROS", "0")
+    reset_config()
+    yield
+    monkeypatch.undo()
+    reset_config()
+
+
+def test_hot_items_checkpoint_stop_restore_is_exactly_once(no_linger):
     """A port run checkpointed (InMemoryBackend) mid-stream, stopped and
     restored emits exactly the rows of an uninterrupted run; 100k events
-    at 5,000 events/s fire panes before and after the barrier."""
+    at 5,000 events/s fire panes before and after the barrier.  The input
+    coalescer's linger is pinned at 0, so no two 4,096-row batches merge:
+    which ones would merge depends on when they arrive, new keys take
+    slots in the order batches reach the state, and the 10th-place ties
+    follow slot order (ROADMAP C6)."""
     def prog(sink):
         return hot_items_program(100_000, 4_096, sink=sink,
                                  event_rate=5_000.0, base_time_micros=0)
@@ -687,7 +703,7 @@ def test_hot_items_checkpoint_stop_restore_is_exactly_once():
     async def phase1():
         engine = Engine(program, "hot-rt", InMemoryBackend(), device="cpu")
         running = engine.start()
-        state = engine.subtasks[(agg_id, 0)].runner.operator.state
+        state = engine.members[(agg_id, 0)][0].state
         while state.total_rows < 40_000:  # mid-stream, past a pane fire
             await asyncio.sleep(0.001)
         await running.checkpoint(1, then_stop=True)
