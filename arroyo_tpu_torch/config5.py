@@ -1,17 +1,17 @@
 """config5: session-window aggregation with a median UDAF over the Kafka
 source (bench.py's ``CONFIG5_SQL``) as a Stream-API program.
 
-The JAX package plans config5 from SQL; until the port has its SQL
-planner, ``config5_program`` builds by hand the node sequence that
-``arroyo_tpu.sql.plan_sql(CONFIG5_SQL)`` produces with ``median``
-registered as a UDAF:
+``config5_program`` builds by hand the node sequence that
+``arroyo_tpu_torch.sql.plan_sql(CONFIG5_SQL)`` plans with ``median``
+registered as a UDAF (and ``arroyo_tpu.sql.plan_sql`` with it);
+tests/test_torch_sql_plan.py holds the two equal, node for node:
 
   kafka source (memory://<broker>, topic sess, json)
   -> ev_virtual (event_time = from_unixtime(ts) = ts // 1000)
   -> ev_event_time (the row timestamp := event_time)
   -> watermark (1 s lateness) -> agg input (k, __ain0 = v) -> key_by(k)
   -> session(1 s) window: median(__ain0) -> __agg0, COUNT(*) -> __agg1
-  -> agg projection (k, med, cnt, window_start, window_end) -> sink
+  -> agg projection (k, med, cnt, window_start, window_end) -> out_sink
 
 Every operator keeps the planner's name and emits the planner's columns,
 so the rows are comparable one for one."""
@@ -93,4 +93,4 @@ def config5_program(num_events: int, batch_size: int, sink: str = "results",
                             "window_start": c["window_start"],
                             "window_end": c["window_end"]},
                  name="agg_project_2")
-            .sink("memory", {"name": sink}))
+            .sink("memory", {"name": sink}, name="out_sink"))

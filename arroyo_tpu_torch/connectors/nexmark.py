@@ -79,7 +79,25 @@ class NexmarkConfig:
     projection: Optional[List[str]] = None
 
     def __post_init__(self) -> None:
+        # SQL's CREATE TABLE passes every option as a string
         self.event_rate = float(self.event_rate)
+        if self.runtime_secs is not None:
+            self.runtime_secs = float(self.runtime_secs)
+        for name in ("num_events", "batch_size", "base_time_micros",
+                     "person_proportion", "auction_proportion",
+                     "bid_proportion", "hot_seller_ratio",
+                     "hot_auction_ratio", "hot_bidders_ratio",
+                     "num_inflight_auctions", "num_active_people",
+                     "out_of_order_group_size"):
+            v = getattr(self, name)
+            if v is not None:
+                setattr(self, name, int(v))
+        for name in ("generate_strings", "rate_limited"):
+            v = getattr(self, name)
+            if isinstance(v, str):
+                if v.lower() not in ("true", "false", "1", "0"):
+                    raise ValueError(f"{name} must be a bool, not {v!r}")
+                setattr(self, name, v.lower() in ("true", "1"))
 
 
 class NexmarkGenerator:

@@ -48,10 +48,16 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     return host.numpy()
 
 
-# the dtypes the port uploads (f64 payload rides i64 words)
-_TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8,
+# the dtypes the port uploads (kernel buffers ride u8/i32/i64 words;
+# SQL expressions upload their columns' own dtypes)
+_TORCH_DTYPES = {np.dtype(np.bool_): torch.bool,
+                 np.dtype(np.uint8): torch.uint8,
+                 np.dtype(np.int8): torch.int8,
+                 np.dtype(np.int16): torch.int16,
                  np.dtype(np.int32): torch.int32,
-                 np.dtype(np.int64): torch.int64}
+                 np.dtype(np.int64): torch.int64,
+                 np.dtype(np.float32): torch.float32,
+                 np.dtype(np.float64): torch.float64}
 
 
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:

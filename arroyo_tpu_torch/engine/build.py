@@ -7,7 +7,7 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 from ..connectors.registry import make_sink, make_source
-from ..device import DeviceLike
+from ..device import DeviceLike, resolve_device
 from ..graph.logical import LogicalOperator, OpKind
 from .operator import Operator
 from .operators_basic import (
@@ -41,8 +41,8 @@ _BUILDERS[OpKind.CONNECTOR_SOURCE] = lambda op, dev: make_source(
     op.spec.connector, op.spec.config)
 _BUILDERS[OpKind.CONNECTOR_SINK] = lambda op, dev: make_sink(
     op.spec.connector, op.spec.config)
-_BUILDERS[OpKind.EXPRESSION] = lambda op, dev: ExpressionOperator(op.name,
-                                                                  op.expr)
+_BUILDERS[OpKind.EXPRESSION] = lambda op, dev: ExpressionOperator(
+    op.name, op.expr, resolve_device(dev))
 _BUILDERS[OpKind.UDF] = lambda op, dev: UdfOperator(op.name, op.expr)
 _BUILDERS[OpKind.WATERMARK] = lambda op, dev: WatermarkOperator(op.name,
                                                                 op.spec)

@@ -10,12 +10,13 @@ same (member, subtask) completions as unchained, and a checkpoint taken
 chained restores unchained and the reverse.
 
 The ingest spine: a run of elementwise members (predicates, record maps,
-udfs, key_bys) executes as one host step (:class:`_SpineStep`).  The
-port's expressions are host functions already (``ops/expr.py``), so the
-spine is their whole fused form.  The JAX package also composes runs of
-record expressions into one jitted function (``_compose_exprs``,
-``ARROYO_CHAIN_FUSE_EXPR``); that has no counterpart here until the SQL
-front end brings compiled device expressions."""
+udfs, key_bys), one member long or more, executes as one host step
+(:class:`_SpineStep`), as the JAX package's does: SQL expressions there
+evaluate on the host (``eval_*(..., host=True)``), never on the
+expression device.  The JAX package also composes runs of record
+expressions into one jitted function (``_compose_exprs``,
+``ARROYO_CHAIN_FUSE_EXPR``) where its spine is off; the port's spine is
+always on in a chain, so that composition has no counterpart."""
 
 from __future__ import annotations
 
@@ -75,12 +76,12 @@ class _SpineStep(Operator):
         b = batch
         for kind, op in self.plan:
             if kind == "pred":
-                mask = eval_predicate(op.compiled, b)
+                mask = eval_predicate(op.compiled, b, host=True)
                 if not mask.any():
                     return
                 b = b.select(mask)
             elif kind == "record":
-                b = eval_record_expr(op.compiled, b)
+                b = eval_record_expr(op.compiled, b, host=True)
             elif kind == "udf":
                 b = eval_host_expr(op.fn, b)
             else:
@@ -121,8 +122,8 @@ class ChainedOperator(Operator):
                 while (j + 1 < len(self.members)
                        and _spineable(self.members[j + 1])):
                     j += 1
-            step = (self.members[i] if j == i
-                    else _SpineStep(self.members[i:j + 1]))
+            step = (_SpineStep(self.members[i:j + 1])
+                    if _spineable(self.members[i]) else self.members[i])
             # a step runs against its LAST member's context, whose
             # collector feeds the member after the step
             self._step_by_start[i] = (step, j)

@@ -8,6 +8,7 @@ import time as _time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..graph.logical import ColumnExpr, ExprReturnType, PeriodicWatermarkSpec
 from ..ops.expr import CompiledExpr, eval_host_expr, eval_predicate, eval_record_expr
@@ -17,11 +18,13 @@ from .operator import Operator
 
 
 class ExpressionOperator(Operator):
-    """Map / Filter over a batch via a column expression."""
+    """Map / Filter over a batch via a column expression; a SQL-compiled
+    expression runs on the expression device (ops/expr.py), a Stream-API
+    function on the host."""
 
-    def __init__(self, name: str, expr: ColumnExpr):
+    def __init__(self, name: str, expr: ColumnExpr, device: torch.device):
         super().__init__(name)
-        self.compiled = CompiledExpr(expr.name, expr.fn)
+        self.compiled = CompiledExpr(expr.name, expr.fn, device)
         self.return_type = expr.return_type
 
     async def process_batch(self, batch: Batch, ctx: Context,

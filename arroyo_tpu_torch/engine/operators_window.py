@@ -126,7 +126,8 @@ class BinAggOperator(Operator):
             # emission pre-filters to local per-pane argmax candidates
             self.state.set_argmax_local(*argmax_local)
         self.keyvals = _SlotKeyValues()
-        self.projection = (CompiledExpr(projection.name, projection.fn)
+        self.projection = (CompiledExpr(projection.name, projection.fn,
+                                        resolve_device(device))
                            if projection else None)
         self._key_cols: Tuple[str, ...] = ()
 
@@ -278,9 +279,10 @@ class TumblingTopNOperator(Operator):
         self.sort_column = sort_column
         self.partition_cols = partition_cols
         self.rank_column = rank_column
-        self.projection = (CompiledExpr(projection.name, projection.fn)
-                           if projection else None)
         self.device = resolve_device(device)
+        self.projection = (CompiledExpr(projection.name, projection.fn,
+                                        self.device)
+                           if projection else None)
 
     def tables(self) -> List[TableDescriptor]:
         return [TableDescriptor("t", TableType.BATCH_BUFFER, "topn buffer",
@@ -922,7 +924,8 @@ class SessionWindowOperator(Operator):
         self.gap = gap_micros
         self.aggs = aggs
         self.flatten = flatten or not aggs
-        self.projection = (CompiledExpr(projection.name, projection.fn)
+        self.projection = (CompiledExpr(projection.name, projection.fn,
+                                        self.device)
                            if projection else None)
         self._pending_fires: List[Tuple[int, int, int]] = []
         self._min_end: Optional[int] = None  # no-fire fast-path bound

@@ -17,7 +17,9 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
+from .ops import colmath
 from .types import Batch, now_micros
 
 
@@ -110,15 +112,18 @@ def coerce_object_col(v: np.ndarray):
 
 def nan_validity(v: Any, m: Optional[np.ndarray]) -> Optional[np.ndarray]:
     """Combine an explicit validity mask with the engine's implicit NULL
-    encodings: NaN rows in float columns and None rows in object
-    columns.  Returns the combined mask, or None when every row is
-    valid."""
+    encodings: NaN rows in float columns (numpy arrays or tensors) and
+    None rows in object columns.  Returns the combined mask, or None when
+    every row is valid."""
     if isinstance(v, np.ndarray) and v.dtype == object:
         nn = np.array([x is not None and x == x for x in v], dtype=bool)
-        return nn if m is None else (m & nn)
+        return nn if m is None else colmath.and_(m, nn)
     if isinstance(v, np.ndarray) and v.dtype.kind == "f":
         nn = ~np.isnan(v)
-        return nn if m is None else (m & nn)
+        return nn if m is None else colmath.and_(m, nn)
+    if isinstance(v, torch.Tensor) and v.is_floating_point():
+        nn = ~torch.isnan(v)
+        return nn if m is None else colmath.and_(m, nn)
     return m
 
 

@@ -9,6 +9,7 @@ size)."""
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from enum import Enum
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
@@ -86,12 +87,22 @@ class ExprReturnType(Enum):
 
 @dataclass
 class ColumnExpr:
-    """A columnar expression ``fn(cols: dict[str, ndarray]) -> dict | ndarray``
-    evaluated eagerly on host numpy columns."""
+    """A columnar expression ``fn(cols: dict[str, array]) -> dict | array``.
+
+    Stream-API functions run on host numpy columns; functions the SQL
+    planner compiles run on torch tensors (ops/expr.py).
+    ``output_schema`` ({col -> kind char}) is plan-time metadata the
+    planner attaches; ``sql`` is the planner's structural text of the
+    expression, which common-subplan elimination compares."""
 
     name: str
     fn: Callable[[Dict[str, Any]], Any]
     return_type: ExprReturnType = ExprReturnType.RECORD
+    output_schema: Optional[Dict[str, Any]] = None
+    sql: str = ""
+
+    def hash_token(self) -> str:
+        return self.sql or self.name
 
 
 # -- operator taxonomy ------------------------------------------------------------
@@ -112,6 +123,10 @@ class OpKind(Enum):
     JOIN_WITH_EXPIRATION = "join_with_expiration"  # unwindowed TTL join
     TUMBLING_TOP_N = "tumbling_top_n"
     SLIDING_AGGREGATING_TOP_N = "sliding_aggregating_top_n"
+    # planned (so node ids agree with the JAX package's plan) but not
+    # ported: the SQL planner refuses a plan in which one survives
+    GLOBAL_KEY = "global_key"
+    NON_WINDOW_AGGREGATOR = "non_window_aggregator"
 
 
 class JoinType(Enum):
@@ -245,6 +260,18 @@ class SlidingAggregatingTopNSpec:
 
 
 @dataclass
+class NonWindowAggregatorSpec:
+    """The JAX package's updating aggregate with a TTL; ``flush_key``
+    names the key column holding an event-time bound whose passing
+    releases each key's final row."""
+
+    expiration_micros: int
+    aggs: Tuple[AggSpec, ...] = ()
+    projection: Optional[ColumnExpr] = None
+    flush_key: Optional[str] = None
+
+
+@dataclass
 class ConnectorOpSpec:
     connector: str  # registry name, e.g. 'nexmark', 'memory'
     config: Dict[str, Any] = field(default_factory=dict)
@@ -257,6 +284,23 @@ class LogicalOperator:
     spec: Any = None
     expr: Optional[ColumnExpr] = None
     key_cols: Tuple[str, ...] = ()
+
+    def hash_token(self) -> str:
+        """Structural identity of the operator for common-subplan
+        elimination."""
+        tok: Dict[str, Any] = {"kind": self.kind.value, "name": self.name}
+        if self.expr is not None:
+            tok["expr"] = self.expr.hash_token()
+            if self.expr.sql:
+                # the sql token describes the computation; a generated
+                # display name (agg_input_<n>) must not break equality
+                # between duplicated subplans
+                del tok["name"]
+        if self.key_cols:
+            tok["key"] = list(self.key_cols)
+        if self.spec is not None:
+            tok["spec"] = repr(self.spec)
+        return json.dumps(tok, sort_keys=True)
 
 
 # -- graph ------------------------------------------------------------------------
@@ -320,6 +364,25 @@ class _Graph:
 
     def in_edges(self, op_id: str) -> List[Tuple[str, str, StreamEdge]]:
         return [(s, op_id, e) for s, e in self._pred[op_id].items()]
+
+    def predecessors(self, op_id: str) -> List[str]:
+        return list(self._pred[op_id])
+
+    def out_degree(self, op_id: str) -> int:
+        return len(self._succ[op_id])
+
+    def in_degree(self, op_id: str) -> int:
+        return len(self._pred[op_id])
+
+    def has_edge(self, src: str, dst: str) -> bool:
+        return dst in self._succ.get(src, {})
+
+    def remove_node(self, op_id: str) -> None:
+        for d in self._succ.pop(op_id):
+            del self._pred[d][op_id]
+        for s in self._pred.pop(op_id):
+            del self._succ[s][op_id]
+        del self._nodes[op_id]
 
     def topo_order(self) -> List[str]:
         indeg = {n: len(p) for n, p in self._pred.items()}
@@ -398,6 +461,117 @@ class Program:
                     "watermark-assigning operator upstream")
         return errors
 
+    # -- common-subplan elimination (the JAX package's, same rules) ----------
+
+    # sources whose output is a deterministic function of a config that
+    # compares faithfully by repr: two scans of one definition may merge
+    _REPLAYABLE_SOURCES = frozenset({"nexmark", "impulse", "memory"})
+
+    def eliminate_common_subplans(self) -> int:
+        """Merge operators that compute the same thing over the same
+        inputs (equal ``hash_token``, parallelism and predecessor set with
+        equal edge types), moving the duplicate's out-edges to the kept
+        node.  Merges q5's double HOP aggregate and q8's double nexmark
+        scan (the kept scan's projection becomes the union).  Sinks never
+        merge; sources only when replayable; a merge that would make a
+        parallel edge is skipped.  Returns the number of nodes removed."""
+        removed = 0
+        changed = True
+        while changed:
+            changed = False
+            by_sig: Dict[tuple, str] = {}
+            for op_id in self.topo_order():
+                node = self.node(op_id)
+                preds = tuple(sorted(
+                    (s, e.typ.value, e.key_schema)
+                    for s, _, e in self.graph.in_edges(op_id)))
+                if node.operator.kind == OpKind.CONNECTOR_SINK:
+                    continue
+                if node.operator.kind == OpKind.CONNECTOR_SOURCE:
+                    spec = node.operator.spec
+                    if spec.connector not in self._REPLAYABLE_SOURCES:
+                        continue
+                    cfg = {k: v for k, v in spec.config.items()
+                           if k != "projection"}
+                    sig = ("src", spec.connector,
+                           repr(sorted(cfg.items(), key=lambda kv: kv[0])),
+                           node.parallelism, node.max_parallelism)
+                else:
+                    sig = (node.operator.hash_token(), node.parallelism,
+                           node.max_parallelism, preds)
+                keep = by_sig.get(sig)
+                if keep is None:
+                    by_sig[sig] = op_id
+                    continue
+                # a name-only expression token proves nothing about the
+                # function: merge only the very same function object
+                expr = node.operator.expr
+                if expr is not None and not expr.sql:
+                    kept_expr = self.node(keep).operator.expr
+                    if kept_expr is None or kept_expr.fn is not expr.fn:
+                        continue
+                outs = self.graph.out_edges(op_id)
+                if any(self.graph.has_edge(keep, dst) for _, dst, _ in outs):
+                    continue
+                if node.operator.kind == OpKind.CONNECTOR_SOURCE:
+                    kcfg = self.node(keep).operator.spec.config
+                    pa = kcfg.get("projection")
+                    pb = node.operator.spec.config.get("projection")
+                    if pa and pb:
+                        kcfg["projection"] = sorted(set(pa) | set(pb))
+                    else:
+                        kcfg.pop("projection", None)
+                for _, dst, edge in outs:
+                    self.graph.add_edge(keep, dst, edge)
+                self.graph.remove_node(op_id)
+                removed += 1
+                changed = True
+                break
+        return removed
+
+    def subplan_equal(self, a: str, b: str) -> bool:
+        """True when the subplans ending at ``a`` and ``b`` provably
+        compute the same stream: equal tokens and recursively equal
+        inputs (false negatives only cost an optimization)."""
+        if a == b:
+            return True
+        na, nb = self.node(a), self.node(b)
+        if (na.operator.hash_token() != nb.operator.hash_token()
+                or na.parallelism != nb.parallelism):
+            return False
+        if (na.operator.kind == OpKind.CONNECTOR_SOURCE
+                and na.operator.spec.connector
+                not in self._REPLAYABLE_SOURCES):
+            return False
+        ea_, eb_ = na.operator.expr, nb.operator.expr
+        if ea_ is not None and not ea_.sql and ea_.fn is not (
+                eb_.fn if eb_ is not None else None):
+            return False
+        key = lambda e: (e[2].typ.value, e[2].key_schema)  # noqa: E731
+        pa = sorted(self.graph.in_edges(a), key=key)
+        pb = sorted(self.graph.in_edges(b), key=key)
+        if [key(e) for e in pa] != [key(e) for e in pb]:
+            return False
+        return all(self.subplan_equal(sa, sb)
+                   for (sa, _, _), (sb, _, _) in zip(pa, pb))
+
+    def prune_dead(self) -> int:
+        """Remove operators whose output reaches no sink (subplans the
+        optimizer bypassed, e.g. the pruned max side of an argmax
+        fusion).  Returns the number of nodes removed."""
+        removed = 0
+        changed = True
+        while changed:
+            changed = False
+            for nid in list(self.graph.node_ids()):
+                if self.node(nid).operator.kind == OpKind.CONNECTOR_SINK:
+                    continue
+                if self.graph.out_degree(nid) == 0:
+                    self.graph.remove_node(nid)
+                    removed += 1
+                    changed = True
+        return removed
+
 
 # -- fluent builder ---------------------------------------------------------------
 
@@ -438,16 +612,20 @@ class Stream:
 
     # -- element-wise ----------------------------------------------------------
 
-    def map(self, fn: Callable, name: str = "map") -> "Stream":
-        expr = ColumnExpr(name, fn, ExprReturnType.RECORD)
+    def map(self, fn: Callable, name: str = "map", sql: str = "",
+            output_schema: Optional[Dict[str, Any]] = None) -> "Stream":
+        expr = ColumnExpr(name, fn, ExprReturnType.RECORD, output_schema,
+                          sql=sql)
         return self._chain(LogicalOperator(OpKind.EXPRESSION, name, expr=expr))
 
     def filter(self, fn: Callable, name: str = "filter") -> "Stream":
         expr = ColumnExpr(name, fn, ExprReturnType.PREDICATE)
         return self._chain(LogicalOperator(OpKind.EXPRESSION, name, expr=expr))
 
-    def udf(self, fn: Callable, name: str = "udf") -> "Stream":
-        expr = ColumnExpr(name, fn, ExprReturnType.RECORD)
+    def udf(self, fn: Callable, name: str = "udf", sql: str = "",
+            output_schema: Optional[Dict[str, Any]] = None) -> "Stream":
+        expr = ColumnExpr(name, fn, ExprReturnType.RECORD, output_schema,
+                          sql=sql)
         return self._chain(LogicalOperator(OpKind.UDF, name, expr=expr))
 
     # -- time ------------------------------------------------------------------
@@ -468,6 +646,21 @@ class Stream:
     def key_by(self, *cols: str, name: str = "key_by") -> "Stream":
         op = LogicalOperator(OpKind.KEY_BY, name, key_cols=tuple(cols))
         return self._chain(op, keyed=tuple(cols))
+
+    def global_key(self, name: str = "global_key") -> "Stream":
+        op = LogicalOperator(OpKind.GLOBAL_KEY, name)
+        return self._chain(op, keyed=("__global",))
+
+    def non_window_aggregate(self, expiration_micros: int,
+                             aggs: Sequence[AggSpec],
+                             projection: Optional[Callable] = None,
+                             name: str = "updating_agg",
+                             flush_key: Optional[str] = None) -> "Stream":
+        proj = ColumnExpr(f"{name}_proj", projection) if projection else None
+        spec = NonWindowAggregatorSpec(expiration_micros, tuple(aggs), proj,
+                                       flush_key)
+        op = LogicalOperator(OpKind.NON_WINDOW_AGGREGATOR, name, spec=spec)
+        return self._chain(op, edge=EdgeType.SHUFFLE)
 
     # -- windows (keyed) -------------------------------------------------------
 
@@ -595,7 +788,8 @@ class Stream:
 
     def sink(self, connector: str, config: Optional[Dict[str, Any]] = None,
              parallelism: Optional[int] = None,
-             name: Optional[str] = None) -> Program:
+             name: Optional[str] = None,
+             max_parallelism: Optional[int] = None) -> Program:
         from ..connectors.registry import get_connector, validate_config
 
         if not get_connector(connector).supports_sink:
@@ -603,5 +797,7 @@ class Stream:
         cfg = validate_config(connector, config or {})
         op = LogicalOperator(OpKind.CONNECTOR_SINK, name or f"{connector}_sink",
                              spec=ConnectorOpSpec(connector, cfg))
-        self._chain(op, parallelism)
+        tail = self._chain(op, parallelism)
+        if max_parallelism is not None:
+            self.program.node(tail.tail).max_parallelism = max_parallelism
         return self.program

@@ -1,9 +1,10 @@
 """Nexmark hot items, top 10 per window: the ROW_NUMBER form of q5, which
 Arroyo rewrites into a fused sliding TopN plus a global TopN stage.
 
-The JAX package plans it from SQL (``HOT_ITEMS_SQL``); until the port has
-its SQL planner, ``hot_items_program`` builds by hand the node sequence
-that ``arroyo_tpu.sql.plan_sql(HOT_ITEMS_SQL)`` produces:
+``hot_items_program`` builds by hand the node sequence that
+``arroyo_tpu_torch.sql.plan_sql(HOT_ITEMS_SQL)`` plans (and
+``arroyo_tpu.sql.plan_sql`` with it); tests/test_torch_sql_plan.py holds
+the two equal, node for node:
 
   nexmark source (bid_auction, event_type)
   -> watermark (1 ms lateness) -> where bid is not null -> agg input

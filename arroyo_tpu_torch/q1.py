@@ -1,8 +1,9 @@
 """Nexmark q1 (currency conversion) as a Stream-API program.
 
 ``q1_program`` builds by hand the node sequence that
-``arroyo_tpu.sql.plan_sql(Q1)`` produces for bench.py's ``Q1``, names
-included:
+``arroyo_tpu_torch.sql.plan_sql(Q1)`` plans from bench.py's ``Q1`` (and
+``arroyo_tpu.sql.plan_sql`` with it), names included;
+tests/test_torch_sql_plan.py holds the two equal, node for node:
 
   nexmark source (bid_auction, bid_bidder, bid_datetime, bid_price,
   event_type) -> watermark (1 ms lateness) -> where bid is not null

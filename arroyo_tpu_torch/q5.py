@@ -1,8 +1,9 @@
 """Nexmark q5 ("hot items") as a Stream-API program.
 
-The JAX package plans q5 from SQL (bench.py's ``Q5``); until the port has
-its SQL planner, ``q5_program`` builds by hand the node sequence that
-``arroyo_tpu.sql.plan_sql(Q5)`` produces:
+``q5_program`` builds by hand the node sequence that
+``arroyo_tpu_torch.sql.plan_sql(Q5)`` plans from bench.py's text (and
+``arroyo_tpu.sql.plan_sql`` with it); tests/test_torch_sql_plan.py holds
+the two equal, node for node:
 
   nexmark source (bid_auction, bid_datetime, event_type)
   -> watermark (1 ms lateness) -> where bid is not null -> project

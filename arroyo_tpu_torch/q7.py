@@ -1,8 +1,10 @@
 """Nexmark q7 (highest bid) as a Stream-API program.
 
 ``q7_program`` builds by hand the node sequence that
-``arroyo_tpu.sql.plan_sql(Q7)`` produces for bench.py's ``Q7``, names
-included.  The planner rewrites ``bids JOIN (SELECT max(price),
+``arroyo_tpu_torch.sql.plan_sql(Q7)`` plans from bench.py's ``Q7`` (and
+``arroyo_tpu.sql.plan_sql`` with it), names included;
+tests/test_torch_sql_plan.py holds the two equal, node for node.  The
+planner rewrites ``bids JOIN (SELECT max(price),
 TUMBLE(10 s) ...) ON price = maxprice WHERE datetime in the window`` into
 a raw-mode window argmax over the bids themselves:
 

@@ -1,8 +1,9 @@
 """Nexmark q8 ("monitor new users") as a Stream-API program.
 
-The JAX package plans q8 from SQL (bench.py's ``Q8``); until the port has
-its SQL planner, ``q8_program`` builds by hand the node sequence that
-``arroyo_tpu.sql.plan_sql(Q8)`` produces:
+``q8_program`` builds by hand the node sequence that
+``arroyo_tpu_torch.sql.plan_sql(Q8)`` plans from bench.py's text (and
+``arroyo_tpu.sql.plan_sql`` with it); tests/test_torch_sql_plan.py holds
+the two equal, node for node:
 
   nexmark source (auction_seller, event_type, person_id)
   -> watermark (1 ms lateness), then two branches:

@@ -112,11 +112,23 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
     same generator at both sizes and to the CPU run at 2,000,000; the
     rows that took the late path (``window_argmax_late_rows`` and the
     ones that matched a released maximum, ``window_argmax_late_hits``)
-    printed.
+    printed;
+12. SQL front end: bench.py's Q1, Q5, Q7, Q8 and CONFIG5_SQL and the
+    hot-items SQL planned by ``arroyo_tpu_torch.sql.plan_sql`` (median
+    registered as a UDAF) and run on the card at the sizes of the
+    hand-built runs of phases 5-7 and 9-11 (q1, q5, q7, q8 and hot items
+    2,000,000 events, config5 200,000) — each plan node for node the
+    hand-built program, its sink rows and its kernel launches those of
+    the hand-built run, its parse-and-plan host ms and its wall printed;
+    then q5 planned from SQL once more under ``ARROYO_CHAIN=0
+    ARROYO_COALESCE=0 ARROYO_TIMING=1``, where its filters and
+    projections run as torch ops on the card (``CompiledExpr``): the
+    same rows, the device expression calls, their synchronized ms, and
+    the bytes they move against 3.35 TB/s.
 
 Launch counts are set to 0 just before each main-path run (q5, q8,
-config5, 8a, 8b, hot items, q1, q7) and read just after it; q1 and q7
-launch no kernel.  It prints a
+config5, 8a, 8b, hot items, q1, q7, each SQL-planned run of phase 12)
+and read just after it; q1 and q7 launch no kernel.  It prints a
 ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi gives them, and, last, ``{"ok": true, "device": ...}``.
 It needs one card and exits non-zero without one.
@@ -154,10 +166,12 @@ from arroyo_tpu_torch.connectors.nexmark import (  # noqa: E402
     make_splits)
 from arroyo_tpu_torch.device import to_device, to_host  # noqa: E402
 from arroyo_tpu_torch.engine.engine import LocalRunner  # noqa: E402
-from arroyo_tpu_torch.graph.logical import AggKind, AggSpec, JoinType  # noqa: E402
+from arroyo_tpu_torch.graph.logical import (  # noqa: E402
+    AggKind, AggSpec, JoinType, OpKind)
 from arroyo_tpu_torch.hot_items import SLIDE_MICROS as HOT_SLIDE  # noqa: E402
 from arroyo_tpu_torch.hot_items import WIDTH_MICROS as HOT_WIDTH  # noqa: E402
-from arroyo_tpu_torch.hot_items import TOP_K, hot_items_program  # noqa: E402
+from arroyo_tpu_torch.hot_items import (  # noqa: E402
+    TOP_K, hot_items_program, hot_items_sql)
 from arroyo_tpu_torch.join_stress import (  # noqa: E402
     BASE_TIME_MICROS, INTERVAL_MICROS, PLANNER_TTL_MICROS, TTL_MICROS,
     join_stress_keys, join_stress_program, state_bounded)
@@ -209,6 +223,9 @@ from arroyo_tpu_torch.q7 import WIDTH_MICROS as Q7_WIDTH  # noqa: E402
 from arroyo_tpu_torch.q7 import q7_program  # noqa: E402
 from arroyo_tpu_torch.q8 import WIDTH_MICROS as Q8_WIDTH  # noqa: E402
 from arroyo_tpu_torch.q8 import q8_program  # noqa: E402
+from arroyo_tpu_torch import queries  # noqa: E402
+from arroyo_tpu_torch.sql import (  # noqa: E402
+    plan_sql, register_udaf, unregister_udfs)
 from arroyo_tpu_torch.state.join_state import (  # noqa: E402
     aggregate_stats_registry)
 from arroyo_tpu_torch.state.session_state import (  # noqa: E402
@@ -306,8 +323,13 @@ K14_REPLACES = "arroyo_tpu/ops/keyed_bins.py:213 _emit_compact_kernel"
 KERNELS = (bin_update, argmax_fire, pane_emit, bin_evict, ring_merge,
            ring_gather, session_union, segment_agg, join_probe, join_expand,
            expand_gather, segment_top_k, emit_count, emit_gather)
+# phase 12 compares each SQL-planned run with the hand-built run of the
+# same query at the same size that an earlier phase made: query -> (rows,
+# launches, wall s)
+HAND = {}
+SQL_QUERIES = ("q1", "q5", "q7", "q8", "hot_items", "config5")
 PATHS = ("q5", "q8", "config5", "join_inner", "join_left", "hot_items",
-         "q1", "q7")
+         "q1", "q7", "sql")
 
 
 def reset_launches():
@@ -2559,6 +2581,78 @@ def operators(runner):
             in runner.engine.members.items()]
 
 
+def _pin(text, batch):
+    """``text`` with the nexmark event-time origin pinned to 0, as the
+    hand-built programs are run."""
+    return text.replace(f"batch_size = '{batch}'",
+                        f"batch_size = '{batch}', base_time_micros = '0'")
+
+
+def sql_text(query, num_events, broker="bench5"):
+    """The SQL of ``query`` at ``num_events`` (queries.py, bench.py's)."""
+    if query == "config5":
+        return queries.CONFIG5_SQL.format(n=num_events, b=C5_BATCH).replace(
+            "memory://bench5", f"memory://{broker}")
+    if query == "hot_items":
+        return _pin(hot_items_sql(num_events, BATCH), BATCH)
+    return _pin(queries.QUERIES[query].format(n=num_events, b=BATCH), BATCH)
+
+
+PLAN_MS = {}  # query -> parse + plan host ms of its last SQL plan
+
+
+def program_for(query, num_events, sink, sql=False, broker=None):
+    """The hand-built program of ``query`` or (``sql``) the port's plan of
+    its SQL, writing to the memory sink ``sink``."""
+    if not sql:
+        return {
+            "q1": lambda: q1_program(num_events, BATCH, sink,
+                                     base_time_micros=0),
+            "q5": lambda: q5_program(num_events, BATCH, sink,
+                                     base_time_micros=0),
+            "q7": lambda: q7_program(num_events, BATCH, sink,
+                                     base_time_micros=0),
+            "q8": lambda: q8_program(num_events, BATCH, sink,
+                                     base_time_micros=0),
+            "hot_items": lambda: hot_items_program(
+                num_events, BATCH, sink=sink, base_time_micros=0),
+            "config5": lambda: config5_program(num_events, C5_BATCH, sink,
+                                               broker=broker),
+        }[query]()
+    text = sql_text(query, num_events, broker)
+    t0 = time.perf_counter()
+    program = plan_sql(text)
+    PLAN_MS[query] = (time.perf_counter() - t0) * 1e3
+    for node in program.nodes():
+        if node.operator.kind == OpKind.CONNECTOR_SINK:
+            node.operator.spec.config["name"] = sink
+    return program
+
+
+def plan_signature(program):
+    """The nodes in topological order — name, kind, key columns,
+    parallelism, spec, expression return type, inputs by position — so a
+    hand-built program compares with a planned one whatever their ids."""
+    order = program.topo_order()
+    pos = {nid: i for i, nid in enumerate(order)}
+    out = []
+    for nid in order:
+        node = program.node(nid)
+        op = node.operator
+        ins = sorted((pos[s], e.typ.value, e.key_schema)
+                     for s, _, e in program.graph.in_edges(nid))
+        spec = op.spec
+        if op.kind in (OpKind.CONNECTOR_SOURCE, OpKind.CONNECTOR_SINK):
+            # a CREATE TABLE sink also carries its (unused) format
+            spec = (spec.connector, {k: v for k, v in spec.config.items()
+                                     if k != "format"
+                                     or op.kind == OpKind.CONNECTOR_SOURCE})
+        out.append((op.name, op.kind.value, op.key_cols, node.parallelism,
+                    node.max_parallelism, repr(spec),
+                    op.expr.return_type.value if op.expr else None, ins))
+    return out
+
+
 def run_program(program, device):
     """``program`` through LocalRunner; (wall s, the runner)."""
     runner = LocalRunner(program, device=device)
@@ -2569,11 +2663,12 @@ def run_program(program, device):
     return time.perf_counter() - t0, runner
 
 
-def run_q5(sink, device):
-    """q5; (wall s, sorted rows, number of runners)."""
+def run_q5(sink, device, sql=False):
+    """q5, hand-built or (``sql``) planned from bench.py's text; (wall s,
+    sorted rows, number of runners)."""
     clear_sink(sink)
-    dt, runner = run_program(
-        q5_program(NUM_EVENTS, BATCH, sink, base_time_micros=0), device)
+    dt, runner = run_program(program_for("q5", NUM_EVENTS, sink, sql),
+                             device)
     rows = sorted(
         (int(b.timestamp[i]), int(b.columns["auction"][i]),
          int(b.columns["num"][i]))
@@ -2587,6 +2682,7 @@ def main_path():
     (dt, rows, tasks), sizes, counts = flushing(run_q5, "smoke-cuda",
                                                 None)  # the card
     launches = read_launches()
+    HAND["q5"] = (rows, launches, dt)
     check(counts["pane_update_dispatches"] == launches["bin_update"],
           f"q5: {counts} against {launches['bin_update']} launches")
     # an argmax fire: one pinned upload, one launch, one readback (and
@@ -2688,11 +2784,11 @@ def q8_control(num_events):
     return t[np.lexsort(t.T[::-1])]
 
 
-def run_q8(num_events, sink, device):
+def run_q8(num_events, sink, device, sql=False):
     """q8 through LocalRunner; returns (wall s, sorted rows, state shape)."""
     clear_sink(sink)
-    dt, runner = run_program(q8_program(num_events, BATCH, sink,
-                                        base_time_micros=0), device)
+    dt, runner = run_program(program_for("q8", num_events, sink, sql),
+                             device)
     shape = {}
     for op_id, op in operators(runner):
         st = getattr(op, "state", None)
@@ -2751,7 +2847,9 @@ def q8_phase():
     dt_cpu, rows_cpu, _ = run_q8(Q8_EVENTS, "q8-cpu", "cpu")
     check(np.array_equal(rows_cpu, rows), "q8 rows differ between card "
           "and cpu")
+    reset_launches()
     dt_small, small, _ = run_q8(Q8_SMALL, "q8-small-cuda", None)
+    HAND["q8"] = (small, read_launches(), dt_small)
     dt_small_cpu, small_cpu, _ = run_q8(Q8_SMALL, "q8-small-cpu", "cpu")
     check(len(small) > 0 and np.array_equal(small, small_cpu),
           "q8 rows at 2M events differ between card and cpu")
@@ -2804,12 +2902,12 @@ def c5_control(num_events):
                       counts.tolist(), start.tolist(), end.tolist()))
 
 
-def run_c5(num_events, broker, sink, device):
+def run_c5(num_events, broker, sink, device, sql=False):
     """config5 through LocalRunner with 1 s checkpoints; returns (wall s,
     sorted rows, sink batches, fully completed checkpoint epochs)."""
     clear_sink(sink)
-    runner = LocalRunner(config5_program(num_events, C5_BATCH, sink,
-                                         broker=broker), device=device)
+    runner = LocalRunner(program_for("config5", num_events, sink, sql,
+                                     broker=broker), device=device)
     t0 = time.perf_counter()
     resps = runner.run(checkpoint_interval_secs=1.0)
     if device != "cpu":
@@ -2884,8 +2982,10 @@ def c5_phase():
     device_s = perf.counter("device_ns") / 1e9
     check(rows_timed == rows, "config5 rows differ under ARROYO_TIMING")
     config5_produce("c5-small", C5_SMALL, 0, C5_SPACING)
+    reset_launches()
     dt_small, small, _, _ = run_c5(C5_SMALL, "c5-small", "c5-small-cuda",
                                    None)
+    HAND["config5"] = (small, read_launches(), dt_small)
     dt_small_cpu, small_cpu, _, _ = run_c5(C5_SMALL, "c5-small",
                                            "c5-small-cpu", "cpu")
     check(len(small) > 0 and small == small_cpu,
@@ -3157,12 +3257,12 @@ def hot_gate(rows, control):
     return len(ends)
 
 
-def run_hot(num_events, sink, device):
+def run_hot(num_events, sink, device, sql=False):
     """Hot items through LocalRunner; returns (wall s, sorted rows, the
     fused aggregate's state)."""
     clear_sink(sink)
-    dt, runner = run_program(hot_items_program(num_events, BATCH, sink=sink,
-                                               base_time_micros=0), device)
+    dt, runner = run_program(program_for("hot_items", num_events, sink, sql),
+                             device)
     state = {}
     for _op_id, op in operators(runner):
         st = getattr(op, "state", None)
@@ -3206,7 +3306,9 @@ def hot_phase():
     device_s = perf.counter("device_ns") / 1e9
     check(np.array_equal(rows_timed, rows), "hot items rows differ under "
           "ARROYO_TIMING")
+    reset_launches()
     dt_small, small, _ = run_hot(HOT_SMALL, "hot-small-cuda", None)
+    HAND["hot_items"] = (small, read_launches(), dt_small)
     dt_small_cpu, small_cpu, _ = run_hot(HOT_SMALL, "hot-small-cpu", "cpu")
     check(len(small) > 0 and np.array_equal(small, small_cpu),
           "hot items rows at 2M events differ between card and cpu")
@@ -3292,11 +3394,11 @@ def q1_control(num_events):
         "datetime": bids["bid_datetime"]}, ("ts",) + Q1_COLS)
 
 
-def run_q1(num_events, sink, device):
+def run_q1(num_events, sink, device, sql=False):
     """q1; (wall s, sorted sink columns, number of runners)."""
     clear_sink(sink)
-    dt, runner = run_program(q1_program(num_events, BATCH, sink,
-                                        base_time_micros=0), device)
+    dt, runner = run_program(program_for("q1", num_events, sink, sql),
+                             device)
     return (dt, sorted_columns(sink_columns(sink, Q1_COLS),
                                ("ts",) + Q1_COLS),
             len(runner.engine.subtasks))
@@ -3309,6 +3411,7 @@ def q1_phase():
     reset_launches()
     dt, cols, tasks = run_q1(NUM_EVENTS, "q1-cuda", None)  # the card
     launches = read_launches()
+    HAND["q1"] = (cols, launches, dt)
     check(len(cols["ts"]) > 0 and same_columns(cols, control),
           f"q1 rows differ from the numpy control ({len(cols['ts'])} vs "
           f"{len(control['ts'])})")
@@ -3352,11 +3455,11 @@ def q7_control(num_events):
         ("ts",) + Q7_COLS)
 
 
-def run_q7(num_events, sink, device):
+def run_q7(num_events, sink, device, sql=False):
     """q7; (wall s, sorted sink columns, number of runners)."""
     clear_sink(sink)
-    dt, runner = run_program(q7_program(num_events, BATCH, sink,
-                                        base_time_micros=0), device)
+    dt, runner = run_program(program_for("q7", num_events, sink, sql),
+                             device)
     return (dt, sorted_columns(sink_columns(sink, Q7_COLS),
                                ("ts",) + Q7_COLS),
             len(runner.engine.subtasks))
@@ -3373,6 +3476,8 @@ def q7_phase():
         reset_launches()
         dt, cols, tasks = run_q7(n, f"q7-cuda-{n}", None)  # the card
         got = read_launches()
+        if n == NUM_EVENTS:
+            HAND["q7"] = (cols, got, dt)
         launches = (got if launches is None
                     else {k: launches[k] + v for k, v in got.items()})
         counters = {k: perf.counter(k) for k in Q7_COUNTERS}
@@ -3398,6 +3503,137 @@ def q7_phase():
     return launches
 
 
+# -- phase 12: the SQL front end ----------------------------------------------------------
+
+
+def sql_run(query, sink, device, sql=True):
+    """``query`` at phase 12's size; (wall s, rows as its phase compares
+    them)."""
+    if query == "q5":
+        dt, rows, _ = run_q5(sink, device, sql)
+    elif query == "q8":
+        dt, rows, _ = run_q8(Q8_SMALL, sink, device, sql)
+    elif query == "config5":
+        dt, rows, _, _ = run_c5(C5_SMALL, "c5-small", sink, device, sql)
+    elif query == "hot_items":
+        dt, rows, _ = run_hot(HOT_SMALL, sink, device, sql)
+    elif query == "q1":
+        dt, rows, _ = run_q1(NUM_EVENTS, sink, device, sql)
+    else:
+        dt, rows, _ = run_q7(NUM_EVENTS, sink, device, sql)
+    return dt, rows
+
+
+def same_rows(a, b):
+    if isinstance(a, dict):
+        return same_columns(a, b)
+    if isinstance(a, np.ndarray):
+        return a.shape == b.shape and np.array_equal(a, b)
+    return a == b
+
+
+def n_rows(rows):
+    return len(rows["ts"]) if isinstance(rows, dict) else len(rows)
+
+
+SQL_SIZES = {"q1": NUM_EVENTS, "q5": NUM_EVENTS, "q7": NUM_EVENTS,
+             "q8": Q8_SMALL, "hot_items": HOT_SMALL, "config5": C5_SMALL}
+
+
+def uncoalesced_launches(query):
+    """(SQL-planned, hand-built) kernel launches of ``query`` at phase
+    12's size under ``ARROYO_COALESCE=0``."""
+    os.environ["ARROYO_COALESCE"] = "0"
+    try:
+        out = []
+        for sql in (True, False):
+            reset_launches()
+            sql_run(query, f"sql-{query}-uncoalesced", None, sql)
+            out.append(read_launches())
+    finally:
+        del os.environ["ARROYO_COALESCE"]
+    return out
+
+
+def sql_phase():
+    """bench.py's Q1, Q5, Q7, Q8, CONFIG5_SQL and the hot-items SQL planned
+    by ``arroyo_tpu_torch.sql.plan_sql`` and run on the card: node for
+    node the hand-built program, the rows and kernel launches of the
+    hand-built run an earlier phase made at the same size; then q5
+    unchained, its SQL expressions on the card."""
+    unregister_udfs()
+    register_udaf("median", np.median)
+    config5_produce("c5-small", C5_SMALL, 0, C5_SPACING)
+    out, launches = {}, None
+    for query in SQL_QUERIES:
+        n = SQL_SIZES[query]
+        hand_sig = plan_signature(program_for(query, n, "sql-" + query,
+                                              broker="c5-small"))
+        planned_sig = plan_signature(program_for(query, n, "sql-" + query,
+                                                 True, broker="c5-small"))
+        check(planned_sig == hand_sig, f"{query}: the planned node sequence "
+              "differs from the hand-built program's")
+        reset_launches()
+        perf.reset()
+        dt, rows = sql_run(query, f"sql-{query}-cuda", None)
+        got = read_launches()
+        # chained, the ingest spine evaluates every SQL expression on the
+        # host, as the JAX package's spine does
+        chained_calls = perf.counter("expr_device_calls")
+        check(chained_calls == 0, f"{query}: {chained_calls} SQL expression "
+              "calls on the card in a chained run")
+        hand_rows, hand_launches, hand_dt = HAND[query]
+        check(n_rows(rows) > 0 and same_rows(rows, hand_rows),
+              f"{query}: SQL-planned rows differ from the hand-built run's "
+              f"({n_rows(rows)} vs {n_rows(hand_rows)})")
+        if query == "config5":
+            # the session operator unions once an input batch, and which
+            # batches the coalescer merges depends on when they arrive:
+            # the counts are held equal with one union a source batch
+            got_u, hand_u = uncoalesced_launches(query)
+            check(got_u == hand_u, f"{query}: SQL-planned launches {got_u} "
+                  f"against the hand-built run's {hand_u} under "
+                  "ARROYO_COALESCE=0")
+        else:
+            check(got == hand_launches, f"{query}: SQL-planned launches "
+                  f"{got} against the hand-built run's {hand_launches}")
+        launches = (got if launches is None
+                    else {k: launches[k] + v for k, v in got.items()})
+        out[query] = {"events": n, "plan_ms": PLAN_MS[query], "wall_s": dt,
+                      "hand_wall_s": hand_dt, "rows": n_rows(rows),
+                      "nodes": len(planned_sig), "launches": got,
+                      "expr_device_calls": chained_calls}
+        if query == "config5":
+            out[query].update(hand_launches=hand_launches,
+                              uncoalesced_launches=got_u)
+    # q5 with one runner per operator: the post-aggregate projections and
+    # the filters run as torch ops on the card (ARROYO_TIMING=1 times each
+    # call synchronized, upload and readback included)
+    os.environ.update(ARROYO_CHAIN="0", ARROYO_COALESCE="0",
+                      ARROYO_TIMING="1")
+    perf.reset()
+    try:
+        dt_u, rows_u, tasks_u = run_q5("sql-q5-unchained", None, True)
+    finally:
+        for k in ("ARROYO_CHAIN", "ARROYO_COALESCE", "ARROYO_TIMING"):
+            del os.environ[k]
+    calls = perf.counter("expr_device_calls")
+    nbytes = perf.counter("expr_device_bytes")
+    check(rows_u == HAND["q5"][0], "q5 SQL rows differ under ARROYO_CHAIN=0 "
+          "ARROYO_COALESCE=0")
+    check(calls > 0, "q5 unchained ran no SQL expression on the card")
+    expr_ms = perf.counter("expr_device_ns") / 1e6
+    out["q5_unchained"] = {
+        "wall_s": dt_u, "tasks": tasks_u, "expr_device_calls": calls,
+        "expr_device_ms": expr_ms, "expr_ms_per_call": expr_ms / max(calls, 1),
+        "expr_rows": perf.counter("expr_device_rows"),
+        "expr_bytes": nbytes,
+        "expr_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    unregister_udfs()
+    print("sql path: " + json.dumps(out))
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -3420,6 +3656,7 @@ def main():
     launches["join_inner"], launches["join_left"] = js_phase()
     launches["hot_items"] = hot_phase()
     launches["q1"], launches["q7"] = q1_phase(), q7_phase()
+    launches["sql"] = sql_phase()
     for r in kernels:
         for path in PATHS:
             r[f"launches_{path}"] = launches[path][r["name"]]

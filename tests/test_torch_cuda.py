@@ -1452,3 +1452,112 @@ def test_keyed_bins_cuda_fires_read_back_once(cuda_device, monkeypatch):
                     np.testing.assert_array_equal(x, y)
             now += 1_500
         assert mode == "compact" or (fired >= 3 and overflows >= 1)
+
+
+# -- SQL expressions on the card (ops/expr.py CompiledExpr.__call__) ---------
+
+EXPR_KINDS = {"i": "i", "j": "i", "k": "i", "f": "f", "g": "f", "oi": "i",
+              "ob": "b", "tm": "i"}
+
+# (expression, transcendental): the operators and DEVICE_FUNCTIONS the
+# device path evaluates (tests/test_torch_sql_expr.py holds the CPU paths
+# against the JAX package's)
+EXPR_CORPUS = [
+    ("i + j", False), ("i * 0.908", False), ("f + i", False),
+    ("i / j", False), ("i % j", False), ("f / j", False), ("f % j", False),
+    ("i / 2.5", False), ("100 / f", False), ("2.5 / (k + 1)", False),
+    ("oi / j", False), ("oi * f", False),
+    ("i = j", False), ("f >= i", False), ("i > 0 AND f > 0", False),
+    ("i > 0 OR ob", False), ("NOT ob", False), ("i BETWEEN -10 AND 10", False),
+    ("oi NOT IN (1, 2)", False),
+    ("CASE WHEN i > 0 THEN 1 WHEN i < -20 THEN 2 ELSE 3 END", False),
+    ("CASE WHEN f > 0 THEN f END", False),
+    ("CASE j WHEN 0 THEN 10 WHEN 1 THEN 11 END", False),
+    ("CAST(f AS BIGINT)", False), ("CAST(oi AS BIGINT)", False),
+    ("CAST(i AS DOUBLE)", False), ("CAST(i AS BOOLEAN)", False),
+    ("f IS NULL", False), ("oi IS NOT NULL", False), ("1 + 2", False),
+    ("abs(f)", False), ("ceil(f)", False), ("round(f)", False),
+    ("signum(f)", False), ("trunc(f)", False), ("sqrt(abs(f))", True),
+    ("exp(g)", True), ("ln(abs(f))", True), ("sin(f)", True),
+    ("atan2(f, i)", True), ("power(k, 0.5)", True), ("cbrt(f)", True),
+    ("log(2, k + 1)", True), ("factorial(k)", False), ("gcd(i, j)", False),
+    ("lcm(i, k)", False), ("nullif(f, 0.0)", False),
+    ("coalesce(oi, f, 7)", False), ("date_trunc('hour', tm)", False),
+    ("extract(dow FROM tm)", False), ("to_timestamp_millis(i)", False),
+    ("date_bin(INTERVAL '15' MINUTE, tm, 60000000)", False),
+]
+
+
+def _expr_batch(n):
+    from arroyo_tpu_torch.types import Batch
+
+    rng = np.random.default_rng(99)
+    f = rng.normal(0, 10, n)
+    f[rng.random(n) < 0.15] = np.nan
+    f[:2] = -0.0, 0.0
+    cols = {"i": rng.integers(-50, 50, n), "j": rng.integers(-4, 5, n),
+            "k": rng.integers(0, 25, n), "f": f,
+            "g": rng.uniform(-0.99, 0.99, n),
+            "oi": np.array([None if r < 0.2 else int(x) for r, x in zip(
+                rng.random(n), rng.integers(-9, 9, n))], dtype=object),
+            "ob": np.array([None if r < 0.25 else bool(x) for r, x in zip(
+                rng.random(n), rng.integers(0, 2, n))], dtype=object),
+            "tm": rng.integers(0, 10 * 86_400_000_000, n)}
+    return Batch(np.arange(n, dtype=np.int64) * 1000, cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("text,trans", EXPR_CORPUS,
+                         ids=[e for e, _ in EXPR_CORPUS])
+def test_sql_expression_on_the_card_matches_cpu(cuda_device, text, trans):
+    """A SQL expression evaluated on the card (columns uploaded, torch ops
+    there, results read back) gives the CPU's device path exactly
+    (transcendental functions within rtol 1e-12, NaN in the same rows);
+    each call counts as one device expression call."""
+    from arroyo_tpu_torch.obs import perf
+    from arroyo_tpu_torch.ops.expr import CompiledExpr, eval_record_expr
+    from arroyo_tpu_torch.sql.compiler import Schema, compile_scalar
+    from arroyo_tpu_torch.sql.parser import parse_sql
+    from arroyo_tpu_torch.sql.planner import _wrap_record
+
+    e = parse_sql(f"SELECT {text} AS x FROM t")[0].items[0].expr
+    c = compile_scalar(e, Schema(columns=dict(EXPR_KINDS)))
+    assert not c.needs_host
+    fn = _wrap_record([("x", c)], [])
+    batch = _expr_batch(4_097)
+    perf.reset()
+    got = eval_record_expr(CompiledExpr("x", fn, cuda_device), batch)
+    assert perf.counter("expr_device_calls") == 1
+    want = eval_record_expr(CompiledExpr("x", fn, torch.device("cpu")),
+                            batch)
+    a, b = want.columns["x"], got.columns["x"]
+    assert a.dtype == b.dtype and a.shape == b.shape
+    if a.dtype.kind == "f":
+        assert np.array_equal(np.isnan(a), np.isnan(b))
+        if trans:
+            np.testing.assert_allclose(b, a, rtol=1e-12, equal_nan=True)
+        else:
+            ok = ~np.isnan(a)
+            u = f"u{a.itemsize}"
+            assert np.array_equal(a[ok].view(u), b[ok].view(u))
+    else:
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sql_predicate_on_the_card_matches_cpu(cuda_device):
+    from arroyo_tpu_torch.ops.expr import CompiledExpr, eval_predicate
+    from arroyo_tpu_torch.sql.compiler import Schema, compile_scalar
+    from arroyo_tpu_torch.sql.parser import parse_sql
+    from arroyo_tpu_torch.sql.planner import _wrap_predicate
+
+    batch = _expr_batch(1_000)
+    for text in ("i > 0", "oi = 3", "ob", "i / j > 1", "1 = 1",
+                 "CASE WHEN i > 0 THEN ob ELSE FALSE END"):
+        e = parse_sql(f"SELECT * FROM t WHERE {text}")[0].where
+        fn = _wrap_predicate(compile_scalar(e, Schema(
+            columns=dict(EXPR_KINDS))))
+        got = eval_predicate(CompiledExpr("p", fn, cuda_device), batch)
+        want = eval_predicate(CompiledExpr("p", fn, torch.device("cpu")),
+                              batch)
+        assert got.dtype == np.bool_ and np.array_equal(got, want), text

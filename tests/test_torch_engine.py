@@ -166,7 +166,17 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
 NEW_MODULES = ("arroyo_tpu_torch.q1", "arroyo_tpu_torch.q7",
                "arroyo_tpu_torch.graph.chaining",
                "arroyo_tpu_torch.engine.chained",
-               "arroyo_tpu_torch.engine.coalesce")
+               "arroyo_tpu_torch.engine.coalesce",
+               "arroyo_tpu_torch.queries",
+               "arroyo_tpu_torch.graph.factor_windows",
+               "arroyo_tpu_torch.ops.colmath",
+               "arroyo_tpu_torch.sql.lexer",
+               "arroyo_tpu_torch.sql.ast_nodes",
+               "arroyo_tpu_torch.sql.parser",
+               "arroyo_tpu_torch.sql.schema_provider",
+               "arroyo_tpu_torch.sql.functions",
+               "arroyo_tpu_torch.sql.compiler",
+               "arroyo_tpu_torch.sql.planner")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
