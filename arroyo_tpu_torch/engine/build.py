@@ -11,9 +11,15 @@ from ..device import DeviceLike, resolve_device
 from ..graph.logical import LogicalOperator, OpKind
 from .operator import Operator
 from .operators_basic import (
+    AggregateOperator,
+    CountOperator,
     ExpressionOperator,
+    FlatMapOperator,
+    FlattenOperator,
+    GlobalKeyOperator,
     KeyByOperator,
     UdfOperator,
+    UnionOperator,
     WatermarkOperator,
 )
 
@@ -44,7 +50,21 @@ _BUILDERS[OpKind.CONNECTOR_SINK] = lambda op, dev: make_sink(
 _BUILDERS[OpKind.EXPRESSION] = lambda op, dev: ExpressionOperator(
     op.name, op.expr, resolve_device(dev))
 _BUILDERS[OpKind.UDF] = lambda op, dev: UdfOperator(op.name, op.expr)
+_BUILDERS[OpKind.FLAT_MAP] = lambda op, dev: FlatMapOperator(op.name,
+                                                             op.expr)
+_BUILDERS[OpKind.FLATTEN] = lambda op, dev: FlattenOperator(op.name)
+_BUILDERS[OpKind.UNION] = lambda op, dev: UnionOperator(op.name)
 _BUILDERS[OpKind.WATERMARK] = lambda op, dev: WatermarkOperator(op.name,
                                                                 op.spec)
 _BUILDERS[OpKind.KEY_BY] = lambda op, dev: KeyByOperator(op.name,
                                                          op.key_cols)
+_BUILDERS[OpKind.GLOBAL_KEY] = lambda op, dev: GlobalKeyOperator(op.name)
+_BUILDERS[OpKind.COUNT] = lambda op, dev: CountOperator(op.name)
+_BUILDERS[OpKind.AGGREGATE] = lambda op, dev: AggregateOperator(op.name,
+                                                                op.spec)
+# updating-stream variants: the expression and the keying with the __op
+# column flowing through
+_BUILDERS[OpKind.UPDATING] = lambda op, dev: ExpressionOperator(
+    op.name, op.expr, resolve_device(dev))
+_BUILDERS[OpKind.UPDATING_KEY] = lambda op, dev: KeyByOperator(op.name,
+                                                               op.key_cols)

@@ -9,11 +9,11 @@ order with one metadata entry each, so the checkpoint epochs count the
 same (member, subtask) completions as unchained, and a checkpoint taken
 chained restores unchained and the reverse.
 
-The ingest spine: a run of elementwise members (predicates, record maps,
-udfs, key_bys), one member long or more, executes as one host step
-(:class:`_SpineStep`), as the JAX package's does: SQL expressions there
-evaluate on the host (``eval_*(..., host=True)``), never on the
-expression device.  The JAX package also composes runs of record
+The ingest spine: a run of elementwise members (predicates, record and
+option maps, udfs, key_bys), one member long or more, executes as one
+host step (:class:`_SpineStep`), as the JAX package's does: SQL
+expressions there evaluate on the host (``eval_*(..., host=True)``),
+never on the expression device.  The JAX package also composes runs of record
 expressions into one jitted function (``_compose_exprs``,
 ``ARROYO_CHAIN_FUSE_EXPR``) where its spine is off; the port's spine is
 always on in a chain, so that composition has no counterpart."""
@@ -67,8 +67,10 @@ class _SpineStep(Operator):
                 kind = "udf"
             elif op.return_type == ExprReturnType.PREDICATE:
                 kind = "pred"
-            else:
+            elif op.return_type == ExprReturnType.RECORD:
                 kind = "record"
+            else:
+                kind = "opt"  # OPTIONAL_RECORD: record + __valid select
             self.plan.append((kind, op))
 
     async def process_batch(self, batch: Batch, ctx: Context,
@@ -82,6 +84,10 @@ class _SpineStep(Operator):
                 b = b.select(mask)
             elif kind == "record":
                 b = eval_record_expr(op.compiled, b, host=True)
+            elif kind == "opt":
+                b = eval_record_expr(op.compiled, b, host=True)
+                if "__valid" in b.columns:
+                    b = b.select(b.columns.pop("__valid").astype(bool))
             elif kind == "udf":
                 b = eval_host_expr(op.fn, b)
             else:

@@ -1,26 +1,30 @@
-"""Element-wise operators and the periodic watermark generator (port of
-the q5-path subset of ``arroyo_tpu.engine.operators_basic``)."""
+"""Element-wise and per-key running operators and the periodic watermark
+generator (port of ``arroyo_tpu.engine.operators_basic``): map, filter
+and option-map, UDF, flat-map and flatten, union, key_by and the global
+key, the running count and the running MAX/MIN/SUM."""
 
 from __future__ import annotations
 
 import asyncio
 import time as _time
-from typing import Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from ..graph.logical import ColumnExpr, ExprReturnType, PeriodicWatermarkSpec
+from ..graph.logical import (AggKind, AggSpec, ColumnExpr, ExprReturnType,
+                             PeriodicWatermarkSpec)
 from ..ops.expr import CompiledExpr, eval_host_expr, eval_predicate, eval_record_expr
+from ..state.tables import TableDescriptor, TableType
 from ..types import MAX_TIMESTAMP, Batch, Message, Watermark
 from .context import Context
 from .operator import Operator
 
 
 class ExpressionOperator(Operator):
-    """Map / Filter over a batch via a column expression; a SQL-compiled
-    expression runs on the expression device (ops/expr.py), a Stream-API
-    function on the host."""
+    """Map / Filter / OptionMap over a batch via a column expression; a
+    SQL-compiled expression runs on the expression device (ops/expr.py),
+    a Stream-API function on the host."""
 
     def __init__(self, name: str, expr: ColumnExpr, device: torch.device):
         super().__init__(name)
@@ -33,8 +37,14 @@ class ExpressionOperator(Operator):
             mask = eval_predicate(self.compiled, batch)
             if mask.any():
                 await ctx.collect(batch.select(mask))
-        else:
+        elif self.return_type == ExprReturnType.RECORD:
             await ctx.collect(eval_record_expr(self.compiled, batch))
+        else:  # OPTIONAL_RECORD: the record's '__valid' column selects rows
+            out = eval_record_expr(self.compiled, batch)
+            if "__valid" in out.columns:
+                mask = out.columns.pop("__valid").astype(bool)
+                out = out.select(mask)
+            await ctx.collect(out)
 
 
 class UdfOperator(Operator):
@@ -49,6 +59,54 @@ class UdfOperator(Operator):
         await ctx.collect(eval_host_expr(self.fn, batch))
 
 
+class UnionOperator(Operator):
+    """UNION ALL: batches from every input pass through unchanged; the
+    runner's watermark holder takes the minimum over the inputs."""
+
+    async def process_batch(self, batch: Batch, ctx: Context,
+                            side: int = 0) -> None:
+        await ctx.collect(batch)
+
+
+class FlattenOperator(Operator):
+    """Expands the list-valued column ``list_col`` into one row a list
+    element (the row's other columns repeated)."""
+
+    def __init__(self, name: str, list_col: str = "__flatten"):
+        super().__init__(name)
+        self.list_col = list_col
+
+    async def process_batch(self, batch: Batch, ctx: Context,
+                            side: int = 0) -> None:
+        col = batch.columns.get(self.list_col)
+        if col is None:
+            await ctx.collect(batch)
+            return
+        lengths = np.fromiter((len(x) for x in col), dtype=np.int64,
+                              count=len(col))
+        idx = np.repeat(np.arange(len(col)), lengths)
+        flat = (np.concatenate([np.asarray(x) for x in col if len(x)])
+                if lengths.sum() else np.zeros(0))
+        out = batch.select(idx)
+        out.columns[self.list_col] = flat
+        await ctx.collect(out)
+
+
+class FlatMapOperator(Operator):
+    """A host record function producing a list column, then flattened."""
+
+    def __init__(self, name: str, expr: ColumnExpr,
+                 list_col: str = "__flatten"):
+        super().__init__(name)
+        self.fn = expr.fn
+        self.flatten = FlattenOperator(name + "_flatten", list_col)
+
+    async def process_batch(self, batch: Batch, ctx: Context,
+                            side: int = 0) -> None:
+        await self.flatten.process_batch(eval_host_expr(self.fn, batch),
+                                         ctx, side)
+
+
 class KeyByOperator(Operator):
     """Re-key the stream: computes the composite key hash for routing."""
 
@@ -59,6 +117,17 @@ class KeyByOperator(Operator):
     async def process_batch(self, batch: Batch, ctx: Context,
                             side: int = 0) -> None:
         await ctx.collect(batch.with_key(list(self.key_cols)))
+
+
+class GlobalKeyOperator(Operator):
+    """Routes every row to one key (hash 0, key column ``__global``): a
+    windowed aggregate without GROUP BY keys."""
+
+    async def process_batch(self, batch: Batch, ctx: Context,
+                            side: int = 0) -> None:
+        kh = np.zeros(len(batch), dtype=np.uint64)
+        await ctx.collect(Batch(batch.timestamp, dict(batch.columns), kh,
+                                ("__global",)))
 
 
 class WatermarkOperator(Operator):
@@ -113,3 +182,82 @@ class WatermarkOperator(Operator):
     async def on_close(self, ctx: Context) -> None:
         if self._idle_task:
             self._idle_task.cancel()
+
+
+class CountOperator(Operator):
+    """A running count a key over a keyed stream: each batch emits one
+    row a key it holds, with the key's new count (KEYED table ``c``)."""
+
+    def __init__(self, name: str):
+        super().__init__(name)
+        self.counts: Dict[int, int] = {}
+
+    def tables(self) -> List[TableDescriptor]:
+        return [TableDescriptor("c", TableType.KEYED, "counts")]
+
+    async def on_start(self, ctx: Context) -> None:
+        t = ctx.state.get_keyed_state("c")
+        self.counts = {k: v for k, v in t.items()}
+
+    async def process_batch(self, batch: Batch, ctx: Context,
+                            side: int = 0) -> None:
+        if batch.key_hash is None:
+            return
+        t = ctx.state.get_keyed_state("c")
+        keys, cnt = np.unique(batch.key_hash, return_counts=True)
+        out_counts = np.zeros(len(keys), dtype=np.int64)
+        ts = int(np.max(batch.timestamp))
+        for i, (k, c) in enumerate(zip(keys.tolist(), cnt.tolist())):
+            nc = self.counts.get(k, 0) + c
+            self.counts[k] = nc
+            out_counts[i] = nc
+            t.insert(ts, k, nc)
+        await ctx.collect(Batch(np.full(len(keys), ts, dtype=np.int64),
+                                {"count": out_counts},
+                                keys.astype(np.uint64), batch.key_cols))
+
+
+class AggregateOperator(Operator):
+    """A running MAX, MIN or SUM a key in f64: each batch emits one row a
+    key it holds, with the key's new value (KEYED table ``a``)."""
+
+    _REDUCE = {AggKind.SUM: np.add, AggKind.MAX: np.maximum,
+               AggKind.MIN: np.minimum}
+    _MERGE = {AggKind.SUM: lambda a, b: a + b, AggKind.MAX: max,
+              AggKind.MIN: min}
+
+    def __init__(self, name: str, agg: AggSpec):
+        super().__init__(name)
+        if agg.kind not in self._REDUCE:
+            raise ValueError(agg.kind)
+        self.agg = agg
+        self.values: Dict[int, float] = {}
+
+    def tables(self) -> List[TableDescriptor]:
+        return [TableDescriptor("a", TableType.KEYED, "aggregates")]
+
+    async def on_start(self, ctx: Context) -> None:
+        t = ctx.state.get_keyed_state("a")
+        self.values = {k: v for k, v in t.items()}
+
+    async def process_batch(self, batch: Batch, ctx: Context,
+                            side: int = 0) -> None:
+        if batch.key_hash is None or self.agg.column not in batch.columns:
+            return
+        t = ctx.state.get_keyed_state("a")
+        vals = batch.columns[self.agg.column].astype(np.float64)
+        order = np.argsort(batch.key_hash, kind="stable")
+        keys, starts = np.unique(batch.key_hash[order], return_index=True)
+        ts = int(np.max(batch.timestamp))
+        per = self._REDUCE[self.agg.kind].reduceat(vals[order], starts)
+        merge = self._MERGE[self.agg.kind]
+        out_vals = np.zeros(len(keys))
+        for i, (k, x) in enumerate(zip(keys.tolist(), per.tolist())):
+            cur = self.values.get(k)
+            nv = x if cur is None else merge(cur, x)
+            self.values[k] = nv
+            out_vals[i] = nv
+            t.insert(ts, k, nv)
+        await ctx.collect(Batch(np.full(len(keys), ts, dtype=np.int64),
+                                {self.agg.output: out_vals},
+                                keys.astype(np.uint64), batch.key_cols))

@@ -19,9 +19,17 @@
 * :class:`JoinWithExpirationOperator` — the unwindowed stream-stream
   equi-join with TTL state: every arriving batch probes the opposite
   side's state (the device rings of its hot partitions);
+* :class:`WindowOperator` — the buffered tumbling/sliding/instant window:
+  rows wait in a batch buffer until their window's end, then are
+  aggregated per key by ``ops/segment.py`` (or emitted flat); SQL takes
+  it for COUNT(DISTINCT), a UDAF or a string MIN/MAX;
 * :class:`SessionWindowOperator` — session windows over interval-run
   state (``state/session_state.py``), aggregated per fired session by
-  ``ops/segment.py``."""
+  ``ops/segment.py``;
+* :class:`NonWindowAggOperator` — the updating GROUP BY without a window:
+  running per-key aggregates emitting CREATE/UPDATE rows, or, with
+  ``flush_key``, a per-window re-aggregation that emits each window's
+  final row once, when the watermark passes it."""
 
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import numpy as np
 
 from ..device import DeviceLike, resolve_device
 from ..graph.logical import (
+    AggKind,
     AggSpec,
     ColumnExpr,
     InstantWindow,
@@ -907,6 +916,93 @@ class JoinWithExpirationOperator(Operator):
         await ctx.broadcast(Message.wm(Watermark.event_time(watermark)))
 
 
+# -- buffered windows -----------------------------------------------------------------
+
+
+def _first_occurrence_cols(batch: Batch, uniq_keys: np.ndarray
+                           ) -> Dict[str, np.ndarray]:
+    """Key-column values for each unique key (first occurrence wins),
+    aligned with the sorted ``uniq_keys``."""
+    if not batch.key_cols:
+        return {}
+    order = np.argsort(batch.key_hash, kind="stable")
+    _, first = np.unique(batch.key_hash[order], return_index=True)
+    rows = order[first]
+    return {c: batch.columns[c][rows] for c in batch.key_cols
+            if c in batch.columns}
+
+
+class WindowOperator(Operator):
+    """A keyed tumbling, sliding or instant window over buffered rows
+    (BATCH_BUFFER table ``w``): one timer a distinct window end; at the
+    end, the window's rows are reduced per key by ``segment_aggregate``
+    on the operator's device (the ``segment_agg`` kernel on the card),
+    or emitted flat with the window's bounds."""
+
+    def __init__(self, name: str, typ, aggs: Tuple[AggSpec, ...],
+                 flatten: bool, projection=None, device: DeviceLike = None):
+        super().__init__(name)
+        self.device = resolve_device(device)
+        self.typ = typ
+        self.width, self.slide = _window_params(typ)
+        self.aggs = aggs
+        self.flatten = flatten or not aggs
+        self.projection = (CompiledExpr(projection.name, projection.fn,
+                                        self.device)
+                           if projection else None)
+
+    def tables(self) -> List[TableDescriptor]:
+        return [TableDescriptor("w", TableType.BATCH_BUFFER, "window buffer",
+                                retention_micros=self.width)]
+
+    async def on_start(self, ctx: Context) -> None:
+        self.buffer = ctx.state.get_batch_buffer("w")
+
+    async def process_batch(self, batch: Batch, ctx: Context,
+                            side: int = 0) -> None:
+        assert batch.key_hash is not None
+        self.buffer.append(batch)
+        # rows at ts belong to the windows ending at the slide-aligned
+        # points in (ts, ts + width]
+        first_end = (batch.timestamp // self.slide + 1) * self.slide
+        if isinstance(self.typ, SlidingWindow):
+            ends = np.unique(np.concatenate([
+                first_end + i * self.slide
+                for i in range(self.width // self.slide)]))
+        else:
+            ends = np.unique(first_end - self.slide + self.width)
+        for e in ends.tolist():
+            ctx.timers.schedule(int(e), ("w", int(e)))
+
+    async def handle_timer(self, time: int, key: Any, payload: Any,
+                           ctx: Context) -> None:
+        end = key[1]
+        start = end - self.width
+        rows = self.buffer.query_range(start, end)
+        if rows is not None and len(rows):
+            if self.flatten:
+                out_cols = dict(rows.columns)
+                out_cols["window_start"] = np.full(len(rows), start, np.int64)
+                out_cols["window_end"] = np.full(len(rows), end, np.int64)
+                out = Batch(np.full(len(rows), end - 1, np.int64), out_cols,
+                            rows.key_hash, rows.key_cols)
+            else:
+                uniq, agg_cols, _, _cnt, _vc = segment_aggregate(
+                    rows.key_hash, rows.timestamp, rows.columns, self.aggs,
+                    self.device)
+                cols = _first_occurrence_cols(rows, uniq)
+                cols["window_start"] = np.full(len(uniq), start, np.int64)
+                cols["window_end"] = np.full(len(uniq), end, np.int64)
+                cols.update(agg_cols)
+                out = Batch(np.full(len(uniq), end - 1, np.int64), cols,
+                            uniq.astype(np.uint64), rows.key_cols)
+            if self.projection is not None:
+                out = eval_record_expr(self.projection, out)
+            await ctx.collect(out)
+        # rows no later window needs
+        self.buffer.evict_before(end - self.width + self.slide)
+
+
 # -- session windows ------------------------------------------------------------------
 
 
@@ -1218,6 +1314,173 @@ class SessionWindowOperator(Operator):
         await ctx.broadcast(Message.wm(Watermark.event_time(watermark)))
 
 
+# -- the non-windowed (updating) aggregate ---------------------------------------------
+
+
+def _is_null(v) -> bool:
+    """SQL NULL as ``segment_aggregate`` gives it: None or a float NaN."""
+    return v is None or (isinstance(v, (float, np.floating)) and np.isnan(v))
+
+
+class NonWindowAggOperator(Operator):
+    """Running per-key aggregates over a keyed stream with a TTL (KEYED
+    table ``u``): each batch is reduced per key by ``segment_aggregate``
+    on the operator's device (the ``segment_agg`` kernel on the card),
+    merged into the keys' running records and emitted as CREATE/UPDATE
+    rows (``__op``).  AVG is kept mergeable as ``<out>__sum`` and
+    ``<out>__cnt``.
+
+    With ``flush_key`` (GROUP BY the window of a windowed input, q5's
+    per-window maximum) refinements consolidate in state, with the key
+    columns (``__kc::<col>``), and each key emits its final row once,
+    when the watermark reaches the ``flush_key`` column: upstream panes
+    always precede the watermark that releases them, so the output is
+    append-only.  A record re-created for a window at or below the
+    highest released watermark is a late refinement and is dropped, also
+    after a restore (the guard re-arms from the checkpoint's
+    watermark)."""
+
+    def __init__(self, name: str, expiration_micros: int,
+                 aggs: Tuple[AggSpec, ...], projection=None,
+                 flush_key: Optional[str] = None,
+                 device: DeviceLike = None):
+        super().__init__(name)
+        self.device = resolve_device(device)
+        self.expiration = expiration_micros
+        self.aggs = aggs
+        self.flush_key = flush_key
+        self._released_wm: Optional[int] = None
+        self.projection = (CompiledExpr(projection.name, projection.fn,
+                                        self.device)
+                           if projection else None)
+
+    def tables(self) -> List[TableDescriptor]:
+        return [TableDescriptor("u", TableType.KEYED, "running aggregates",
+                                retention_micros=self.expiration)]
+
+    async def on_start(self, ctx: Context) -> None:
+        self.table = ctx.state.get_keyed_state("u")
+        # every window at or below the checkpoint's watermark was released
+        # before the checkpoint (the flush runs ahead of the watermark's
+        # broadcast, so ahead of the barrier)
+        if ctx.last_watermark is not None:
+            self._released_wm = ctx.last_watermark
+
+    def _merge(self, a: AggSpec, new, nv: int, prev, merged: Dict) -> None:
+        """Merge one key's batch result ``new`` (``nv`` non-null rows)
+        into its running record ``prev`` (None for a new key)."""
+        out = a.output
+        new_null = _is_null(new)
+        if a.kind == AggKind.AVG:
+            new_sum = 0.0 if new_null else float(new) * nv
+            merged[f"{out}__sum"] = (
+                (prev[f"{out}__sum"] if prev else 0.0) + new_sum)
+            merged[f"{out}__cnt"] = (prev[f"{out}__cnt"] if prev else 0) + nv
+            cnt = merged[f"{out}__cnt"]
+            merged[out] = (merged[f"{out}__sum"] / cnt if cnt
+                           else float("nan"))
+            return
+        if prev is None:
+            merged[out] = new
+            return
+        old = prev[out]
+        if new_null:
+            merged[out] = old
+        elif _is_null(old):
+            merged[out] = new
+        elif a.kind in (AggKind.SUM, AggKind.COUNT):
+            merged[out] = old + new
+        elif a.kind == AggKind.MAX:
+            merged[out] = max(old, new)
+        elif a.kind == AggKind.MIN:
+            merged[out] = min(old, new)
+
+    async def process_batch(self, batch: Batch, ctx: Context,
+                            side: int = 0) -> None:
+        assert batch.key_hash is not None
+        uniq, agg_cols, max_ts, _rows, valid_counts = segment_aggregate(
+            batch.key_hash, batch.timestamp, batch.columns, self.aggs,
+            self.device)
+        key_cols = _first_occurrence_cols(batch, uniq)
+        ops = np.zeros(len(uniq), dtype=np.int8)
+        out_cols: Dict[str, List] = {a.output: [] for a in self.aggs}
+        for i, k in enumerate(uniq.tolist()):
+            prev = self.table.get(k)
+            merged: Dict[str, Any] = {}
+            for a in self.aggs:
+                nv = (int(valid_counts[a.output][i])
+                      if a.kind == AggKind.AVG else 0)
+                self._merge(a, agg_cols[a.output][i], nv, prev, merged)
+                out_cols[a.output].append(merged[a.output])
+            ops[i] = (UpdateOp.CREATE.value if prev is None
+                      else UpdateOp.UPDATE.value)
+            if self.flush_key is not None:
+                # the key columns stay in state, so a restored operator
+                # can still emit the window's row
+                for c, arr in key_cols.items():
+                    merged[f"__kc::{c}"] = arr[i]
+            self.table.insert(int(max_ts[i]), k, merged)
+        if self.flush_key is not None:
+            return  # emitted when the watermark passes the window
+        cols = dict(key_cols)
+        for a in self.aggs:
+            arr = np.asarray(out_cols[a.output])
+            if a.kind == AggKind.COUNT:
+                arr = arr.astype(np.int64)
+            cols[a.output] = arr
+        cols[UPDATE_OP_COLUMN] = ops
+        out = Batch(max_ts, cols, uniq.astype(np.uint64), batch.key_cols)
+        if self.projection is not None:
+            out = eval_record_expr(self.projection, out)
+        await ctx.collect(out)
+
+    async def handle_watermark(self, watermark: int, ctx: Context) -> None:
+        if self.flush_key is not None:
+            perf.count("nonwindow_flushes")
+            await self._flush_ready(watermark, ctx)
+        await ctx.broadcast(Message.wm(Watermark.event_time(watermark)))
+
+    async def _flush_ready(self, watermark: int, ctx: Context) -> None:
+        fk = f"__kc::{self.flush_key}"
+        ready = []
+        for t, k, rec in list(self.table.snapshot()):
+            bound = rec.get(fk)
+            # an integer comparison: window ends are epoch micros above
+            # 2^53, where a float could round down and release a window
+            # before its last pane arrives
+            if bound is None or int(bound) <= watermark:
+                if (bound is not None and self._released_wm is not None
+                        and int(bound) <= self._released_wm):
+                    # a late re-creation of a released window: its final
+                    # row already went downstream
+                    self.table.remove(k)
+                    continue
+                ready.append((t, k, rec))
+        self._released_wm = (watermark if self._released_wm is None
+                             else max(self._released_wm, watermark))
+        if not ready:
+            return
+        perf.count("nonwindow_flush_rows", len(ready))
+        ts = np.array([t for t, _, _ in ready], dtype=np.int64)
+        kh = np.array([k for _, k, _ in ready], dtype=np.uint64)
+        kc_names = [n[len("__kc::"):] for n in ready[0][2]
+                    if n.startswith("__kc::")]
+        cols: Dict[str, np.ndarray] = {}
+        for c in kc_names:
+            cols[c] = np.asarray([rec[f"__kc::{c}"] for _, _, rec in ready])
+        for a in self.aggs:
+            arr = np.asarray([rec[a.output] for _, _, rec in ready])
+            if a.kind == AggKind.COUNT:
+                arr = arr.astype(np.int64)
+            cols[a.output] = arr
+        for _, k, _ in ready:
+            self.table.remove(k)
+        out = Batch(ts, cols, kh, tuple(kc_names))
+        if self.projection is not None:
+            out = eval_record_expr(self.projection, out)
+        await ctx.collect(out)
+
+
 # -- builder registration -----------------------------------------------------------
 
 
@@ -1260,8 +1523,8 @@ def _build_window(op: LogicalOperator, device: DeviceLike) -> Operator:
     if isinstance(s.typ, SessionWindow):
         return SessionWindowOperator(op.name, s.typ.gap_micros, s.aggs,
                                      s.flatten, s.projection, device)
-    raise NotImplementedError(
-        f"{op.name}: only session windows are ported ({s.typ})")
+    return WindowOperator(op.name, s.typ, s.aggs, s.flatten, s.projection,
+                          device)
 
 
 @register_builder(OpKind.WINDOW_ARGMAX)
@@ -1285,3 +1548,10 @@ def _build_join_exp(op: LogicalOperator, device: DeviceLike) -> Operator:
     return JoinWithExpirationOperator(op.name, s.left_expiration_micros,
                                       s.right_expiration_micros, s.join_type,
                                       s.left_cols, s.right_cols)
+
+
+@register_builder(OpKind.NON_WINDOW_AGGREGATOR)
+def _build_nonwindow(op: LogicalOperator, device: DeviceLike) -> Operator:
+    s = op.spec
+    return NonWindowAggOperator(op.name, s.expiration_micros, s.aggs,
+                                s.projection, s.flush_key, device)

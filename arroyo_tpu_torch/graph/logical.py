@@ -1,6 +1,8 @@
 """Logical dataflow graph: window types, aggregate specs, operator
-taxonomy, ``Program`` and the fluent ``Stream`` builder — the subset of
-``arroyo_tpu.graph.logical`` that the port's operators execute.
+taxonomy, ``Program`` and the fluent ``Stream`` builder — the part of
+``arroyo_tpu.graph.logical`` that the port's operators execute: every
+operator kind but the factor windows and the multi-way join, and every
+join type but the semi join.
 
 Operators carry Python callables over columnar batches (dicts of numpy
 columns).  The graph is a small adjacency structure of its own (the JAX
@@ -83,6 +85,8 @@ class AggSpec:
 class ExprReturnType(Enum):
     PREDICATE = "predicate"
     RECORD = "record"
+    # a record whose bool '__valid' column drops the rows it is false on
+    OPTIONAL_RECORD = "optional_record"
 
 
 @dataclass
@@ -111,22 +115,27 @@ class ColumnExpr:
 class OpKind(Enum):
     CONNECTOR_SOURCE = "connector_source"
     CONNECTOR_SINK = "connector_sink"
-    EXPRESSION = "expression"  # map / filter
+    EXPRESSION = "expression"  # map / filter / option-map
+    FLAT_MAP = "flat_map"
+    FLATTEN = "flatten"
     UDF = "udf"  # python function over the raw batch
     WATERMARK = "watermark"
     KEY_BY = "key_by"
+    GLOBAL_KEY = "global_key"  # every row to one key
+    WINDOW = "window"  # buffered keyed window (tumbling, sliding, session)
+    COUNT = "count"  # running count a key
+    AGGREGATE = "aggregate"  # running MAX/MIN/SUM a key
     SLIDING_WINDOW_AGGREGATOR = "sliding_window_aggregator"
     TUMBLING_WINDOW_AGGREGATOR = "tumbling_window_aggregator"
     WINDOW_ARGMAX = "window_argmax"  # fused self-join-on-window-max
     WINDOW_JOIN = "window_join"  # windowed stream-stream equi-join
-    WINDOW = "window"  # buffered keyed window (session windows)
     JOIN_WITH_EXPIRATION = "join_with_expiration"  # unwindowed TTL join
     TUMBLING_TOP_N = "tumbling_top_n"
     SLIDING_AGGREGATING_TOP_N = "sliding_aggregating_top_n"
-    # planned (so node ids agree with the JAX package's plan) but not
-    # ported: the SQL planner refuses a plan in which one survives
-    GLOBAL_KEY = "global_key"
-    NON_WINDOW_AGGREGATOR = "non_window_aggregator"
+    UPDATING = "updating"  # an option-map over an updating stream
+    NON_WINDOW_AGGREGATOR = "non_window_aggregator"  # updating GROUP BY
+    UPDATING_KEY = "updating_key"  # key_by over an updating stream
+    UNION = "union"  # UNION ALL: the streams' batches merged unchanged
 
 
 class JoinType(Enum):
@@ -622,6 +631,19 @@ class Stream:
         expr = ColumnExpr(name, fn, ExprReturnType.PREDICATE)
         return self._chain(LogicalOperator(OpKind.EXPRESSION, name, expr=expr))
 
+    def option_map(self, fn: Callable, name: str = "option_map") -> "Stream":
+        expr = ColumnExpr(name, fn, ExprReturnType.OPTIONAL_RECORD)
+        return self._chain(LogicalOperator(OpKind.EXPRESSION, name, expr=expr))
+
+    def flat_map(self, fn: Callable, name: str = "flat_map") -> "Stream":
+        """``fn`` returns a record whose list column ``__flatten`` is
+        expanded into one row a list element."""
+        expr = ColumnExpr(name, fn, ExprReturnType.RECORD)
+        return self._chain(LogicalOperator(OpKind.FLAT_MAP, name, expr=expr))
+
+    def flatten(self, name: str = "flatten") -> "Stream":
+        return self._chain(LogicalOperator(OpKind.FLATTEN, name))
+
     def udf(self, fn: Callable, name: str = "udf", sql: str = "",
             output_schema: Optional[Dict[str, Any]] = None) -> "Stream":
         expr = ColumnExpr(name, fn, ExprReturnType.RECORD, output_schema,
@@ -661,6 +683,51 @@ class Stream:
                                        flush_key)
         op = LogicalOperator(OpKind.NON_WINDOW_AGGREGATOR, name, spec=spec)
         return self._chain(op, edge=EdgeType.SHUFFLE)
+
+    def count(self, name: str = "count") -> "Stream":
+        """A running count a key, one row a key a batch."""
+        return self._chain(LogicalOperator(OpKind.COUNT, name),
+                           edge=EdgeType.SHUFFLE)
+
+    def aggregate(self, agg: AggSpec, name: str = "aggregate") -> "Stream":
+        """A running MAX, MIN or SUM a key, one row a key a batch."""
+        op = LogicalOperator(OpKind.AGGREGATE, name, spec=agg)
+        return self._chain(op, edge=EdgeType.SHUFFLE)
+
+    # -- updating streams --------------------------------------------------------
+
+    def updating(self, fn: Callable, name: str = "updating") -> "Stream":
+        expr = ColumnExpr(name, fn, ExprReturnType.OPTIONAL_RECORD)
+        return self._chain(LogicalOperator(OpKind.UPDATING, name, expr=expr))
+
+    def updating_key(self, *cols: str, name: str = "updating_key"
+                     ) -> "Stream":
+        op = LogicalOperator(OpKind.UPDATING_KEY, name, key_cols=tuple(cols))
+        return self._chain(op, keyed=tuple(cols))
+
+    def union(self, other: "Stream", name: str = "union",
+              parallelism: Optional[int] = None) -> "Stream":
+        """UNION ALL: batches from both streams flow through unchanged;
+        the watermark is the minimum over the inputs."""
+        if self.program is not other.program:
+            raise ValueError("union streams must share a Program")
+        if other.tail == self.tail:
+            # a self-union would be one edge twice, which the graph keeps
+            # once: one side goes through a pass-through node
+            dup = LogicalOperator(OpKind.UNION, f"{name}_dup")
+            dup_id = self.program.add_node(
+                dup, self.program.node(other.tail).parallelism)
+            self.program.add_edge(other.tail, dup_id, EdgeType.FORWARD,
+                                  key_schema="()")
+            other = Stream(self.program, dup_id)
+        op = LogicalOperator(OpKind.UNION, name)
+        par = parallelism or self.program.node(self.tail).parallelism
+        nid = self.program.add_node(op, par)
+        self.program.add_edge(self.tail, nid, EdgeType.SHUFFLE,
+                              key_schema="()")
+        self.program.add_edge(other.tail, nid, EdgeType.SHUFFLE,
+                              key_schema="()")
+        return Stream(self.program, nid)
 
     # -- windows (keyed) -------------------------------------------------------
 

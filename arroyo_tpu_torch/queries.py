@@ -4,7 +4,13 @@ with ``n`` events in batches of ``b``), Nexmark ``Q1``, ``Q5``, ``Q7`` and
 ``Q8``, and config5's session-window median (``CONFIG5_SQL``, which needs
 ``median`` registered as a UDAF).  The package may not import bench.py;
 tests/test_torch_sql_parse.py holds these strings equal to bench.py's.
-Hot items' text is ``hot_items.HOT_ITEMS_SQL``."""
+Hot items' text is ``hot_items.HOT_ITEMS_SQL``.
+
+Two texts are not bench.py's: ``Q16``, the channel statistics of the
+Flink Nexmark suite's q16 (per channel: bids, distinct bidders, distinct
+auctions) over a 10 s tumbling window in place of its day, which runs on
+the buffered window (COUNT(DISTINCT)); and ``Q1_UNION``, q1's bids split
+on price into two branches under one UNION ALL."""
 
 from .hot_items import HOT_ITEMS_SQL  # noqa: F401
 
@@ -73,6 +79,23 @@ ON P.id = A.seller and P.window = A.window
 """
 
 QUERIES = {"q1": Q1, "q5": Q5, "q7": Q7, "q8": Q8}
+
+Q16 = SRC + """
+SELECT bid.channel AS channel, TUMBLE(INTERVAL '10' SECOND) AS window,
+       count(*) AS total_bids, count(DISTINCT bid.bidder) AS total_bidders,
+       count(DISTINCT bid.auction) AS total_auctions
+FROM nexmark WHERE bid is not null GROUP BY 1, 2
+"""
+
+Q1_UNION = SRC + """
+SELECT bid.auction as auction, bid.bidder as bidder,
+       bid.price * 0.908 as price_dol, bid.datetime as datetime
+FROM nexmark WHERE bid is not null AND bid.price < 10000
+UNION ALL
+SELECT bid.auction as auction, bid.bidder as bidder,
+       bid.price * 0.908 as price_dol, bid.datetime as datetime
+FROM nexmark WHERE bid is not null AND bid.price >= 10000
+"""
 
 CONFIG5_SQL = """
 CREATE TABLE ev (

@@ -223,28 +223,90 @@ def _coerce_object_col(v: np.ndarray):
     return coerce_object_col(v)
 
 
-def _parse_timestamps(arr: np.ndarray):
-    """(int64 epoch micros, validity) of a column of timestamp strings
-    in ISO 8601, read as UTC when they carry no offset; unparseable and
-    None cells are NULL."""
+# the timestamp forms a string column may take: pandas' ``to_datetime``
+# infers one of these strptime formats from a column's first non-null
+# value (ISO 8601 dates and date-times, 'T' or space between them,
+# fractional seconds, 'Z' or a numeric offset; YYYY/MM/DD), and a cell
+# that does not fit the inferred format is NULL
+_TS_FIELDS = {
+    "%Y": r"(?P<Y>\d{4})", "%m": r"(?P<m>1[0-2]|0[1-9]|[1-9])",
+    "%d": r"(?P<d>3[01]|[12]\d|0[1-9]|[1-9])",
+    "%H": r"(?P<H>2[0-3]|[01]\d|\d)", "%M": r"(?P<M>[0-5]\d|\d)",
+    "%S": r"(?P<S>6[01]|[0-5]\d|\d)", "%f": r"(?P<f>\d+)",
+    "%z": r"(?P<z>Z|[+-]\d\d(?::?[0-5]\d)?)",
+}
+_TS_FORMATS = [
+    date + (sep + clock + zone if clock else "")
+    for date in ("%Y-%m-%d", "%Y/%m/%d")
+    for sep, clock, zone in [("", "", "")] + [
+        (sep, clock, zone) for sep in ("T", " ")
+        for clock in ("%H:%M", "%H:%M:%S", "%H:%M:%S.%f")
+        for zone in ("", "%z")]
+] + ["%Y-%m"]
+_TS_REGEX = {f: re.compile(re.sub("%[YmdHMSfz]",
+                                  lambda m: _TS_FIELDS[m.group(0)],
+                                  re.escape(f)) + "$")
+             for f in _TS_FORMATS}
+# NULL-like strings pandas skips when it looks for the first value
+_TS_NULLS = {"", "NaT", "nat", "NAT", "nan", "NaN", "NAN"}
+
+
+def _timestamp_micros(x: str, fmt: str, leap: bool) -> Optional[int]:
+    """Epoch micros of ``x`` read with ``fmt`` (UTC unless it carries an
+    offset), or None where it does not fit or names no real date.  A
+    leap second fits only when ``leap`` (an inferred format): :60, and
+    :61 in a YYYY/MM/DD form."""
     import datetime as _dt
 
+    m = _TS_REGEX[fmt].match(x)
+    if m is None:
+        return None
+    g = m.groupdict()
+    if g.get("S") in ("60", "61") and not (
+            leap and (g["S"] == "60" or "/" in fmt)):
+        return None
+    try:
+        day = _dt.date(int(g["Y"]), int(g["m"]), int(g.get("d") or 1))
+    except ValueError:
+        return None
+    # a leap second rolls over into the next minute
+    secs = ((day - _dt.date(1970, 1, 1)).days * 86_400
+            + int(g.get("H") or 0) * 3_600 + int(g.get("M") or 0) * 60
+            + int(g.get("S") or 0))
+    z = g.get("z")
+    if z and z != "Z":
+        sign = -1 if z[0] == "-" else 1
+        secs -= sign * (int(z[1:3]) * 3_600 + int(z[3:].lstrip(":") or 0)
+                        * 60)
+    # fractions past nanoseconds are cut, then nanoseconds floor to micros
+    ns = secs * 1_000_000_000 + int((g.get("f") or "0")[:9].ljust(9, "0"))
+    return ns // 1_000
+
+
+def _parse_timestamps(arr: np.ndarray):
+    """(int64 epoch micros, validity) of a column of timestamp strings,
+    as ``pd.to_datetime(list(arr), errors="coerce", utc=True)`` reads
+    them: one format inferred from the first non-null value, and a cell
+    that does not fit it NULL; where no format fits the first value,
+    each cell is read by the first format it fits."""
     vals = np.zeros(len(arr), dtype=np.int64)
     ok = np.zeros(len(arr), dtype=bool)
-    epoch = _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
-    for i, x in enumerate(arr):
+    cells = [None if x is None else str(x) for x in arr]
+    first = next((x for x in cells if x is not None
+                  and x not in _TS_NULLS), None)
+    # pandas infers no format from a year below 1000 (its guess must
+    # print back as the value, and strftime drops the year's zeros)
+    fmt = (next((f for f in _TS_FORMATS
+                 if _timestamp_micros(first, f, False) is not None), None)
+           if first is not None and not first.startswith("0") else None)
+    for i, x in enumerate(cells):
         if x is None:
             continue
-        try:
-            d = _dt.datetime.fromisoformat(str(x).strip())
-        except ValueError:
-            continue
-        if d.tzinfo is None:
-            d = d.replace(tzinfo=_dt.timezone.utc)
-        delta = d - epoch
-        vals[i] = (delta.days * 86_400 + delta.seconds) * 1_000_000 \
-            + delta.microseconds
-        ok[i] = True
+        for f in ([fmt] if fmt is not None else _TS_FORMATS):
+            us = _timestamp_micros(x, f, fmt is not None)
+            if us is not None:
+                vals[i], ok[i] = us, True
+                break
     return vals, ok
 
 

@@ -12,15 +12,17 @@ equality present) or TTL'd updating joins.
 
 The port plans every statement the JAX package plans into the same nodes,
 ids and names, so chain groups, checkpoint table names and sink names
-agree across the packages.  Where the JAX plan needs an operator this
-package has not ported, ``Planner`` raises ``SqlPlanError`` naming the
-ROADMAP item instead of planning a different topology: UNION ALL, a
-non-windowed GROUP BY, a buffered window other than a session window and
-a factor-window rewrite (A.8); an ``IN (SELECT ...)`` semi join and a
-multi-way join (A.6)."""
+agree across the packages.  ``ARROYO_ARGMAX=0`` (no argmax fusion: q5 and
+q7 as self-joins of their aggregates with their per-window maxima) and
+``ARROYO_UDAF_COMPILE=off`` (UDAFs on the buffered window) read as in the
+JAX package.  Where the JAX plan needs an operator this package has not
+ported, ``Planner`` raises ``SqlPlanError`` naming the ROADMAP item
+instead of planning a different topology: a factor-window rewrite (A.8),
+an ``IN (SELECT ...)`` semi join and a multi-way join (A.6)."""
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -45,7 +47,6 @@ from ..graph.logical import (
     Stream,
     TopNSpec,
     TumblingWindow,
-    window_label,
 )
 from .ast_nodes import (
     BinaryOp,
@@ -91,6 +92,12 @@ class SqlPlanError(ValueError):
 def _unported(what: str, item: str) -> SqlPlanError:
     return SqlPlanError(f"{what} is not ported to arroyo_tpu_torch "
                         f"(ROADMAP {item})")
+
+
+def _argmax_off() -> bool:
+    """``ARROYO_ARGMAX=0`` plans q5's and q7's shapes as the joins they
+    are written as (read per plan, as in the JAX planner)."""
+    return os.environ.get("ARROYO_ARGMAX", "1") in ("0", "off", "false")
 
 
 def _sql_fn(fn: Callable) -> Callable:
@@ -378,7 +385,6 @@ class Planner:
         # double hop aggregate, q8's double source scan)
         prog.prune_dead()
         prog.eliminate_common_subplans()
-        self._check_ported(prog)
         self._push_argmax_local(prog)
         # factor-window sharing (graph/factor_windows.py): where the JAX
         # package would rewrite correlated window aggregates onto one
@@ -392,29 +398,6 @@ class Planner:
                     f"{d.pane_micros} us pane ring; ARROYO_FACTOR_WINDOWS=0 "
                     "plans them apart)", "A.8")
         return prog
-
-    # operators a plan may hold only when a later rewrite prunes them
-    # (q5's and q7's max sides): planned as the JAX package plans them, so
-    # node ids agree, and refused here if they survive
-    _UNPORTED_KINDS = {
-        OpKind.GLOBAL_KEY: "a windowed aggregate without GROUP BY keys "
-                           "(the global key)",
-        OpKind.NON_WINDOW_AGGREGATOR: "a GROUP BY without a window (the "
-                                      "non-windowed aggregate)",
-    }
-
-    @classmethod
-    def _check_ported(cls, prog: Program) -> None:
-        for node in prog.nodes():
-            op = node.operator
-            if op.kind in cls._UNPORTED_KINDS:
-                raise _unported(cls._UNPORTED_KINDS[op.kind], "A.8")
-            if (op.kind == OpKind.WINDOW
-                    and not isinstance(op.spec.typ, SessionWindow)):
-                raise _unported(
-                    f"a buffered {window_label(op.spec.typ)} aggregate "
-                    "(DISTINCT, a UDAF or a string MIN/MAX: the window "
-                    "operator)", "A.8")
 
     @staticmethod
     def _push_argmax_local(prog: Program) -> None:
@@ -623,7 +606,14 @@ class Planner:
                 raise SqlPlanError(
                     "UNION ALL branches must both be updating or both "
                     "append-only")
-            raise _unported("UNION ALL (the union operator)", "A.8")
+            merged = planned.stream.union(
+                other.stream, name=f"union_{self._next_id()}")
+            mschema = planned.schema.clone()
+            # event-time provenance holds for the union only where every
+            # branch proves it (the raw argmax fusion windows by it)
+            mschema.event_time_cols &= other.schema.event_time_cols
+            planned = Planned(merged, mschema,
+                              updating=planned.updating or other.updating)
         return planned
 
     def _plan_explain(self, ex: Explain) -> Program:
@@ -1419,9 +1409,13 @@ class Planner:
         All-null windows: the N/N guard (NaN when the non-null count is
         zero, 1 otherwise) reproduces the host loop's NaN for every
         combine that is not already self-guarding through a division by
-        N."""
+        N.  ``ARROYO_UDAF_COMPILE=off`` keeps every UDAF on the buffered
+        window."""
         from ..ops.udaf import udaf_plan
 
+        if os.environ.get("ARROYO_UDAF_COMPILE", "on").lower() in (
+                "off", "0", "false", "no"):
+            return None
         if not isinstance(window, (TumblingWindow, SlidingWindow)):
             return None
         from .functions import UDAFS
@@ -1942,8 +1936,6 @@ class Planner:
 
     @staticmethod
     def _multiway_enabled() -> bool:
-        import os
-
         return os.environ.get("ARROYO_MULTIWAY", "1") not in (
             "0", "off", "false")
 
@@ -2033,7 +2025,9 @@ class Planner:
 
         Returns the fused output Stream, or None when the shape doesn't
         provably match (every bail is a missed optimization, never a
-        wrong plan)."""
+        wrong plan).  ``ARROYO_ARGMAX=0`` turns the rewrite off."""
+        if _argmax_off():
+            return None
         mo = right.max_of
         if (mo is None or mo.get("raw") or left.agg_node is None
                 or not left.agg_map or len(pairs) != 2):
@@ -2107,7 +2101,9 @@ class Planner:
         (optimizations.rs has no analogous rewrite).
 
         Every bail returns None — a missed optimization, never a wrong
-        plan."""
+        plan.  ``ARROYO_ARGMAX=0`` turns the rewrite off."""
+        if _argmax_off():
+            return None
         mo = right.max_of
         if mo is None or not mo.get("raw") or where is None:
             return None

@@ -124,11 +124,26 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
     ARROYO_COALESCE=0 ARROYO_TIMING=1``, where its filters and
     projections run as torch ops on the card (``CompiledExpr``): the
     same rows, the device expression calls, their synchronized ms, and
-    the bytes they move against 3.35 TB/s.
+    the bytes they move against 3.35 TB/s;
+13. the reference's plans, the buffered window and UNION ALL, each
+    planned by ``plan_sql`` and run on the card at 2,000,000 events:
+    bench.py's Q5 under ``ARROYO_ARGMAX=0`` (a window join of the HOP
+    count with its per-window maximum, a non-windowed aggregate released
+    by the watermark) — rows equal to a numpy control, to phase 5's fused
+    rows and to the CPU run, its aggregate's flushes printed; Q7 under
+    ``ARROYO_ARGMAX=0`` (a TTL join of the bids with a keyless tumbling
+    maximum) — rows equal to the numpy control and phase 11's, any row
+    beyond them a float32 tie of its window's maximum (the join key is
+    float32), also in the CPU run; Nexmark q16's channel statistics
+    (``queries.Q16``, COUNT(DISTINCT) on the buffered window) — rows equal
+    to a numpy control and the CPU run, ``segment_agg`` launched; and q1
+    as a UNION ALL of two price ranges (``queries.Q1_UNION``) — rows equal
+    to phase 10's q1 rows.
 
 Launch counts are set to 0 just before each main-path run (q5, q8,
-config5, 8a, 8b, hot items, q1, q7, each SQL-planned run of phase 12)
-and read just after it; q1 and q7 launch no kernel.  It prints a
+config5, 8a, 8b, hot items, q1, q7, each SQL-planned run of phase 12,
+each card run of phase 13) and read just after it; q1, q7 and the
+union launch no kernel.  It prints a
 ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi gives them, and, last, ``{"ok": true, "device": ...}``.
 It needs one card and exits non-zero without one.
@@ -329,7 +344,7 @@ KERNELS = (bin_update, argmax_fire, pane_emit, bin_evict, ring_merge,
 HAND = {}
 SQL_QUERIES = ("q1", "q5", "q7", "q8", "hot_items", "config5")
 PATHS = ("q5", "q8", "config5", "join_inner", "join_left", "hot_items",
-         "q1", "q7", "sql")
+         "q1", "q7", "sql", "q5_ref", "q7_ref", "q16", "union")
 
 
 def reset_launches():
@@ -3339,14 +3354,15 @@ def hot_phase():
 Q7_COUNTERS = ("window_argmax_late_rows", "window_argmax_late_hits")
 
 
-def nexmark_bids(num_events):
+def nexmark_bids(num_events, extra=()):
     """The bids of the port's generator at bench.py's rate and batch, as
-    the q1 and q7 programs read them: {column: array}."""
+    the q1 and q7 programs read them, and the ``extra`` bid columns:
+    {column: array}."""
+    names = ["bid_auction", "bid_bidder", "bid_datetime", "bid_price",
+             *extra]
     cfg = NexmarkConfig(num_events=num_events, rate_limited=False,
                         event_rate=1_000_000.0, batch_size=BATCH,
-                        projection=["bid_auction", "bid_bidder",
-                                    "bid_datetime", "bid_price",
-                                    "event_type"])
+                        projection=names + ["event_type"])
     first, n, num = make_splits(cfg, 0, 1)[0]
     gen = NexmarkGenerator(cfg, 0, first, n, num, seed=0)
     gen.set_rate(cfg.event_rate, 1)
@@ -3355,7 +3371,7 @@ def nexmark_bids(num_events):
         b, _ = gen.next_batch(BATCH)
         bid = b.columns["event_type"] == EVENT_BID
         parts["ts"].append(b.timestamp[bid])
-        for c in ("bid_auction", "bid_bidder", "bid_datetime", "bid_price"):
+        for c in names:
             parts[c].append(b.columns[c][bid])
     return {c: np.concatenate(v) for c, v in parts.items()}
 
@@ -3634,6 +3650,207 @@ def sql_phase():
     return launches
 
 
+# -- phase 13: the reference's plans, the buffered window, UNION ALL ------------------
+
+REF_COUNTERS = ("nonwindow_flushes", "nonwindow_flush_rows")
+Q16_COLS = ("channel", "total_bids", "total_bidders", "total_auctions",
+            "window_start", "window_end")
+Q16_WIDTH = 10_000_000  # TUMBLE(INTERVAL '10' SECOND)
+
+
+def ref_run(text, sink, device, reference=False):
+    """``text`` (queries.py, at NUM_EVENTS, event time pinned) planned by
+    ``plan_sql``, under ``ARROYO_ARGMAX=0`` when ``reference``, and run on
+    ``device``; (wall s, the sink's batches, node kinds)."""
+    if reference:
+        os.environ["ARROYO_ARGMAX"] = "0"
+    try:
+        program = plan_sql(_pin(text.format(n=NUM_EVENTS, b=BATCH), BATCH))
+    finally:
+        os.environ.pop("ARROYO_ARGMAX", None)
+    for node in program.nodes():
+        if node.operator.kind == OpKind.CONNECTOR_SINK:
+            node.operator.spec.config["name"] = sink
+    kinds = sorted({node.operator.kind.value for node in program.nodes()})
+    clear_sink(sink)
+    dt, _runner = run_program(program, device)
+    return dt, sink_output(sink), kinds
+
+
+def q5_rows(batches):
+    return sorted((int(b.timestamp[i]), int(b.columns["auction"][i]),
+                   int(b.columns["num"][i]))
+                  for b in batches for i in range(len(b)))
+
+
+def q5_control(num_events):
+    """Q5 from the generator's bids: per auction and HOP(2 s, 10 s)
+    window the bids, per window the largest count, and the (window end -
+    1, auction, count) rows that reach it."""
+    bids = nexmark_bids(num_events)
+    first = bids["ts"] // SLIDE_MICROS + 1  # the first window's end, in slides
+    panes = WIDTH_MICROS // SLIDE_MICROS
+    auction = bids["bid_auction"].astype(np.int64)
+    check(auction.min() >= 0 and auction.max() < 2**32, "q5 control: "
+          "auction ids past 32 bits")
+    # one int64 a (window end in slides, auction) cell
+    cells, counts = np.unique(np.concatenate(
+        [((first + i) << 32) | auction for i in range(panes)]),
+        return_counts=True)
+    windows, inv = np.unique(cells >> 32, return_inverse=True)
+    best = np.zeros(len(windows), dtype=np.int64)
+    np.maximum.at(best, inv, counts)
+    hit = counts == best[inv]
+    ends = (cells[hit] >> 32) * SLIDE_MICROS
+    return sorted(zip((ends - 1).tolist(),
+                      (cells[hit] & 0xFFFFFFFF).tolist(),
+                      counts[hit].tolist()))
+
+
+def q16_rows(batches):
+    cols = {c: np.concatenate([b.columns[c] for b in batches])
+            for c in Q16_COLS}
+    return sorted(zip(*(cols[c].tolist() for c in Q16_COLS)))
+
+
+def q16_control(num_events):
+    """Q16 from the generator's bids: per channel and 10 s window the
+    bids, their distinct bidders and distinct auctions."""
+    bids = nexmark_bids(num_events, extra=("bid_channel",))
+    channels, ch = np.unique(bids["bid_channel"].astype(str),
+                             return_inverse=True)
+    ends, w = np.unique((bids["ts"] // Q16_WIDTH + 1) * Q16_WIDTH,
+                        return_inverse=True)
+    group = ch.astype(np.int64) * len(ends) + w
+    n_groups = len(channels) * len(ends)
+
+    def distinct(col):
+        """Distinct values of ``col`` a group."""
+        pairs = np.unique((group << 32) | col.astype(np.int64))
+        return np.bincount(pairs >> 32, minlength=n_groups)
+
+    bids_n = np.bincount(group, minlength=n_groups)
+    bidders, auctions = distinct(bids["bid_bidder"]), distinct(
+        bids["bid_auction"])
+    return sorted((str(channels[g // len(ends)]), int(bids_n[g]),
+                   int(bidders[g]), int(auctions[g]),
+                   int(ends[g % len(ends)]) - Q16_WIDTH,
+                   int(ends[g % len(ends)]))
+                  for g in np.nonzero(bids_n)[0].tolist())
+
+
+def q7_ref_check(cols, control, cols_cpu):
+    """q7 as the reference plans it joins each bid with its window's
+    maximum on ``price`` as a float32 key (ROADMAP C4): a bid whose price
+    differs from the maximum but rounds to the same float32 also joins.
+    Every control row must be there, and any other row must be such a
+    bid, also in the CPU run; returns the number of those rows."""
+    if same_columns(cols, control):
+        return 0
+    got = collections.Counter(zip(*(cols[c].tolist()
+                                     for c in ("ts",) + Q7_COLS)))
+    want = collections.Counter(zip(*(control[c].tolist()
+                                      for c in ("ts",) + Q7_COLS)))
+    extra, missing = got - want, want - got
+    check(not missing, f"q7 (reference plan): {sum(missing.values())} "
+          "control rows missing")
+    best = {ts: price for ts, _a, price, _b in want}
+    check(all(np.float32(price) == np.float32(best.get(ts, np.nan))
+              for ts, _a, price, _b in extra),
+          f"q7 (reference plan): rows beyond the control that are not "
+          f"float32 ties of their window's maximum: {list(extra)[:5]}")
+    check(same_columns(cols_cpu, cols), "q7 (reference plan): rows differ "
+          "between card and cpu")
+    return sum(extra.values())
+
+
+def reference_phase():
+    """Nexmark q5 and q7 as the reference plans them (``ARROYO_ARGMAX=0``:
+    q5 a window join of its HOP count with the per-window maximum, a
+    ``flush_key`` non-windowed aggregate; q7 a TTL join of the bids with
+    a keyless tumbling maximum), q16's channel statistics on the buffered
+    window and q1 as a UNION ALL of two price ranges, each at NUM_EVENTS
+    on the card against numpy controls, earlier phases' rows and the CPU
+    run; kernel launches a run."""
+    out, launches = {}, {}
+    perf.reset()
+    reset_launches()
+    dt, batches, kinds = ref_run(queries.Q5, "ref-q5", None, True)
+    launches["q5_ref"] = read_launches()
+    counters = {k: perf.counter(k) for k in REF_COUNTERS}
+    rows = q5_rows(batches)
+    t0 = time.perf_counter()
+    control = q5_control(NUM_EVENTS)
+    control_s = time.perf_counter() - t0
+    check(rows and rows == control, f"q5 (reference plan): {len(rows)} rows "
+          f"against the numpy control's {len(control)}")
+    check(rows == HAND["q5"][0], "q5 (reference plan): rows differ from "
+          "phase 5's fused rows")
+    dt_cpu, batches_cpu, _ = ref_run(queries.Q5, "ref-q5-cpu", "cpu", True)
+    check(q5_rows(batches_cpu) == rows, "q5 (reference plan): rows differ "
+          "between card and cpu")
+    check(counters["nonwindow_flushes"] > 0 and "non_window_aggregator"
+          in kinds and "window_argmax" not in kinds,
+          f"q5 (reference plan): plan {kinds}, {counters}")
+    out["q5"] = {"events": NUM_EVENTS, "wall_s": dt,
+                 "events_per_s": NUM_EVENTS / dt, "rows": len(rows),
+                 "control_s": control_s, "cpu_wall_s": dt_cpu,
+                 "launches": launches["q5_ref"], **counters}
+
+    reset_launches()
+    dt, batches, kinds = ref_run(queries.Q7, "ref-q7", None, True)
+    launches["q7_ref"] = read_launches()
+    cols = sorted_columns(sink_columns("ref-q7", Q7_COLS), ("ts",) + Q7_COLS)
+    dt_cpu, _, _ = ref_run(queries.Q7, "ref-q7-cpu", "cpu", True)
+    cols_cpu = sorted_columns(sink_columns("ref-q7-cpu", Q7_COLS),
+                              ("ts",) + Q7_COLS)
+    control = q7_control(NUM_EVENTS)
+    check("global_key" in kinds and "join_with_expiration" in kinds,
+          f"q7 (reference plan): plan {kinds}")
+    extra = q7_ref_check(cols, control, cols_cpu)
+    check(extra or same_columns(cols, HAND["q7"][0]), "q7 (reference plan): "
+          "rows differ from phase 11's")
+    out["q7"] = {"events": NUM_EVENTS, "wall_s": dt,
+                 "events_per_s": NUM_EVENTS / dt, "rows": len(cols["ts"]),
+                 "float32_tie_rows": extra, "cpu_wall_s": dt_cpu,
+                 "launches": launches["q7_ref"]}
+
+    reset_launches()
+    dt, batches, kinds = ref_run(queries.Q16, "ref-q16", None)
+    launches["q16"] = read_launches()
+    rows = q16_rows(batches)
+    t0 = time.perf_counter()
+    control = q16_control(NUM_EVENTS)
+    control_s = time.perf_counter() - t0
+    check(rows and rows == control, f"q16: {len(rows)} rows against the "
+          f"numpy control's {len(control)}")
+    dt_cpu, batches_cpu, _ = ref_run(queries.Q16, "ref-q16-cpu", "cpu")
+    check(q16_rows(batches_cpu) == rows, "q16: rows differ between card "
+          "and cpu")
+    check("window" in kinds and launches["q16"]["segment_agg"] > 0,
+          f"q16: plan {kinds}, launches {launches['q16']}")
+    out["q16"] = {"events": NUM_EVENTS, "wall_s": dt,
+                  "events_per_s": NUM_EVENTS / dt, "rows": len(rows),
+                  "control_s": control_s, "cpu_wall_s": dt_cpu,
+                  "launches": launches["q16"]}
+
+    reset_launches()
+    dt, _, kinds = ref_run(queries.Q1_UNION, "ref-union", None)
+    launches["union"] = read_launches()
+    cols = sorted_columns(sink_columns("ref-union", Q1_COLS),
+                          ("ts",) + Q1_COLS)
+    check("union" in kinds and len(cols["ts"]) > 0
+          and same_columns(cols, HAND["q1"][0]),
+          "UNION ALL of q1's price ranges: rows differ from phase 10's q1 "
+          f"rows ({len(cols['ts'])} vs {len(HAND['q1'][0]['ts'])})")
+    out["union"] = {"events": NUM_EVENTS, "wall_s": dt,
+                    "events_per_s": NUM_EVENTS / dt,
+                    "rows": len(cols["ts"]), "q1_wall_s": HAND["q1"][2],
+                    "launches": launches["union"]}
+    print("reference plans: " + json.dumps(out))
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -3657,6 +3874,7 @@ def main():
     launches["hot_items"] = hot_phase()
     launches["q1"], launches["q7"] = q1_phase(), q7_phase()
     launches["sql"] = sql_phase()
+    launches.update(reference_phase())
     for r in kernels:
         for path in PATHS:
             r[f"launches_{path}"] = launches[path][r["name"]]

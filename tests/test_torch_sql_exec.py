@@ -12,9 +12,17 @@ NULLs in the same cells; updating outputs compared as their net rows).
   the ROW_NUMBER TopN, calendar date functions, q7's highest bid,
   absolute int64 micros, division and modulo by zero, NULL join keys,
   scalar function edges, string NULLs, and EXTRACT with constant
-  predicates.  Three of those shapes group by a window alone (a keyless
-  aggregate, not ported): they run here with a key added, and the
-  unchanged shapes must raise ``SqlPlanError`` in the port."""
+  predicates, the keyless windowed aggregates (the global key), q7's
+  highest bid over a table without an event-time field (the join and
+  its keyless maximum), the updating GROUP BY without a window, UNION
+  ALL and COUNT(DISTINCT);
+* bench.py's Q5 and Q7 under ``ARROYO_ARGMAX=0``, as the reference plans
+  them (q5 a self-join of its HOP count with the per-window maximum, q7
+  a join of the bids with a keyless tumbling maximum): the JAX
+  package's rows and the port's fused rows;
+* the shapes that still need an operator the port has not ported (the
+  semi join, the multi-way join, the factor-window rewrite) raise
+  ``SqlPlanError`` naming it."""
 
 import datetime as dtm
 import math
@@ -122,15 +130,27 @@ def _pinned(sql, n, b):
         f"batch_size = '{b}'", f"batch_size = '{b}', base_time_micros = '0'")
 
 
-@pytest.mark.parametrize("query", ["q1", "q5", "q7", "q8", "hot_items"])
-def test_nexmark_query_rows_match_jax(query, jax_like_port):
-    """200,000 events in batches of 16,384, event time from 0."""
+@pytest.mark.parametrize("query", ["q1", "q5", "q7", "q8", "hot_items",
+                                   "q5_unfused", "q7_unfused", "q16",
+                                   "q1_union"])
+def test_nexmark_query_rows_match_jax(query, jax_like_port, monkeypatch):
+    """200,000 events in batches of 16,384, event time from 0; q5 and q7
+    also as the reference plans them (``ARROYO_ARGMAX=0``), whose rows
+    equal the fused plans' too; q16's channel statistics (the buffered
+    window) and q1 as a UNION ALL of two price ranges."""
     n, b = 200_000, 16_384
+    base = query.replace("_unfused", "")
+    texts = dict(queries.QUERIES, q16=queries.Q16, q1_union=queries.Q1_UNION)
     sql = (_pinned(hot_items_sql(n, b), n, b) if query == "hot_items"
-           else _pinned(queries.QUERIES[query], n, b))
+           else _pinned(texts[base], n, b))
+    fused = _run_port(plan_sql(sql)) if base != query else None
+    if fused is not None:
+        monkeypatch.setenv("ARROYO_ARGMAX", "0")
     want = _run_jax(jax_plan_sql(sql))
     got = _run_port(plan_sql(sql))
     assert want[0] and got == want
+    if fused is not None:
+        assert got == fused
 
 
 @pytest.mark.parametrize("query", ["q1", "q5", "q7", "q8", "hot_items"])
@@ -398,6 +418,27 @@ SHAPES = [
      "now() - INTERVAL '1' HOUR", False),
     ("constant_predicate_false", _extract_table,
      "SELECT k FROM t WHERE now() < now() - INTERVAL '1' HOUR", False),
+    # keyless windowed aggregates: the global key
+    ("case_count", _events,
+     "SELECT count(case when v > 25 then 1 else null end) as big, "
+     "count(*) as total FROM events GROUP BY tumble(interval '2 second')",
+     False),
+    ("extract_from_form", _extract_table, """
+    SELECT extract(minute FROM window_end) AS m, count(*) AS c
+    FROM t GROUP BY TUMBLE(INTERVAL '1' MINUTE)""", False),
+    # without an event-time field the raw argmax fusion cannot prove the
+    # window bounds: the plan keeps the TTL join and its max side's
+    # keyless tumbling aggregate
+    ("canonical_q7_highest_bid", _q7_bids, """
+    SELECT B.auction as auction, B.price as price, B.bidder as bidder
+    FROM bids B
+    JOIN (
+      SELECT max(price) AS maxprice, TUMBLE(INTERVAL '10' SECOND) as window
+      FROM bids GROUP BY 2
+    ) AS M
+    ON B.price = M.maxprice
+    WHERE B.datetime >= M.window_start AND B.datetime < M.window_end""",
+     False),
 ]
 
 
@@ -417,32 +458,33 @@ def test_sql_shape_rows_match_jax(name, tables, sql, net):
         assert got == want
 
 
-def _sql_of(name):
-    return next(s for s in SHAPES if s[0] == name)[2]
-
-
-# tests/test_sql.py shapes that need an operator the port has not ported:
-# they plan in the JAX package and raise SqlPlanError in the port (their
-# keyed variants run above)
+# shapes of the JAX package's tests that need an operator the port has not
+# ported: they plan there and raise SqlPlanError in the port, naming it
 UNPORTED = [
-    ("case_count", _events,
-     "SELECT count(case when v > 25 then 1 else null end) as big, "
-     "count(*) as total FROM events GROUP BY tumble(interval '2 second')"),
-    ("extract_from_form", _extract_table, """
-    SELECT extract(minute FROM window_end) AS m, count(*) AS c
-    FROM t GROUP BY TUMBLE(INTERVAL '1' MINUTE)"""),
-    # without an event-time field the raw argmax fusion cannot prove the
-    # window bounds, so the plan keeps the join and its max side's
-    # keyless aggregate
-    ("canonical_q7_highest_bid", _q7_bids,
-     _sql_of("canonical_q7_highest_bid_event_time")),
+    ("in_subquery", _events,
+     "SELECT k, v FROM events WHERE k IN (SELECT k FROM events "
+     "WHERE v > 40)", r"semi join.*ROADMAP A\.6"),
+    ("three_way_join", _events, """
+    SELECT X.k AS k, X.v AS a, Y.v AS b, Z.v AS c
+    FROM events X JOIN events Y ON X.k = Y.k
+    JOIN events Z ON X.k = Z.k""", r"multi-way join.*ROADMAP A\.6"),
+    ("factor_window_pair", _events, """
+    CREATE TABLE s1 (k BIGINT, window_end BIGINT, n BIGINT) WITH (
+      connector = 'memory', name = 'fw1', type = 'sink');
+    CREATE TABLE s2 (k BIGINT, window_end BIGINT, t BIGINT) WITH (
+      connector = 'memory', name = 'fw2', type = 'sink');
+    INSERT INTO s1 SELECT k, HOP(INTERVAL '1' SECOND, INTERVAL '4' SECOND)
+      as window, count(*) AS n FROM events GROUP BY 1, 2;
+    INSERT INTO s2 SELECT k, HOP(INTERVAL '1' SECOND, INTERVAL '2' SECOND)
+      as window, sum(v) AS t FROM events GROUP BY 1, 2""",
+     r"factor-window rewrite.*ROADMAP A\.8"),
 ]
 
 
-@pytest.mark.parametrize("name,tables,sql", UNPORTED,
+@pytest.mark.parametrize("name,tables,sql,message", UNPORTED,
                          ids=[u[0] for u in UNPORTED])
-def test_sql_shape_needs_an_unported_operator(name, tables, sql):
+def test_sql_shape_needs_an_unported_operator(name, tables, sql, message):
     jp, pp = _providers(tables())
     JaxPlanner(jp).plan(sql)
-    with pytest.raises(SqlPlanError, match=r"global key.*ROADMAP A\.8"):
+    with pytest.raises(SqlPlanError, match=message):
         Planner(pp).plan(sql)

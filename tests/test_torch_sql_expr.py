@@ -277,3 +277,120 @@ def test_division_and_modulo_by_zero_are_null_not_errors():
                 q = abs(int(i[n])) // abs(int(j[n]))
                 q = q if (i[n] < 0) == (j[n] < 0) else -q
                 assert out["q"][n] == q and out["r"][n] == i[n] - q * j[n]
+
+
+# -- CAST(<string> AS TIMESTAMP) -----------------------------------------------------
+
+# string columns as a CAST to TIMESTAMP meets them: pandas' to_datetime
+# infers one format from the first non-null value, and cells that do not
+# fit it are NULL; where no format fits the first value, each cell is
+# read on its own
+TIMESTAMP_CORPUS = {
+    "slash_then_iso": ["2020/01/02", "2020-01-02T03:04:05"],
+    "iso_then_slash": ["2020-01-02T03:04:05", "2020/01/02", "2020-01-02"],
+    "date_then_datetimes": ["2020-01-02", "2020-01-02 03:04:05",
+                            "2020-01-02T03:04:05", "2021-12-31"],
+    "space_datetimes": ["2020-01-02 03:04:05", "2020-01-02T03:04:05",
+                        "2020-12-31 23:59:60", "2020-02-29 00:00:00"],
+    "minutes": ["2020-01-02T03:04", "2020-01-02T03:04:05", "2020-1-2T3:4"],
+    "fractions": ["2020-01-02T03:04:05.123456", "2020-01-02T03:04:05",
+                  "2020-01-02T03:04:05.1", "2020-01-02T03:04:05.123456789",
+                  "2020-01-02T03:04:05.1234567890"],
+    "sub_micro_negative": ["1969-12-31T23:59:59.9999995",
+                           "1969-12-31T23:59:59.0000001"],
+    "zulu_and_offsets": ["2020-01-02T03:04:05Z", "2020-01-02T03:04:05+01:00",
+                         "2020-01-02T03:04:05-0530", "2020-01-02T03:04:05+05",
+                         "2020-01-02T03:04:05"],
+    "offset_first": ["2020-01-02T03:04:05+05:30", "2020-01-02T03:04:05Z",
+                     "2020-01-02 03:04:05+05:30"],
+    "fraction_and_offset": ["2020-01-02T03:04:05.250Z",
+                            "2020-01-02T03:04:05Z"],
+    "nulls_first": [None, "NaT", "", "2020-01-02", "x", None, "nan"],
+    "garbage_first": ["nope", "2020-01-02", "2020/01/02 03:04"],
+    "invalid_date_first": ["2020-02-30", "2020-02-29", "2020-13-01"],
+    "leap_second_first": ["2020-12-31 23:59:60", "2020-12-31 23:59:59"],
+    "slash_leap_seconds": ["2020/01/02 03:04:05", "2020/12/31 23:59:60",
+                           "2020/12/31 23:59:61"],
+    "year_month": ["2020-01", "2020-01-02", "2021-12"],
+    "single_digit_fields": ["2020-1-2", "2020-01-02", "2020/1/2"],
+    "all_null": [None, None],
+    "old_years": ["1600-01-01", "2300-06-30T12:00:00", "0999-05-05"],
+    "low_year_first": ["0999-05-05T01:02:03", "2020-01-02T03:04:05"],
+    # the forms below are read differently (listed in TIMESTAMP_DIFFER)
+    "month_name": ["Jan 2 2020", "2020-01-02", "Feb 3 2021"],
+    "month_name_later": [None, "2020-01-02", "Jan 2 2020"],
+    "comma_fraction": ["2020-01-02T03:04:05,5", "2020-01-02T03:04:05"],
+    "space_before_offset": ["2020-01-02T03:04:05 +05:00"],
+    "low_year_beside_nanoseconds": ["0001-01-01",
+                                    "2020-01-02T03:04:05.123456789"],
+}
+# forms where the port and pd.to_datetime still differ, by name:
+# - month_name: pandas infers '%b %d %Y' from 'Jan 2 2020' (the port
+#   knows no month names: the column reads each cell on its own, so the
+#   ISO cell is a value there and NULL in pandas);
+# - comma_fraction, space_before_offset: the first value fits no format
+#   the port knows, so pandas reads every cell with dateutil, which also
+#   takes a decimal comma and a space before the offset (the port: NULL);
+# - low_year_beside_nanoseconds: a first value below year 1000 infers no
+#   format in either; pandas then gives the column one unit, and year 1
+#   does not fit nanoseconds (NULL there, a value in the port).
+# month_name_later agrees: its first value infers '%Y-%m-%d' in both.
+TIMESTAMP_DIFFER = {"month_name", "comma_fraction", "space_before_offset",
+                    "low_year_beside_nanoseconds"}
+
+
+def _pandas_micros(cells):
+    """pd.to_datetime(cells, errors="coerce", utc=True) as (epoch micros,
+    validity); pandas picks the result's unit, the micros are floored."""
+    import warnings
+
+    import pandas as pd
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        r = pd.to_datetime(list(cells), errors="coerce", utc=True)
+    ok = ~np.asarray(r.isna())
+    raw = np.asarray(r.asi8)
+    scale = {"s": 10**6, "ms": 10**3, "us": 1}.get(r.unit)
+    vals = raw * scale if scale else raw // 10**3
+    return np.where(ok, vals, 0), ok
+
+
+@pytest.mark.parametrize("name", sorted(TIMESTAMP_CORPUS))
+def test_string_to_timestamp_matches_pandas(name):
+    """The port's CAST(<string> AS TIMESTAMP) parse against
+    ``pd.to_datetime(list, errors="coerce", utc=True)`` called directly
+    (the JAX package's cast calls it, and on pandas 3 reads its result in
+    the wrong unit): the same NULLs and, elsewhere, the same micros,
+    except the named forms of TIMESTAMP_DIFFER, which must still
+    differ."""
+    from arroyo_tpu_torch.sql.compiler import _parse_timestamps
+
+    cells = TIMESTAMP_CORPUS[name]
+    vals, ok = _parse_timestamps(np.array(cells, dtype=object))
+    want_vals, want_ok = _pandas_micros(cells)
+    same = (np.array_equal(ok, want_ok)
+            and np.array_equal(vals[ok], want_vals[want_ok]))
+    assert same != (name in TIMESTAMP_DIFFER), (
+        name, list(zip(ok, vals)), list(zip(want_ok, want_vals)))
+
+
+def test_cast_string_to_timestamp_in_sql():
+    """The cast through the port's planner: one format from the first
+    value, a cell that does not fit it NULL."""
+    from arroyo_tpu_torch.connectors.memory import clear_sink, sink_output
+    from arroyo_tpu_torch.engine.engine import LocalRunner
+    from arroyo_tpu_torch.sql import Planner, SchemaProvider
+
+    cells = ["2020/01/02", "2020-01-02T03:04:05", None, "2021/03/04"]
+    p = SchemaProvider()
+    p.add_memory_table("t", {"s": "s"}, [Batch(
+        np.arange(4, dtype=np.int64), {"s": np.array(cells, dtype=object)})])
+    clear_sink("results")
+    LocalRunner(Planner(p).plan(
+        "SELECT CAST(s AS TIMESTAMP) AS t FROM t WHERE "
+        "CAST(s AS TIMESTAMP) IS NOT NULL"), device="cpu").run()
+    got = [int(x) for b in sink_output("results")
+           for x in b.columns["t"].tolist()]
+    want_vals, want_ok = _pandas_micros(cells)
+    assert got == want_vals[want_ok].tolist() and len(got) == 2
