@@ -19,6 +19,10 @@
 * :class:`JoinWithExpirationOperator` — the unwindowed stream-stream
   equi-join with TTL state: every arriving batch probes the opposite
   side's state (the device rings of its hot partitions);
+* :class:`MultiWayJoinOperator` — the N-ary INNER join on one key that
+  the planner makes of a cascade of joins, windowed or with TTL state;
+* :class:`SemiJoinOperator` — ``x IN (SELECT ...)``: a left row emits
+  once, when its key has been seen on the right;
 * :class:`WindowOperator` — the buffered tumbling/sliding/instant window:
   rows wait in a batch buffer until their window's end, then are
   aggregated per key by ``ops/segment.py`` (or emitted flat); SQL takes
@@ -37,6 +41,7 @@ import asyncio
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..device import DeviceLike, resolve_device
 from ..graph.logical import (
@@ -650,13 +655,15 @@ def _assemble_join_output(l_rows: Batch, r_rows: Batch,
 
 
 def join_batches(l: Batch, r: Batch, end: int, how: JoinType,
-                 tmpl: Tuple[_SideTemplate, _SideTemplate]) -> Batch:
-    """The legacy layout's fire (CPU only): sort both sides' key hashes,
-    equi-join them on the host, null-pad the unmatched rows."""
+                 tmpl: Tuple[_SideTemplate, _SideTemplate],
+                 device: torch.device) -> Batch:
+    """The legacy layout's fire: re-sort both sides' key hashes and pair
+    them (``ops/join.join_pairs``, on ``device``), gather the rows on the
+    host, null-pad the unmatched rows."""
     from ..ops.join import join_pairs
     from ..state.join_state import _count_gather
 
-    lo, ro, lidx, ridx, counts = join_pairs(l.key_hash, r.key_hash)
+    lo, ro, lidx, ridx, counts = join_pairs(l.key_hash, r.key_hash, device)
     l_rows = l.select(lo[lidx])
     r_rows = r.select(ro[ridx])
     l_un = (l.select(lo[counts == 0])
@@ -664,7 +671,8 @@ def join_batches(l: Batch, r: Batch, end: int, how: JoinType,
     r_un = None
     if how in (JoinType.RIGHT, JoinType.FULL):
         r_matched = np.zeros(len(r.key_hash), dtype=bool)
-        r_matched[ro[ridx]] = True
+        if len(ridx):
+            r_matched[ro[ridx]] = True
         r_un = r.select(~r_matched)
     _count_gather(0, len(l_rows) + len(r_rows)
                   + (len(l_un) if l_un is not None else 0)
@@ -679,12 +687,16 @@ class WindowJoinOperator(Operator):
     partition's sorted run to the window (no sort), merge-probes the two
     sides on the host mirror and gathers the matched rows — from the
     device rings of hot partitions.  Outer kinds null-pad the unmatched
-    side per fired window (append-only: each window fires once)."""
+    side per fired window (append-only: each window fires once).  On the
+    legacy layout a fire re-sorts both sides and pairs them on the
+    operator's device (``ops/join.join_pairs``)."""
 
     def __init__(self, name: str, typ, join_type: JoinType = JoinType.INNER,
                  left_cols: Tuple[Tuple[str, str], ...] = (),
-                 right_cols: Tuple[Tuple[str, str], ...] = ()):
+                 right_cols: Tuple[Tuple[str, str], ...] = (),
+                 device: DeviceLike = None):
         super().__init__(name)
+        self.device = resolve_device(device)
         self.typ = typ
         self.join_type = join_type
         self.width, self.slide = _window_params(typ)
@@ -774,7 +786,8 @@ class WindowJoinOperator(Operator):
             l = _empty_like_side(self._tmpl[0], r)
         if not have_r:
             r = _empty_like_side(self._tmpl[1], l)
-        return join_batches(l, r, end, self.join_type, self._tmpl)
+        return join_batches(l, r, end, self.join_type, self._tmpl,
+                            self.device)
 
 
 class JoinWithExpirationOperator(Operator):
@@ -784,15 +797,19 @@ class JoinWithExpirationOperator(Operator):
     FIRST opposite-side row for that key arrives later, the padded rows
     are retracted (DELETE) and replaced by joined CREATEs.  Each arriving
     batch probes the opposite side's state (``probe_batch``: the device
-    rings of hot partitions), then joins its own side's state; rows
+    rings of hot partitions; on the legacy layout a re-sort of the batch
+    and the whole opposite side, paired on the operator's device by
+    ``ops/join.join_pairs``), then joins its own side's state; rows
     expire once the watermark passes their time plus their side's
     TTL."""
 
     def __init__(self, name: str, left_ttl: int, right_ttl: int,
                  join_type: JoinType,
                  left_cols: Tuple[Tuple[str, str], ...] = (),
-                 right_cols: Tuple[Tuple[str, str], ...] = ()):
+                 right_cols: Tuple[Tuple[str, str], ...] = (),
+                 device: DeviceLike = None):
         super().__init__(name)
+        self.device = resolve_device(device)
         self.left_ttl = left_ttl
         self.right_ttl = right_ttl
         self.join_type = join_type
@@ -871,7 +888,7 @@ class JoinWithExpirationOperator(Operator):
 
         # 2. joined CREATEs for matched pairs: the partitioned layout
         #    probes the opposite state's sorted runs (only the batch gets
-        #    sorted); the legacy layout (CPU only) re-sorts both sides
+        #    sorted); the legacy layout re-sorts both sides
         if have_opp:
             if self._partitioned:
                 bsel, opp_rows, counts = other.probe_batch(batch)
@@ -885,8 +902,8 @@ class JoinWithExpirationOperator(Operator):
                 from ..state.join_state import _count_gather
 
                 opp = other.all()
-                lo, ro, lidx, ridx, counts = join_pairs(batch.key_hash,
-                                                        opp.key_hash)
+                lo, ro, lidx, ridx, counts = join_pairs(
+                    batch.key_hash, opp.key_hash, self.device)
                 if len(lidx):
                     opp_rows = opp.select(ro[ridx])
                     _count_gather(0, len(opp_rows))
@@ -913,6 +930,246 @@ class JoinWithExpirationOperator(Operator):
     async def handle_watermark(self, watermark: int, ctx: Context) -> None:
         self.left.evict_before(watermark - self.left_ttl)
         self.right.evict_before(watermark - self.right_ttl)
+        await ctx.broadcast(Message.wm(Watermark.event_time(watermark)))
+
+
+class MultiWayJoinOperator(Operator):
+    """N-ary INNER equi-join over sides keyed by one key (the planner's
+    rewrite of a cascade of joins; ``MultiWayJoinSpec``).  Per fire
+    (windowed mode) or per arriving batch (TTL mode) the per-key cross
+    product across ALL sides expands directly from the sides' sorted runs
+    — no pairwise intermediate is materialized, re-keyed or re-buffered.
+    The sides are always partitioned join buffers on the operator's
+    device: a TTL-mode probe of a hot partition runs ``join_probe`` and
+    ``join_expand`` on its ring (``probe_positions``)."""
+
+    def __init__(self, name: str, typ, ttl_micros: int, n_sides: int,
+                 device: DeviceLike = None):
+        super().__init__(name)
+        self.device = resolve_device(device)
+        self.typ = typ
+        self.ttl = ttl_micros
+        self.n_sides = n_sides
+        if typ is not None:
+            self.width, self.slide = _window_params(typ)
+        else:
+            self.width = self.slide = 0
+
+    async def on_start(self, ctx: Context) -> None:
+        # always partitioned: the N-ary probe needs sorted runs (the
+        # checkpoint form is the same BATCH_BUFFER batch either way)
+        retention = self.width if self.typ is not None else self.ttl
+        self.bufs = [ctx.state.get_join_buffer(f"j{i}", f"join side {i}",
+                                               retention,
+                                               force_partitioned=True)
+                     for i in range(self.n_sides)]
+
+    @staticmethod
+    def _expand(counts: List[np.ndarray]
+                ) -> Tuple[np.ndarray, List[np.ndarray]]:
+        """Cross-product expansion: for groups g with per-side match
+        counts ``counts[i][g]``, (the group of each output row, each
+        side's offset within the group's matches on that side)."""
+        from ..ops.join import expand_counts
+
+        m = counts[0].astype(np.int64).copy()
+        for c in counts[1:]:
+            m *= c
+        gid, within = expand_counts(m)
+        offs: List[np.ndarray] = [np.zeros(0, np.int64)] * len(counts)
+        stride = np.ones(len(m), dtype=np.int64)
+        for i in range(len(counts) - 1, -1, -1):
+            ci = np.maximum(counts[i].astype(np.int64), 1)
+            offs[i] = (within // stride[gid]) % ci[gid]
+            stride = stride * ci
+        return gid, offs
+
+    @staticmethod
+    def _emit_sides(side_rows: List[Batch], end: int) -> Batch:
+        """The joined output left to right: side 0 plays the left role
+        (it carries the join-key columns), every later side folds in
+        through the pairwise join's layout normalization."""
+        key_names = tuple(side_rows[0].key_cols)
+        cols = dict(side_rows[0].columns)
+        n = len(side_rows[0])
+        for rows in side_rows[1:]:
+            cols = _stable_join_part(cols, dict(rows.columns), n, key_names)
+        return Batch(np.full(n, end - 1, dtype=np.int64), cols,
+                     side_rows[0].key_hash, key_names)
+
+    async def process_batch(self, batch: Batch, ctx: Context,
+                            side: int = 0) -> None:
+        if batch.key_hash is None:
+            raise ValueError(f"{self.name} requires keyed inputs")
+        # inner only: a null-keyed row can never match, so it is never
+        # buffered
+        batch = _drop_null_keyed(batch) if len(batch) else None
+        if batch is None or not len(batch):
+            return
+        if self.typ is None:
+            await self._probe_ttl(batch, side, ctx)
+            self.bufs[side].append(batch)
+            return
+        self.bufs[side].append(batch)
+        first_end = (batch.timestamp // self.slide + 1) * self.slide
+        if isinstance(self.typ, SlidingWindow):
+            ends = np.unique(np.concatenate([
+                first_end + i * self.slide
+                for i in range(self.width // self.slide)]))
+        else:
+            ends = np.unique(first_end - self.slide + self.width)
+        for e in ends.tolist():
+            ctx.timers.schedule(int(e), ("mw", int(e)))
+
+    async def handle_timer(self, time: int, key: Any, payload: Any,
+                           ctx: Context) -> None:
+        end = key[1]
+        start = end - self.width
+        out_parts: List[Batch] = []
+        for p in range(self.bufs[0].P):
+            views = [b.parts[p].range_view(start, end) for b in self.bufs]
+            if any(len(k) == 0 for k, _pos in views):
+                continue
+            # keys present on EVERY side (each view is key-sorted)
+            uk = np.unique(views[0][0])
+            for k, _pos in views[1:]:
+                idx = np.searchsorted(k, uk)
+                ok = idx < len(k)
+                ok[ok] = k[idx[ok]] == uk[ok]
+                uk = uk[ok]
+                if not len(uk):
+                    break
+            if not len(uk):
+                continue
+            starts: List[np.ndarray] = []
+            cnts: List[np.ndarray] = []
+            for k, _pos in views:
+                lo = np.searchsorted(k, uk, side="left")
+                starts.append(lo)
+                cnts.append(np.searchsorted(k, uk, side="right") - lo)
+            gid, offs = self._expand(cnts)
+            if not len(gid):
+                continue
+            side_rows = [self.bufs[i].gather(
+                p * (1 << 48) + pos[starts[i][gid] + offs[i]])
+                for i, (_k, pos) in enumerate(views)]
+            out_parts.append(self._emit_sides(side_rows, end))
+        if out_parts:
+            out = (out_parts[0] if len(out_parts) == 1
+                   else Batch.concat(out_parts))
+            if len(out):
+                await ctx.collect(out)
+        evict_to = end - self.width + self.slide
+        for b in self.bufs:
+            b.evict_before(evict_to)
+
+    async def _probe_ttl(self, batch: Batch, side: int,
+                         ctx: Context) -> None:
+        n = len(batch)
+        kh = batch.key_hash
+        sorter = np.argsort(kh, kind="stable")
+        counts: List[np.ndarray] = []
+        groups: List[Optional[Tuple[np.ndarray, np.ndarray]]] = []
+        for i, buf in enumerate(self.bufs):
+            if i == side:
+                counts.append(np.ones(n, dtype=np.int64))
+                groups.append(None)
+                continue
+            qidx, gpos = buf.probe_positions(kh[sorter])
+            order = np.argsort(qidx, kind="stable")
+            qidx, gpos = qidx[order], gpos[order]
+            c = np.bincount(qidx, minlength=n)
+            counts.append(c)
+            groups.append((np.cumsum(c) - c, gpos))
+        gid, offs = self._expand(counts)
+        if not len(gid):
+            return
+        end = int(batch.timestamp.max()) + 1
+        side_rows = []
+        for i, buf in enumerate(self.bufs):
+            if i == side:
+                side_rows.append(batch.select(sorter[gid]))
+            else:
+                starts, gpos = groups[i]
+                side_rows.append(buf.gather(gpos[starts[gid] + offs[i]]))
+        out = self._emit_sides(side_rows, end)
+        if len(out):
+            await ctx.collect(out)
+
+    async def handle_watermark(self, watermark: int, ctx: Context) -> None:
+        if self.typ is None:
+            for b in self.bufs:
+                b.evict_before(watermark - self.ttl)
+        await ctx.broadcast(Message.wm(Watermark.event_time(watermark)))
+
+
+class SemiJoinOperator(Operator):
+    """The streaming semi join behind ``x IN (SELECT ...)``: a left row
+    emits EXACTLY ONCE when a matching right key exists (now or later,
+    within the TTLs), never once a right-side match.  Left rows without a
+    match wait in the BATCH_BUFFER ``l``; the first sighting of a right
+    key releases the waiting left rows of that key.  Right keys live in
+    the KEYED table ``r`` with the time of their latest sighting (it
+    never moves backward), expiring after the right TTL."""
+
+    def __init__(self, name: str, left_ttl: int, right_ttl: int):
+        super().__init__(name)
+        self.left_ttl = left_ttl
+        self.right_ttl = right_ttl
+
+    def tables(self) -> List[TableDescriptor]:
+        return [TableDescriptor("l", TableType.BATCH_BUFFER, "left pending",
+                                retention_micros=self.left_ttl),
+                TableDescriptor("r", TableType.KEYED, "right keys seen",
+                                retention_micros=self.right_ttl)]
+
+    async def on_start(self, ctx: Context) -> None:
+        self.left = ctx.state.get_batch_buffer("l")
+        self.rkeys = ctx.state.get_keyed_state("r")
+
+    def _right_has(self, kh: np.ndarray) -> np.ndarray:
+        uniq = np.unique(kh)
+        known = np.array([self.rkeys.get(int(k)) is not None
+                          for k in uniq], dtype=bool)
+        return known[np.searchsorted(uniq, kh)]
+
+    async def process_batch(self, batch: Batch, ctx: Context,
+                            side: int = 0) -> None:
+        if batch.key_hash is None:
+            raise ValueError(f"{self.name} requires keyed inputs")
+        if side == 0:  # left: emit the matches now, buffer the rest
+            mask = self._right_has(batch.key_hash)
+            if mask.any():
+                await ctx.collect(batch.select(mask))
+            if not mask.all():
+                self.left.append(batch.select(~mask))
+            return
+        # right: refresh every key's time (a key seen continuously must
+        # not expire off its first sighting; a late sighting must not
+        # move it backward); first sightings release waiting left rows
+        uniq, first = np.unique(batch.key_hash, return_index=True)
+        fresh = np.array([self.rkeys.get(int(k)) is None for k in uniq],
+                         dtype=bool)
+        for k, i in zip(uniq.tolist(), first.tolist()):
+            prev_t = self.rkeys.get_time(int(k))
+            t = int(batch.timestamp[i])
+            self.rkeys.insert(t if prev_t is None else max(t, prev_t),
+                              int(k), True)
+        if not fresh.any():
+            return
+        new_keys = uniq[fresh]
+        pending = self.left.all()
+        if pending is not None and len(pending):
+            m = np.isin(pending.key_hash, new_keys)
+            if m.any():
+                await ctx.collect(pending.select(m))
+                self.left.remove_keys(new_keys)
+
+    async def handle_watermark(self, watermark: int, ctx: Context) -> None:
+        self.left.evict_before(watermark - self.left_ttl)
+        for t, k, _v in self.rkeys.snapshot():
+            if t < watermark - self.right_ttl:
+                self.rkeys.remove(k)
         await ctx.broadcast(Message.wm(Watermark.event_time(watermark)))
 
 
@@ -1539,15 +1796,26 @@ def _build_window_argmax(op: LogicalOperator, device: DeviceLike
 def _build_window_join(op: LogicalOperator, device: DeviceLike) -> Operator:
     s = op.spec
     return WindowJoinOperator(op.name, s.typ, s.join_type, s.left_cols,
-                              s.right_cols)
+                              s.right_cols, device)
 
 
 @register_builder(OpKind.JOIN_WITH_EXPIRATION)
 def _build_join_exp(op: LogicalOperator, device: DeviceLike) -> Operator:
     s = op.spec
+    if s.join_type == JoinType.SEMI:
+        return SemiJoinOperator(op.name, s.left_expiration_micros,
+                                s.right_expiration_micros)
     return JoinWithExpirationOperator(op.name, s.left_expiration_micros,
                                       s.right_expiration_micros, s.join_type,
-                                      s.left_cols, s.right_cols)
+                                      s.left_cols, s.right_cols, device)
+
+
+@register_builder(OpKind.MULTI_WAY_JOIN)
+def _build_multi_way_join(op: LogicalOperator, device: DeviceLike
+                          ) -> Operator:
+    s = op.spec
+    return MultiWayJoinOperator(op.name, s.typ, s.ttl_micros,
+                                len(s.side_cols), device)
 
 
 @register_builder(OpKind.NON_WINDOW_AGGREGATOR)

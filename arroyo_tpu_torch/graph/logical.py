@@ -136,6 +136,7 @@ class OpKind(Enum):
     NON_WINDOW_AGGREGATOR = "non_window_aggregator"  # updating GROUP BY
     UPDATING_KEY = "updating_key"  # key_by over an updating stream
     UNION = "union"  # UNION ALL: the streams' batches merged unchanged
+    MULTI_WAY_JOIN = "multi_way_join"  # N-ary shared-key INNER equi-join
 
 
 class JoinType(Enum):
@@ -143,6 +144,7 @@ class JoinType(Enum):
     LEFT = "left"
     RIGHT = "right"
     FULL = "full"
+    SEMI = "semi"  # IN (SELECT ...): left rows emit once on first match
 
 
 @dataclass
@@ -238,6 +240,20 @@ class JoinWithExpirationSpec:
 
 
 @dataclass
+class MultiWayJoinSpec:
+    """One N-ary INNER equi-join over sides keyed by the same columns
+    (the planner's rewrite of a cascade of joins on one key): per fire
+    (``typ`` a window) or per arriving batch (``typ`` None, state kept
+    for ``ttl_micros``) the per-key cross product of every side expands
+    directly, with no pairwise intermediate.  ``side_cols`` has one
+    (name, kind) schema a side and records the side count."""
+
+    typ: Optional[Any] = None
+    ttl_micros: int = 0
+    side_cols: Tuple[Tuple[Tuple[str, str], ...], ...] = ()
+
+
+@dataclass
 class TopNSpec:
     """A per-window TopN stage (TumblingTopN).
 
@@ -320,6 +336,13 @@ class EdgeType(Enum):
     SHUFFLE = "shuffle"
     SHUFFLE_JOIN_LEFT = "shuffle_join_0"
     SHUFFLE_JOIN_RIGHT = "shuffle_join_1"
+    # the further sides of a multi-way join
+    SHUFFLE_JOIN_2 = "shuffle_join_2"
+    SHUFFLE_JOIN_3 = "shuffle_join_3"
+    SHUFFLE_JOIN_4 = "shuffle_join_4"
+    SHUFFLE_JOIN_5 = "shuffle_join_5"
+    SHUFFLE_JOIN_6 = "shuffle_join_6"
+    SHUFFLE_JOIN_7 = "shuffle_join_7"
 
     @property
     def join_side(self) -> Optional[int]:
@@ -327,6 +350,11 @@ class EdgeType(Enum):
         if self.value.startswith("shuffle_join_"):
             return int(self.value.rsplit("_", 1)[1])
         return None
+
+
+def join_side_edge(i: int) -> EdgeType:
+    """The shuffle_join edge type of join side ``i`` (0-based)."""
+    return EdgeType(f"shuffle_join_{i}")
 
 
 @dataclass
@@ -836,6 +864,36 @@ class Stream:
                                       tuple(left_cols), tuple(right_cols))
         return self._join(other, OpKind.JOIN_WITH_EXPIRATION, spec, name,
                           parallelism)
+
+    def multi_way_join(self, others: Sequence["Stream"],
+                       typ: Optional[Any] = None, ttl_micros: int = 0,
+                       side_cols: Tuple[Tuple[Tuple[str, str], ...],
+                                        ...] = (),
+                       name: str = "multi_way_join",
+                       parallelism: Optional[int] = None) -> "Stream":
+        """N-ary INNER equi-join of this stream (side 0) and ``others``
+        (sides 1..), all keyed by the same columns; see
+        :class:`MultiWayJoinSpec`."""
+        sides = [self] + list(others)
+        if not 2 <= len(sides) <= 8:
+            raise ValueError("a multi-way join has 2 to 8 sides")
+        if len({s.tail for s in sides}) != len(sides):
+            raise ValueError("multi-way join sides must be distinct nodes")
+        if any(s.program is not self.program for s in sides):
+            raise ValueError("join streams must share a Program")
+        if not side_cols:
+            side_cols = tuple(() for _ in sides)
+        if len(side_cols) != len(sides):
+            raise ValueError("side_cols needs one entry a join side")
+        spec = MultiWayJoinSpec(typ, ttl_micros, tuple(side_cols))
+        op = LogicalOperator(OpKind.MULTI_WAY_JOIN, name, spec=spec)
+        par = parallelism or self.program.node(self.tail).parallelism
+        nid = self.program.add_node(op, par)
+        ks = ",".join(self.keyed) if self.keyed else "()"
+        for i, s in enumerate(sides):
+            self.program.add_edge(s.tail, nid, join_side_edge(i),
+                                  key_schema=ks)
+        return Stream(self.program, nid, self.keyed)
 
     def _join(self, other: "Stream", kind: OpKind, spec: Any, name: str,
               parallelism: Optional[int]) -> "Stream":

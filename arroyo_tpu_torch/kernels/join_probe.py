@@ -1,7 +1,14 @@
-"""K9 ``join_probe``: the candidate match ranges of sorted query keys in a
-hot join partition's ring — per query the lower bound of its i32 ``hi``
-image in the ring's sorted ``hi`` plane, its match count, and the
-inclusive prefix sum of the counts.
+"""K9 ``join_probe``: the match ranges of sorted query keys in a sorted key
+plane — per query its lower bound in the plane, its match count, and the
+inclusive prefix sum of the counts.  Two forms, one templated kernel:
+
+* i32 keys: a hot join partition's ring — the queries' i32 ``hi`` images
+  in the ring's sorted ``hi`` plane (candidate ranges on the top 32 hash
+  bits; the caller verifies the full keys);
+* u64 keys (i64 tensors holding the bits, ordered as UNSIGNED, as
+  ``kernels/join_sort.py`` sets out; padding SENTINEL, all ones): the
+  legacy join layout's full key hashes, a fire's sorted left keys against
+  its sorted right keys (exact ranges).
 
 Replaces arroyo_tpu/ops/join.py:76 ``_probe_kernel`` (both its
 ``searchsorted`` form and the merged-rank form the TPU takes; they agree).
@@ -16,20 +23,22 @@ written per query.
 
 On the H100 a probe at join-stress's shapes is bound by its launch (the
 bytes are kilobytes) and by the latency of its searches.  The CUDA
-kernel (``csrc/join_probe.cu``) stages the ring's live ``hi`` rows in
-shared memory (all of them up to 8,192 and 16 a query, else evenly
-spaced samples, so only the last levels of a search read global
-memory), answers a query above the ring's last row (every sentinel
-padding query) without a search, and finds the upper bound by galloping
-from the lower bound.  It scans the counts per 1,024-query tile: one
-launch for up to 1,024 queries, three (tile scan, carry scan, fix-up)
-beyond.  The three outputs are views of ONE buffer (the tile totals'
-scratch after them only when there are several tiles): one allocation
-and no host sync a call.
+kernel (``csrc/join_probe.cu``) stages the plane's live rows in shared
+memory (all of them up to 32 KB — 8,192 i32 or 4,096 u64 rows — and 16
+a query, else evenly spaced samples, so only the last levels of a search
+read global memory), answers a query above the plane's last row (every
+sentinel padding query) without a search, and finds the upper bound by
+galloping from the lower bound.  It scans the counts per 1,024-query
+tile: one launch for up to 1,024 queries, three (tile scan, carry scan,
+fix-up) beyond.  The three outputs are views of ONE buffer (the tile
+totals' scratch after them only when there are several tiles): one
+allocation and no host sync a call.
 
 ``join_probe_reference`` is the plain PyTorch version (the same bisection,
-vectorized over the queries); the wrapper takes it only for tensors on
-the CPU."""
+vectorized over the queries, on the keys' unsigned order for the u64
+form); the wrapper takes it only for tensors on the CPU.
+``join_probe.launches`` counts both forms' launches,
+``join_probe.u64_launches`` the u64 form's alone."""
 
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ from typing import Tuple
 import torch
 
 from . import build
+from .join_sort import unsigned_order
 
 TILE = 1024  # queries per block of the tile scan (csrc/join_probe.cu)
 
@@ -47,8 +57,10 @@ TILE = 1024  # queries per block of the tile scan (csrc/join_probe.cu)
 def _check(q_hi: torch.Tensor, hi: torch.Tensor, m: int,
            n_valid: int) -> Tuple[int, int]:
     for name, t in (("q_hi", q_hi), ("hi", hi)):
-        if t.dtype != torch.int32 or t.dim() != 1:
-            raise TypeError(f"{name} must be i32 [n]")
+        if t.dtype not in (torch.int32, torch.int64) or t.dim() != 1:
+            raise TypeError(f"{name} must be i32 or i64 [n]")
+    if q_hi.dtype != hi.dtype:
+        raise TypeError(f"q_hi is {q_hi.dtype} but hi is {hi.dtype}")
     mq, cap = q_hi.shape[0], hi.shape[0]
     if cap <= 0 or not 0 <= m <= mq or not 0 <= n_valid <= cap:
         raise ValueError(f"join_probe: need cap > 0, 0 <= m <= mq and "
@@ -83,7 +95,9 @@ def join_probe_reference(q_hi: torch.Tensor, hi: torch.Tensor, m: int,
                          n_valid: int
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: (start i32[mq], counts i32[mq], cum
-    i64[mq])."""
+    i64[mq]); i64 keys are searched in their unsigned order."""
+    if hi.dtype == torch.int64:
+        q_hi, hi = unsigned_order(q_hi), unsigned_order(hi)
     s = bisect(hi, q_hi, False).clamp(max=n_valid)
     e = bisect(hi, q_hi, True).clamp(max=n_valid)
     live = torch.arange(q_hi.shape[0], device=q_hi.device) < m
@@ -92,8 +106,9 @@ def join_probe_reference(q_hi: torch.Tensor, hi: torch.Tensor, m: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _c_fn():
-    fn = build.load().arroyo_join_probe
+def _c_fn(u64: bool):
+    lib = build.load()
+    fn = lib.arroyo_join_probe_u64 if u64 else lib.arroyo_join_probe
     p, ll = ctypes.c_void_p, ctypes.c_longlong
     fn.argtypes = [p, ll, p, ll, ll, ll, p, p, p, p, p]
     fn.restype = ctypes.c_int
@@ -103,8 +118,9 @@ def _c_fn():
 def join_probe(q_hi: torch.Tensor, hi: torch.Tensor, m: int, n_valid: int
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(start i32[mq], counts i32[mq], cum i64[mq]) of the sorted queries
-    ``q_hi`` i32[mq] (``m`` real, the rest sentinel padding) in the sorted
-    ring plane ``hi`` i32[cap] holding ``n_valid`` rows."""
+    ``q_hi`` [mq] (``m`` real, the rest sentinel padding) in the sorted
+    plane ``hi`` [cap] holding ``n_valid`` rows: both i32 (a ring's
+    ``hi`` plane) or both i64 (u64 key bits, ordered as unsigned)."""
     mq, cap = _check(q_hi, hi, m, n_valid)
     dev = q_hi.device
     if dev.type == "cpu":
@@ -119,12 +135,15 @@ def join_probe(q_hi: torch.Tensor, hi: torch.Tensor, m: int, n_valid: int
     start, counts = keys[:mq], keys[mq:]
     if mq == 0:
         return start, counts, cum  # nothing to launch
-    build.launch("join_probe", _c_fn(), dev, q_hi.data_ptr(), mq,
+    u64 = hi.dtype == torch.int64
+    build.launch("join_probe", _c_fn(u64), dev, q_hi.data_ptr(), mq,
                  hi.data_ptr(), cap, m, n_valid, start.data_ptr(),
                  counts.data_ptr(), cum.data_ptr(),
                  tile_sum.data_ptr() if n_tiles > 1 else 0)
     join_probe.launches += 1
+    join_probe.u64_launches += u64
     return start, counts, cum
 
 
 join_probe.launches = 0
+join_probe.u64_launches = 0

@@ -1,5 +1,19 @@
-"""Equi-join helpers and the device-resident rings of hot join partitions
-— the port of the partitioned-state half of ``arroyo_tpu.ops.join``.
+"""Equi-join pairs and the device-resident rings of hot join partitions —
+the port of ``arroyo_tpu.ops.join``.
+
+LEGACY LAYOUT (``ARROYO_JOIN_STATE=legacy``): :func:`join_pairs` joins two
+u64 key arrays by re-sorting both.  On the device (the caller's device is
+CUDA, both sides non-empty, at least ``ARROYO_DEVICE_JOIN_MIN`` rows
+together, no real key equal to the padding ``SENTINEL`` — the JAX
+package's conditions) each side pads to a power-of-two bucket with
+``SENTINEL``, both go up in one upload, and four launches follow with no
+host sync between them: :func:`~arroyo_tpu_torch.kernels.join_sort` of
+each side, the u64 form of :func:`~arroyo_tpu_torch.kernels.join_probe`
+and :func:`~arroyo_tpu_torch.kernels.join_expand_buffer`, which reads the
+pair total on the device.  The sort orders, the match counts and the
+pairs then come back in one synchronization (two when the pairs pass
+the expansion's capacity).  Below those conditions it joins in numpy,
+as the JAX package does on an accelerator.
 
 Hot join-state partitions (``state/join_state.py``) keep their sorted key
 run on the device in a preallocated power-of-two ring, padded with
@@ -40,10 +54,7 @@ buffer, which the join reads back in one copy; a total above the
 capacity costs a second launch and copy at the exact total.
 ``join_ring_probes`` counts the probes, ``join_probe_readbacks`` their
 device-to-host copies, ``join_probe_overflows`` the second launches and
-``join_blocking_uploads`` the uploads that held the host.
-
-Left for later: the legacy layout's device ``join_pairs`` (the sort
-kernel; the port's ``join_pairs`` is host numpy, CPU only)."""
+``join_blocking_uploads`` the uploads that held the host."""
 
 from __future__ import annotations
 
@@ -57,6 +68,7 @@ from ..device import to_device, to_host
 from ..kernels.expand_gather import expand_gather_buffer, expand_views
 from ..kernels.join_expand import join_expand_buffer, pair_views
 from ..kernels.join_probe import join_probe
+from ..kernels.join_sort import join_sort
 from ..kernels.ring_gather import ring_gather_rows
 from ..kernels.ring_merge import (SENT32_HI, SENT32_LO, ring_merge,
                                   ring_planes, ring_words)
@@ -98,32 +110,97 @@ def _host_pairs(lk_sorted: np.ndarray, rk_sorted: np.ndarray
     return lidx, ridx, counts
 
 
-def join_pairs(lk: np.ndarray, rk: np.ndarray
-               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray,
-                          np.ndarray]:
-    """(lo, ro, lidx, ridx, counts) of an equi-join of two u64 key arrays,
-    on the host: ``lo``/``ro`` sort each side stably, ``lidx``/``ridx``
-    index pairs into the sorted orders, ``counts`` is each sorted left
-    row's match count (for outer-join unmatched masks).  The legacy
-    layout's full re-sort, counted as ``join_state_resorts``."""
-    perf.count("join_state_resorts")
+def _host_join_pairs(lk: np.ndarray, rk: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                np.ndarray, np.ndarray]:
     lo = np.argsort(lk, kind="stable")
     ro = np.argsort(rk, kind="stable")
     lidx, ridx, counts = _host_pairs(lk[lo], rk[ro])
     return lo, ro, lidx, ridx, counts
 
 
-def device_join_enabled(device: torch.device) -> bool:
+def _read_back(device: torch.device, *parts: torch.Tensor
+               ) -> Tuple[np.ndarray, ...]:
+    """``parts`` on the host after ONE synchronization: on the card each
+    is copied into pinned memory without blocking, then the stream is
+    waited for once (``join_pairs_readbacks`` counts the waits)."""
+    perf.count("join_pairs_readbacks")
+    if device.type != "cuda":
+        return tuple(p.numpy() for p in parts)
+    host = [torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+            for p in parts]
+    for h, p in zip(host, parts):
+        h.copy_(p, non_blocking=True)
+    torch.cuda.current_stream(device).synchronize()
+    return tuple(h.numpy() for h in host)
+
+
+def join_pairs(lk: np.ndarray, rk: np.ndarray, device: torch.device
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray,
+                          np.ndarray]:
+    """(lo, ro, lidx, ridx, counts) of an equi-join of two u64 key arrays:
+    ``lo``/``ro`` sort each side stably, ``lidx``/``ridx`` index pairs
+    into the sorted orders, ``counts`` is each sorted left row's match
+    count (for outer-join unmatched masks).  The legacy layout's full
+    re-sort, counted as ``join_state_resorts``.
+
+    On ``device`` when :func:`device_join_enabled` holds, both sides are
+    non-empty and no real key is ``SENTINEL`` (``join_pairs_device``):
+    one upload, ``join_sort`` x2, the u64 ``join_probe`` and
+    ``join_expand_buffer`` at a capacity of the larger side's bucket,
+    then ONE synchronization for the orders, the counts and the pairs;
+    a pair total above the capacity expands again at the total and
+    syncs once more (``join_pairs_overflows``).  Otherwise numpy
+    (``join_pairs_host``).  ``join_pairs_bucket:<n>`` counts the padded
+    sides by bucket."""
+    perf.count("join_state_resorts")
+    nl, nr = len(lk), len(rk)
+    device = torch.device(device)
+    if not device_join_enabled(device, nl + nr) or nl == 0 or nr == 0 \
+            or (lk == SENTINEL).any() or (rk == SENTINEL).any():
+        perf.count("join_pairs_host")
+        return _host_join_pairs(lk, rk)
+    perf.count("join_pairs_device")
+    nlp, nrp = _bucket(nl), _bucket(nr)
+    perf.count(f"join_pairs_bucket:{nlp}")
+    perf.count(f"join_pairs_bucket:{nrp}")
+    host = np.full(nlp + nrp, SENTINEL, np.uint64)
+    host[:nl] = lk
+    host[nlp:nlp + nr] = rk
+    keys = _upload(host.view(np.int64), device)
+    lo_d, lks = timed_device(join_sort, keys[:nlp])
+    ro_d, rks = timed_device(join_sort, keys[nlp:])
+    start, counts_d, cum = timed_device(join_probe, lks, rks, nl, nr)
+    cap = max(nlp, nrp)
+    buf = timed_device(join_expand_buffer, start, cum, cap)
+    lo, ro, counts, pairs = _read_back(device, lo_d[:nl], ro_d[:nr],
+                                       counts_d[:nl], buf)
+    total = int(pairs[0])
+    if total > cap:
+        perf.count("join_pairs_overflows")
+        cap = total
+        pairs, = _read_back(device, timed_device(join_expand_buffer, start,
+                                                 cum, cap))
+    lidx, ridx = pair_views(pairs, total, cap)
+    return lo, ro, lidx, ridx, counts
+
+
+def device_join_enabled(device: torch.device,
+                        n_rows: Optional[int] = None) -> bool:
     """``ARROYO_DEVICE_JOIN``: ``auto`` (default) puts hot partitions on
-    the device when the buffer lives on CUDA and keeps them host on the
-    CPU, where a "device" ring is the same memory; ``on`` always (the CPU
-    tests use it to drive the ring path); ``off`` host numpy only."""
+    the device, and pairs the legacy layout's ``n_rows`` keys there from
+    ``ARROYO_DEVICE_JOIN_MIN`` (2,048) rows, when ``device`` is CUDA, and
+    keeps both on the host on the CPU, where the "device" is the same
+    memory; ``on`` always (the CPU tests use it to drive the device paths
+    through the kernels' plain versions); ``off`` host numpy only."""
     mode = os.environ.get("ARROYO_DEVICE_JOIN", "auto")
     if mode == "off":
         return False
     if mode == "on":
         return True
-    return torch.device(device).type == "cuda"
+    return torch.device(device).type == "cuda" and (
+        n_rows is None
+        or n_rows >= int(os.environ.get("ARROYO_DEVICE_JOIN_MIN", 2048)))
 
 
 def split_hi32(keys: np.ndarray) -> np.ndarray:

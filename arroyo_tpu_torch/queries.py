@@ -10,7 +10,16 @@ Two texts are not bench.py's: ``Q16``, the channel statistics of the
 Flink Nexmark suite's q16 (per channel: bids, distinct bidders, distinct
 auctions) over a 10 s tumbling window in place of its day, which runs on
 the buffered window (COUNT(DISTINCT)); and ``Q1_UNION``, q1's bids split
-on price into two branches under one UNION ALL."""
+on price into two branches under one UNION ALL.
+
+Three texts run the join layer's last operators: ``SEMI_Q3``, the bids
+on the auctions of Nexmark q3's category (10) as an ``IN (SELECT ...)``
+semi join; ``MW_BIDDERS``, q8 extended by each person's bids as bidder
+(persons, sellers and bidders per 10 s tumble: three INNER joins on one
+key, planned as one multi-way join); and ``MW_TTL``, a three-way
+self-join of the bids above 50,000,000 on the auction with TTL state (the
+multi-way join's TTL mode).  The last two are tests/test_join_state.py's
+``MW_SQL`` and ``MW_TTL_SQL`` over ``SRC``."""
 
 from .hot_items import HOT_ITEMS_SQL  # noqa: F401
 
@@ -95,6 +104,39 @@ UNION ALL
 SELECT bid.auction as auction, bid.bidder as bidder,
        bid.price * 0.908 as price_dol, bid.datetime as datetime
 FROM nexmark WHERE bid is not null AND bid.price >= 10000
+"""
+
+SEMI_Q3 = SRC + """
+SELECT bid.auction AS auction, bid.price AS price, bid.bidder AS bidder
+FROM nexmark
+WHERE bid IS NOT NULL AND bid.auction IN
+  (SELECT auction.id FROM nexmark WHERE auction.category = 10)
+"""
+
+MW_BIDDERS = SRC + """
+SELECT P.id AS id, P.np AS np, A.na AS na, B.nb AS nb
+FROM (
+  SELECT person.id AS id, TUMBLE(INTERVAL '10' SECOND) AS window,
+         count(*) AS np FROM nexmark WHERE person is not null GROUP BY 1, 2
+) AS P
+JOIN (
+  SELECT auction.seller AS seller, TUMBLE(INTERVAL '10' SECOND) AS window,
+         count(*) AS na FROM nexmark WHERE auction is not null GROUP BY 1, 2
+) AS A ON P.id = A.seller AND P.window = A.window
+JOIN (
+  SELECT bid.bidder AS bidder, TUMBLE(INTERVAL '10' SECOND) AS window,
+         count(*) AS nb FROM nexmark WHERE bid is not null GROUP BY 1, 2
+) AS B ON P.id = B.bidder AND P.window = B.window
+"""
+
+MW_TTL = SRC + """
+WITH b AS (SELECT bid.auction AS auction, bid.price AS price,
+                  bid.bidder AS bidder FROM nexmark
+           WHERE bid is not null AND bid.price > 50000000)
+SELECT X.auction AS a1, Y.price AS p2, Z.bidder AS b3
+FROM b X
+JOIN b Y ON X.auction = Y.auction
+JOIN b Z ON X.auction = Z.auction
 """
 
 CONFIG5_SQL = """

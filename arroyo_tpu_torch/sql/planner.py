@@ -15,10 +15,12 @@ ids and names, so chain groups, checkpoint table names and sink names
 agree across the packages.  ``ARROYO_ARGMAX=0`` (no argmax fusion: q5 and
 q7 as self-joins of their aggregates with their per-window maxima) and
 ``ARROYO_UDAF_COMPILE=off`` (UDAFs on the buffered window) read as in the
-JAX package.  Where the JAX plan needs an operator this package has not
-ported, ``Planner`` raises ``SqlPlanError`` naming the ROADMAP item
-instead of planning a different topology: a factor-window rewrite (A.8),
-an ``IN (SELECT ...)`` semi join and a multi-way join (A.6)."""
+JAX package, and so does ``ARROYO_MULTIWAY=0`` (a cascade of INNER joins
+on one key as nested pairwise joins instead of one multi-way join).
+``x IN (SELECT ...)`` plans as the JAX package's streaming semi join.
+Where the JAX plan needs an operator this package has not ported,
+``Planner`` raises ``SqlPlanError`` naming the ROADMAP item instead of
+planning a different topology: a factor-window rewrite (A.8)."""
 
 from __future__ import annotations
 
@@ -1540,9 +1542,9 @@ class Planner:
 
     def _apply_in_subqueries(self, planned: Planned, where: Expr,
                              prog: Program, scope: Dict[str, Planned]):
-        """``x IN (SELECT c FROM ...)`` conjuncts are the JAX package's
-        streaming semi-joins, which the port has not ported: a WHERE
-        without one comes back as it is; one with one raises."""
+        """``x IN (SELECT c FROM ...)`` conjuncts -> streaming semi joins
+        (a left row emits exactly once, on a TTL'd right-key match);
+        returns (planned, the remaining predicate or None)."""
         subs = []
         rest = []
         for c in _conjuncts(where):
@@ -1551,9 +1553,10 @@ class Planner:
             return planned, where
 
         if planned.updating:
-            # the semi-join key projection would strip __op, so
-            # retraction rows from an updating left input would pass as
-            # data — rejected, as the JAX package rejects it
+            # the semi join's key projection strips __op, so retraction
+            # rows from an updating left input would pass as data —
+            # rejected (an updating RIGHT subquery is fine: a key's
+            # existence is monotone under create/update rows)
             raise SqlPlanError(
                 "IN (SELECT ...) over an updating stream (outer join or "
                 "non-windowed aggregate) is not supported")
@@ -1561,7 +1564,40 @@ class Planner:
             if e.negated:
                 raise SqlPlanError(
                     "NOT IN (SELECT ...) is not supported in streaming SQL")
-        raise _unported("IN (SELECT ...) (the semi join)", "A.6")
+            sub = self.plan_select(e.query, prog, scope)
+            sub_cols = [c for c in sub.schema.columns
+                        if not c.startswith("__")
+                        and c not in ("window_start", "window_end")]
+            if len(sub_cols) != 1:
+                raise SqlPlanError(
+                    "IN (SELECT ...) subquery must produce exactly one "
+                    f"column, got {sub_cols}")
+            lkey = self._normalize_key(
+                compile_scalar(e.operand, planned.schema))
+            rkey = self._normalize_key(
+                compile_scalar(ColumnRef(sub_cols[0]), sub.schema))
+            lcols = [c for c in planned.schema.columns
+                     if not c.startswith("__")]
+            # NULL semantics as in the join: `NULL IN (...)` is never
+            # TRUE, so null keys on either side get unique nonces and
+            # never pair
+            lstream = planned.stream.udf(
+                join_key_fn(_wrap_record([("__sk", lkey)], lcols),
+                            ["__sk"]),
+                name=f"semi_lkey_{self._next_id()}").key_by("__sk",
+                                                            "__jknonce")
+            rstream = sub.stream.udf(
+                join_key_fn(_wrap_record([("__sk", rkey)], []), ["__sk"]),
+                name=f"semi_rkey_{self._next_id()}").key_by("__sk",
+                                                            "__jknonce")
+            out = lstream.join_with_expiration(
+                rstream, DEFAULT_JOIN_TTL, DEFAULT_JOIN_TTL, JoinType.SEMI,
+                name=f"semi_join_{self._next_id()}")
+            out = out.map(_wrap_record([], lcols),
+                          name=f"semi_drop_{self._next_id()}")
+            planned = Planned(out, planned.schema)
+
+        return planned, _conjoin(rest)
 
     def _rewrite_rownumber_topn(self, sel: Select, prog: Program,
                                 scope: Dict[str, Planned]):
@@ -1996,17 +2032,36 @@ class Planner:
                                      else re_)
         if len(used) != len(equiv):
             return None
-        # the JAX planner bails to the pairwise plan when the new side's
-        # key does not compile; otherwise it plans the multi-way join
+        # the new side gets its own key map (slot order) and keying, as
+        # the pairwise plan would have built them
+        n_keys = len(equiv)
         try:
-            for i in range(len(equiv)):
-                compile_scalar(rexpr_by_slot[i], right.schema)
+            rpre = [(f"__jk{i}", self._normalize_key(
+                compile_scalar(rexpr_by_slot[i], right.schema)))
+                for i in range(n_keys)]
         except SqlCompileError:
             return None
-        raise _unported(
-            f"a {len(mj['sides']) + 1}-way join on one key (the multi-way "
-            "join; ARROYO_MULTIWAY=0 plans it as nested pairwise joins)",
-            "A.6")
+        jks = [f"__jk{i}" for i in range(n_keys)]
+        if all(eq == "__window__" for eq in equiv):
+            rstream = right.stream.map(
+                _zero_nonce_fn(_wrap_record(rpre, rcols)),
+                name=f"join_rkey_{self._next_id()}")
+        else:
+            rstream = right.stream.udf(
+                join_key_fn(_wrap_record(rpre, rcols), jks),
+                name=f"join_rkey_{self._next_id()}")
+        rstream = rstream.key_by(*(jks + ["__jknonce"]))
+        rspec = tuple((c, right.schema.columns[c]) for c in rcols)
+        sides = list(mj["sides"]) + [(rstream, rspec)]
+        streams = [st for st, _spec in sides]
+        specs = tuple(spec for _st, spec in sides)
+        out = streams[0].multi_way_join(
+            streams[1:],
+            typ=InstantWindow() if window_join else None,
+            ttl_micros=DEFAULT_JOIN_TTL, side_cols=specs,
+            name=f"multi_join_{self._next_id()}")
+        return out, {"sides": sides, "slot_of": slot_of,
+                     "base_equiv": equiv}
 
     def _try_argmax_fusion(self, left: Planned, right: Planned,
                            pairs: List[Tuple[Expr, Expr]],

@@ -36,8 +36,12 @@ up with ``contains_keys`` and ``rows_with_keys`` (``probe`` + ``gather``).
 Every buffer notes its ``stats()`` in the ``join_state_registry`` perf
 note every 16th append; ``aggregate_stats_registry`` folds the notes.
 
-Not ported yet: ``remove_keys`` (semi joins), the Prometheus mirrors and
-the profiler frames."""
+``remove_keys`` drops a set of keys (the semi join's emitted left rows).
+The legacy layout (:func:`make_join_buffer` under ``ARROYO_JOIN_STATE=
+legacy``) is a flat host ``BatchBuffer`` on every device, re-sorted at
+each fire or arrival by ``ops/join.join_pairs``, which joins on the
+operator's device.  Not ported: the Prometheus mirrors and the profiler
+frames."""
 
 from __future__ import annotations
 
@@ -572,6 +576,34 @@ class PartitionedJoinBuffer(BatchBuffer):
             out[sorter[np.unique(qidx)]] = True
         return out
 
+    def remove_keys(self, key_hashes: np.ndarray) -> None:
+        """Drop the rows whose key hash is in ``key_hashes``: each
+        partition that holds one compacts to its live rows without them
+        and rebuilds its sorted run (a full re-sort, counted as
+        ``join_state_resorts``: key removal is the semi join's, rare); a
+        hot partition restages its ring."""
+        for part in self.parts:
+            n = part.n
+            if n == 0:
+                continue
+            keep = ~np.isin(part.keys[:n], key_hashes)
+            if keep.all():
+                continue
+            live = keep & (part.ts[:n] >= part.valid_from)
+            for c in list(part.cols):
+                part.cols[c] = part.cols[c][:n][live].copy()
+            part.keys = part.keys[:n][live].copy()
+            part.ts = part.ts[:n][live].copy()
+            part.n = int(live.sum())
+            part.cap = part.n
+            part.order = np.argsort(part.keys, kind="stable")
+            part.skeys = part.keys[part.order].copy()
+            part.sts = part.ts[part.order].copy()
+            part.dead = 0
+            perf.count("join_state_resorts")
+            if part.dev is not None:
+                part.promote()
+
     def __len__(self) -> int:
         return sum(part.live_count() for part in self.parts)
 
@@ -821,15 +853,14 @@ def aggregate_stats_registry(reg: Optional[Dict[Any, Dict[str, Any]]]
     return out
 
 
-def make_join_buffer(device: DeviceLike = None) -> BatchBuffer:
-    """The join side buffer for the configured state layout.  The legacy
-    layout (a flat buffer re-sorted at every fire) runs only on the CPU:
-    on the card it would need the unported sort, probe and expand
-    kernels."""
-    if partitioned_join_enabled():
+def make_join_buffer(device: DeviceLike = None,
+                     force_partitioned: bool = False) -> BatchBuffer:
+    """The join side buffer for the configured state layout on
+    ``device``: the partitioned layout, or under ``ARROYO_JOIN_STATE=
+    legacy`` a flat host buffer whose joins re-sort both sides
+    (``ops/join.join_pairs``, on the operator's device).
+    ``force_partitioned`` is for the multi-way join, whose probes need
+    the sorted runs."""
+    if force_partitioned or partitioned_join_enabled():
         return PartitionedJoinBuffer(device=device)
-    if resolve_device(device).type != "cpu":
-        raise NotImplementedError(
-            "ARROYO_JOIN_STATE=legacy: the legacy join layout's device "
-            "kernels (sort, probe, expand) are not ported")
     return BatchBuffer()

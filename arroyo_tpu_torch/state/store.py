@@ -110,17 +110,19 @@ class StateStore:
                                              desc, retention_micros))
 
     def get_join_buffer(self, name: str, desc: str = "",
-                        retention_micros: int = 0) -> BatchBuffer:
+                        retention_micros: int = 0,
+                        force_partitioned: bool = False) -> BatchBuffer:
         """Join-side buffer on the store's device: partition-adaptive
         sorted-run state (state/join_state.py) unless
-        ARROYO_JOIN_STATE=legacy.  Both layouts checkpoint as the same
+        ARROYO_JOIN_STATE=legacy (``force_partitioned``: always, for the
+        multi-way join's probes).  Both layouts checkpoint as the same
         BATCH_BUFFER table form, so epochs restore across layouts."""
         from .join_state import make_join_buffer
 
         return self.register(
             TableDescriptor(name, TableType.BATCH_BUFFER, desc,
                             retention_micros),
-            make_join_buffer(self.device))
+            make_join_buffer(self.device, force_partitioned))
 
     # -- restore ------------------------------------------------------------------
 

@@ -200,6 +200,16 @@ class BatchBuffer:
             return np.zeros(len(key_hashes), dtype=bool)
         return np.isin(key_hashes, m.key_hash)
 
+    def remove_keys(self, key_hashes: np.ndarray) -> None:
+        """Drop buffered rows whose key hash is in ``key_hashes`` (the
+        semi join's matched and emitted left rows leave its buffer)."""
+        m = self._consolidate()
+        if m is None or len(m) == 0 or m.key_hash is None:
+            return
+        keep = ~np.isin(m.key_hash, key_hashes)
+        if not keep.all():
+            self._merged = m.select(keep)
+
     def __len__(self) -> int:
         m = self._consolidate()
         return len(m) if m is not None else 0

@@ -40,7 +40,15 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    ``ops/session.union_sorted_intervals`` at config5's merge, and
    ``KeyedBinState.flush_updates`` at q5's and hot items' flushes,
    ``KeyedBinState._emit_argmax`` at q5's fire and
-   ``KeyedBinState._emit_compact`` at hot items' compact fires;
+   ``KeyedBinState._emit_compact`` at hot items' compact fires; and the
+   legacy join layout's kernels at its buckets (512, 8,192, 32,768,
+   524,288, 1,048,576): join_sort on hash-like keys, keys with two
+   varying digits and keys with heavy duplicates, an eighth SENTINEL
+   padding — its order bit-equal to the plain version's and to numpy's
+   stable argsort of the u64 keys — timed in turns with
+   ``torch.sort(stable=True)``, and the u64 form of join_probe timed in
+   turns with ``searchsorted`` x2 + ``cumsum``, both with device µs warm
+   and cold, launches, syncs and allocations a call;
 4. state: the port's KeyedBinState (q5 aggregates, local argmax) over
    2,000,000 nexmark events on the card and on the CPU — every fire and
    the final snapshot identical, and a card snapshot restored into a
@@ -138,12 +146,33 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
     (``queries.Q16``, COUNT(DISTINCT) on the buffered window) — rows equal
     to a numpy control and the CPU run, ``segment_agg`` launched; and q1
     as a UNION ALL of two price ranges (``queries.Q1_UNION``) — rows equal
-    to phase 10's q1 rows.
+    to phase 10's q1 rows;
+14. the rest of the join layer on the card: under
+    ``ARROYO_JOIN_STATE=legacy`` (each fire or arrival re-sorts both
+    sides and pairs them with join_sort, the u64 join_probe and
+    join_expand) q8 at 40,000,000 events — rows equal to phase 6's
+    control and rows — and join-stress 8a and 8b at phase 8's sizes —
+    8b's rows equal to phase 8's partitioned run's, 8a's pairs within
+    the TTL too (the pairs further apart follow the arrival of
+    watermarks and are counted) — each run launching all three kernels,
+    its pairing buckets, device and host pairings printed; the semi join
+    (``queries.SEMI_Q3``: the bids on auctions of q3's category) at
+    2,000,000 events — every matching bid once, equal to a numpy control
+    and to the CPU run, the pending left rows at each watermark printed;
+    the windowed multi-way join (``queries.MW_BIDDERS``: q8 extended by
+    each person's bids) at 40,000,000 events — one node, rows equal to a
+    numpy control and to the ``ARROYO_MULTIWAY=0`` plan's, and at
+    2,000,000 to the CPU run's; and its TTL mode (``queries.MW_TTL``) at
+    500,000 events (2,000,000 halved twice to stay under 20,000,000
+    output rows) with the hot-partition floor at 1,024 rows — its row
+    count the generator's, its rows the pairwise plan's, join_probe and
+    join_expand launched on the rings.
 
 Launch counts are set to 0 just before each main-path run (q5, q8,
 config5, 8a, 8b, hot items, q1, q7, each SQL-planned run of phase 12,
-each card run of phase 13) and read just after it; q1, q7 and the
-union launch no kernel.  It prints a
+each card run of phase 13, the legacy q8, 8a and 8b, the semi join and
+the two multi-way joins of phase 14) and read just after it; q1, q7 and
+the union launch no kernel.  It prints a
 ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi gives them, and, last, ``{"ok": true, "device": ...}``.
 It needs one card and exits non-zero without one.
@@ -211,6 +240,8 @@ from arroyo_tpu_torch.kernels.join_expand import (  # noqa: E402
     join_expand, join_expand_buffer, join_expand_reference, pair_views)
 from arroyo_tpu_torch.kernels.join_probe import (  # noqa: E402
     join_probe, join_probe_reference)
+from arroyo_tpu_torch.kernels.join_sort import (  # noqa: E402
+    join_sort, join_sort_reference, unsigned_order)
 from arroyo_tpu_torch.kernels.pane_emit import (  # noqa: E402
     fire_geometry, pane_emit, pane_emit_reference, pane_views)
 from arroyo_tpu_torch.kernels import pane_emit as pane_emit_mod  # noqa: E402
@@ -331,29 +362,41 @@ K11_SOURCE = "arroyo_tpu_torch/csrc/expand_gather.cu"
 K11_REPLACES = "arroyo_tpu/ops/join.py:487 _expand_gather_kernel"
 K12_SOURCE = "arroyo_tpu_torch/csrc/segment_top_k.cu"
 K12_REPLACES = "arroyo_tpu/ops/topk.py:25 _topk_kernel"
+K15_SOURCE = "arroyo_tpu_torch/csrc/join_sort.cu"
+K15_REPLACES = "arroyo_tpu/ops/join.py:66 _sort_kernel"
 K13_SOURCE = K14_SOURCE = "arroyo_tpu_torch/csrc/emit_compact.cu"
 K13_REPLACES = "arroyo_tpu/ops/keyed_bins.py:198 _emit_count_kernel"
 K14_REPLACES = "arroyo_tpu/ops/keyed_bins.py:213 _emit_compact_kernel"
 
 KERNELS = (bin_update, argmax_fire, pane_emit, bin_evict, ring_merge,
            ring_gather, session_union, segment_agg, join_probe, join_expand,
-           expand_gather, segment_top_k, emit_count, emit_gather)
+           expand_gather, segment_top_k, emit_count, emit_gather, join_sort)
 # phase 12 compares each SQL-planned run with the hand-built run of the
 # same query at the same size that an earlier phase made: query -> (rows,
 # launches, wall s)
 HAND = {}
+# phase 14 holds its legacy runs to phases 6's and 8's controls and rows:
+# "q8", "q8_rows", "inner", "left" (creates, deletes), "gate_inner",
+# "gate_left"
+CONTROLS = {}
 SQL_QUERIES = ("q1", "q5", "q7", "q8", "hot_items", "config5")
 PATHS = ("q5", "q8", "config5", "join_inner", "join_left", "hot_items",
-         "q1", "q7", "sql", "q5_ref", "q7_ref", "q16", "union")
+         "q1", "q7", "sql", "q5_ref", "q7_ref", "q16", "union", "q8_legacy",
+         "join_inner_legacy", "join_left_legacy", "semi", "mw", "mw_ttl")
 
 
 def reset_launches():
     for k in KERNELS:
         k.launches = 0
+    join_probe.u64_launches = 0
 
 
 def read_launches():
-    return {k.__name__: k.launches for k in KERNELS}
+    """Launches a kernel; ``join_probe_u64`` the u64 form's share of
+    ``join_probe``'s."""
+    out = {k.__name__: k.launches for k in KERNELS}
+    out["join_probe_u64"] = join_probe.u64_launches
+    return out
 
 
 def check(cond, msg):
@@ -1869,6 +1912,156 @@ def k9_case(q_hi, hi, m, n_valid, want, shape, nbytes, parent=None):
     return r
 
 
+SENTINEL64 = np.uint64(0xFFFFFFFFFFFFFFFF)
+# the legacy join's buckets: a q8 fire at Q8_EVENTS pads ~200,000 persons
+# to 262,144 and up to ~600,000 sellers to 1,048,576 (phase 14 prints the
+# buckets its runs used); 512 the floor, 8,192 and 32,768 join-stress's
+SORT_BUCKETS = (512, 8_192, 32_768, 524_288, 1_048_576)
+SORT_KINDS = ("hash", "few digits", "duplicates")
+
+
+def u64_keys(rng, n, kind, pad):
+    """u64 join keys of one kind, the last ``pad`` SENTINEL: hash-like
+    (half at or above 2^63), two varying digits, or 30 distinct keys."""
+    m = n - pad
+    k = np.full(n, SENTINEL64, np.uint64)
+    if kind == "hash":
+        k[:m] = rng.integers(0, 2**64 - 1, m, dtype=np.uint64)
+    elif kind == "few digits":
+        k[:m] = ((rng.integers(0, 1 << 16, m).astype(np.uint64)
+                  << np.uint64(24)) | np.uint64(0xC0FFEE))
+    else:
+        k[:m] = rng.choice(rng.integers(0, 2**64 - 1, 30, dtype=np.uint64),
+                           m)
+    return k
+
+
+def k15_case(rng, dev, n, kind):
+    """K15 on one padded bucket: order and sorted keys bit-equal to the
+    plain version and to numpy's stable argsort of the u64 keys, views of
+    one buffer, one allocation and no host sync a call; timed in turns
+    with ``torch.sort(stable=True)`` of the keys' unsigned-order i64 view
+    (made once, outside the timed call), warm and cold."""
+    pad = n // 8
+    shape = f"n={n} {kind} keys, {pad} SENTINEL"
+    k = u64_keys(rng, n, kind, pad)
+    kt = torch.tensor(k.view(np.int64), device=dev)
+    before = join_sort.launches
+    got = join_sort(kt)
+    launches = join_sort.launches - before
+    torch.cuda.synchronize()
+    want = join_sort_reference(kt)
+    check(launches == 1, f"join_sort made {launches} launches ({shape})")
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"join_sort differs from its plain version ({shape})")
+    check(np.array_equal(got[0].cpu().numpy(), np.argsort(k, kind="stable")),
+          f"join_sort is not numpy's stable argsort ({shape})")
+    check(got[0].untyped_storage().data_ptr()
+          == got[1].untyped_storage().data_ptr(),
+          "join_sort's outputs are not views of one buffer")
+    ku = unsigned_order(kt)
+
+    def kernel():
+        return join_sort(kt)
+
+    def library():
+        return torch.sort(ku, stable=True)
+
+    ms, lib, turns = in_turns(kernel, library)
+    plain = cuda_ms(lambda: join_sort_reference(kt), reps=5)
+    meas = measured(kernel, "sort_")
+    check(meas["allocations_per_call"] == 1 and meas["syncs_per_call"] == 0,
+          f"join_sort made {meas['allocations_per_call']} allocations and "
+          f"{meas['syncs_per_call']} host syncs ({shape})")
+    nbytes = 24 * n
+    r = row("join_sort", K15_SOURCE, K15_REPLACES, shape, 0.0, ms, plain,
+            nbytes, 0, lib, "torch.sort(stable=True)")
+    dev_warm, dev_cold = device_sum(meas)
+    r.update(turns_ms=turns, library_turns=turn_factors(turns),
+             launches_per_call=launches, bound_bytes=nbytes,
+             device_us_warm_total=dev_warm, device_us_cold_total=dev_cold,
+             library_device_us=profile_kernels(library), **meas)
+    print(f"join_sort {shape}: " + json.dumps(
+        {key: r[key] for key in ("ms", "library_ms", "plain_ms", "turns_ms",
+                                 "library_turns", "bound_ms",
+                                 "device_us_warm_total",
+                                 "device_us_cold_total", "library_device_us",
+                                 "host_us_per_call", "allocations_per_call",
+                                 "syncs_per_call")}))
+    return r
+
+
+def k9_u64_case(rng, dev, n):
+    """The u64 form of K9 on one legacy probe: the sorted left bucket of
+    ``n`` (an eighth SENTINEL) against a sorted right bucket of ``n`` keys
+    drawn from the left's (a fifth SENTINEL, a third of them absent from
+    the left): outputs bit-equal to the plain version, one buffer, 1
+    allocation and no host sync a call; timed in turns with
+    ``searchsorted`` x2 + ``cumsum`` on the unsigned-order views."""
+    m, n_valid = n - n // 8, n - n // 5
+    pool = rng.integers(0, 2**64 - 1, max(m // 2, 1), dtype=np.uint64)
+    lk = np.full(n, SENTINEL64, np.uint64)
+    rk = np.full(n, SENTINEL64, np.uint64)
+    lk[:m] = np.sort(rng.choice(pool, m))
+    rk[:n_valid] = np.sort(np.concatenate([
+        rng.choice(pool, n_valid - n_valid // 3),
+        rng.integers(0, 2**64 - 1, n_valid // 3, dtype=np.uint64)]))
+    q = torch.tensor(lk.view(np.int64), device=dev)
+    r_ = torch.tensor(rk.view(np.int64), device=dev)
+    shape = f"u64 legacy probe n={n} m={m} n_valid={n_valid}"
+    before = join_probe.u64_launches
+    got = join_probe(q, r_, m, n_valid)
+    launches = join_probe.u64_launches - before
+    torch.cuda.synchronize()
+    want = join_probe_reference(q, r_, m, n_valid)
+    check(launches == 1, f"join_probe u64 made {launches} launches")
+    check(all(g.dtype == w.dtype and torch.equal(g, w)
+              for g, w in zip(got, want)),
+          f"join_probe u64 differs from its plain version ({shape})")
+    qu, ru = unsigned_order(q), unsigned_order(r_)
+
+    def kernel():
+        return join_probe(q, r_, m, n_valid)
+
+    def library():
+        s_ = torch.searchsorted(ru, qu)
+        e_ = torch.searchsorted(ru, qu, right=True)
+        return torch.cumsum(e_ - s_, 0)
+
+    ms, lib, turns = in_turns(kernel, library)
+    plain = cuda_ms(lambda: join_probe_reference(q, r_, m, n_valid), reps=5)
+    meas = measured(kernel, ("probe_",))
+    check(meas["allocations_per_call"] == 1 and meas["syncs_per_call"] == 0,
+          f"join_probe u64 made {meas['allocations_per_call']} allocations "
+          f"and {meas['syncs_per_call']} host syncs ({shape})")
+    n_q = int(torch.unique(q).numel())
+    nbytes = 8 * n + searched(8 * n, n_valid, 2 * n_q) + 16 * n
+    r = row("join_probe", K9_SOURCE, K9_REPLACES, shape, 0.0, ms, plain,
+            nbytes, 0, lib, "searchsorted x2 + cumsum")
+    dev_warm, dev_cold = device_sum(meas)
+    r.update(turns_ms=turns, library_turns=turn_factors(turns),
+             launches_per_call=launches, bound_bytes=nbytes,
+             device_us_warm_total=dev_warm, device_us_cold_total=dev_cold,
+             library_device_us=profile_kernels(library), **meas)
+    print(f"join_probe {shape}: " + json.dumps(
+        {key: r[key] for key in ("ms", "library_ms", "plain_ms", "turns_ms",
+                                 "library_turns", "bound_ms",
+                                 "device_us_warm_total",
+                                 "device_us_cold_total", "library_device_us",
+                                 "host_us_per_call", "allocations_per_call",
+                                 "syncs_per_call")}))
+    return r
+
+
+def legacy_kernel_cases(rng, dev):
+    """Phase 3's cases of the legacy join layout: join_sort at every
+    bucket and key kind, the u64 probe at every bucket."""
+    rows = [k15_case(rng, dev, n, kind) for n in SORT_BUCKETS
+            for kind in SORT_KINDS]
+    rows += [k9_u64_case(rng, dev, n) for n in SORT_BUCKETS]
+    return rows
+
+
 def probe_callers(hi_np, lo_np, q_np, ql_np, n_valid, m, ni, ist, dev,
                   parent, shape, expand="expand_gather"):
     """The join's hot probe, ``probe_ring`` + ``expand`` (``expand_gather``
@@ -2458,6 +2651,7 @@ def kernel_phase(parent=None):
         rows += compact_cases(rng, dev, k, 3_000_000,
                               f"hot items COUNT(*) C={C_HOT} B={B_HOT} "
                               f"W={W_HOT} k={k} rows=3000000 int32", parent)
+    rows += legacy_kernel_cases(rng, dev)
     return rows
 
 
@@ -2752,50 +2946,55 @@ def main_path():
 # -- phase 6: q8 ---------------------------------------------------------------------
 
 
-def q8_table(batches):
-    """Sink rows as an int64 [n, 4] array (ts, id, np, na), sorted."""
+def q8_table(batches, cols=("id", "np", "na")):
+    """Sink rows as an int64 [n, 1 + len(cols)] array (ts, cols), sorted."""
     if not batches:
-        return np.zeros((0, 4), dtype=np.int64)
+        return np.zeros((0, 1 + len(cols)), dtype=np.int64)
     t = np.stack([np.concatenate([b.timestamp for b in batches])]
                  + [np.concatenate([b.columns[c] for b in batches])
-                    for c in ("id", "np", "na")], axis=1).astype(np.int64)
+                    for c in cols], axis=1).astype(np.int64)
     return t[np.lexsort(t.T[::-1])]
 
 
-def q8_control(num_events):
-    """q8 in numpy from the port's generator: per-(id, window) person
-    counts inner-joined with per-(seller, window) auction counts, one row
-    (window end - 1, id, np, na) per match."""
+# the sides of q8 (persons by id, auctions by seller) and of MW_BIDDERS
+# (those and bids by bidder): event type, key column
+WINDOW_SIDES = ((EVENT_PERSON, "person_id"),
+                (EVENT_AUCTION, "auction_seller"), (EVENT_BID, "bid_bidder"))
+
+
+def q8_control(num_events, n_sides=2):
+    """q8 (``n_sides`` 2) or MW_BIDDERS (3) in numpy from the port's
+    generator: per-(key, 10 s window) counts of each side, inner-joined on
+    (window, key), one row (window end - 1, key, the counts) a match."""
+    sides = WINDOW_SIDES[:n_sides]
     cfg = NexmarkConfig(num_events=num_events, rate_limited=False,
                         event_rate=1_000_000.0, batch_size=BATCH,
-                        projection=["auction_seller", "event_type",
-                                    "person_id"])
+                        projection=sorted([c for _e, c in sides]
+                                          + ["event_type"]))
     first, n, num = make_splits(cfg, 0, 1)[0]
     gen = NexmarkGenerator(cfg, 0, first, n, num, seed=0)
     gen.set_rate(cfg.event_rate, 1)
-    sides = {EVENT_PERSON: ([], []), EVENT_AUCTION: ([], [])}
+    codes = {etype: [] for etype, _c in sides}
     while gen.has_next:
         b, _ = gen.next_batch(BATCH)
         et = b.columns["event_type"]
-        for etype, col in ((EVENT_PERSON, "person_id"),
-                           (EVENT_AUCTION, "auction_seller")):
+        for etype, col in sides:
             sel = et == etype
-            sides[etype][0].append(b.columns[col][sel])
-            sides[etype][1].append(b.timestamp[sel] // Q8_WIDTH)
-
-    def counted(etype):
-        keys, wins = (np.concatenate(x) for x in sides[etype])
-        pairs, cnt = np.unique(np.stack([wins, keys], axis=1), axis=0,
-                               return_counts=True)
-        return pairs, cnt  # rows sorted by (window, key)
-
-    (pp, pc), (ap, ac) = counted(EVENT_PERSON), counted(EVENT_AUCTION)
-    span = int(max(pp[:, 1].max(), ap[:, 1].max())) + 1
-    pk, ak = pp[:, 0] * span + pp[:, 1], ap[:, 0] * span + ap[:, 1]
-    at = np.searchsorted(ak, pk)
-    hit = (at < len(ak)) & (ak[np.minimum(at, len(ak) - 1)] == pk)
-    t = np.stack([(pp[hit, 0] + 1) * Q8_WIDTH - 1, pp[hit, 1], pc[hit],
-                  ac[at[hit]]], axis=1).astype(np.int64)
+            # (window, key) as window * 2^40 + key: ids stay below 2^40
+            codes[etype].append((b.timestamp[sel] // Q8_WIDTH << 40)
+                                + b.columns[col][sel].astype(np.int64))
+    (pk, pc), *rest = (np.unique(np.concatenate(codes[e]),
+                                 return_counts=True) for e, _c in sides)
+    hit = np.ones(len(pk), dtype=bool)
+    at = []
+    for k, _c in rest:
+        i = np.minimum(np.searchsorted(k, pk), len(k) - 1)
+        hit &= k[i] == pk
+        at.append(i)
+    t = np.stack([((pk[hit] >> 40) + 1) * Q8_WIDTH - 1,
+                  pk[hit] & ((1 << 40) - 1), pc[hit]]
+                 + [c[i[hit]] for (_k, c), i in zip(rest, at)],
+                 axis=1).astype(np.int64)
     return t[np.lexsort(t.T[::-1])]
 
 
@@ -2812,7 +3011,7 @@ def run_q8(num_events, sink, device, sql=False):
                 "C": st.C, "B": st.B, "keys": st.next_slot,
                 "counts_bytes": st.counts.numel() * st.counts.element_size(),
                 "values_bytes": st.values.numel() * 8}
-        if hasattr(op, "left"):
+        if hasattr(getattr(op, "left", None), "stats"):  # partitioned
             shape[op_id] = {"left": op.left.stats(),
                             "right": op.right.stats()}
     rows = q8_table(sink_output(sink))
@@ -2831,6 +3030,7 @@ def q8_phase():
     t0 = time.perf_counter()
     control = q8_control(Q8_EVENTS)
     control_s = time.perf_counter() - t0
+    CONTROLS["q8"] = control
     perf.reset()
     reset_launches()
     dt, rows, shape = run_q8(Q8_EVENTS, "q8-cuda", None)  # the card
@@ -2840,6 +3040,7 @@ def q8_phase():
     check(rows.shape == control.shape and np.array_equal(rows, control),
           f"q8 rows differ from the numpy control ({len(rows)} vs "
           f"{len(control)})")
+    CONTROLS["q8_rows"] = rows
     check(all(launches[k] > 0 for k in ("bin_update", "pane_emit",
                                          "bin_evict", "ring_merge",
                                          "ring_gather")),
@@ -3108,12 +3309,14 @@ def run_js(n, how, ttl, sink, device):
 def js_variant(what, n, how, ttl, gate):
     """One variant on the card, launches and counters counted, then once
     more under ARROYO_TIMING=1; ``gate(creates, deletes)`` checks each
-    run's rows.  Returns (result, launches, the first run's state)."""
+    run's rows.  Returns (result, launches, the first run's state); the
+    first run's (creates, deletes) go to ``CONTROLS[what]``."""
     perf.reset()
     reset_launches()
     dt, creates, deletes, state = run_js(n, how, ttl, f"js-{what}", None)
     launches = read_launches()
     counters = {k: perf.counter(k) for k in JS_COUNTERS}
+    CONTROLS[what] = (creates, deletes)
     res = {"events_per_side": n, "batch": JS_BATCH, "ttl_micros": ttl,
            "join": how.value, "wall_s": dt, "events_per_s": 2 * n / dt,
            "rows_created": len(creates), "rows_deleted": len(deletes),
@@ -3171,6 +3374,7 @@ def js_phase():
               f"{len(left_join)})")
         return {"net_rows": len(net), "control_rows": len(left_join)}
 
+    CONTROLS["gate_inner"], CONTROLS["gate_left"] = gate_inner, gate_left
     res_a, la, state = js_variant("inner", JS_INNER, JoinType.INNER,
                                   TTL_MICROS, gate_inner)
     check(state_bounded(state, TTL_MICROS),
@@ -3662,18 +3866,10 @@ def ref_run(text, sink, device, reference=False):
     """``text`` (queries.py, at NUM_EVENTS, event time pinned) planned by
     ``plan_sql``, under ``ARROYO_ARGMAX=0`` when ``reference``, and run on
     ``device``; (wall s, the sink's batches, node kinds)."""
-    if reference:
-        os.environ["ARROYO_ARGMAX"] = "0"
-    try:
-        program = plan_sql(_pin(text.format(n=NUM_EVENTS, b=BATCH), BATCH))
-    finally:
-        os.environ.pop("ARROYO_ARGMAX", None)
-    for node in program.nodes():
-        if node.operator.kind == OpKind.CONNECTOR_SINK:
-            node.operator.spec.config["name"] = sink
+    dt, _runner, program = sql_cell(
+        text, NUM_EVENTS, sink, device,
+        {"ARROYO_ARGMAX": "0"} if reference else None)
     kinds = sorted({node.operator.kind.value for node in program.nodes()})
-    clear_sink(sink)
-    dt, _runner = run_program(program, device)
     return dt, sink_output(sink), kinds
 
 
@@ -3851,6 +4047,319 @@ def reference_phase():
     return launches
 
 
+# -- phase 14: the legacy join layout, the semi join, the multi-way join ---
+
+LEGACY_COUNTERS = ("join_pairs_device", "join_pairs_host",
+                   "join_pairs_readbacks", "join_pairs_overflows",
+                   "join_state_resorts", "join_blocking_uploads")
+SEMI_COLS = ("auction", "price", "bidder")
+MW_COLS = ("id", "np", "na", "nb")
+MW_TTL_COLS = ("a1", "p2", "b3")
+# MW_TTL's output grows with the cube of an auction's bids: 75,767,511
+# rows at 2,000,000 events, 37,744,120 at 1,000,000, 18,655,922 at
+# 500,000 (numpy counts from the generator): halved twice to stay under
+# MW_TTL_MAX_ROWS
+MW_TTL_EVENTS = 500_000
+MW_TTL_MAX_ROWS = 20_000_000
+# a batch of 131,072 events holds ~6,000 bids above MW_TTL's price, ~380
+# a join partition: an EWMA of ~3,800 rows, under the default 4,096-row
+# hot floor, so this cell lowers the floor to run its probes on the rings
+MW_TTL_HOT_MIN_ROWS = "1024"
+
+
+def legacy_state():
+    """Counters and bucket sizes of the legacy join's pairings since the
+    last ``perf.reset``."""
+    return {"counters": {k: perf.counter(k) for k in LEGACY_COUNTERS},
+            "buckets": {int(k.split(":", 1)[1]): v for k, v in
+                        perf.counters("join_pairs_bucket:").items()}}
+
+
+def legacy_launched(what, launches):
+    check(launches["join_sort"] > 0 and launches["join_probe_u64"] > 0
+          and launches["join_expand"] > 0,
+          f"{what} under ARROYO_JOIN_STATE=legacy did not launch join_sort, "
+          f"the u64 join_probe and join_expand: {launches}")
+
+
+def legacy_phase():
+    """q8 at Q8_EVENTS and join-stress 8a / 8b under the legacy layout
+    (both sides re-sorted at each fire or arrival, paired on the card):
+    rows equal to phases 6's and 8's controls and partitioned runs
+    (8a: the pairs at most one TTL apart; the ones further apart follow
+    the arrival of watermarks, as in phase 8, and are counted)."""
+    os.environ["ARROYO_JOIN_STATE"] = "legacy"
+    out, launches = {}, {}
+    try:
+        perf.reset()
+        reset_launches()
+        dt, rows, _ = run_q8(Q8_EVENTS, "q8-legacy", None)
+        launches["q8_legacy"] = read_launches()
+        check(np.array_equal(rows, CONTROLS["q8"])
+              and np.array_equal(rows, CONTROLS["q8_rows"]),
+              f"q8 legacy rows differ from the control and phase 6's rows "
+              f"({len(rows)} vs {len(CONTROLS['q8'])})")
+        legacy_launched("q8", launches["q8_legacy"])
+        out["q8"] = {"events": Q8_EVENTS, "wall_s": dt,
+                     "events_per_s": Q8_EVENTS / dt, "rows": len(rows),
+                     "launches": launches["q8_legacy"], **legacy_state()}
+        for what, n, how, ttl in (
+                ("inner", JS_INNER, JoinType.INNER, TTL_MICROS),
+                ("left", JS_LEFT, JoinType.LEFT, PLANNER_TTL_MICROS)):
+            perf.reset()
+            reset_launches()
+            dt, creates, deletes, _ = run_js(n, how, ttl,
+                                             f"js-{what}-legacy", None)
+            key = f"join_{what}_legacy"
+            launches[key] = read_launches()
+            res = CONTROLS[f"gate_{what}"](creates, deletes)
+            p_creates, p_deletes = CONTROLS[what]
+            same = (np.array_equal(creates, p_creates)
+                    and np.array_equal(deletes, p_deletes))
+            if what == "left":  # 1 h TTL: nothing expires, every row fixed
+                check(same, "join-stress left legacy rows differ from the "
+                      "partitioned run's")
+            else:  # the rows that differ lie beyond the TTL
+                differ = np.setxor1d(creates, p_creates)
+                check(not np.isin(differ, js_pairs(
+                    JS_INNER, TTL_MICROS // INTERVAL_MICROS)).any(),
+                      "join-stress inner legacy rows within the TTL differ "
+                      "from the partitioned run's")
+                res["rows_not_in_partitioned_run"] = int(
+                    (~np.isin(creates, p_creates)).sum())
+                res["partitioned_rows_not_here"] = int(
+                    (~np.isin(p_creates, creates)).sum())
+            legacy_launched(f"join-stress {what}", launches[key])
+            out[what] = {"events_per_side": n, "wall_s": dt,
+                         "events_per_s": 2 * n / dt,
+                         "rows_created": len(creates),
+                         "rows_deleted": len(deletes),
+                         "equal_to_partitioned": bool(same), **res,
+                         "launches": launches[key], **legacy_state()}
+    finally:
+        del os.environ["ARROYO_JOIN_STATE"]
+    print("legacy join layout: " + json.dumps(out))
+    return launches
+
+
+def sql_cell(text, num_events, sink, device, env=None):
+    """``text`` (queries.py) at ``num_events`` in batches of BATCH, event
+    time pinned, planned by ``plan_sql`` and run on ``device`` with the
+    environment ``env`` set; (wall s, the runner, the program).  The
+    sink's batches stay in ``sink``."""
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    try:
+        program = plan_sql(_pin(text.format(n=num_events, b=BATCH), BATCH))
+        for node in program.nodes():
+            if node.operator.kind == OpKind.CONNECTOR_SINK:
+                node.operator.spec.config["name"] = sink
+        clear_sink(sink)
+        dt, runner = run_program(program, device)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return dt, runner, program
+
+
+def join_kinds(program):
+    return sorted(node.operator.kind.value for node in program.nodes()
+                  if "join" in node.operator.kind.value)
+
+
+def sorted_sink(sink, cols, ts=True):
+    """The sink's columns (``ts`` first unless ``ts`` is False), sorted
+    on every column, the sink cleared."""
+    c = sink_columns(sink, cols)
+    if not ts:
+        del c["ts"]
+    return sorted_columns(c, tuple(c))
+
+
+def semi_control(num_events):
+    """The bids on auctions of category 10 (every auction id it ever
+    names: the semi join's TTL outlasts the stream): columns ts, auction,
+    price, bidder, sorted."""
+    names = ["auction_id", "auction_category", "bid_auction", "bid_price",
+             "bid_bidder", "event_type"]
+    cfg = NexmarkConfig(num_events=num_events, rate_limited=False,
+                        event_rate=1_000_000.0, batch_size=BATCH,
+                        projection=names)
+    first, n, num = make_splits(cfg, 0, 1)[0]
+    gen = NexmarkGenerator(cfg, 0, first, n, num, seed=0)
+    gen.set_rate(cfg.event_rate, 1)
+    ids, bids = [], collections.defaultdict(list)
+    while gen.has_next:
+        b, _ = gen.next_batch(BATCH)
+        et = b.columns["event_type"]
+        ids.append(b.columns["auction_id"][
+            (et == EVENT_AUCTION) & (b.columns["auction_category"] == 10)])
+        bid = et == EVENT_BID
+        bids["ts"].append(b.timestamp[bid])
+        for c, src in zip(SEMI_COLS, ("bid_auction", "bid_price",
+                                      "bid_bidder")):
+            bids[c].append(b.columns[src][bid])
+    cols = {c: np.concatenate(v) for c, v in bids.items()}
+    keep = np.isin(cols["auction"], np.concatenate(ids))
+    return sorted_columns({c: v[keep] for c, v in cols.items()},
+                          ("ts",) + SEMI_COLS)
+
+
+def mw_ttl_rows_expected(num_events):
+    """MW_TTL's row count from the generator: the cube of each auction's
+    bids above the price (every row stays within the 1 h TTL)."""
+    bids = nexmark_bids(num_events)
+    a = bids["bid_auction"][bids["bid_price"] > 50_000_000]
+    _, c = np.unique(a, return_counts=True)
+    return int((c.astype(np.int64) ** 3).sum())
+
+
+def find_ops(runner, cls_name):
+    return [op for _id, op in operators(runner)
+            if type(op).__name__ == cls_name]
+
+
+class semi_pending:
+    """Records the semi join's pending left rows (``len(op.left)``) as
+    each watermark reaches it, before that watermark expires any: the last
+    entry is the backlog the end of the stream finds."""
+
+    def __init__(self):
+        from arroyo_tpu_torch.engine import operators_window as ow
+        self.cls, self.orig, self.rows = (ow.SemiJoinOperator,
+                                          ow.SemiJoinOperator.handle_watermark,
+                                          [])
+        orig, rows = self.orig, self.rows
+
+        async def handle_watermark(op, watermark, ctx):
+            rows.append(len(op.left))
+            await orig(op, watermark, ctx)
+
+        self.cls.handle_watermark = handle_watermark
+
+    def close(self):
+        self.cls.handle_watermark = self.orig
+
+
+def semi_mw_phase():
+    """The semi join (SEMI_Q3), the windowed multi-way join (MW_BIDDERS)
+    and its TTL mode (MW_TTL), each planned from SQL and run on the card,
+    chained and coalesced."""
+    out, launches = {}, {}
+    # the semi join
+    t0 = time.perf_counter()
+    control = semi_control(NUM_EVENTS)
+    control_s = time.perf_counter() - t0
+    reset_launches()
+    pending = semi_pending()
+    try:
+        dt, runner, program = sql_cell(queries.SEMI_Q3, NUM_EVENTS,
+                                       "semi-cuda", None)
+    finally:
+        pending.close()
+    launches["semi"] = read_launches()
+    rows = sorted_sink("semi-cuda", SEMI_COLS)
+    semi = find_ops(runner, "SemiJoinOperator")
+    check(join_kinds(program) == ["join_with_expiration"] and len(semi) == 1,
+          f"SEMI_Q3 did not plan one semi join: {join_kinds(program)}")
+    check(len(rows["ts"]) > 0 and same_columns(rows, control),
+          f"semi join rows differ from the numpy control ({len(rows['ts'])} "
+          f"vs {len(control['ts'])})")
+    dt_cpu, _r, _p = sql_cell(queries.SEMI_Q3, NUM_EVENTS, "semi-cpu", "cpu")
+    check(same_columns(sorted_sink("semi-cpu", SEMI_COLS), rows),
+          "semi join rows differ between card and cpu")
+    out["semi"] = {"events": NUM_EVENTS, "batch": BATCH, "wall_s": dt,
+                   "events_per_s": NUM_EVENTS / dt, "rows": len(rows["ts"]),
+                   "control_s": control_s, "cpu_wall_s": dt_cpu,
+                   "pending_left_rows_at_watermarks": pending.rows,
+                   "pending_left_rows_at_end": len(semi[0].left),
+                   "right_keys_at_end": len(semi[0].rkeys),
+                   "launches": launches["semi"]}
+    # the windowed multi-way join
+    t0 = time.perf_counter()
+    control = q8_control(Q8_EVENTS, 3)
+    control_s = time.perf_counter() - t0
+    perf.reset()
+    reset_launches()
+    dt, runner, program = sql_cell(queries.MW_BIDDERS, Q8_EVENTS, "mw-cuda",
+                                   None)
+    launches["mw"] = read_launches()
+    counters = {k: perf.counter(k) for k in Q8_COUNTERS}
+    rows = q8_table(sink_output("mw-cuda"), MW_COLS)
+    check(join_kinds(program) == ["multi_way_join"],
+          f"MW_BIDDERS planned {join_kinds(program)}")
+    check(len(rows) > 0 and np.array_equal(rows, control),
+          f"multi-way join rows differ from the numpy control ({len(rows)} "
+          f"vs {len(control)})")
+    dt_pair, _r, pairwise = sql_cell(queries.MW_BIDDERS, Q8_EVENTS,
+                                     "mw-pairwise", None,
+                                     {"ARROYO_MULTIWAY": "0"})
+    check(join_kinds(pairwise) == ["window_join", "window_join"]
+          and np.array_equal(q8_table(sink_output("mw-pairwise"), MW_COLS),
+                             rows),
+          "multi-way join rows differ from the pairwise plan's")
+    dt_small, _r, _p = sql_cell(queries.MW_BIDDERS, Q8_SMALL, "mw-small",
+                                None)
+    small = q8_table(sink_output("mw-small"), MW_COLS)
+    dt_small_cpu, _r, _p = sql_cell(queries.MW_BIDDERS, Q8_SMALL,
+                                    "mw-small-cpu", "cpu")
+    check(len(small) > 0 and np.array_equal(
+        q8_table(sink_output("mw-small-cpu"), MW_COLS), small),
+        "multi-way join rows at 2M events differ between card and cpu")
+    for sink in ("mw-cuda", "mw-pairwise", "mw-small", "mw-small-cpu"):
+        clear_sink(sink)
+    out["mw"] = {"events": Q8_EVENTS, "wall_s": dt,
+                 "events_per_s": Q8_EVENTS / dt, "rows": len(rows),
+                 "control_s": control_s, "pairwise_wall_s": dt_pair,
+                 "small_events": Q8_SMALL, "small_rows": len(small),
+                 "small_wall_s": dt_small, "small_cpu_wall_s": dt_small_cpu,
+                 "launches": launches["mw"], "counters": counters}
+    # the multi-way join's TTL mode
+    t0 = time.perf_counter()
+    expect = mw_ttl_rows_expected(MW_TTL_EVENTS)
+    control_s = time.perf_counter() - t0
+    check(expect <= MW_TTL_MAX_ROWS, f"MW_TTL at {MW_TTL_EVENTS} events "
+          f"gives {expect} rows, above {MW_TTL_MAX_ROWS}: halve the events")
+    env = {"ARROYO_JOIN_HOT_MIN_ROWS": MW_TTL_HOT_MIN_ROWS}
+    perf.reset()
+    reset_launches()
+    dt, runner, program = sql_cell(queries.MW_TTL, MW_TTL_EVENTS,
+                                   "mwt-cuda", None, env)
+    launches["mw_ttl"] = read_launches()
+    counters = {k: perf.counter(k) for k in JS_COUNTERS}
+    # a TTL join stamps a row with its arriving batch's time, which
+    # differs between the multi-way and the pairwise plan: rows compare
+    # without it, as the JAX package's tests compare them
+    rows = sorted_sink("mwt-cuda", MW_TTL_COLS, ts=False)
+    check(join_kinds(program) == ["multi_way_join"],
+          f"MW_TTL planned {join_kinds(program)}")
+    check(len(rows["a1"]) == expect, f"MW_TTL emitted {len(rows['a1'])} "
+          f"rows, the generator's auctions give {expect}")
+    env["ARROYO_MULTIWAY"] = "0"
+    dt_pair, _r, pairwise = sql_cell(queries.MW_TTL, MW_TTL_EVENTS,
+                                     "mwt-pairwise", None, env)
+    check(join_kinds(pairwise) == ["join_with_expiration",
+                                   "join_with_expiration"]
+          and same_columns(sorted_sink("mwt-pairwise", MW_TTL_COLS,
+                                       ts=False), rows),
+          "MW_TTL rows differ from the pairwise plan's")
+    check(launches["mw_ttl"]["join_probe"] > 0
+          and launches["mw_ttl"]["join_expand"] > 0,
+          f"MW_TTL's probes launched no ring kernel: {launches['mw_ttl']}")
+    out["mw_ttl"] = {"events": MW_TTL_EVENTS, "cut_from": NUM_EVENTS,
+                     "wall_s": dt, "events_per_s": MW_TTL_EVENTS / dt,
+                     "rows": len(rows["a1"]),
+                     "rows_per_s": len(rows["a1"]) / dt,
+                     "control_s": control_s, "pairwise_wall_s": dt_pair,
+                     "hot_min_rows": int(MW_TTL_HOT_MIN_ROWS),
+                     "launches": launches["mw_ttl"], "counters": counters}
+    print("semi and multi-way joins: " + json.dumps(out))
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -3875,6 +4384,8 @@ def main():
     launches["q1"], launches["q7"] = q1_phase(), q7_phase()
     launches["sql"] = sql_phase()
     launches.update(reference_phase())
+    launches.update(legacy_phase())
+    launches.update(semi_mw_phase())
     for r in kernels:
         for path in PATHS:
             r[f"launches_{path}"] = launches[path][r["name"]]

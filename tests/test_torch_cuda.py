@@ -48,6 +48,7 @@ from arroyo_tpu_torch.kernels.join_expand import (
     pair_views,
 )
 from arroyo_tpu_torch.kernels.join_probe import join_probe, join_probe_reference
+from arroyo_tpu_torch.kernels.join_sort import join_sort, join_sort_reference
 from arroyo_tpu_torch.kernels.pane_emit import (
     fire_geometry,
     pane_emit,
@@ -1662,3 +1663,103 @@ def test_nonwindow_aggregate_cuda_matches_cpu(cuda_device, flush_key):
     want = _run_rows(build, pieces, "cpu")
     assert got and got == want
     assert launched >= 1
+
+
+SENTINEL64 = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+def _u64_keys(rng, n, kind):
+    """u64 join keys of one kind, the last seventh SENTINEL padding:
+    hash-like (half at or above 2^63), a few varying digits, heavy
+    duplicates, or all equal."""
+    m = n - n // 7
+    k = np.full(n, SENTINEL64, np.uint64)
+    if kind == "hash":
+        k[:m] = rng.integers(0, 2**64 - 1, m, dtype=np.uint64)
+    elif kind == "few_digits":
+        k[:m] = (rng.integers(0, 256, m).astype(np.uint64)
+                 << np.uint64(40)) | np.uint64(7)
+    elif kind == "duplicates":
+        k[:m] = rng.choice(rng.integers(0, 2**64 - 1, 30, dtype=np.uint64),
+                           m)
+    else:
+        k[:] = np.uint64(2**63 + 5)
+    return k, m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 512, 2049, 32768, 1 << 20])
+@pytest.mark.parametrize("kind", ["hash", "few_digits", "duplicates",
+                                  "equal"])
+def test_join_sort_cuda_matches_plain(cuda_device, n, kind):
+    """``join_sort`` on the card: the order bit-equal to the plain
+    version's and to numpy's stable argsort of the u64 keys (keys at and
+    above 2^63, SENTINEL padding last), the keys in that order; views of
+    one buffer, one allocation and no host sync a call."""
+    rng = np.random.default_rng(n)
+    k, _m = _u64_keys(rng, n, kind)
+    kt = torch.tensor(k.view(np.int64), device=cuda_device)
+    before = join_sort.launches
+    order, keys = join_sort(kt)
+    assert join_sort.launches - before == 1
+    want = join_sort_reference(kt)
+    assert torch.equal(order, want[0]) and torch.equal(keys, want[1])
+    assert np.array_equal(order.cpu().numpy(), np.argsort(k, kind="stable"))
+    assert order.untyped_storage().data_ptr() == \
+        keys.untyped_storage().data_ptr()
+    assert _allocs_and_syncs(lambda: join_sort(kt)) == (1, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nl,nr", [(512, 512), (5_000, 30_000),
+                                   (200_000, 600_000)])
+def test_join_probe_u64_cuda_matches_plain(cuda_device, nl, nr):
+    """The u64 form of ``join_probe`` (sorted left keys against sorted
+    right keys, both SENTINEL-padded to their buckets) equals its plain
+    version output for output, and counts its launches apart."""
+    rng = np.random.default_rng(nl)
+    bl, br = 1 << (nl - 1).bit_length(), 1 << (nr - 1).bit_length()
+    pool = rng.integers(0, 2**64 - 1, max(nl, nr) // 3 + 1, dtype=np.uint64)
+    lk = np.full(bl, SENTINEL64, np.uint64)
+    rk = np.full(br, SENTINEL64, np.uint64)
+    lk[:nl] = np.sort(rng.choice(pool, nl))
+    rk[:nr] = np.sort(rng.choice(pool, nr))
+    q = torch.tensor(lk.view(np.int64), device=cuda_device)
+    r = torch.tensor(rk.view(np.int64), device=cuda_device)
+    before = join_probe.u64_launches
+    got = join_probe(q, r, nl, nr)
+    assert join_probe.u64_launches - before == 1
+    want = join_probe_reference(q, r, nl, nr)
+    assert all(g.dtype == w.dtype and torch.equal(g, w)
+               for g, w in zip(got, want))
+    assert int(got[2][-1]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nl,nr", [(3_000, 7_000), (100_000, 300_000)])
+def test_join_pairs_cuda_matches_host(cuda_device, nl, nr, monkeypatch):
+    """The legacy layout's ``join_pairs`` on the card (sort x2, the u64
+    probe and the expansion, read back in one synchronization) returns
+    the host branch's five outputs; a capacity overflow (a Zipf head key)
+    expands once more."""
+    from arroyo_tpu_torch.obs import perf
+    from arroyo_tpu_torch.ops.join import _bucket, join_pairs
+
+    rng = np.random.default_rng(nl)
+    pool = rng.integers(0, 2**64 - 1, nl, dtype=np.uint64)
+    lk = rng.choice(pool, nl)
+    rk = rng.choice(pool, nr)
+    lk[: nl // 50] = pool[0]  # a head key: its pairs pass the capacity
+    rk[: nr // 50] = pool[0]
+    monkeypatch.setenv("ARROYO_DEVICE_JOIN", "off")
+    want = join_pairs(lk, rk, torch.device("cpu"))
+    over = int(len(want[2]) > max(_bucket(nl), _bucket(nr)))
+    assert over
+    monkeypatch.setenv("ARROYO_DEVICE_JOIN", "auto")
+    perf.reset()
+    got = join_pairs(lk, rk, cuda_device)
+    assert perf.counter("join_pairs_device") == 1
+    assert perf.counter("join_pairs_overflows") == over
+    assert perf.counter("join_pairs_readbacks") == 1 + over
+    for g, w in zip(got, want):
+        assert np.array_equal(np.asarray(g, np.int64), np.asarray(w, np.int64))

@@ -164,6 +164,7 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
 
 # modules the walk below must reach (added with q1/q7 and chaining)
 NEW_MODULES = ("arroyo_tpu_torch.q1", "arroyo_tpu_torch.q7",
+               "arroyo_tpu_torch.kernels.join_sort",
                "arroyo_tpu_torch.graph.chaining",
                "arroyo_tpu_torch.engine.chained",
                "arroyo_tpu_torch.engine.coalesce",

@@ -3,7 +3,8 @@ the join state's rings forced on in both packages:
 
 * ``JoinWithExpirationOperator`` alone, fed one fixed sequence of batches
   and watermarks on both sides: every emitted batch equal, rows and
-  order, for INNER, LEFT, RIGHT and FULL, on both state layouts;
+  order, for INNER, LEFT, RIGHT and FULL, on both state layouts (the
+  legacy one through the device branch of ``join_pairs``);
 * its ``l``/``r`` BATCH_BUFFER tables snapshotted by either package
   restore in the other and join on identically;
 * bench.py's join-stress through ``LocalRunner``: INNER rows equal the
@@ -125,7 +126,8 @@ def _same_batches(got, want):
 
 
 def _operators(how, ttl=2_500):
-    return (JoinWithExpirationOperator("j", ttl, ttl, JoinType(how)),
+    return (JoinWithExpirationOperator("j", ttl, ttl, JoinType(how),
+                                       device="cpu"),
             JaxJoinOperator("j", ttl, ttl, JaxJoinType(how)))
 
 
@@ -137,6 +139,7 @@ def test_operator_emits_jax_batches(ring_knobs, how, layout):
     part = layout == "partitioned"
     steps = _steps(71)
     port, jax_op = _operators(how)
+    perf.reset()
     got = _run(port, _Ctx(lambda: PartitionedJoinBuffer(device="cpu")
                           if part else BatchBuffer()), steps)
     want = _run(jax_op, _Ctx(JaxBuffer if part else JaxFlatBuffer), steps)
@@ -147,6 +150,8 @@ def test_operator_emits_jax_batches(ring_knobs, how, layout):
         assert (ops == 2).any() and (ops == 0).any()  # DELETE and CREATE
     if part:
         assert any(p.dev is not None for p in port.left.parts)
+    else:  # ARROYO_DEVICE_JOIN=on: the device branch of join_pairs
+        assert perf.counter("join_pairs_device") > 0
 
 
 @pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])

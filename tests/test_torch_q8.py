@@ -1,7 +1,8 @@
 """Nexmark q8 through the port against arroyo_tpu: bench.py's q8 SQL
 through the JAX engine and ``q8_program`` through the port's engine emit
 the same rows, with the join's hot-partition rings forced on in both so
-the CPU run goes through the ring merge and gather; and a port run
+the CPU run goes through the ring merge and gather (and, on the legacy
+layout, through the device branch of ``join_pairs``); and a port run
 checkpointed, stopped and restored emits exactly the rows of an
 uninterrupted one."""
 
@@ -69,11 +70,15 @@ def test_q8_port_matches_jax_sql_plan(ring_knobs, rate):
 
 
 def test_q8_legacy_join_layout_emits_the_same_rows(ring_knobs, monkeypatch):
-    """``ARROYO_JOIN_STATE=legacy`` (flat buffers re-sorted at each fire,
-    CPU only) emits the partitioned layout's rows."""
+    """``ARROYO_JOIN_STATE=legacy`` (flat buffers re-sorted at each fire)
+    emits the partitioned layout's rows; under ``ARROYO_DEVICE_JOIN=on``
+    the fires pair their keys on the device branch of ``join_pairs``
+    (the sort, u64 probe and expansion kernels' plain versions here)."""
     want = _port_rows("q8-part", 10_000)
     monkeypatch.setenv("ARROYO_JOIN_STATE", "legacy")
+    perf.reset()
     assert _port_rows("q8-legacy", 10_000) == want
+    assert perf.counter("join_pairs_device") > 0
 
 
 @pytest.fixture

@@ -15,14 +15,14 @@ NULLs in the same cells; updating outputs compared as their net rows).
   predicates, the keyless windowed aggregates (the global key), q7's
   highest bid over a table without an event-time field (the join and
   its keyless maximum), the updating GROUP BY without a window, UNION
-  ALL and COUNT(DISTINCT);
+  ALL and COUNT(DISTINCT), the semi join (``IN (SELECT ...)``) and a
+  three-way join on one key (the multi-way join);
 * bench.py's Q5 and Q7 under ``ARROYO_ARGMAX=0``, as the reference plans
   them (q5 a self-join of its HOP count with the per-window maximum, q7
   a join of the bids with a keyless tumbling maximum): the JAX
   package's rows and the port's fused rows;
 * the shapes that still need an operator the port has not ported (the
-  semi join, the multi-way join, the factor-window rewrite) raise
-  ``SqlPlanError`` naming it."""
+  factor-window rewrite) raise ``SqlPlanError`` naming it."""
 
 import datetime as dtm
 import math
@@ -439,6 +439,14 @@ SHAPES = [
     ON B.price = M.maxprice
     WHERE B.datetime >= M.window_start AND B.datetime < M.window_end""",
      False),
+    # the semi join and the multi-way join
+    ("in_subquery", _events,
+     "SELECT k, v FROM events WHERE k IN (SELECT k FROM events "
+     "WHERE v > 40)", False),
+    ("three_way_join", _events, """
+    SELECT X.k AS k, X.v AS a, Y.v AS b, Z.v AS c
+    FROM events X JOIN events Y ON X.k = Y.k
+    JOIN events Z ON X.k = Z.k""", False),
 ]
 
 
@@ -461,13 +469,6 @@ def test_sql_shape_rows_match_jax(name, tables, sql, net):
 # shapes of the JAX package's tests that need an operator the port has not
 # ported: they plan there and raise SqlPlanError in the port, naming it
 UNPORTED = [
-    ("in_subquery", _events,
-     "SELECT k, v FROM events WHERE k IN (SELECT k FROM events "
-     "WHERE v > 40)", r"semi join.*ROADMAP A\.6"),
-    ("three_way_join", _events, """
-    SELECT X.k AS k, X.v AS a, Y.v AS b, Z.v AS c
-    FROM events X JOIN events Y ON X.k = Y.k
-    JOIN events Z ON X.k = Z.k""", r"multi-way join.*ROADMAP A\.6"),
     ("factor_window_pair", _events, """
     CREATE TABLE s1 (k BIGINT, window_end BIGINT, n BIGINT) WITH (
       connector = 'memory', name = 'fw1', type = 'sink');

@@ -12,9 +12,10 @@
 * the shapes that needed the operators ported last (UNION ALL, a GROUP
   BY without a window, a keyless windowed aggregate, COUNT(DISTINCT) and
   string MIN/MAX on the buffered window, a UDAF under
-  ``ARROYO_UDAF_COMPILE=off``, q5 and q7 under ``ARROYO_ARGMAX=0``) plan
-  into the JAX package's nodes, and their operators declare the JAX
-  operators' state tables;
+  ``ARROYO_UDAF_COMPILE=off``, q5 and q7 under ``ARROYO_ARGMAX=0``,
+  ``IN (SELECT ...)`` and a three-way join on one key) plan into the JAX
+  package's nodes, and their operators declare the JAX operators' state
+  tables;
 * a shape that needs an operator the port has not ported raises
   ``SqlPlanError`` at plan time, naming its ROADMAP item;
 * SQL-planned jobs carry the JAX plan's operator ids and its operators'
@@ -209,14 +210,6 @@ WITH b AS (SELECT bid.auction AS auction, bid.price AS price,
 """
 
 UNPORTED = [
-    ("three_way_join", BIDS + """
-SELECT X.auction AS a1, Y.price AS p2, Z.bidder AS b3
-FROM b X JOIN b Y ON X.auction = Y.auction
-JOIN b Z ON X.auction = Z.auction""", "multi-way join", "A.6"),
-    ("in_subquery", BIDS + """
-SELECT auction FROM b
-WHERE auction IN (SELECT auction.id FROM nexmark
-                  WHERE auction is not null)""", "semi join", "A.6"),
     ("factor_window_pair", FACTOR_PAIR, "factor-window rewrite", "A.8"),
     ("connector", """
 CREATE TABLE t (a BIGINT) WITH (connector = 'single_file',
@@ -260,6 +253,14 @@ SELECT a FROM (SELECT avg(price) AS p, auction AS a FROM b GROUP BY 2)
 WHERE p > 10""", {}),
     "q5_unfused": (_pinned(queries.Q5), {"ARROYO_ARGMAX": "0"}),
     "q7_unfused": (_pinned(queries.Q7), {"ARROYO_ARGMAX": "0"}),
+    "three_way_join": (BIDS + """
+SELECT X.auction AS a1, Y.price AS p2, Z.bidder AS b3
+FROM b X JOIN b Y ON X.auction = Y.auction
+JOIN b Z ON X.auction = Z.auction""", {}),
+    "in_subquery": (BIDS + """
+SELECT auction FROM b
+WHERE auction IN (SELECT auction.id FROM nexmark
+                  WHERE auction is not null)""", {}),
 }
 
 
@@ -278,7 +279,8 @@ def test_newly_ported_shape_plans_as_jax(name, monkeypatch):
     kinds = {prog.node(n).operator.kind for n in prog.topo_order()}
     for nid in prog.topo_order():
         if prog.node(nid).operator.kind in (OpKind.WINDOW_JOIN,
-                                            OpKind.JOIN_WITH_EXPIRATION):
+                                            OpKind.JOIN_WITH_EXPIRATION,
+                                            OpKind.MULTI_WAY_JOIN):
             continue  # the port's joins open their buffers at start
         got = _tables(build_operator(prog.node(nid).operator, "cpu"))
         assert got == _tables(jax_build(jax_prog.node(nid).operator)), nid
@@ -288,7 +290,9 @@ def test_newly_ported_shape_plans_as_jax(name, monkeypatch):
               "keyless_window": OpKind.GLOBAL_KEY,
               "count_distinct_hop": OpKind.WINDOW,
               "q5_unfused": OpKind.NON_WINDOW_AGGREGATOR,
-              "q7_unfused": OpKind.GLOBAL_KEY}[name]
+              "q7_unfused": OpKind.GLOBAL_KEY,
+              "three_way_join": OpKind.MULTI_WAY_JOIN,
+              "in_subquery": OpKind.JOIN_WITH_EXPIRATION}[name]
     assert expect in kinds and OpKind.WINDOW_ARGMAX not in kinds
 
 
