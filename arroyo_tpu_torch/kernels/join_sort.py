@@ -14,14 +14,17 @@ order.  The order is i64, as the JAX kernel returns it under x64.
 On the H100 it is bound by memory: at least 24 bytes a key (read 8,
 write 8 for the sorted keys and 8 for the order), 7.5 us at 1,048,576
 keys.  The CUDA kernel (``csrc/join_sort.cu``) is a least-significant-
-digit radix sort over 8-bit digits carrying the input index: one launch
-finds which digits vary (the others are skipped on the device, so the
-host never syncs), then three launches a digit — per-tile histograms,
-one block's scan, and a scatter that is stable because each warp ranks
-its keys in order among equal digits (``__match_any_sync``), never by
-the order of atomics.  The call works in ONE buffer (:func:`join_sort`
-returns two views of it): one allocation, 25 launches and a memset, no
-host sync.
+digit radix sort over the 8-bit digits that vary, stable because each
+warp ranks its keys in order among equal digits (found by ballots, or
+by a shared atomic on a match word), never by the order of atomics.  Up
+to :data:`ONE_BLOCK_MAX` keys it is ONE launch of one block that keeps
+the keys and an i32 order in shared memory; above, a onesweep sort: a
+memset, one launch for all eight digit histograms and the varying-digit
+word, then one launch a digit, whose tiles find their offsets by a
+decoupled look-back and write each digit's run contiguously from shared
+memory (passes of digits that do not vary return on the device: no host
+sync).  The call works in ONE buffer
+(:func:`join_sort` returns two views of it): one allocation, 0 syncs.
 
 ``join_sort_reference`` is the plain PyTorch version (the same
 least-significant-digit passes over the digits that vary, each a stable
@@ -39,6 +42,10 @@ import torch
 from . import build
 
 _SIGN = -(1 << 63)  # i64 with only the top bit set
+# keys a card call sorts in one launch (csrc/join_sort.cu kSmallMax);
+# above it a memset and 9 launches
+ONE_BLOCK_MAX = 8_192
+MAX_KEYS = (1 << 31) - 1 - 4_096  # csrc/join_sort.cu: INT_MAX - kTile
 
 
 def unsigned_order(keys: torch.Tensor) -> torch.Tensor:
@@ -53,8 +60,8 @@ def _check(keys: torch.Tensor) -> int:
     if not keys.is_contiguous():
         raise ValueError("join_sort needs a contiguous tensor")
     n = keys.shape[0]
-    if n >= 1 << 31:
-        raise ValueError(f"join_sort: {n} keys (at most 2^31 - 1)")
+    if n > MAX_KEYS:
+        raise ValueError(f"join_sort: {n} keys (at most {MAX_KEYS})")
     return n
 
 

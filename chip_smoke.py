@@ -31,7 +31,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    archive`` of the parent commit unpacked at DIR) the parent's
    pane_emit, bin_evict, segment_agg, expand_gather, ring_merge,
    join_probe, session_union, join_expand, bin_update, argmax_fire,
-   emit_count and emit_gather are built from DIR and timed in turns with
+   join_sort, emit_count and emit_gather are built from DIR and timed in
+   turns with
    this tree's at the same shapes (the parent's ring_merge given its own
    resident positions), and so are the callers: the reads the segment
    reduce and the join's emission make, ``ops/join.merge_ring``,
@@ -40,15 +41,18 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    ``ops/session.union_sorted_intervals`` at config5's merge, and
    ``KeyedBinState.flush_updates`` at q5's and hot items' flushes,
    ``KeyedBinState._emit_argmax`` at q5's fire and
-   ``KeyedBinState._emit_compact`` at hot items' compact fires; and the
-   legacy join layout's kernels at its buckets (512, 8,192, 32,768,
-   524,288, 1,048,576): join_sort on hash-like keys, keys with two
-   varying digits and keys with heavy duplicates, an eighth SENTINEL
-   padding — its order bit-equal to the plain version's and to numpy's
-   stable argsort of the u64 keys — timed in turns with
-   ``torch.sort(stable=True)``, and the u64 form of join_probe timed in
-   turns with ``searchsorted`` x2 + ``cumsum``, both with device µs warm
-   and cold, launches, syncs and allocations a call;
+   ``KeyedBinState._emit_compact`` at hot items' compact fires,
+   ``ops/join.join_pairs`` at 8a's and 8b's pairings; and the legacy
+   join layout's kernels at its buckets (512, 8,192, 32,768, 524,288,
+   1,048,576): join_sort on hash-like keys, keys with two varying digits
+   and keys with heavy duplicates, an eighth SENTINEL padding — its
+   order bit-equal to the plain version's and to numpy's stable argsort
+   of the u64 keys, one device launch up to 8,192 keys and at most a
+   memset and 9 above — timed in turns with ``torch.sort(stable=True)``
+   (and the parent's), with its device µs by kernel name (one block;
+   upfront histograms, digit passes), and the u64 form of join_probe
+   timed in turns with ``searchsorted`` x2 + ``cumsum``, both with
+   device µs warm and cold, launches, syncs and allocations a call;
 4. state: the port's KeyedBinState (q5 aggregates, local argmax) over
    2,000,000 nexmark events on the card and on the CPU — every fire and
    the final snapshot identical, and a card snapshot restored into a
@@ -241,7 +245,7 @@ from arroyo_tpu_torch.kernels.join_expand import (  # noqa: E402
 from arroyo_tpu_torch.kernels.join_probe import (  # noqa: E402
     join_probe, join_probe_reference)
 from arroyo_tpu_torch.kernels.join_sort import (  # noqa: E402
-    join_sort, join_sort_reference, unsigned_order)
+    ONE_BLOCK_MAX, join_sort, join_sort_reference, unsigned_order)
 from arroyo_tpu_torch.kernels.pane_emit import (  # noqa: E402
     fire_geometry, pane_emit, pane_emit_reference, pane_views)
 from arroyo_tpu_torch.kernels import pane_emit as pane_emit_mod  # noqa: E402
@@ -979,10 +983,10 @@ def parent_kernels(parent):
     ``parent_torch``, its kernels built from its own csrc/ into its own
     build/ directory.  Returns a namespace of its pane_emit, bin_evict,
     segment_agg, expand_gather, join_probe, ring_merge, session_union,
-    join_expand, bin_update, argmax_fire, emit_count and emit_gather, its
-    ``ops.join``, ``ops.session`` and ``ops.keyed_bins`` modules (the
-    callers), its ``graph.logical`` (their aggregate specs) and the build
-    seconds."""
+    join_expand, bin_update, argmax_fire, join_sort, emit_count and
+    emit_gather, its ``ops.join``, ``ops.session`` and ``ops.keyed_bins``
+    modules (the callers), its ``graph.logical`` (their aggregate specs)
+    and the build seconds."""
     import importlib
     import importlib.util
     pkg = os.path.join(os.path.abspath(parent), "arroyo_tpu_torch")
@@ -997,7 +1001,7 @@ def parent_kernels(parent):
     secs = time.perf_counter() - t0
     names = ("pane_emit", "bin_evict", "segment_agg", "expand_gather",
              "join_probe", "ring_merge", "session_union", "join_expand",
-             "bin_update", "argmax_fire")
+             "bin_update", "argmax_fire", "join_sort")
     return argparse.Namespace(
         build_s=secs, join=importlib.import_module("parent_torch.ops.join"),
         session=importlib.import_module("parent_torch.ops.session"),
@@ -1936,12 +1940,24 @@ def u64_keys(rng, n, kind, pad):
     return k
 
 
-def k15_case(rng, dev, n, kind):
+def by_kernel(device_us):
+    """Device µs a call summed by kernel name (``sort_pass[3]`` counts as
+    ``sort_pass``)."""
+    out = collections.defaultdict(float)
+    for name, us in device_us.items():
+        out[re.sub(r"\[\d+\]$", "", name)] += us
+    return dict(out)
+
+
+def k15_case(rng, dev, n, kind, parent=None):
     """K15 on one padded bucket: order and sorted keys bit-equal to the
     plain version and to numpy's stable argsort of the u64 keys, views of
-    one buffer, one allocation and no host sync a call; timed in turns
-    with ``torch.sort(stable=True)`` of the keys' unsigned-order i64 view
-    (made once, outside the timed call), warm and cold."""
+    one buffer, one allocation and no host sync a call, one device launch
+    up to ONE_BLOCK_MAX keys and a memset and 9 above; timed in
+    turns with ``torch.sort(stable=True)`` of the keys' unsigned-order i64
+    view (made once, outside the timed call), warm and cold, device µs by
+    kernel name.  With ``parent``: the parent commit's kernel (25 launches
+    and a memset) in turns with this one, its output bit-equal."""
     pad = n // 8
     shape = f"n={n} {kind} keys, {pad} SENTINEL"
     k = u64_keys(rng, n, kind, pad)
@@ -1973,21 +1989,50 @@ def k15_case(rng, dev, n, kind):
     check(meas["allocations_per_call"] == 1 and meas["syncs_per_call"] == 0,
           f"join_sort made {meas['allocations_per_call']} allocations and "
           f"{meas['syncs_per_call']} host syncs ({shape})")
+    device_launches = len(meas["device_us_per_call"])
+    check(device_launches == (1 if n <= ONE_BLOCK_MAX else 10),
+          f"join_sort made {device_launches} device launches ({shape}); "
+          "0: torch.profiler recorded no device activity")
     nbytes = 24 * n
     r = row("join_sort", K15_SOURCE, K15_REPLACES, shape, 0.0, ms, plain,
             nbytes, 0, lib, "torch.sort(stable=True)")
     dev_warm, dev_cold = device_sum(meas)
     r.update(turns_ms=turns, library_turns=turn_factors(turns),
-             launches_per_call=launches, bound_bytes=nbytes,
+             launches_per_call=launches,
+             device_launches_per_call=device_launches,
+             device_us_by_kernel=by_kernel(meas["device_us_per_call"]),
+             bound_bytes=nbytes,
              device_us_warm_total=dev_warm, device_us_cold_total=dev_cold,
              library_device_us=profile_kernels(library), **meas)
+    if parent is not None:
+        pj = parent.join_sort
+        p_got = pj(kt)
+        check(torch.equal(p_got[0], got[0]) and torch.equal(p_got[1], got[1]),
+              f"join_sort differs from the parent's ({shape})")
+
+        def parent_call():
+            return pj(kt)
+
+        c_ms, p_ms, p_turns = in_turns(kernel, parent_call)
+        p_meas = measured(parent_call, "sort_")
+        p_warm, p_cold = device_sum(p_meas)
+        r["parent"] = {"ms": p_ms, "kernel_ms_beside_it": c_ms,
+                       "turns_ms": p_turns, "turns": turn_factors(p_turns),
+                       "device_us_warm_total": p_warm,
+                       "device_us_cold_total": p_cold,
+                       "device_launches_per_call":
+                           len(p_meas["device_us_per_call"]),
+                       "host_us_per_call": p_meas["host_us_per_call"]}
     print(f"join_sort {shape}: " + json.dumps(
         {key: r[key] for key in ("ms", "library_ms", "plain_ms", "turns_ms",
                                  "library_turns", "bound_ms",
                                  "device_us_warm_total",
-                                 "device_us_cold_total", "library_device_us",
-                                 "host_us_per_call", "allocations_per_call",
-                                 "syncs_per_call")}))
+                                 "device_us_cold_total",
+                                 "device_us_by_kernel",
+                                 "device_launches_per_call",
+                                 "library_device_us", "host_us_per_call",
+                                 "allocations_per_call", "syncs_per_call",
+                                 "parent") if key in r}))
     return r
 
 
@@ -2053,11 +2098,48 @@ def k9_u64_case(rng, dev, n):
     return r
 
 
-def legacy_kernel_cases(rng, dev):
+# join_pairs at 8a's and 8b's pairings (phase 14): a batch of 8a's
+# (7,000 rows) against the other side's 8,192- and 65,536-row buckets,
+# and 8b's batch against its 400,000-row side (524,288), keys from 100,000
+PAIR_CASES = ((7_000, 7_000, "8a 8,192 + 8,192"),
+              (7_000, 60_000, "8a 8,192 + 65,536"),
+              (8_000, 400_000, "8b 8,192 + 524,288"))
+
+
+def pairs_callers(rng, dev, parent):
+    """The legacy layout's caller ``ops/join.join_pairs`` (one upload, two
+    ``join_sort`` calls, the u64 probe, the expansion, one sync) against
+    the parent's on the same keys: all five outputs equal, timed in turns
+    (CUDA events around each call, which ends in its sync)."""
+    pool = rng.integers(0, 2**64 - 1, 100_000, dtype=np.uint64)
+    for nl, nr, what in PAIR_CASES:
+        lk, rk = rng.choice(pool, nl), rng.choice(pool, nr)
+
+        def pairs():
+            return join_ops.join_pairs(lk, rk, dev)
+
+        def parent_pairs():
+            return parent.join.join_pairs(lk, rk, dev)
+
+        a, b = pairs(), parent_pairs()
+        check(all(np.array_equal(x, y) for x, y in zip(a, b)),
+              f"join_pairs differs from the parent's ({what})")
+        ms, p_ms, turns = in_turns(pairs, parent_pairs)
+        r = {"case": what, "nl": nl, "nr": nr, "pairs": len(a[2]),
+             "ms": ms, "parent_ms": p_ms, "turns_ms": turns,
+             "turns": turn_factors(turns)}
+        print("join_pairs caller: " + json.dumps(r))
+
+
+def legacy_kernel_cases(rng, dev, parent=None):
     """Phase 3's cases of the legacy join layout: join_sort at every
-    bucket and key kind, the u64 probe at every bucket."""
-    rows = [k15_case(rng, dev, n, kind) for n in SORT_BUCKETS
+    bucket and key kind (with ``parent``, in turns with the parent's, and
+    the caller join_pairs with the parent's), the u64 probe at every
+    bucket."""
+    rows = [k15_case(rng, dev, n, kind, parent) for n in SORT_BUCKETS
             for kind in SORT_KINDS]
+    if parent is not None:
+        pairs_callers(rng, dev, parent)
     rows += [k9_u64_case(rng, dev, n) for n in SORT_BUCKETS]
     return rows
 
@@ -2651,7 +2733,7 @@ def kernel_phase(parent=None):
         rows += compact_cases(rng, dev, k, 3_000_000,
                               f"hot items COUNT(*) C={C_HOT} B={B_HOT} "
                               f"W={W_HOT} k={k} rows=3000000 int32", parent)
-    rows += legacy_kernel_cases(rng, dev)
+    rows += legacy_kernel_cases(rng, dev, parent)
     return rows
 
 
@@ -4366,9 +4448,9 @@ def main():
         "--parent", help="a directory holding a git archive of the parent "
         "commit: phase 3 also times its pane_emit, bin_evict, segment_agg, "
         "expand_gather, ring_merge, join_probe, session_union, join_expand, "
-        "bin_update, argmax_fire, emit_count and emit_gather, and the "
-        "join's, the session union's and the keyed-bin state's callers, in "
-        "turns with this tree's")
+        "bin_update, argmax_fire, join_sort, emit_count and emit_gather, "
+        "and the join's (join_pairs too), the session union's and the "
+        "keyed-bin state's callers, in turns with this tree's")
     opts = parser.parse_args()
     smi = environment()
     parent = None

@@ -48,7 +48,8 @@ from arroyo_tpu_torch.kernels.join_expand import (
     pair_views,
 )
 from arroyo_tpu_torch.kernels.join_probe import join_probe, join_probe_reference
-from arroyo_tpu_torch.kernels.join_sort import join_sort, join_sort_reference
+from arroyo_tpu_torch.kernels.join_sort import (
+    ONE_BLOCK_MAX, join_sort, join_sort_reference)
 from arroyo_tpu_torch.kernels.pane_emit import (
     fire_geometry,
     pane_emit,
@@ -1671,7 +1672,8 @@ SENTINEL64 = np.uint64(0xFFFFFFFFFFFFFFFF)
 def _u64_keys(rng, n, kind):
     """u64 join keys of one kind, the last seventh SENTINEL padding:
     hash-like (half at or above 2^63), a few varying digits, heavy
-    duplicates, or all equal."""
+    duplicates, all equal, only the top digit varying, or straddling
+    2^63 (the low digits and the top bit vary)."""
     m = n - n // 7
     k = np.full(n, SENTINEL64, np.uint64)
     if kind == "hash":
@@ -1682,20 +1684,34 @@ def _u64_keys(rng, n, kind):
     elif kind == "duplicates":
         k[:m] = rng.choice(rng.integers(0, 2**64 - 1, 30, dtype=np.uint64),
                            m)
+    elif kind == "top_digit":
+        k[:] = (rng.integers(0, 256, n).astype(np.uint64) << np.uint64(56)) \
+            | np.uint64(0x0012345678ABCDEF)
+    elif kind == "straddle":
+        k[:m] = (np.uint64(2**63) - np.uint64(300)
+                 + rng.integers(0, 600, m).astype(np.uint64))
     else:
         k[:] = np.uint64(2**63 + 5)
     return k, m
 
 
+# the one-block path's edges (2,048: its 256-thread form; 8,192 its
+# limit), the onesweep tile of 4,096 keys +/- 1 above it (20,480 = five
+# tiles), 8a's largest bucket, an odd n and 2^20
+SORT_NS = [1, 512, 2048, 2049, 4096, 4097, 8192, 8193, 16384, 20479, 20481,
+           65536, 99_999, 1 << 20]
+SORT_KINDS = ["hash", "few_digits", "duplicates", "equal", "top_digit",
+              "straddle"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 512, 2049, 32768, 1 << 20])
-@pytest.mark.parametrize("kind", ["hash", "few_digits", "duplicates",
-                                  "equal"])
+@pytest.mark.parametrize("n", SORT_NS)
+@pytest.mark.parametrize("kind", SORT_KINDS)
 def test_join_sort_cuda_matches_plain(cuda_device, n, kind):
     """``join_sort`` on the card: the order bit-equal to the plain
     version's and to numpy's stable argsort of the u64 keys (keys at and
     above 2^63, SENTINEL padding last), the keys in that order; views of
-    one buffer, one allocation and no host sync a call."""
+    one buffer."""
     rng = np.random.default_rng(n)
     k, _m = _u64_keys(rng, n, kind)
     kt = torch.tensor(k.view(np.int64), device=cuda_device)
@@ -1707,7 +1723,70 @@ def test_join_sort_cuda_matches_plain(cuda_device, n, kind):
     assert np.array_equal(order.cpu().numpy(), np.argsort(k, kind="stable"))
     assert order.untyped_storage().data_ptr() == \
         keys.untyped_storage().data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [512, 8192, 8193, 1 << 20])
+def test_join_sort_cuda_one_allocation_no_sync(cuda_device, n):
+    """One allocation and no host sync a call, on both paths."""
+    rng = np.random.default_rng(n + 1)
+    k, _m = _u64_keys(rng, n, "hash")
+    kt = torch.tensor(k.view(np.int64), device=cuda_device)
     assert _allocs_and_syncs(lambda: join_sort(kt)) == (1, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [512, ONE_BLOCK_MAX, ONE_BLOCK_MAX + 1,
+                               1 << 20])
+def test_join_sort_cuda_device_launches(cuda_device, n):
+    """Up to ONE_BLOCK_MAX keys a call is one device launch; above it a
+    memset and 9 launches (torch.profiler's device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(n + 2)
+    k, _m = _u64_keys(rng, n, "few_digits")
+    kt = torch.tensor(k.view(np.int64), device=cuda_device)
+    join_sort(kt)
+    torch.cuda.synchronize()
+    for _ in range(3):  # now and then a profile records no device activity
+        with warnings.catch_warnings():
+            # the profiler warns that it clears its events at each cycle
+            warnings.simplefilter("ignore", UserWarning)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                join_sort(kt)
+                torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    assert len(names) == (1 if n <= ONE_BLOCK_MAX else 10), names
+
+
+@pytest.mark.cuda
+def test_join_sort_cuda_back_to_back_calls(cuda_device):
+    """50 calls of different sizes and kinds back to back on one stream,
+    each result copied out and its buffer freed, so that later calls of
+    the same size reuse memory whose look-back status words and tile
+    counters an earlier call left set: every result equals the plain
+    version's."""
+    rng = np.random.default_rng(50)
+    sizes = [8193, 20481, 65536, 40_000, 100_000, 16384, 5_000, 20481,
+             65536, 8193]
+    cases = []
+    for i in range(50):
+        k, _m = _u64_keys(rng, sizes[i % len(sizes)],
+                          SORT_KINDS[i % len(SORT_KINDS)])
+        cases.append(torch.tensor(k.view(np.int64), device=cuda_device))
+    torch.cuda.synchronize()
+    got = []
+    for kt in cases:
+        order, keys = join_sort(kt)
+        got.append((order.clone(), keys.clone()))
+        del order, keys
+    torch.cuda.synchronize()
+    for kt, (order, keys) in zip(cases, got):
+        want = join_sort_reference(kt)
+        assert torch.equal(order, want[0]) and torch.equal(keys, want[1])
 
 
 @pytest.mark.cuda

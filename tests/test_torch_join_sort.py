@@ -63,6 +63,36 @@ def test_join_sort_plain_matches_jax_sort_kernel(n, kind):
     assert torch.equal(o2, order) and torch.equal(k2, keys)
 
 
+def _edge_keys(rng, n, kind):
+    """Keys whose passes the card's kernel treats apart: only the top
+    digit varying, all equal, or straddling 2^63 with a SENTINEL tail."""
+    if kind == "top_digit":
+        return (rng.integers(0, 256, n).astype(np.uint64) << np.uint64(56)) \
+            | np.uint64(0x0012345678ABCDEF)
+    if kind == "equal":
+        return np.full(n, 2**63 + 5, np.uint64)
+    k = np.full(n, SENTINEL, np.uint64)
+    m = n - n // 7
+    k[:m] = (np.uint64(2**63) - np.uint64(300)
+             + rng.integers(0, 600, m).astype(np.uint64))
+    return k
+
+
+@pytest.mark.parametrize("n", [1, 4097, 8193])
+@pytest.mark.parametrize("kind", ["top_digit", "equal", "straddle"])
+def test_join_sort_plain_matches_jax_sort_kernel_edges(n, kind):
+    """The plain version against ``_sort_kernel`` at the card kernel's
+    path edges (one key; one above its 4,096-key block form; one above its
+    one-block limit) on keys whose digit passes it skips or runs alone."""
+    rng = np.random.default_rng(n * 3 + len(kind))
+    k = _edge_keys(rng, n, kind)
+    order, keys = join_sort_reference(_t(k))
+    want_o, want_k = jax_join._sort_kernel(n)(k)
+    np.testing.assert_array_equal(order.numpy(), np.asarray(want_o))
+    np.testing.assert_array_equal(keys.numpy().view(np.uint64),
+                                  np.asarray(want_k))
+
+
 def test_unsigned_order_orders_as_u64():
     k = np.array([0, 1, 2**63 - 1, 2**63, 2**64 - 2, 2**64 - 1], np.uint64)
     flipped = unsigned_order(_t(k))
