@@ -24,6 +24,19 @@ from .operators_basic import (
 )
 
 Builder = Callable[[LogicalOperator, DeviceLike], Operator]
+
+
+def validate_before_build(program) -> None:
+    """The plan-time gate run before any operator is built: graph-level
+    invariants (keyed state behind shuffles, windows behind a watermark,
+    join sides and key arities, the factor-window shape, no dangling
+    node) rejected with diagnostics (analysis/plan_validator.py) instead
+    of wrong rows or a hung pipeline."""
+    from ..analysis.plan_validator import check_program
+
+    check_program(program)  # raises PlanValidationError on an error
+
+
 _BUILDERS: Dict[OpKind, Builder] = {}
 
 

@@ -5,7 +5,8 @@ A batch flows member to member by a synchronous await: no queue between
 members, one watermark and barrier alignment per chain.  Identity
 survives fusion: each member keeps its own ``Context``, ``StateStore``
 and timers, and ``checkpoint_state`` snapshots every member in chain
-order with one metadata entry each, so the checkpoint epochs count the
+order (each after its own ``pre_checkpoint``) with one metadata entry
+each, so the checkpoint epochs count the
 same (member, subtask) completions as unchained, and a checkpoint taken
 chained restores unchained and the reverse.
 
@@ -147,6 +148,8 @@ class ChainedOperator(Operator):
 
     async def checkpoint_state(self, barrier: CheckpointBarrier,
                                ctx: Context) -> List[Any]:
+        # each member's checkpoint_state runs its pre_checkpoint first, so
+        # rows a member drains reach the later members before they snapshot
         metas: List[Any] = []
         for member, mctx in zip(self.members, self.ctxs):
             metas.extend(await member.checkpoint_state(barrier, mctx))

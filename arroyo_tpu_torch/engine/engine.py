@@ -9,10 +9,14 @@ channels between runners as bounded asyncio queues, runs one asyncio task
 per runner and exposes control handles (:class:`RunningEngine`).
 :class:`LocalRunner` runs a bounded pipeline to completion in-process.
 
+Before anything is built, the program goes through the factor-window
+rewrite (graph/factor_windows.py; SQL plans arrive rewritten and the pass
+is idempotent) and the plan validator (analysis/plan_validator.py), as in
+the JAX package.
+
 Left out of the port for now, none of which changes the rows a pipeline
-emits: factor-window rewriting, the plan validator, the runtime
-sanitizer, the phase profiler, the latency observatory, metrics gauges
-and multi-worker network edges."""
+emits: the runtime sanitizer, the phase profiler, the latency
+observatory, metrics gauges and multi-worker network edges."""
 
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Dict, List, Optional, Tuple
 from ..config import config
 from ..device import DeviceLike, resolve_device
 from ..graph.chaining import plan_chains, validate_chain_plan
+from ..graph.factor_windows import apply_factor_windows
 from ..graph.logical import EdgeType, Program
 from ..state.backend import BackingStore, InMemoryBackend
 from ..state.store import StateStore
@@ -33,7 +38,7 @@ from ..types import (
     TaskInfo,
     now_micros,
 )
-from .build import build_operator
+from .build import build_operator, validate_before_build
 from .chained import ChainedOperator
 from .context import Collector, Context, OutQueue
 from .operator import Operator, SourceOperator
@@ -60,9 +65,13 @@ class Engine:
     device: DeviceLike = None
 
     def __post_init__(self) -> None:
+        # factor-window sharing for Stream-API programs, before validation
+        # so the validator sees the factored shape
+        self.factor_decisions = apply_factor_windows(self.program)
         errors = self.program.validate()
         if errors:
             raise ValueError("; ".join(errors))
+        validate_before_build(self.program)
         self.device = resolve_device(self.device)
         self.control_resp: asyncio.Queue = asyncio.Queue()
         # runners by (head operator id, subtask index)

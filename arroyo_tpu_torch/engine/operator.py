@@ -40,11 +40,18 @@ class Operator:
 
     async def checkpoint_state(self, barrier: CheckpointBarrier,
                                ctx: Context) -> List[Any]:
-        """Snapshot this operator's state at a barrier; returns the
-        checkpoint metadata to report."""
+        """Snapshot this operator's state at a barrier, after its
+        ``pre_checkpoint``; returns the checkpoint metadata to report."""
+        await self.pre_checkpoint(barrier, ctx)
         ctx.state.get_global_keyed_state("[").insert(
             "timers", ctx.timers.snapshot())
         return [ctx.state.checkpoint(barrier.epoch, ctx.last_watermark)]
+
+    async def pre_checkpoint(self, barrier: CheckpointBarrier,
+                             ctx: Context) -> None:
+        """Move state that lives outside the registered tables into them,
+        or downstream, right before the snapshot; rows collected here
+        reach the outputs before the barrier does."""
 
     async def on_start(self, ctx: Context) -> None:
         pass

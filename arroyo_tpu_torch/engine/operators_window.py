@@ -7,6 +7,10 @@
   emitted on watermark advance by one device pass over all pending panes.
   With ``top_n`` (a fused sliding TopN) each emission keeps only the
   top rows per window through ``ops/topk.py``;
+* :class:`FactorPaneOperator` and :class:`DerivedWindowOperator` — the
+  two halves of a factor-window rewrite (graph/factor_windows.py): one
+  shared pane ring, drained downstream at every checkpoint barrier, and
+  per-query windows that roll its fired panes up on the same kernels;
 * :class:`TumblingTopNOperator` — the per-window TopN stage (the global
   merge after a fused one, with the materialized ROW_NUMBER());
 * :class:`WindowArgmaxOperator` — the fused per-window argmax stage that
@@ -211,6 +215,54 @@ class BinAggOperator(Operator):
         if self.projection is not None:
             out = eval_record_expr(self.projection, out)
         await ctx.collect(out)
+
+
+class FactorPaneOperator(BinAggOperator):
+    """The shared half of a factor-window rewrite
+    (graph/factor_windows.py): a width == slide == pane bin aggregate of
+    the member queries' partial aggregates, once a pane.  Watermark fires
+    emit completed panes as any tumbling aggregate does; at a checkpoint
+    barrier the pending panes DRAIN downstream as deltas and reset on the
+    device before the snapshot (``KeyedBinState.drain_deltas``), so this
+    operator's table never holds un-shipped mass and a factored
+    checkpoint restores into an unfactored plan."""
+
+    def __init__(self, name: str, pane_micros: int,
+                 aggs: Tuple[AggSpec, ...], device: DeviceLike = None):
+        super().__init__(name, pane_micros, pane_micros, aggs,
+                         device=device)
+
+    async def pre_checkpoint(self, barrier, ctx: Context) -> None:
+        if self._offload_transfers():
+            fired = await asyncio.get_running_loop().run_in_executor(
+                None, self.state.drain_deltas)
+        else:
+            fired = self.state.drain_deltas()
+        if fired is not None:
+            perf.count("factor_drains")
+            perf.count("factor_drain_rows", len(fired[0]))
+            await self._emit(fired, ctx)
+
+
+class DerivedWindowOperator(BinAggOperator):
+    """The per-query half of a factor-window rewrite: a bin aggregate with
+    the member's own (width, slide, aggs, projection) whose ring runs in
+    merge-input mode: its updates are fired factor panes (one row a (key,
+    pane), ``__f_*`` partial columns), not events.  Channel layout, table
+    name and snapshot format are the unfactored member's, so checkpoints
+    interchange between factored and unfactored plans."""
+
+    def __init__(self, name: str, width_micros: int, slide_micros: int,
+                 pane_micros: int, aggs: Tuple[AggSpec, ...],
+                 projection: Optional[ColumnExpr] = None,
+                 device: DeviceLike = None):
+        from ..graph.factor_windows import ROWS_COLUMN, derived_channel_cols
+
+        if slide_micros % pane_micros:
+            raise ValueError("the factor pane must divide the derived slide")
+        super().__init__(name, width_micros, slide_micros, aggs, projection,
+                         device=device)
+        self.state.set_merge_inputs(derived_channel_cols(aggs), ROWS_COLUMN)
 
 
 def _topn_partition(batch: Batch, partition_cols: Tuple[str, ...]
@@ -1755,6 +1807,22 @@ def _build_tumbling(op: LogicalOperator, device: DeviceLike) -> Operator:
     return BinAggOperator(op.name, s.width_micros, s.width_micros, s.aggs,
                           s.projection, argmax_local=s.argmax_local,
                           device=device)
+
+
+@register_builder(OpKind.WINDOW_FACTOR)
+def _build_window_factor(op: LogicalOperator, device: DeviceLike
+                         ) -> Operator:
+    s = op.spec
+    return FactorPaneOperator(op.name, s.pane_micros, s.aggs, device=device)
+
+
+@register_builder(OpKind.DERIVED_WINDOW)
+def _build_derived_window(op: LogicalOperator, device: DeviceLike
+                          ) -> Operator:
+    s = op.spec
+    return DerivedWindowOperator(op.name, s.width_micros, s.slide_micros,
+                                 s.pane_micros, s.aggs, s.projection,
+                                 device=device)
 
 
 @register_builder(OpKind.SLIDING_AGGREGATING_TOP_N)

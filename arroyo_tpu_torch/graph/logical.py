@@ -1,8 +1,7 @@
 """Logical dataflow graph: window types, aggregate specs, operator
 taxonomy, ``Program`` and the fluent ``Stream`` builder — the part of
 ``arroyo_tpu.graph.logical`` that the port's operators execute: every
-operator kind but the factor windows and the multi-way join, and every
-join type but the semi join.
+operator kind and every join type.
 
 Operators carry Python callables over columnar batches (dicts of numpy
 columns).  The graph is a small adjacency structure of its own (the JAX
@@ -137,6 +136,10 @@ class OpKind(Enum):
     UPDATING_KEY = "updating_key"  # key_by over an updating stream
     UNION = "union"  # UNION ALL: the streams' batches merged unchanged
     MULTI_WAY_JOIN = "multi_way_join"  # N-ary shared-key INNER equi-join
+    # factor-window sharing (graph/factor_windows.py): ONE shared pane ring
+    # feeding per-query derived windows
+    WINDOW_FACTOR = "window_factor"  # shared factor-pane aggregate
+    DERIVED_WINDOW = "derived_window"  # rolls factor panes into a window
 
 
 class JoinType(Enum):
@@ -188,6 +191,34 @@ class TumblingAggregatorSpec:
     aggs: Tuple[AggSpec, ...] = ()
     projection: Optional[ColumnExpr] = None
     argmax_local: Optional[Tuple[str, str]] = None
+
+
+@dataclass
+class FactorPaneSpec:
+    """The shared half of a factor-window rewrite (graph/factor_windows.py):
+    one bin ring of ``pane_micros`` tumbling panes maintains the union of
+    the member queries' decomposed partial aggregates (``__f_*`` columns)
+    once a pane; the members consume the fired panes as derived windows."""
+
+    pane_micros: int
+    aggs: Tuple[AggSpec, ...] = ()
+
+
+@dataclass
+class DerivedWindowSpec:
+    """The per-query half of a factor-window rewrite: rolls fired factor
+    panes of ``pane_micros`` into this query's (width, slide) windows on
+    the bin-ring kernels (merge-input mode), emitting the rows the
+    original sliding or tumbling aggregate would.  ``aggs`` and
+    ``projection`` are the original member's, so its state table keeps
+    the member's channel layout and checkpoints interchange with
+    unfactored plans."""
+
+    width_micros: int
+    slide_micros: int
+    pane_micros: int
+    aggs: Tuple[AggSpec, ...] = ()
+    projection: Optional[ColumnExpr] = None
 
 
 @dataclass
@@ -414,6 +445,13 @@ class _Graph:
     def has_edge(self, src: str, dst: str) -> bool:
         return dst in self._succ.get(src, {})
 
+    def has_node(self, op_id: str) -> bool:
+        return op_id in self._nodes
+
+    def remove_edge(self, src: str, dst: str) -> None:
+        del self._succ[src][dst]
+        del self._pred[dst][src]
+
     def remove_node(self, op_id: str) -> None:
         for d in self._succ.pop(op_id):
             del self._pred[d][op_id]
@@ -466,6 +504,9 @@ class Program:
     def node(self, op_id: str) -> StreamNode:
         return self.graph._nodes[op_id]
 
+    def edge(self, src: str, dst: str) -> StreamEdge:
+        return self.graph._succ[src][dst]
+
     def nodes(self) -> List[StreamNode]:
         return [self.node(n) for n in self.graph.node_ids()]
 
@@ -483,6 +524,8 @@ class Program:
         OpKind.WINDOW_JOIN,
         OpKind.TUMBLING_TOP_N,
         OpKind.SLIDING_AGGREGATING_TOP_N,
+        OpKind.WINDOW_FACTOR,
+        OpKind.DERIVED_WINDOW,
     }
 
     def validate(self) -> List[str]:

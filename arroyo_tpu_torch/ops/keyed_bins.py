@@ -22,6 +22,13 @@
   fire for fire.  A fire's geometry is a few scalars (first bin, live
   range, W, k); the dense branch passes them to its kernel, the other
   branches take ring arrays built from them by ``fire_geometry``;
+* a derived window of a factor-window rewrite runs the ring in
+  merge-input mode (``set_merge_inputs``): its rows are fired factor
+  panes, each channel reads its partial column and the row mass rides
+  the cell reduction as a summed channel; a factor ring (W == 1) drains
+  its un-fired cells at a checkpoint barrier (``drain_deltas``: the dense
+  read, then ``bin_evict`` over the drained span) without moving the
+  fire bookkeeping;
 * eviction resets expired ring columns of the occupied slots on the
   device through :func:`~arroyo_tpu_torch.kernels.bin_evict`.  Slots at
   and past ``next_slot`` are never written: every cell there holds its
@@ -219,10 +226,13 @@ def directory_insert(state, kh: np.ndarray, ensure_capacity) -> np.ndarray:
     """Vectorized key-hash -> slot lookup over the host directory
     (``key_sorted``, ``slot_of_sorted``, ``next_slot``, ``slot_to_key``),
     inserting unknown keys (in ascending hash order) with sequential
-    slots.  ``ensure_capacity(total_slots, new_keys)`` is the growth hook."""
-    uniq = np.unique(kh)
+    slots.  ``ensure_capacity(total_slots, new_keys)`` is the growth hook.
+    The directory is searched with the batch's sorted distinct keys (a
+    search with sorted needles walks the directory once; one with the
+    batch's own order misses the cache on every key of a large one)."""
+    uniq, inv = np.unique(kh, return_inverse=True)
+    pos = np.searchsorted(state.key_sorted, uniq)
     if len(state.key_sorted):
-        pos = np.searchsorted(state.key_sorted, uniq)
         pos_c = np.minimum(pos, len(state.key_sorted) - 1)
         new_keys = uniq[state.key_sorted[pos_c] != uniq]
     else:
@@ -233,13 +243,14 @@ def directory_insert(state, kh: np.ndarray, ensure_capacity) -> np.ndarray:
         new_slots = np.arange(state.next_slot, state.next_slot + n_new)
         state.slot_to_key[new_slots] = new_keys
         state.next_slot += n_new
-        merged = np.concatenate([state.key_sorted, new_keys])
-        merged_slots = np.concatenate([state.slot_of_sorted, new_slots])
-        order = np.argsort(merged, kind="stable")
-        state.key_sorted = merged[order]
-        state.slot_of_sorted = merged_slots[order]
-    idx = np.searchsorted(state.key_sorted, kh)
-    return state.slot_of_sorted[idx]
+        # new_keys are sorted and absent: inserting each at its place
+        # keeps the directory sorted in one linear pass (a re-sort of the
+        # whole directory a batch dominates once it holds millions)
+        at = np.searchsorted(state.key_sorted, new_keys)
+        state.key_sorted = np.insert(state.key_sorted, at, new_keys)
+        state.slot_of_sorted = np.insert(state.slot_of_sorted, at, new_slots)
+        pos = np.searchsorted(state.key_sorted, uniq)
+    return state.slot_of_sorted[pos][inv.reshape(-1)]
 
 
 class KeyedBinState:
@@ -308,6 +319,13 @@ class KeyedBinState:
         self._pending: List[Tuple[np.ndarray, np.ndarray, np.ndarray,
                                   np.ndarray]] = []
         self._pending_cells = 0
+        # merge-input mode (derived windows, graph/factor_windows.py):
+        # channel j reads an already-aggregated per-pane partial column,
+        # and the counts plane accumulates the per-pane row-mass column,
+        # so the ring equals the one the unfactored member would build
+        # from the same rows
+        self._merge_cols: Optional[Dict[int, str]] = None
+        self._rows_col: Optional[str] = None
 
     def _identity_planes(self, C: int, B: int) -> torch.Tensor:
         inits = torch.tensor(channel_inits(self._ch_kinds),
@@ -341,10 +359,35 @@ class KeyedBinState:
 
     # -- update --------------------------------------------------------------
 
+    def set_merge_inputs(self, channel_cols: Dict[int, str],
+                         rows_col: str) -> None:
+        """Arm merge-input mode before any row lands: channel ``j`` reads
+        ``channel_cols[j]``, a per-(key, pane) partial of its own kind
+        (NaN: the pane had no contributing row, masked to the channel's
+        identity), and the per-cell row count accumulates ``rows_col``,
+        so COUNT(*) channels count rows, not pane arrivals."""
+        if self.next_slot or self.total_rows:
+            raise ValueError("merge inputs must be set before any key is "
+                             "admitted")
+        missing = [j for j in self._xfer_ch if j not in channel_cols]
+        if missing:
+            raise ValueError(f"no merge column for channels {missing}")
+        self._merge_cols = dict(channel_cols)
+        self._rows_col = rows_col
+
     def update(self, key_hash: np.ndarray, timestamps: np.ndarray,
                agg_inputs: Dict[str, np.ndarray]) -> None:
         n = len(key_hash)
         if n == 0:
+            return
+        from ..obs import perf
+
+        # rows entering pane-update state: ~K a source event unfactored
+        # (every private ring sees every event), ~1 + O(panes) factored
+        # (derived rings see fired pane cells only)
+        perf.count("pane_update_rows", n)
+        if self._merge_cols is not None:
+            self._update_merged(key_hash, timestamps, agg_inputs)
             return
         admitted = self._admit_bins(timestamps)
         if admitted is None:
@@ -365,6 +408,42 @@ class KeyedBinState:
             slots, bins_mod, vals = slots[idx], bins_mod[idx], vals[:, idx]
         cells = preaggregate(slots, bins_mod, xfer_kinds, vals)
         self._enqueue_cells(*cells)
+
+    def _update_merged(self, key_hash: np.ndarray, timestamps: np.ndarray,
+                       agg_inputs: Dict[str, np.ndarray]) -> None:
+        """Merge-input update (derived windows): one row a fired factor
+        (key, pane); the channel values come straight from the mapped
+        partial columns (their kinds reduce partial into partial without
+        loss) and a cell's row count is the SUM of the pane row-mass
+        column, so the ring is the one the unfactored member would hold
+        after the same raw rows."""
+        n = len(key_hash)
+        admitted = self._admit_bins(timestamps)
+        if admitted is None:
+            return
+        bins_mod, live, _n_live, _lo, _hi = admitted
+        w = _coerce_float(agg_inputs[self._rows_col])
+        w = np.where(np.isnan(w), 0.0, w)
+        self._note_mass(int(np.ceil(w[live].sum())))
+
+        slots = self._lookup_or_insert(key_hash)
+        xfer_kinds = tuple(self._ch_kinds[j] for j in self._xfer_ch)
+        vals = np.empty((len(self._xfer_ch), n), dtype=ACC_DTYPE)
+        for r, j in enumerate(self._xfer_ch):
+            raw = _coerce_float(agg_inputs[self._merge_cols[j]])
+            ident = ACC_DTYPE(_init_value(AggKind(self._ch_kinds[j])))
+            vals[r] = np.where(np.isnan(raw), ident, raw)
+        if not live.all():
+            idx = live.nonzero()[0]
+            slots, bins_mod = slots[idx], bins_mod[idx]
+            vals, w = vals[:, idx], w[idx]
+        # the row mass rides the cell reduction as one more additive
+        # channel, so duplicate (slot, bin) cells sum their masses:
+        # preaggregate's own row count would count pane arrivals
+        slots_c, bins_c, _arrivals, red = preaggregate(
+            slots, bins_mod, xfer_kinds + ("sum",),
+            np.concatenate([vals, w[None]]))
+        self._enqueue_cells(slots_c, bins_c, red[-1], red[:-1])
 
     def _admit_bins(self, timestamps: np.ndarray
                     ) -> Optional[Tuple[np.ndarray, np.ndarray, int,
@@ -686,6 +765,51 @@ class KeyedBinState:
             out_cols[a.output] = col
         return out_cols
 
+    def drain_deltas(self) -> Optional[Tuple[np.ndarray,
+                                             Dict[str, np.ndarray],
+                                             np.ndarray, np.ndarray]]:
+        """Checkpoint-barrier drain of a factor pane ring (W == 1): read
+        every un-fired (key, bin) cell as a pane delta and reset those
+        cells to their identities, without moving ``last_fired_pane``,
+        ``min_bin`` or the fire branch's density, so rows arriving after
+        the drain accumulate in the same bins again and ship as a later
+        delta.  Derived rings merge deltas without loss, so the factor's
+        snapshot holds no un-shipped mass and a factored checkpoint
+        restores into an unfactored plan.  The read is the dense one (the
+        JAX package's choice); the reset is ``bin_evict`` over the drained
+        span, which the later fire's eviction resets again (idempotent).
+        Same return shape as ``fire_panes``; None when nothing is
+        pending."""
+        if self.W != 1:
+            raise ValueError("drain_deltas is the factor-pane path (W == 1)")
+        if self.max_bin is None or self.next_slot == 0:
+            return None
+        self.flush_updates()
+        first_pane = (self.last_fired_pane + 1
+                      if self.last_fired_pane is not None
+                      else (self.min_bin or 0))
+        last_pane = self.max_bin
+        if last_pane < first_pane:
+            return None
+        pane_ends = np.arange(first_pane, last_pane + 1, dtype=np.int64)
+        k = len(pane_ends)
+        lo = int(self.min_bin) if self.min_bin is not None else 0
+        hi = int(self.max_bin)
+        # W == 1: pane p is the absolute bin first_pane + p
+        outs, cnts = self._read_dense(int(first_pane), lo, hi, k)
+        # reset the drained bins (the live ones: [max(first, lo), hi]);
+        # the fire bookkeeping stays where it is
+        start = max(int(first_pane), lo)
+        if hi >= start:
+            self._evict(start, hi - start + 1)
+        key_idx, pane_idx, cnt_sel, ch_sel = self._flatten_dense(
+            outs, cnts, k)
+        if len(key_idx) == 0:
+            return None
+        keys = self.slot_to_key[key_idx]
+        window_end = (pane_ends[pane_idx] + 1) * self.slide
+        return keys, self._out_cols(cnt_sel, ch_sel), window_end, cnt_sel
+
     # -- checkpoint ------------------------------------------------------------
     #
     # Canonical topology-independent format shared with the JAX package:
@@ -695,18 +819,22 @@ class KeyedBinState:
     def snapshot(self) -> Dict[str, np.ndarray]:
         self.flush_updates()  # buffered cells belong to this epoch
         n = self.next_slot
-        values = self.values.cpu().numpy()
-        counts = self.counts.cpu().numpy()
         if self.min_bin is not None and self.max_bin is not None:
             lo = self.min_bin
             cols = (np.arange(lo, self.max_bin + 1) % self.B)
         else:
             lo = -1
             cols = np.zeros(0, dtype=np.int64)
+        # the occupied rows' live columns are gathered where the planes
+        # live, so only they cross to the host (a barrier copies the
+        # snapshot of every ring of a job)
+        cols_t = torch.from_numpy(cols).to(self.device)
         return {
             "bin_keys": self.slot_to_key[:n].copy(),
-            "bin_vals": values[:, :n][:, :, cols],
-            "bin_counts": counts[:n][:, cols],
+            "bin_vals": self.values[:, :n].index_select(2, cols_t).cpu()
+            .numpy(),
+            "bin_counts": self.counts[:n].index_select(1, cols_t).cpu()
+            .numpy(),
             "ch_init": channel_inits(self._ch_kinds),
             "mesh_shards": np.array([1], dtype=np.int64),
             "key_sorted": self.key_sorted.copy(),

@@ -17,10 +17,11 @@ q7 as self-joins of their aggregates with their per-window maxima) and
 ``ARROYO_UDAF_COMPILE=off`` (UDAFs on the buffered window) read as in the
 JAX package, and so does ``ARROYO_MULTIWAY=0`` (a cascade of INNER joins
 on one key as nested pairwise joins instead of one multi-way join).
-``x IN (SELECT ...)`` plans as the JAX package's streaming semi join.
-Where the JAX plan needs an operator this package has not ported,
-``Planner`` raises ``SqlPlanError`` naming the ROADMAP item instead of
-planning a different topology: a factor-window rewrite (A.8)."""
+``x IN (SELECT ...)`` plans as the JAX package's streaming semi join,
+and correlated window aggregates as its factor-window rewrite
+(graph/factor_windows.py; ``ARROYO_FACTOR_WINDOWS``).  Where the JAX plan needs a connector or format this
+package has not ported, ``Planner`` raises ``SqlPlanError`` naming the
+ROADMAP item instead of planning a different topology."""
 
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ import torch
 
 from ..ops import colmath as cm
 from ..ops.expr import join_key_fn
+from ..graph.factor_windows import apply_factor_windows
 from ..graph.logical import (
     AggKind,
     AggSpec,
@@ -89,11 +91,6 @@ DEFAULT_UPDATING_TTL = 86_400_000_000  # 1d (reference updating default)
 
 class SqlPlanError(ValueError):
     pass
-
-
-def _unported(what: str, item: str) -> SqlPlanError:
-    return SqlPlanError(f"{what} is not ported to arroyo_tpu_torch "
-                        f"(ROADMAP {item})")
 
 
 def _argmax_off() -> bool:
@@ -388,17 +385,12 @@ class Planner:
         prog.prune_dead()
         prog.eliminate_common_subplans()
         self._push_argmax_local(prog)
-        # factor-window sharing (graph/factor_windows.py): where the JAX
-        # package would rewrite correlated window aggregates onto one
-        # shared pane ring, refuse; ARROYO_FACTOR_WINDOWS=0 is a no-op
-        from ..graph.factor_windows import plan_factor_windows
-
-        for d in plan_factor_windows(prog):
-            if d.shared:
-                raise _unported(
-                    f"the factor-window rewrite of {d.members} (a shared "
-                    f"{d.pane_micros} us pane ring; ARROYO_FACTOR_WINDOWS=0 "
-                    "plans them apart)", "A.8")
+        # factor-window sharing (graph/factor_windows.py): correlated
+        # window aggregates CSE left distinct (same input and keys,
+        # different widths or slides) rewrite onto one shared pane ring.
+        # After argmax_local, so emission-coupled aggregates are seen and
+        # excluded; ARROYO_FACTOR_WINDOWS=0 is a no-op
+        apply_factor_windows(prog)
         return prog
 
     @staticmethod

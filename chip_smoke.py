@@ -42,7 +42,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    ``KeyedBinState.flush_updates`` at q5's and hot items' flushes,
    ``KeyedBinState._emit_argmax`` at q5's fire and
    ``KeyedBinState._emit_compact`` at hot items' compact fires,
-   ``ops/join.join_pairs`` at 8a's and 8b's pairings; and the legacy
+   ``ops/join.join_pairs`` at 8a's and 8b's pairings,
+   ``ops/keyed_bins.directory_insert`` and ``KeyedBinState.snapshot`` at
+   hot items' and q8's states after 40,000,000 events; and the legacy
    join layout's kernels at its buckets (512, 8,192, 32,768, 524,288,
    1,048,576): join_sort on hash-like keys, keys with two varying digits
    and keys with heavy duplicates, an eighth SENTINEL padding — its
@@ -170,13 +172,29 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
     500,000 events (2,000,000 halved twice to stay under 20,000,000
     output rows) with the hot-partition floor at 1,024 rows — its row
     count the generator's, its rows the pairwise plan's, join_probe and
-    join_expand launched on the rings.
+    join_expand launched on the rings;
+15. correlated windows: bench.py's ``run_correlated_windows`` SQL
+    (:1862-1879: the nexmark source at 1,000,000 events/s in batches of
+    8,192, K HOP windows with a 2 s slide and widths from [10, 4, 20,
+    6, 16, 8, 30, 14] s, ``count(*)`` and ``sum(bid.price)`` by auction)
+    planned by ``plan_sql``: at 2,000,000 events for K = 2, 4, 8 the
+    factored plan (``ARROYO_FACTOR_WINDOWS=auto``: one shared 2 s pane
+    ring, K derived windows) and the unfactored plan (``=0``) on the
+    card and the factored plan on the CPU, every member's rows equal to a
+    numpy control (per auction and window end the count and the integer
+    sum of prices); at 8,000,000 events for K = 8 the factored plan on
+    the card, every member equal to its control, and once more under
+    config5's 1 s checkpoint ticker, its rows those of the run without
+    checkpoints and its barrier drains shipping rows; each run's
+    wall, events/s, ``pane_update_rows`` per event (gated: factored
+    below unfactored at K = 8), flushes, kernel launches, drains and the
+    factor decision printed.
 
 Launch counts are set to 0 just before each main-path run (q5, q8,
 config5, 8a, 8b, hot items, q1, q7, each SQL-planned run of phase 12,
 each card run of phase 13, the legacy q8, 8a and 8b, the semi join and
-the two multi-way joins of phase 14) and read just after it; q1, q7 and
-the union launch no kernel.  It prints a
+the two multi-way joins of phase 14, each card run of phase 15) and read
+just after it; q1, q7 and the union launch no kernel.  It prints a
 ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi gives them, and, last, ``{"ok": true, "device": ...}``.
 It needs one card and exits non-zero without one.
@@ -386,7 +404,8 @@ CONTROLS = {}
 SQL_QUERIES = ("q1", "q5", "q7", "q8", "hot_items", "config5")
 PATHS = ("q5", "q8", "config5", "join_inner", "join_left", "hot_items",
          "q1", "q7", "sql", "q5_ref", "q7_ref", "q16", "union", "q8_legacy",
-         "join_inner_legacy", "join_left_legacy", "semi", "mw", "mw_ttl")
+         "join_inner_legacy", "join_left_legacy", "semi", "mw", "mw_ttl",
+         "cw_2m_fact", "cw_2m_unfact", "cw_8m_fact", "cw_8m_ckpt")
 
 
 def reset_launches():
@@ -425,15 +444,15 @@ def cuda_ms(fn, reps=20, warm=3):
     return statistics.median(times)
 
 
-def in_turns(kernel, other, pairs=3):
+def in_turns(kernel, other, pairs=3, **reps):
     """``kernel`` and ``other`` (a library call, or another version) timed
     in turns, ``pairs`` rounds of (other, kernel, kernel, other), each a
-    cuda_ms median: (kernel ms, other ms, the medians in order), the ms
-    the means of each side's medians."""
+    cuda_ms median (``reps``: its reps and warm calls): (kernel ms, other
+    ms, the medians in order), the ms the means of each side's medians."""
     seq = []
     for _ in range(pairs):
-        seq += [cuda_ms(other), cuda_ms(kernel), cuda_ms(kernel),
-                cuda_ms(other)]
+        seq += [cuda_ms(other, **reps), cuda_ms(kernel, **reps),
+                cuda_ms(kernel, **reps), cuda_ms(other, **reps)]
     mine = [t for i, t in enumerate(seq) if i % 4 in (1, 2)]
     theirs = [t for i, t in enumerate(seq) if i % 4 in (0, 3)]
     return statistics.fmean(mine), statistics.fmean(theirs), seq
@@ -498,7 +517,18 @@ def profile_kernels(fn, reps=20, before=None):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # now and then a profile records no device activity
+    # now and then a profile records no device activity, or loses some
+    # launches (a kernel's count is then no multiple of reps): take it
+    # again, up to three times; a profile with no device activity three
+    # times in a row, up to three times more, a second apart
+    runs = {}
+    for attempt in range(6):
+        if attempt >= 3:
+            if runs:
+                break
+            time.sleep(1.0)
+            fn()
+            torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -506,16 +536,16 @@ def profile_kernels(fn, reps=20, before=None):
                     before()
                 fn()
             torch.cuda.synchronize()
-        if any(e.device_type == torch.autograd.DeviceType.CUDA
-               for e in prof.events()):
+        runs = collections.defaultdict(list)
+        for ev in sorted((e for e in prof.events()
+                          if e.device_type
+                          == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: e.time_range.start):
+            m = re.search(r"([A-Za-z_]\w*)(?:<[^()]*>)?\(", ev.name)
+            runs[m.group(1) if m else ev.name[:40]].append(
+                ev.time_range.elapsed_us())
+        if runs and all(len(t) % reps == 0 for t in runs.values()):
             break
-    runs = collections.defaultdict(list)
-    for ev in sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: e.time_range.start):
-        m = re.search(r"([A-Za-z_]\w*)(?:<[^()]*>)?\(", ev.name)
-        runs[m.group(1) if m else ev.name[:40]].append(
-            ev.time_range.elapsed_us())
     per = {}
     for name, times in runs.items():
         n = max(1, len(times) // reps)
@@ -609,6 +639,117 @@ def flush_callers(cells, C, cdt, parent, dev):
             "parent_allocations_syncs": per_call(parent_flush),
             "host_us": host_us(flush, reps=200),
             "parent_host_us": host_us(parent_flush, reps=200)}
+
+
+# the keyed-bin states that phases 9 and 6 print after 40M events: hot
+# items' HOP(2 s, 10 s) COUNT(*) and q8's 10 s tumbling person state
+# (keys, slot capacity, live bins), batches of 131,072
+DIRECTORY_SHAPES = {"hot items": (2_398_860, 4_194_304, 6),
+                    "q8": (800_000, 1_048_576, 2)}
+DIRECTORY_BATCHES = 305  # 40M events in batches of 131,072
+
+
+def directory_callers(parent, dev):
+    """The keyed-bin state's host directory and snapshot against the
+    parent's, in turns, at DIRECTORY_SHAPES: ``directory_insert`` of one
+    batch of 131,072 key hashes into a directory of that many keys (the
+    batch: its share of new keys, keys / DIRECTORY_BATCHES; half of it 8
+    hot keys; the rest drawn from the newest 100,000 keys), each call a
+    fresh batch, both sides fed the same batches into their own
+    directories; and ``KeyedBinState.snapshot`` of a COUNT(*) state of
+    that capacity on hot items' ring (B = 16) with every key occupied and the live bins filled.  The
+    slots both sides return and the snapshots are held equal first."""
+    from types import SimpleNamespace
+    from arroyo_tpu_torch.ops.keyed_bins import directory_insert
+    out = {}
+    for shape, (n_keys, cap, live) in DIRECTORY_SHAPES.items():
+        rng = np.random.default_rng(19)
+        keys = np.unique(rng.integers(1, 2**63, int(n_keys * 1.01),
+                                      dtype=np.uint64))[:n_keys]
+        rng.shuffle(keys)  # slot order: arrival order
+        n_new = n_keys // DIRECTORY_BATCHES
+        batch = 131_072
+        newest = keys[-100_000:]
+        hot = keys[-8:]
+        batches = []
+        for _ in range(60):
+            fresh = rng.integers(2**63, 2**64 - 1, n_new, dtype=np.uint64)
+            rest = batch - n_new
+            kh = np.concatenate([fresh, rng.choice(hot, rest // 2),
+                                 rng.choice(newest, rest - rest // 2)])
+            rng.shuffle(kh)
+            batches.append(kh)
+
+        def directory():
+            order = np.argsort(keys, kind="stable")
+            st = SimpleNamespace(
+                key_sorted=keys[order], slot_of_sorted=order.astype(np.int64),
+                next_slot=n_keys, slot_to_key=np.zeros(cap, dtype=np.uint64))
+            st.slot_to_key[:n_keys] = keys
+
+            def ensure(total, _new):
+                if total > len(st.slot_to_key):
+                    st.slot_to_key = np.concatenate([st.slot_to_key, np.zeros(
+                        total - len(st.slot_to_key), dtype=np.uint64)])
+            return st, ensure
+
+        sides = []
+        for insert in (directory_insert, parent.keyed_bins.directory_insert):
+            st, ensure = directory()
+            it = iter(batches)
+            sides.append((st, lambda st=st, ensure=ensure, it=it,
+                          insert=insert: insert(st, next(it), ensure)))
+        first = [call() for _st, call in sides]
+        check(np.array_equal(first[0], first[1])
+              and np.array_equal(sides[0][0].key_sorted,
+                                 sides[1][0].key_sorted)
+              and np.array_equal(sides[0][0].slot_of_sorted,
+                                 sides[1][0].slot_of_sorted),
+              f"directory_insert differs from the parent's ({shape})")
+        ins_ms, p_ins_ms, ins_turns = in_turns(
+            sides[0][1], sides[1][1], pairs=2, reps=5, warm=1)
+
+        states = []
+        for cls, lg in ((KeyedBinState, None), (parent.keyed_bins.KeyedBinState,
+                                                parent.logical)):
+            spec = (AggSpec(AggKind.COUNT, None, "n") if lg is None
+                    else lg.AggSpec(lg.AggKind.COUNT, None, "n"))
+            st = cls((spec,), SLIDE_MICROS, WIDTH_MICROS, capacity=cap,
+                     device=dev)
+            st.key_sorted = np.sort(keys)
+            st.slot_of_sorted = np.argsort(keys, kind="stable")
+            st.slot_to_key[:n_keys] = keys
+            st.next_slot = n_keys
+            st.min_bin, st.max_bin = 100, 100 + live - 1
+            cols = torch.arange(100, 100 + live, device=dev) % st.B
+            gen = torch.Generator(device=dev).manual_seed(19)
+            cnt = torch.randint(1, 50, (n_keys, live), device=dev,
+                                generator=gen, dtype=torch.int32)
+            st.counts[:n_keys, cols] = cnt
+            st.values[0, :n_keys, cols] = cnt.double()
+            states.append(st)
+        snaps = [st.snapshot() for st in states]
+        check(snaps[0].keys() == snaps[1].keys() and all(
+            np.array_equal(snaps[0][k], snaps[1][k]) for k in snaps[0]),
+            f"snapshot differs from the parent's ({shape})")
+        snap_bytes = sum(a.nbytes for a in snaps[0].values())
+        del snaps
+        snap_ms, p_snap_ms, snap_turns = in_turns(
+            states[0].snapshot, states[1].snapshot, pairs=2, reps=5, warm=1)
+        del states
+        torch.cuda.empty_cache()
+        out[shape] = {
+            "keys": n_keys, "capacity": cap, "live_bins": live,
+            "new_keys_a_batch": n_new,
+            "directory_insert_ms": ins_ms, "parent_directory_insert_ms":
+            p_ins_ms, "directory_insert_turns_ms": ins_turns,
+            **{f"directory_insert_{k}": v
+               for k, v in turn_factors(ins_turns).items()},
+            "snapshot_ms": snap_ms, "parent_snapshot_ms": p_snap_ms,
+            "snapshot_turns_ms": snap_turns, "snapshot_bytes": snap_bytes,
+            **{f"snapshot_{k}": v
+               for k, v in turn_factors(snap_turns).items()}}
+    return out
 
 
 def k1_case(rng, dev, kinds, dup, m, cdt, unique, shape, C=C_Q5,
@@ -4442,6 +4583,263 @@ def semi_mw_phase():
     return launches
 
 
+# -- phase 15: correlated windows (the factor-window rewrite) -----------------------
+
+CW_WIDTHS = (10, 4, 20, 6, 16, 8, 30, 14)  # bench.py:1863, seconds
+CW_SLIDE = 2_000_000  # every member's slide: HOP(INTERVAL '2' SECOND, ...)
+CW_BATCH = 8_192  # bench.py:1868: panes must fire mid-stream
+CW_SMALL = 2_000_000
+# K = 8 factored and under 1 s checkpoints: cut from bench.py's and q8's
+# 40,000,000 events to keep the script inside its time limit (the factored
+# plan ran 106-156 s there and its control 50-53 s on an H100 80GB HBM3,
+# 700 W; the unfactored plan 511 s, and the checkpointed one outgrew its
+# host's 96 GiB: InMemoryBackend keeps every epoch)
+CW_MID = 8_000_000
+CW_KS = (2, 4, 8)
+CW_COLS = ("auction", "window_end", "num", "tot")
+CW_COUNTERS = ("pane_update_rows", "pane_update_dispatches", "factor_drains",
+               "factor_drain_rows")
+CW_KERNELS = ("bin_update", "pane_emit", "bin_evict", "emit_count",
+              "emit_gather")
+
+
+def cw_sql(k, num_events):
+    """bench.py's ``run_correlated_windows`` SQL (:1862-1879) for ``k``
+    members, event time pinned to 0."""
+    parts = [_pin(queries.SRC.format(n=num_events, b=CW_BATCH), CW_BATCH)]
+    for i in range(k):
+        parts.append(
+            f"CREATE TABLE cw{i} (auction BIGINT, window_end BIGINT,"
+            f" num BIGINT, tot BIGINT) WITH (connector = 'memory',"
+            f" name = 'cw{i}', type = 'sink');")
+        parts.append(
+            f"INSERT INTO cw{i}\n"
+            f"SELECT bid.auction as auction,\n"
+            f"  HOP(INTERVAL '2' SECOND, INTERVAL '{CW_WIDTHS[i]}'"
+            f" SECOND) as window,\n"
+            f"  count(*) AS num, sum(bid.price) AS tot\n"
+            f"FROM nexmark WHERE bid is not null GROUP BY 1, 2;")
+    return "\n".join(parts)
+
+
+def cw_cells(num_events):
+    """The bids of the generator at CW_BATCH as dense per-auction grids
+    of 2 s bins: (auctions ascending, first bin, bids [auction, bin],
+    summed price [auction, bin]), int64."""
+    names = ["bid_auction", "bid_price", "event_type"]
+    cfg = NexmarkConfig(num_events=num_events, rate_limited=False,
+                        event_rate=1_000_000.0, batch_size=CW_BATCH,
+                        projection=names)
+    first, n, num = make_splits(cfg, 0, 1)[0]
+    gen = NexmarkGenerator(cfg, 0, first, n, num, seed=0)
+    gen.set_rate(cfg.event_rate, 1)
+    parts = collections.defaultdict(list)
+    while gen.has_next:
+        b, _ = gen.next_batch(CW_BATCH)
+        bid = b.columns["event_type"] == EVENT_BID
+        parts["bin"].append(b.timestamp[bid] // CW_SLIDE)
+        parts["a"].append(b.columns["bid_auction"][bid])
+        parts["p"].append(b.columns["bid_price"][bid])
+    a, bins, price = (np.concatenate(parts[c]) for c in ("a", "bin", "p"))
+    auctions, ai = np.unique(a, return_inverse=True)
+    b0 = int(bins.min())
+    nb = int(bins.max()) - b0 + 1
+    flat = ai.astype(np.int64) * nb + (bins - b0)
+    size = len(auctions) * nb
+    count = np.bincount(flat, minlength=size).reshape(len(auctions), nb)
+    # f64 sums of integer prices stay exact below 2^53
+    total = np.bincount(flat, weights=price.astype(np.float64),
+                        minlength=size).reshape(len(auctions), nb)
+    return auctions, b0, count, total.astype(np.int64)
+
+
+def cw_control(cells, width_s):
+    """Member ``HOP(2 s, width_s)``'s rows from the grids: the window
+    ending at bin e sums bins e - W + 1 .. e (windows end up to W - 1
+    bins past the last bid's bin); columns ts, auction, window_end, num,
+    tot sorted by (window_end, auction)."""
+    auctions, b0, count, total = cells
+    w = width_s * 1_000_000 // CW_SLIDE
+    pad = np.zeros((len(auctions), w - 1), np.int64)
+    sums = []
+    for grid in (count, total):
+        cs = np.cumsum(np.concatenate([grid, pad], axis=1), axis=1)
+        cs[:, w:] -= cs[:, :-w].copy()
+        sums.append(cs)
+    end_idx, ai = np.nonzero(sums[0].T)  # (window end, auction) order
+    check(len(ai) == 0 or auctions[-1] < 2**32, "auction ids past 2^32")
+    end = (b0 + end_idx + 1) * CW_SLIDE
+    return {"ts": end - 1, "auction": auctions[ai], "window_end": end,
+            "num": sums[0][ai, end_idx], "tot": sums[1][ai, end_idx]}
+
+
+def cw_rows(k):
+    """Each member's sink as int64 columns sorted by (window_end,
+    auction); the sinks cleared."""
+    out = []
+    for i in range(k):
+        batches = sink_output(f"cw{i}")
+        cols = {"ts": np.concatenate([b.timestamp for b in batches])}
+        for c in CW_COLS:
+            v = np.concatenate([b.columns[c] for b in batches])
+            check(np.all(v == np.round(v)), f"cw{i}.{c} is not integral")
+            cols[c] = v.astype(np.int64)
+        out.append(cw_sorted(cols))
+        clear_sink(f"cw{i}")
+    return out
+
+
+def cw_sorted(cols):
+    """``cols`` sorted by (window_end, auction), one key a row sorted on
+    the card (tens of millions of rows at CW_MID)."""
+    a, e = cols["auction"], cols["window_end"] // CW_SLIDE
+    check(len(a) == 0 or (a.min() >= 0 and a.max() < 2**32
+                          and e.min() >= 0 and e.max() < 2**31),
+          "cw rows' auction or window out of the sort key's range")
+    key = torch.from_numpy((e << 32) | a).cuda()
+    order = torch.argsort(key, stable=True).cpu().numpy()
+    return {c: v[order] for c, v in cols.items()}
+
+
+def cw_run(k, num_events, factor, device, ckpt=None):
+    """bench.py's correlated windows for ``k`` members under
+    ``ARROYO_FACTOR_WINDOWS=factor`` on ``device`` (1 s checkpoints with
+    ``ckpt``), its launches counted from 0: (rows a member, summary)."""
+    # the Engine applies the rewrite again (Stream-API programs): the
+    # knob stays set through the run, as bench.py sets it
+    os.environ["ARROYO_FACTOR_WINDOWS"] = factor
+    try:
+        t0 = time.perf_counter()
+        program = plan_sql(cw_sql(k, num_events))
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        for i in range(k):
+            clear_sink(f"cw{i}")
+        perf.reset()
+        reset_launches()
+        runner = LocalRunner(program, device=device)
+        t0 = time.perf_counter()
+        resps = runner.run(checkpoint_interval_secs=ckpt)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        del os.environ["ARROYO_FACTOR_WINDOWS"]
+    shared = [d.to_json() for d in runner.engine.factor_decisions
+              if d.shared]
+    counters = {c: perf.counter(c) for c in CW_COUNTERS}
+    done = collections.Counter(r.subtask_metadata.epoch for r in resps
+                               if r.kind == "checkpoint_completed")
+    rows = cw_rows(k)
+    return rows, {
+        "k": k, "events": num_events, "factor": factor,
+        "device": "cpu" if device == "cpu" else "cuda",
+        "checkpoint_interval_s": ckpt, "plan_ms": plan_ms, "wall_s": dt,
+        "events_per_s": num_events / dt,
+        "rows": int(sum(len(r["ts"]) for r in rows)),
+        "pane_update_rows_per_event":
+            counters["pane_update_rows"] / num_events,
+        **counters,
+        "epochs": sorted(e for e, c in done.items()
+                         if c == len(runner.engine.members)),
+        "decision": {"shared_panes": len(shared),
+                     "derived_windows": sum(len(d["members"])
+                                            for d in shared),
+                     "pane_micros": shared[0]["pane_micros"]
+                     if shared else None},
+        "launches": {n: launches[n] for n in CW_KERNELS}}, launches
+
+
+def cw_gate_factored(run, k):
+    d = run["decision"]
+    check(d["shared_panes"] == 1 and d["derived_windows"] == k
+          and d["pane_micros"] == CW_SLIDE,
+          f"K={k}: the factor decision is {d}, not one shared 2 s pane "
+          f"ring with {k} derived windows")
+    check(run["launches"]["bin_update"] > 0
+          and run["launches"]["bin_evict"] > 0
+          and run["launches"]["pane_emit"]
+          + run["launches"]["emit_count"] > 0,
+          f"K={k} factored launched too few kernels: {run['launches']}")
+
+
+def cw_same(a, b):
+    return all(same_columns(x, y) for x, y in zip(a, b)) and len(a) == len(b)
+
+
+def cw_controls_equal(rows, cells, what):
+    """Every member's rows equal its numpy control, one member at a
+    time (a control at CW_MID holds tens of millions of rows)."""
+    for i, got in enumerate(rows):
+        want = cw_control(cells, CW_WIDTHS[i])
+        check(len(want["ts"]) > 0 and same_columns(got, want),
+              f"{what}: cw{i} rows differ from the numpy control "
+              f"({len(got['ts'])} vs {len(want['ts'])})")
+
+
+def cw_phase():
+    """bench.py's correlated-windows family on the card, every member's
+    rows held to a numpy control: K = 2, 4, 8 at CW_SMALL events,
+    factored and unfactored on the card and factored on the CPU; K = 8
+    at CW_MID, factored and factored under config5's 1 s checkpoint
+    ticker (its barrier drains ship rows)."""
+    t0 = time.perf_counter()
+    cells = cw_cells(CW_SMALL)
+    control_s = time.perf_counter() - t0
+    small = {"auto": collections.Counter(), "0": collections.Counter()}
+    runs = []
+    for k in CW_KS:
+        fact, f_sum, f_l = cw_run(k, CW_SMALL, "auto", None)
+        unf, u_sum, u_l = cw_run(k, CW_SMALL, "0", None)
+        cpu, c_sum, _ = cw_run(k, CW_SMALL, "auto", "cpu")
+        small["auto"].update(f_l)
+        small["0"].update(u_l)
+        cw_gate_factored(f_sum, k)
+        check(u_sum["decision"]["shared_panes"] == 0,
+              f"K={k} under ARROYO_FACTOR_WINDOWS=0 factored")
+        cw_controls_equal(fact, cells, f"K={k} factored at {CW_SMALL}")
+        check(cw_same(unf, fact), f"K={k} unfactored rows differ from the "
+              "factored rows")
+        check(cw_same(cpu, fact), f"K={k} factored rows differ between "
+              "card and cpu")
+        runs += [f_sum, u_sum, c_sum]
+    launches = {"cw_2m_fact": dict(small["auto"]),
+                "cw_2m_unfact": dict(small["0"])}
+    k = CW_KS[-1]
+    check(runs[-3]["pane_update_rows"] < runs[-2]["pane_update_rows"],
+          f"K={k} at {CW_SMALL} events: factored pane_update_rows "
+          f"{runs[-3]['pane_update_rows']} not below unfactored "
+          f"{runs[-2]['pane_update_rows']}")
+    # K = 8 at CW_MID: factored, checkpointed
+    t0 = time.perf_counter()
+    cells = cw_cells(CW_MID)
+    mid_control_s = time.perf_counter() - t0
+    fact, f_sum, launches["cw_8m_fact"] = cw_run(k, CW_MID, "auto", None)
+    cw_gate_factored(f_sum, k)
+    cw_controls_equal(fact, cells, f"K={k} factored at {CW_MID}")
+    del cells
+    ck, c_sum, launches["cw_8m_ckpt"] = cw_run(k, CW_MID, "auto", None,
+                                               ckpt=1.0)
+    cw_gate_factored(c_sum, k)
+    check(cw_same(ck, fact), f"K={k} at {CW_MID} events: the checkpointed "
+          "factored rows differ from the run without checkpoints")
+    check(c_sum["epochs"] and c_sum["factor_drains"] > 0
+          and c_sum["factor_drain_rows"] > 0,
+          f"K={k} at {CW_MID} events with 1 s checkpoints: epochs "
+          f"{c_sum['epochs']}, {c_sum['factor_drains']} drains of "
+          f"{c_sum['factor_drain_rows']} rows")
+    del ck, fact
+    runs += [f_sum, c_sum]
+    for r in runs:
+        print(f"correlated windows K={r['k']} {r['events']} "
+              f"factor={r['factor']} {r['device']}: " + json.dumps(r))
+    print("correlated windows: " + json.dumps({
+        "control_s": control_s, "mid_control_s": mid_control_s,
+        "launches_2m_fact": launches["cw_2m_fact"],
+        "launches_2m_unfact": launches["cw_2m_unfact"]}))
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -4450,7 +4848,8 @@ def main():
         "expand_gather, ring_merge, join_probe, session_union, join_expand, "
         "bin_update, argmax_fire, join_sort, emit_count and emit_gather, "
         "and the join's (join_pairs too), the session union's and the "
-        "keyed-bin state's callers, in turns with this tree's")
+        "keyed-bin state's callers (its key directory and snapshot too), "
+        "in turns with this tree's")
     opts = parser.parse_args()
     smi = environment()
     parent = None
@@ -4458,16 +4857,31 @@ def main():
         parent = parent_kernels(opts.parent)
         print(f"parent kernels from {opts.parent}: build "
               f"{parent.build_s:.3f} s")
-    kernels = kernel_phase(parent)
-    state_phase()
-    launches = dict(zip(PATHS, (main_path(), q8_phase(), c5_phase())))
-    launches["join_inner"], launches["join_left"] = js_phase()
-    launches["hot_items"] = hot_phase()
-    launches["q1"], launches["q7"] = q1_phase(), q7_phase()
-    launches["sql"] = sql_phase()
-    launches.update(reference_phase())
-    launches.update(legacy_phase())
-    launches.update(semi_mw_phase())
+        print("keyed-bin directory and snapshot against the parent: "
+              + json.dumps(directory_callers(parent, "cuda")))
+    seconds = {}
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    kernels = timed("kernels", kernel_phase, parent)
+    timed("state", state_phase)
+    launches = {"q5": timed("q5", main_path), "q8": timed("q8", q8_phase),
+                "config5": timed("config5", c5_phase)}
+    launches["join_inner"], launches["join_left"] = timed("join_stress",
+                                                          js_phase)
+    launches["hot_items"] = timed("hot_items", hot_phase)
+    launches["q1"] = timed("q1", q1_phase)
+    launches["q7"] = timed("q7", q7_phase)
+    launches["sql"] = timed("sql", sql_phase)
+    launches.update(timed("reference", reference_phase))
+    launches.update(timed("legacy", legacy_phase))
+    launches.update(timed("semi_mw", semi_mw_phase))
+    launches.update(timed("correlated_windows", cw_phase))
+    print("phase seconds: " + json.dumps(seconds))
     for r in kernels:
         for path in PATHS:
             r[f"launches_{path}"] = launches[path][r["name"]]

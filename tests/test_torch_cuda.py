@@ -1842,3 +1842,47 @@ def test_join_pairs_cuda_matches_host(cuda_device, nl, nr, monkeypatch):
     assert perf.counter("join_pairs_readbacks") == 1 + over
     for g, w in zip(got, want):
         assert np.array_equal(np.asarray(g, np.int64), np.asarray(w, np.int64))
+
+
+@pytest.mark.cuda
+def test_factored_windows_cuda_match_cpu(cuda_device, monkeypatch):
+    """bench.py's correlated windows at K = 2 (HOP 10 s and 4 s, 2 s
+    slide), factored onto one shared pane ring: the card's rows equal the
+    CPU run's exactly, through ``bin_update`` for the factor's events and
+    the derived rings' fired panes, and ``bin_evict`` for the fires."""
+    from arroyo_tpu_torch import queries
+    from arroyo_tpu_torch.connectors.memory import clear_sink, sink_output
+    from arroyo_tpu_torch.engine.engine import LocalRunner
+    from arroyo_tpu_torch.sql import plan_sql
+
+    monkeypatch.setenv("ARROYO_FACTOR_WINDOWS", "auto")
+    text = queries.SRC.format(n=400_000, b=8_192).replace(
+        "batch_size = '8192'", "batch_size = '8192', base_time_micros = '0'")
+    for i, w in enumerate((10, 4)):
+        text += (
+            f"CREATE TABLE cw{i} (auction BIGINT, window_end BIGINT, num "
+            f"BIGINT, tot BIGINT) WITH (connector = 'memory', name = "
+            f"'cw{i}', type = 'sink');\nINSERT INTO cw{i} SELECT "
+            f"bid.auction as auction, HOP(INTERVAL '2' SECOND, INTERVAL "
+            f"'{w}' SECOND) as window, count(*) AS num, sum(bid.price) AS "
+            f"tot FROM nexmark WHERE bid is not null GROUP BY 1, 2;\n")
+
+    def run(device):
+        prog = plan_sql(text)
+        assert sum(n.operator.kind.value == "derived_window"
+                   for n in prog.nodes()) == 2
+        for i in range(2):
+            clear_sink(f"cw{i}")
+        LocalRunner(prog, device=device).run()
+        return [sorted((int(b.timestamp[j]), int(b.columns["auction"][j]),
+                        int(b.columns["num"][j]), int(b.columns["tot"][j]))
+                       for b in sink_output(f"cw{i}") for j in range(len(b)))
+                for i in range(2)]
+
+    before = (bin_update.launches, bin_evict.launches)
+    got = run(cuda_device)
+    launched = (bin_update.launches - before[0],
+                bin_evict.launches - before[1])
+    want = run("cpu")
+    assert all(want) and got == want
+    assert launched[0] > 0 and launched[1] > 0

@@ -170,6 +170,7 @@ NEW_MODULES = ("arroyo_tpu_torch.q1", "arroyo_tpu_torch.q7",
                "arroyo_tpu_torch.engine.coalesce",
                "arroyo_tpu_torch.queries",
                "arroyo_tpu_torch.graph.factor_windows",
+               "arroyo_tpu_torch.analysis.plan_validator",
                "arroyo_tpu_torch.ops.colmath",
                "arroyo_tpu_torch.sql.lexer",
                "arroyo_tpu_torch.sql.ast_nodes",

@@ -21,8 +21,9 @@ NULLs in the same cells; updating outputs compared as their net rows).
   them (q5 a self-join of its HOP count with the per-window maximum, q7
   a join of the bids with a keyless tumbling maximum): the JAX
   package's rows and the port's fused rows;
-* the shapes that still need an operator the port has not ported (the
-  factor-window rewrite) raise ``SqlPlanError`` naming it."""
+* the JAX tests' factor-window pair (two HOP aggregates of one table on
+  one shared pane ring): the JAX package's rows and the port's
+  unfactored rows."""
 
 import datetime as dtm
 import math
@@ -47,7 +48,7 @@ from arroyo_tpu_torch.config5 import config5_produce
 from arroyo_tpu_torch.connectors.memory import clear_sink, sink_output
 from arroyo_tpu_torch.engine.engine import LocalRunner
 from arroyo_tpu_torch.hot_items import hot_items_sql
-from arroyo_tpu_torch.sql import (Planner, SchemaProvider, SqlPlanError,
+from arroyo_tpu_torch.sql import (Planner, SchemaProvider,
                                   plan_sql, register_udaf, unregister_udfs)
 from arroyo_tpu_torch.types import Batch
 
@@ -466,10 +467,9 @@ def test_sql_shape_rows_match_jax(name, tables, sql, net):
         assert got == want
 
 
-# shapes of the JAX package's tests that need an operator the port has not
-# ported: they plan there and raise SqlPlanError in the port, naming it
-UNPORTED = [
-    ("factor_window_pair", _events, """
+# the JAX package's factor-window pair (tests/test_sql.py): two HOP
+# aggregates of one table, which the factor-window rewrite shares
+FACTOR_WINDOW_PAIR = """
     CREATE TABLE s1 (k BIGINT, window_end BIGINT, n BIGINT) WITH (
       connector = 'memory', name = 'fw1', type = 'sink');
     CREATE TABLE s2 (k BIGINT, window_end BIGINT, t BIGINT) WITH (
@@ -477,15 +477,31 @@ UNPORTED = [
     INSERT INTO s1 SELECT k, HOP(INTERVAL '1' SECOND, INTERVAL '4' SECOND)
       as window, count(*) AS n FROM events GROUP BY 1, 2;
     INSERT INTO s2 SELECT k, HOP(INTERVAL '1' SECOND, INTERVAL '2' SECOND)
-      as window, sum(v) AS t FROM events GROUP BY 1, 2""",
-     r"factor-window rewrite.*ROADMAP A\.8"),
-]
+      as window, sum(v) AS t FROM events GROUP BY 1, 2"""
 
 
-@pytest.mark.parametrize("name,tables,sql,message", UNPORTED,
-                         ids=[u[0] for u in UNPORTED])
-def test_sql_shape_needs_an_unported_operator(name, tables, sql, message):
-    jp, pp = _providers(tables())
-    JaxPlanner(jp).plan(sql)
-    with pytest.raises(SqlPlanError, match=message):
-        Planner(pp).plan(sql)
+def test_factor_window_pair_rows_match_jax(jax_like_port, monkeypatch):
+    """The pair plans onto one shared pane ring in both packages; the
+    port's rows equal the JAX package's and the port's unfactored plan's
+    (``ARROYO_FACTOR_WINDOWS=0``)."""
+    def rows(output):
+        return [_rows(output(s)) for s in ("fw1", "fw2")]
+
+    jp, pp = _providers(_events())
+    jprog, prog = JaxPlanner(jp).plan(FACTOR_WINDOW_PAIR), Planner(pp).plan(
+        FACTOR_WINDOW_PAIR)
+    assert [n.operator.kind.value for n in prog.nodes()].count(
+        "window_factor") == 1
+    for s in ("fw1", "fw2"):
+        jax_clear_sink(s)
+        clear_sink(s)
+    JaxLocalRunner(jprog).run()
+    LocalRunner(prog, device="cpu").run()
+    want, got = rows(jax_sink_output), rows(sink_output)
+    assert all(w[0] for w in want) and got == want
+    monkeypatch.setenv("ARROYO_FACTOR_WINDOWS", "0")
+    for s in ("fw1", "fw2"):
+        clear_sink(s)
+    LocalRunner(Planner(_providers(_events())[1]).plan(FACTOR_WINDOW_PAIR),
+                device="cpu").run()
+    assert rows(sink_output) == got

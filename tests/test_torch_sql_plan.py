@@ -13,9 +13,10 @@
   BY without a window, a keyless windowed aggregate, COUNT(DISTINCT) and
   string MIN/MAX on the buffered window, a UDAF under
   ``ARROYO_UDAF_COMPILE=off``, q5 and q7 under ``ARROYO_ARGMAX=0``,
-  ``IN (SELECT ...)`` and a three-way join on one key) plan into the JAX
-  package's nodes, and their operators declare the JAX operators' state
-  tables;
+  ``IN (SELECT ...)``, a three-way join on one key and two correlated
+  HOP aggregates, which the factor-window rewrite shares) plan into the
+  JAX package's nodes, and their operators declare the JAX operators'
+  state tables;
 * a shape that needs an operator the port has not ported raises
   ``SqlPlanError`` at plan time, naming its ROADMAP item;
 * SQL-planned jobs carry the JAX plan's operator ids and its operators'
@@ -210,7 +211,6 @@ WITH b AS (SELECT bid.auction AS auction, bid.price AS price,
 """
 
 UNPORTED = [
-    ("factor_window_pair", FACTOR_PAIR, "factor-window rewrite", "A.8"),
     ("connector", """
 CREATE TABLE t (a BIGINT) WITH (connector = 'single_file',
   path = '/dev/null', type = 'source');
@@ -224,8 +224,6 @@ def test_unported_shape_raises_at_plan_time(name, sql, what, item):
     """Each shape plans in the JAX package (its own tests run them) and
     raises ``SqlPlanError`` naming the operator and the ROADMAP item in
     the port, before any task runs."""
-    if name != "connector":
-        jax_plan_sql(sql)
     with pytest.raises(SqlPlanError) as e:
         plan_sql(sql)
     assert what in str(e.value) and f"ROADMAP {item}" in str(e.value)
@@ -261,6 +259,9 @@ JOIN b Z ON X.auction = Z.auction""", {}),
 SELECT auction FROM b
 WHERE auction IN (SELECT auction.id FROM nexmark
                   WHERE auction is not null)""", {}),
+    # correlated windows: the factor-window rewrite (a shared pane ring,
+    # a derived window a query)
+    "factor_window_pair": (FACTOR_PAIR, {}),
 }
 
 
@@ -292,7 +293,8 @@ def test_newly_ported_shape_plans_as_jax(name, monkeypatch):
               "q5_unfused": OpKind.NON_WINDOW_AGGREGATOR,
               "q7_unfused": OpKind.GLOBAL_KEY,
               "three_way_join": OpKind.MULTI_WAY_JOIN,
-              "in_subquery": OpKind.JOIN_WITH_EXPIRATION}[name]
+              "in_subquery": OpKind.JOIN_WITH_EXPIRATION,
+              "factor_window_pair": OpKind.WINDOW_FACTOR}[name]
     assert expect in kinds and OpKind.WINDOW_ARGMAX not in kinds
 
 
