@@ -31,6 +31,10 @@ class Config:
     # initial per-subtask keyed-state slots (doubles on overflow)
     state_capacity: int = field(
         default_factory=lambda: _env_int("STATE_CAPACITY", 1 << 12))
+    # latency observatory (obs/latency.py): sample 1 record in N at the
+    # sources (0 = off)
+    latency_sample_n: int = field(
+        default_factory=lambda: _env_int("ARROYO_LATENCY_SAMPLE_N", 0))
 
 
 _config: Optional[Config] = None

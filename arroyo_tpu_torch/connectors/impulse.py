@@ -18,6 +18,8 @@ import numpy as np
 from ..config import config
 from ..engine.context import Context
 from ..engine.operator import SourceFinishType, SourceOperator
+from ..obs import profiler
+from ..obs.latency import maybe_stamp
 from ..state.tables import TableDescriptor, global_table
 from ..types import Batch, StopMode, now_micros
 from .registry import ConnectorMeta, register_connector
@@ -79,7 +81,11 @@ class ImpulseSource(SourceOperator):
                       else now_micros()))
         t0_wall = _time.monotonic()
         emitted = 0
+        prof = profiler.active()
+        op_id = ctx.task_info.operator_id
         while total is None or self.counter < total:
+            frame = (prof.begin(op_id, "source_decode")
+                     if prof is not None else None)
             n = batch_size if total is None else min(batch_size,
                                                      total - self.counter)
             counters = np.arange(self.counter, self.counter + n,
@@ -88,9 +94,13 @@ class ImpulseSource(SourceOperator):
                 ts = base + counters.astype(np.int64) * interval
             else:
                 ts = np.full(n, now_micros(), dtype=np.int64)
-            await ctx.collect(Batch(ts, {
+            batch = Batch(ts, {
                 "counter": counters,
-                "subtask_index": np.full(n, idx, dtype=np.uint64)}))
+                "subtask_index": np.full(n, idx, dtype=np.uint64)})
+            if frame is not None:
+                prof.end(frame)
+            maybe_stamp(op_id, batch)
+            await ctx.collect(batch)
             self.counter += n
             state.insert(idx, (self.counter, base))
             cm = await ctx._runner.poll_source_control()

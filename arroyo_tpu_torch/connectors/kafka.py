@@ -24,6 +24,8 @@ from ..config import config
 from ..engine.context import Context
 from ..engine.operator import SourceFinishType, SourceOperator
 from ..formats import make_format
+from ..obs import profiler
+from ..obs.latency import maybe_stamp
 from ..state.tables import TableDescriptor, global_table
 from ..types import StopMode
 from .registry import ConnectorMeta, register_connector
@@ -209,6 +211,8 @@ class KafkaSource(SourceOperator):
         batch_size = self.cfg.batch_size or config().target_batch_size
         total = 0
         idle_spins = 0
+        prof = profiler.active()
+        op_id = ctx.task_info.operator_id
         while True:
             got = 0
             for p in my_parts:
@@ -217,7 +221,16 @@ class KafkaSource(SourceOperator):
                 if vals:
                     got += len(vals)
                     total += len(vals)
-                    await ctx.collect(self.fmt.batch(vals))
+                    # decode is the `source_decode` phase, and the decoded
+                    # batch is stamped, as the JAX package's source
+                    # batcher does (arroyo_tpu/engine/coalesce.py)
+                    frame = (prof.begin(op_id, "source_decode")
+                             if prof is not None else None)
+                    batch = self.fmt.batch(vals)
+                    if frame is not None:
+                        prof.end(frame)
+                    maybe_stamp(op_id, batch)
+                    await ctx.collect(batch)
                     offsets[p] = last + 1
                     state.insert(p, last)
             cm = await ctx._runner.poll_source_control()

@@ -9,6 +9,7 @@ from typing import Any, Dict, List
 
 from ..engine.context import Context
 from ..engine.operator import Operator, SourceFinishType, SourceOperator
+from ..obs.latency import maybe_stamp
 from ..types import Batch
 from .registry import ConnectorMeta, register_connector
 
@@ -34,6 +35,7 @@ class MemorySource(SourceOperator):
         if ctx.task_info.task_index != 0:
             return SourceFinishType.FINAL  # single-reader source
         for b in self.batches:
+            maybe_stamp(ctx.task_info.operator_id, b)
             await ctx.collect(b)
             cm = await ctx._runner.poll_source_control()
             if cm is not None and cm.kind == "stop":

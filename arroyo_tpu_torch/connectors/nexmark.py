@@ -20,6 +20,8 @@ import numpy as np
 from ..config import config
 from ..engine.context import Context
 from ..engine.operator import SourceFinishType, SourceOperator
+from ..obs import profiler
+from ..obs.latency import maybe_stamp
 from ..state.tables import TableDescriptor, global_table
 from ..types import Batch, StopMode, now_micros
 from .registry import ConnectorMeta, register_connector
@@ -449,12 +451,21 @@ class NexmarkSource(SourceOperator):
             gen.events_so_far = count
         batch_size = self.cfg.batch_size or config().target_batch_size
         wall_base = _time.monotonic() - (gen.inter_event_delay * count) / 1e6
+        prof = profiler.active()
+        op_id = ctx.task_info.operator_id
 
         def gen_next():
+            # executor thread: generation lands in the `source_decode`
+            # phase directly (no nesting off the loop); it overlaps the
+            # loop's own phases
+            t0 = _time.perf_counter() if prof is not None else 0.0
             b, nums = gen.next_batch(batch_size)
             # RNG states are captured WITH the count, so a barrier between
             # emit and prefetch checkpoints a consistent pair
-            return b, nums, gen.events_so_far, gen.snapshot_rng_state()
+            out = b, nums, gen.events_so_far, gen.snapshot_rng_state()
+            if prof is not None:
+                prof.add(op_id, "source_decode", _time.perf_counter() - t0)
+            return out
 
         # prefetch: batch N+1 is generated on a worker thread while batch
         # N flows through the pipeline
@@ -464,6 +475,7 @@ class NexmarkSource(SourceOperator):
             batch, nums, count_after, rng_snap = await fut
             fut = (loop.run_in_executor(None, gen_next)
                    if gen.has_next else None)
+            maybe_stamp(op_id, batch)
             await ctx.collect(batch)
             state.insert(ctx.task_info.task_index,
                          (base_time, split, count_after, rng_snap))

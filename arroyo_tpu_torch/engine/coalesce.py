@@ -16,14 +16,18 @@ Ordering rules:
 
 ``ARROYO_COALESCE=0`` turns coalescing off; ``COALESCE_TARGET``
 (0: ``BATCH_SIZE``) and ``COALESCE_LINGER_MICROS`` bound the size and
-the added latency.  The JAX package's ``SourceBatcher`` (connector
-fragments merged before decode) is not ported."""
+the added latency.  Each flush observes how many batches it merged in
+the task's ``arroyo_worker_coalesce_batches`` histogram; with the phase
+profiler armed, a merge's concat is its ``coalesce_merge`` phase, and a
+merged batch keeps its oldest ingest stamp (``Batch.concat``).  The JAX
+package's ``SourceBatcher`` (connector fragments merged before decode)
+is not ported."""
 
 from __future__ import annotations
 
 import os
 import time as _time
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from ..types import Batch
 
@@ -55,9 +59,15 @@ class BatchCoalescer:
     ``linger`` deadline.  ``add`` returns the batches that became ready;
     ``flush_all`` drains every buffer, in arrival order."""
 
-    def __init__(self, target: int, linger_secs: float):
+    def __init__(self, target: int, linger_secs: float,
+                 histogram: Optional[Any] = None,
+                 prof: Optional[Any] = None, prof_op: str = ""):
         self.target = max(int(target), 1)
         self.linger = max(float(linger_secs), 0.0)
+        self.histogram = histogram  # batches merged per flush
+        # phase profiler: None unless armed
+        self.prof = prof
+        self.prof_op = prof_op
         self._bufs: Dict[int, _SideBuffer] = {}  # side -> buffer (ordered)
         self._deadline: Optional[float] = None
 
@@ -70,6 +80,19 @@ class BatchCoalescer:
         """Monotonic time by which pending buffers must flush."""
         return self._deadline
 
+    def _merge(self, buf: _SideBuffer) -> Batch:
+        if self.histogram is not None:
+            self.histogram.observe(len(buf.batches))
+        if len(buf.batches) == 1:
+            return buf.batches[0]
+        if self.prof is None:
+            return Batch.concat(buf.batches)
+        frame = self.prof.begin(self.prof_op, "coalesce_merge")
+        try:
+            return Batch.concat(buf.batches)
+        finally:
+            self.prof.end(frame)
+
     def add(self, side: int, batch: Batch) -> List[Tuple[int, Batch]]:
         """Buffer one batch; returns ``[(side, batch)]`` for what became
         ready (a layout change can release the old buffer and the new
@@ -80,12 +103,15 @@ class BatchCoalescer:
         sig = _signature(batch)
         buf = self._bufs.get(side)
         if buf is not None and buf.sig != sig:
-            out.append((side, Batch.concat(buf.batches)))
+            out.append((side, self._merge(buf)))
             del self._bufs[side]
             buf = None
         if buf is None:
             if len(batch) >= self.target:
-                out.append((side, batch))  # at target: no copy, no linger
+                # at target: no copy, no linger
+                if self.histogram is not None:
+                    self.histogram.observe(1)
+                out.append((side, batch))
                 self._retime()
                 return out
             self._bufs[side] = _SideBuffer(sig, batch)
@@ -95,7 +121,7 @@ class BatchCoalescer:
         buf.batches.append(batch)
         buf.rows += len(batch)
         if buf.rows >= self.target:
-            out.append((side, Batch.concat(buf.batches)))
+            out.append((side, self._merge(buf)))
             del self._bufs[side]
             self._retime()
         return out
@@ -103,8 +129,7 @@ class BatchCoalescer:
     def flush_all(self) -> List[Tuple[int, Batch]]:
         """Drain every buffer in arrival order (before any watermark,
         barrier or end of stream, and on linger expiry)."""
-        out = [(side, Batch.concat(buf.batches))
-               for side, buf in self._bufs.items()]
+        out = [(side, self._merge(buf)) for side, buf in self._bufs.items()]
         self._bufs.clear()
         self._deadline = None
         return out

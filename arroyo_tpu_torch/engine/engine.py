@@ -14,21 +14,53 @@ rewrite (graph/factor_windows.py; SQL plans arrive rewritten and the pass
 is idempotent) and the plan validator (analysis/plan_validator.py), as in
 the JAX package.
 
-Left out of the port for now, none of which changes the rows a pipeline
-emits: the runtime sanitizer, the phase profiler, the latency
-observatory, metrics gauges and multi-worker network edges."""
+The engine services, armed in ``start`` in the JAX package's order before
+any subtask is built, each a None-or-instance local at its hook sites
+(disarmed, one ``is not None`` test):
+
+* the runtime sanitizer (analysis/sanitizer.py): ``ARROYO_SANITIZE=1``
+  (tests/conftest.py sets it for every test); a violation raises
+  ``SanitizerError`` in the task that found it, and the run fails;
+* the phase profiler (obs/profiler.py): ``ARROYO_PROFILE=1`` or
+  ``profiler.arm(job_id)`` before the run; read
+  ``profiler.active().snapshot()`` after it.  Its watchdog's sampler
+  thread is stopped and joined when ``LocalRunner.run`` returns;
+* the latency observatory (obs/latency.py):
+  ``ARROYO_LATENCY_SAMPLE_N=32`` (then ``config.reset_config()``) or
+  ``latency.arm(job_id, 32)``; read ``sink_quantiles()``,
+  ``critical_path()`` and ``snapshot()`` after the run.
+
+Always on, as in the JAX package: the task metrics (obs/metrics.py, the
+reference's names; ``metrics.render_metrics()`` is the Prometheus text),
+the chain-size and factor-window gauges, and the span ring
+(obs/tracing.py, ``tracing.chrome_trace()``).  On the card the same
+variables arm them (``env ARROYO_SANITIZE=1 ARROYO_PROFILE=1
+ARROYO_LATENCY_SAMPLE_N=32 python3 ...``); they add no kernel launch, no
+device allocation and no sync but ``ARROYO_TIMING=1``'s.  Multi-worker
+network edges are not ported."""
 
 from __future__ import annotations
 
 import asyncio
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
+from ..analysis.sanitizer import maybe_sanitizer
 from ..config import config
 from ..device import DeviceLike, resolve_device
 from ..graph.chaining import plan_chains, validate_chain_plan
 from ..graph.factor_windows import apply_factor_windows
-from ..graph.logical import EdgeType, Program
+from ..graph.logical import EdgeType, OpKind, Program
+from ..obs import latency as _latency
+from ..obs import profiler as _profiler
+from ..obs.metrics import (
+    CHAIN_MEMBERS,
+    TaskMetrics,
+    factor_derived_windows_gauge,
+    factor_shared_panes_gauge,
+    gauge_for_task,
+    mesh_carried_gauge,
+)
 from ..state.backend import BackingStore, InMemoryBackend
 from ..state.store import StateStore
 from ..types import (
@@ -80,14 +112,30 @@ class Engine:
         # (operator id, subtask index)
         self.members: Dict[Tuple[str, int], Tuple[Operator, Context]] = {}
         self.resps: List[ControlResp] = []
+        self.sanitizer: Optional[Any] = None  # set by start()
 
     def start(self) -> "RunningEngine":
         """Build the physical graph and spawn all subtask loops: one
         runner per chain head (graph/chaining.py) and per unchained
         operator, at each subtask index."""
+        # the services arm before any subtask is built, so collectors,
+        # coalescers and contexts capture them: one sanitizer a run, the
+        # process-wide profiler and latency observatory when asked for
+        self.sanitizer = maybe_sanitizer(self.job_id)
+        prof = _profiler.ensure_armed(self.job_id)
+        _latency.ensure_armed(self.job_id)
         prog = self.program
         plan = plan_chains(prog)
         validate_chain_plan(prog, plan)
+        # set unconditionally: the gauges are process-wide per job_id, so
+        # a re-plan must drop them back to 0.  One device carries no
+        # shuffle edge on a mesh
+        mesh_carried_gauge(self.job_id).set(0)
+        kinds = [n.operator.kind for n in prog.nodes()]
+        factor_shared_panes_gauge(self.job_id).set(
+            kinds.count(OpKind.WINDOW_FACTOR))
+        factor_derived_windows_gauge(self.job_id).set(
+            kinds.count(OpKind.DERIVED_WINDOW))
         interior = {m for grp in plan.groups for m in grp[1:]}
         queues: Dict[Tuple[str, int, str, int], asyncio.Queue] = {}
         qsize = config().queue_size
@@ -105,6 +153,10 @@ class Engine:
 
         for handle in self.subtasks.values():
             handle.task = asyncio.ensure_future(handle.runner.start())
+        if prof is not None:
+            # event-loop stall watchdog: one ticker a loop, its sampler
+            # thread started lazily (LocalRunner stops it at the end)
+            prof.watchdog.ensure_ticker()
         return RunningEngine(self)
 
     def _build_subtask(self, ms: List[str], idx: int, queue_for) -> None:
@@ -147,27 +199,32 @@ class Engine:
                                                         idx))))
         infos = [TaskInfo(self.job_id, m, prog.node(m).operator.name, idx,
                           par) for m in ms]
+        metrics = [TaskMetrics(info) for info in infos]
         ops = [build_operator(prog.node(m).operator, self.device)
                for m in ms]
-        collector = Collector(edge_groups)
+        collector = Collector(edge_groups, metrics[-1], op_id=tail)
         ctxs: List[Context] = []
-        operator = ops[0] if len(ms) == 1 else ChainedOperator(ops)
+        operator = ops[0] if len(ms) == 1 else ChainedOperator(infos, ops)
         for i, info in enumerate(infos):
             store = StateStore(info, self.backend, self.restore_epoch,
                                self.device)
+            store.sanitizer = self.sanitizer
             coll = (collector if i == len(ms) - 1
                     else operator.make_link(i))
             ctxs.append(Context(info, coll,
                                 n_inputs=len(inputs) if i == 0 else 1,
                                 state_store=store,
                                 control_tx=self.control_resp,
-                                restore_watermark=store.restore_watermark()))
+                                restore_watermark=store.restore_watermark(),
+                                metrics=metrics[i]))
             self.members[(ms[i], idx)] = (ops[i], ctxs[i])
         if len(ms) > 1:
             operator.bind(ctxs)
+        gauge_for_task(infos[0], CHAIN_MEMBERS,
+                       "operators fused into this task").set(len(ms))
         control_rx: asyncio.Queue = asyncio.Queue()
         runner = TaskRunner(infos[0], operator, ctxs[0], inputs, control_rx,
-                            self.control_resp)
+                            self.control_resp, sanitizer=self.sanitizer)
         ctxs[0]._runner = runner  # sources poll control through it
         self.subtasks[(head, idx)] = SubtaskHandle(
             infos[0], runner, control_rx,
@@ -282,6 +339,11 @@ class LocalRunner:
         finally:
             if ticker:
                 ticker.cancel()
+            prof = _profiler.active()
+            if prof is not None:
+                # no thread the services start outlives the run (the
+                # profiler stays armed, its buckets kept)
+                prof.watchdog.stop()
 
     def run(self, checkpoint_interval_secs: Optional[float] = None
             ) -> List[ControlResp]:

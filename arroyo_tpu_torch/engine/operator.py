@@ -5,8 +5,9 @@ Operator hooks are overridable methods; one generic
 from __future__ import annotations
 
 from enum import Enum
-from typing import Any, List
+from typing import Any, List, Optional
 
+from ..obs import tracing
 from ..state.tables import TableDescriptor
 from ..types import Batch, CheckpointBarrier
 from .context import Context
@@ -20,6 +21,15 @@ class SourceFinishType(Enum):
 
 class Operator:
     """Base for single-input (and generic) operators."""
+
+    # True when the operator records its own per-batch lag/latency
+    # metrics and `proc` phases (ChainedOperator, per member); the
+    # TaskRunner then skips its task-level observation
+    own_batch_metrics = False
+
+    # the runtime sanitizer (analysis/sanitizer.py) the TaskRunner
+    # installs; None unless ARROYO_SANITIZE armed it
+    sanitizer: Optional[Any] = None
 
     def __init__(self, name: str):
         self.name = name
@@ -42,10 +52,21 @@ class Operator:
                                ctx: Context) -> List[Any]:
         """Snapshot this operator's state at a barrier, after its
         ``pre_checkpoint``; returns the checkpoint metadata to report."""
-        await self.pre_checkpoint(barrier, ctx)
+        tid = ctx.task_info.task_id
+        with tracing.span("checkpoint.pre", "checkpoint", tid=tid,
+                          args={"epoch": barrier.epoch}):
+            await self.pre_checkpoint(barrier, ctx)
         ctx.state.get_global_keyed_state("[").insert(
             "timers", ctx.timers.snapshot())
-        return [ctx.state.checkpoint(barrier.epoch, ctx.last_watermark)]
+        with tracing.span("checkpoint.sync", "checkpoint", tid=tid,
+                          args={"epoch": barrier.epoch}):
+            metadata = ctx.state.checkpoint(barrier.epoch,
+                                            ctx.last_watermark)
+        if ctx.metrics is not None:
+            ctx.metrics.checkpoint_duration.observe(max(
+                (metadata.finish_time - metadata.start_time) / 1e6, 0.0))
+            ctx.metrics.checkpoint_bytes.observe(metadata.bytes)
+        return [metadata]
 
     async def pre_checkpoint(self, barrier: CheckpointBarrier,
                              ctx: Context) -> None:

@@ -14,9 +14,10 @@ import torch
 
 from ..graph.logical import (AggKind, AggSpec, ColumnExpr, ExprReturnType,
                              PeriodicWatermarkSpec)
+from ..obs import tracing
 from ..ops.expr import CompiledExpr, eval_host_expr, eval_predicate, eval_record_expr
 from ..state.tables import TableDescriptor, TableType
-from ..types import MAX_TIMESTAMP, Batch, Message, Watermark
+from ..types import MAX_TIMESTAMP, Batch, Message, Watermark, now_micros
 from .context import Context
 from .operator import Operator
 
@@ -141,6 +142,7 @@ class WatermarkOperator(Operator):
         self.max_ts: Optional[int] = None
         self.last_emitted: Optional[int] = None
         self.last_data_wall: float = _time.monotonic()
+        self._last_trace_wall: float = 0.0
         self._idle_task: Optional[asyncio.Task] = None
         self._expr_fn = spec.expression.fn if spec.expression else None
 
@@ -171,6 +173,17 @@ class WatermarkOperator(Operator):
             wm = self.max_ts - self.spec.max_lateness_micros
             if self.last_emitted is None or wm > self.last_emitted:
                 self.last_emitted = wm
+                # flight-recorder tap: the assigner's watermark is the
+                # origin every downstream lag follows; at most 10/s an
+                # operator, so the bounded span ring keeps its rarer spans
+                wall = _time.monotonic()
+                if wall - self._last_trace_wall >= 0.1:
+                    self._last_trace_wall = wall
+                    tracing.instant(
+                        "watermark.emit", "watermark",
+                        tid=tracing.ctx_tid(ctx),
+                        args={"watermark": int(wm),
+                              "lag_s": round((now_micros() - wm) / 1e6, 4)})
                 await ctx.broadcast(Message.wm(Watermark.event_time(wm)))
 
     async def handle_watermark(self, watermark: int, ctx: Context) -> None:

@@ -37,11 +37,21 @@
 * :class:`NonWindowAggOperator` — the updating GROUP BY without a window:
   running per-key aggregates emitting CREATE/UPDATE rows, or, with
   ``flush_key``, a per-window re-aggregation that emits each window's
-  final row once, when the watermark passes it."""
+  final row once, when the watermark passes it.
+
+With the latency observatory armed, the operators that hold rows until a
+fire (bin aggregates, buffered, session and windowed-join windows) carry
+the newest ingest stamp of the batches since their last fire onto the
+fired batch (``_lat_track`` / ``_lat_consume``, charging the wait to the
+``watermark_hold`` stage); a bin aggregate's pending stamp rides its
+checkpoint as ``__lat_stamp``, the JAX package's key, so the checkpoint
+restores in either package.  Fires are the ``window.fire``,
+``window.session_fire`` and ``window.flush_ready`` trace spans."""
 
 from __future__ import annotations
 
 import asyncio
+import time as _time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -60,7 +70,8 @@ from ..graph.logical import (
     SlidingWindow,
     TumblingWindow,
 )
-from ..obs import perf
+from ..obs import latency as _latency
+from ..obs import perf, tracing
 from ..ops.expr import CompiledExpr, eval_record_expr
 from ..ops.keyed_bins import KeyedBinState, filter_canonical_snapshot
 from ..ops.segment import segment_aggregate
@@ -78,6 +89,33 @@ MAX_SESSION_SIZE_MICROS = 24 * 3600 * 1_000_000  # the longest session
 # rows from which a TopN ranks on the device; below it a host lexsort is
 # cheaper than the device call
 TOP_N_DEVICE_ROWS = 512
+
+
+def _lat_track(pending: Optional[Tuple[int, float]], batch: Batch
+               ) -> Optional[Tuple[int, float]]:
+    """Latency-observatory pane inheritance, input side: fold one
+    incoming batch's ingest stamp into the operator's pending
+    ``(max_stamp, arrival_monotonic)``.  A fired pane inherits the MAX
+    contributing stamp (the newest sampled record still waiting)."""
+    if batch.lat_stamp is None:
+        return pending
+    stamp = (batch.lat_stamp if pending is None
+             else max(pending[0], batch.lat_stamp))
+    return (stamp, _time.monotonic())
+
+
+def _lat_consume(pending: Optional[Tuple[int, float]]) -> Optional[int]:
+    """Latency-observatory pane inheritance, fire side: the stamp to
+    attach to the fired batch; charges the ``watermark_hold``
+    critical-path stage with how long the sample waited in pane state."""
+    if pending is None:
+        return None
+    lat = _latency.active()
+    stamp, arrival = pending
+    if lat is not None:
+        lat.note_stage("watermark_hold",
+                       max(_time.monotonic() - arrival, 0.0))
+    return stamp
 
 
 class _SlotKeyValues:
@@ -148,6 +186,10 @@ class BinAggOperator(Operator):
                                         resolve_device(device))
                            if projection else None)
         self._key_cols: Tuple[str, ...] = ()
+        # latency-observatory pane inheritance: (max contributing ingest
+        # stamp, monotonic arrival) pending until the next pane fire
+        self._lat_pending: Optional[Tuple[int, float]] = None
+        self._ledger_updates = 0  # throttles the pane_state_registry note
 
     def _offload_transfers(self) -> bool:
         """Run device update/emit in an executor thread when the state
@@ -158,9 +200,18 @@ class BinAggOperator(Operator):
 
     async def on_start(self, ctx: Context) -> None:
         def snap():
-            return self.state.snapshot() | self.keyvals.snapshot()
+            out = self.state.snapshot() | self.keyvals.snapshot()
+            if self._lat_pending is not None:
+                # a sampled record held in pane state at the barrier is
+                # still measured after a restore (the JAX package's key)
+                out["__lat_stamp"] = np.array([self._lat_pending[0]],
+                                              np.int64)
+            return out
 
         def restore(arrays, _kr=ctx.task_info.key_range):
+            st = arrays.pop("__lat_stamp", None)
+            if st is not None:
+                self._lat_pending = (int(st[0]), _time.monotonic())
             # rescale re-partitioning: keep only the keys this subtask owns
             arrays = filter_canonical_snapshot(arrays, _kr)
             self.state.restore(arrays)
@@ -175,27 +226,50 @@ class BinAggOperator(Operator):
                             side: int = 0) -> None:
         if batch.key_hash is None:
             raise ValueError(f"{self.name} requires keyed input")
+        self._lat_pending = _lat_track(self._lat_pending, batch)
         self._key_cols = batch.key_cols
         prev = self.state.next_slot
         slots = self.state._lookup_or_insert(batch.key_hash)
         self.keyvals.ensure(batch, slots, prev, self.state.next_slot)
         # safe to offload: this operator's messages are processed serially
         if self._offload_transfers():
-            await asyncio.get_running_loop().run_in_executor(
-                None, self.state.update, batch.key_hash, batch.timestamp,
-                batch.columns)
+            await perf.run_offloaded(
+                asyncio.get_running_loop(), self.state.update,
+                batch.key_hash, batch.timestamp, batch.columns)
         else:
             self.state.update(batch.key_hash, batch.timestamp, batch.columns)
+        self._ledger_updates += 1
+        if self._ledger_updates % 16 == 1:
+            self._note_device_bytes()
+
+    def _note_device_bytes(self) -> None:
+        """The device-memory ledger's note (obs/latency.py
+        ``device_state_tables``): one entry an operator instance, read off
+        the plane handles (no transfer)."""
+        reg = perf.get_note("pane_state_registry")
+        if not isinstance(reg, dict):
+            reg = {}
+            perf.note("pane_state_registry", reg)
+        reg[self.name] = self.state.device_bytes()
+
+    async def on_close(self, ctx: Context) -> None:
+        self._note_device_bytes()  # the ledger holds the final planes
 
     async def handle_watermark(self, watermark: int, ctx: Context) -> None:
         final = watermark >= int(MAX_TIMESTAMP) - 1
-        if self._offload_transfers():
-            fired = await asyncio.get_running_loop().run_in_executor(
-                None, lambda: self.state.fire_panes(watermark, final=final))
-        else:
-            fired = self.state.fire_panes(watermark, final=final)
-        if fired is not None:
-            await self._emit(fired, ctx)
+        # flight-recorder tap: pane firing is where windowed pipelines
+        # spend their watermark-driven time
+        with tracing.span("window.fire", "window",
+                          tid=tracing.ctx_tid(ctx),
+                          args={"watermark": int(watermark)}):
+            if self._offload_transfers():
+                fired = await perf.run_offloaded(
+                    asyncio.get_running_loop(),
+                    lambda: self.state.fire_panes(watermark, final=final))
+            else:
+                fired = self.state.fire_panes(watermark, final=final)
+            if fired is not None:
+                await self._emit(fired, ctx)
         await ctx.broadcast(Message.wm(Watermark.event_time(watermark)))
 
     async def _emit(self, fired, ctx: Context) -> None:
@@ -209,7 +283,9 @@ class BinAggOperator(Operator):
         cols.update(out_cols)
         ts = window_end - 1  # rows stamp at window end - 1
         key_cols = self._key_cols or tuple(self.keyvals.cols)
-        out = Batch(ts, cols, keys.astype(np.uint64), key_cols)
+        out = Batch(ts, cols, keys.astype(np.uint64), key_cols,
+                    lat_stamp=_lat_consume(self._lat_pending))
+        self._lat_pending = None
         if self.top_n is not None:
             out = _apply_top_n(out, *self.top_n, device=self.state.device)
         if self.projection is not None:
@@ -234,8 +310,8 @@ class FactorPaneOperator(BinAggOperator):
 
     async def pre_checkpoint(self, barrier, ctx: Context) -> None:
         if self._offload_transfers():
-            fired = await asyncio.get_running_loop().run_in_executor(
-                None, self.state.drain_deltas)
+            fired = await perf.run_offloaded(asyncio.get_running_loop(),
+                                             self.state.drain_deltas)
         else:
             fired = self.state.drain_deltas()
         if fired is not None:
@@ -432,6 +508,7 @@ class WindowArgmaxOperator(Operator):
     async def on_start(self, ctx: Context) -> None:
         self.buf = ctx.state.get_batch_buffer("b")
         self.final = ctx.state.get_time_key_map("f") if self.raw else None
+        self._lat_pending: Optional[Tuple[int, float]] = None
         if ctx.last_watermark is not None:
             # windows at or below the checkpoint watermark fired before
             # the restore; a late replayed row matches ``f`` instead
@@ -488,15 +565,20 @@ class WindowArgmaxOperator(Operator):
             return None
         return batch.select(np.nonzero(keep)[0])
 
-    async def _emit(self, rows: Batch, ctx: Context) -> None:
+    async def _emit(self, rows: Batch, ctx: Context,
+                    lat_stamp: Optional[int] = None) -> None:
         cols = dict(rows.columns)
         for out_name, src in self.synth_cols:
             cols[out_name] = cols[src]
         await ctx.collect(Batch(rows.timestamp, cols, rows.key_hash,
-                                rows.key_cols))
+                                rows.key_cols, lat_stamp=lat_stamp))
 
     async def process_batch(self, batch: Batch, ctx: Context,
                             side: int = 0) -> None:
+        # a window fire, so the fired rows inherit the pane stamp rule
+        # (the JAX package's WindowArgmaxOperator drops stamps here:
+        # ROADMAP C14)
+        self._lat_pending = _lat_track(self._lat_pending, batch)
         if self.raw:
             batch = await self._admit(batch, ctx)
             if batch is None:
@@ -530,8 +612,10 @@ class WindowArgmaxOperator(Operator):
             self.final.insert(end, "x", best)
             if self.late_ttl:
                 self.final.evict_before(end - self.late_ttl)
+        stamp = _lat_consume(self._lat_pending)
+        self._lat_pending = None
         await self._emit(rows.select(np.nonzero(valid & (vals == best))[0]),
-                         ctx)
+                         ctx, stamp)
 
 
 # -- window join ----------------------------------------------------------------------
@@ -759,6 +843,7 @@ class WindowJoinOperator(Operator):
         self.right = ctx.state.get_join_buffer("r", "right buffer",
                                                self.width)
         self._partitioned = isinstance(self.left, PartitionedJoinBuffer)
+        self._lat_pending: Optional[Tuple[int, float]] = None
 
     def _drop_never_emitting(self, batch: Batch,
                              side: int) -> Optional[Batch]:
@@ -773,6 +858,7 @@ class WindowJoinOperator(Operator):
                             side: int = 0) -> None:
         if batch.key_hash is None:
             raise ValueError(f"{self.name} requires keyed inputs")
+        self._lat_pending = _lat_track(self._lat_pending, batch)
         self._tmpl[side].observe(batch)
         buffered = self._drop_never_emitting(batch, side)
         if buffered is not None and len(buffered):
@@ -794,6 +880,8 @@ class WindowJoinOperator(Operator):
         out = (self._fire_partitioned(start, end) if self._partitioned
                else self._fire_legacy(start, end))
         if out is not None and len(out):
+            out.lat_stamp = _lat_consume(self._lat_pending)
+            self._lat_pending = None
             await ctx.collect(out)
         evict_to = end - self.width + self.slide
         self.left.evict_before(evict_to)
@@ -873,6 +961,12 @@ class JoinWithExpirationOperator(Operator):
         self.right = ctx.state.get_join_buffer("r", "right state",
                                                self.right_ttl)
         self._partitioned = isinstance(self.left, PartitionedJoinBuffer)
+
+    async def on_close(self, ctx: Context) -> None:
+        if self._partitioned:
+            # the device-memory ledger holds the final rings
+            self.left.note_stats()
+            self.right.note_stats()
 
     def _orient(self, mine_rows: Batch, opp_cols: Dict[str, np.ndarray],
                 side: int, end: int, op: Optional[int]) -> Batch:
@@ -1266,10 +1360,12 @@ class WindowOperator(Operator):
 
     async def on_start(self, ctx: Context) -> None:
         self.buffer = ctx.state.get_batch_buffer("w")
+        self._lat_pending: Optional[Tuple[int, float]] = None
 
     async def process_batch(self, batch: Batch, ctx: Context,
                             side: int = 0) -> None:
         assert batch.key_hash is not None
+        self._lat_pending = _lat_track(self._lat_pending, batch)
         self.buffer.append(batch)
         # rows at ts belong to the windows ending at the slide-aligned
         # points in (ts, ts + width]
@@ -1305,6 +1401,8 @@ class WindowOperator(Operator):
                 cols.update(agg_cols)
                 out = Batch(np.full(len(uniq), end - 1, np.int64), cols,
                             uniq.astype(np.uint64), rows.key_cols)
+            out.lat_stamp = _lat_consume(self._lat_pending)
+            self._lat_pending = None
             if self.projection is not None:
                 out = eval_record_expr(self.projection, out)
             await ctx.collect(out)
@@ -1348,6 +1446,7 @@ class SessionWindowOperator(Operator):
         # interface, so the per-key clamp path below runs unchanged
         self.windows = ctx.state.get_session_state("v")
         self._device_state = isinstance(self.windows, SessionRunState)
+        self._lat_pending: Optional[Tuple[int, float]] = None
 
     def _merge_key(self, kh: int, times: np.ndarray, ctx: Context) -> None:
         """handle_event extend/merge/create (windows.rs:232-302)."""
@@ -1383,6 +1482,7 @@ class SessionWindowOperator(Operator):
     async def process_batch(self, batch: Batch, ctx: Context, side: int = 0) -> None:
         if batch.key_hash is None:
             raise ValueError(f"{self.name} requires keyed input")
+        self._lat_pending = _lat_track(self._lat_pending, batch)
         self.buffer.append(batch)
         # collapse events -> candidate session intervals for the WHOLE
         # batch in three vector ops (events within gap of their
@@ -1604,13 +1704,18 @@ class SessionWindowOperator(Operator):
             cols["window_end"] = seg_e_a[ui]
             cols.update(agg_cols)
             out = Batch(seg_e_a[ui] - 1, cols, seg_kh_a[ui], sub.key_cols)
+        out.lat_stamp = _lat_consume(self._lat_pending)
+        self._lat_pending = None
         if self.projection is not None:
             out = eval_record_expr(self.projection, out)
         await ctx.collect(out)
 
     async def handle_watermark(self, watermark: int, ctx: Context) -> None:
-        self._collect_expired(watermark)
-        await self._flush_fires(ctx)
+        with tracing.span("window.session_fire", "window",
+                          tid=tracing.ctx_tid(ctx),
+                          args={"watermark": int(watermark)}):
+            self._collect_expired(watermark)
+            await self._flush_fires(ctx)
         # evict data older than every live session start
         if self._device_state:
             ls = self.windows.min_live_start()
@@ -1746,7 +1851,10 @@ class NonWindowAggOperator(Operator):
     async def handle_watermark(self, watermark: int, ctx: Context) -> None:
         if self.flush_key is not None:
             perf.count("nonwindow_flushes")
-            await self._flush_ready(watermark, ctx)
+            with tracing.span("window.flush_ready", "window",
+                              tid=tracing.ctx_tid(ctx),
+                              args={"watermark": int(watermark)}):
+                await self._flush_ready(watermark, ctx)
         await ctx.broadcast(Message.wm(Watermark.event_time(watermark)))
 
     async def _flush_ready(self, watermark: int, ctx: Context) -> None:

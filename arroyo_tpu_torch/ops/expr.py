@@ -183,7 +183,8 @@ def eval_record_expr(expr: CompiledExpr, batch: Batch,
     for k, v in host_cols.items():
         if k not in cols:
             cols[k] = v
-    return Batch(ts, cols, batch.key_hash, batch.key_cols)
+    return Batch(ts, cols, batch.key_hash, batch.key_cols,
+                 lat_stamp=batch.lat_stamp)
 
 
 def eval_predicate(expr: CompiledExpr, batch: Batch,

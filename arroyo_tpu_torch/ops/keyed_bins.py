@@ -816,6 +816,13 @@ class KeyedBinState:
     # compact per-key LINEAR bin columns (column j = absolute bin lo+j)
     # plus the host key directory.
 
+    def device_bytes(self) -> int:
+        """Resident bytes of the bin planes, read off the tensor handles
+        (no transfer): the device-memory ledger's pane entry
+        (obs/latency.py ``device_state_tables``)."""
+        return (self.values.numel() * self.values.element_size()
+                + self.counts.numel() * self.counts.element_size())
+
     def snapshot(self) -> Dict[str, np.ndarray]:
         self.flush_updates()  # buffered cells belong to this epoch
         n = self.next_slot

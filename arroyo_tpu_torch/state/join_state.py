@@ -34,7 +34,8 @@ keys-only ring with ``join_probe`` + ``join_expand`` and a host verify
 (``probe``), a cold partition on the host mirror.  Outer joins look keys
 up with ``contains_keys`` and ``rows_with_keys`` (``probe`` + ``gather``).
 Every buffer notes its ``stats()`` in the ``join_state_registry`` perf
-note every 16th append; ``aggregate_stats_registry`` folds the notes.
+note every 16th append, and the join with expiration once more when it
+closes; ``aggregate_stats_registry`` folds the notes.
 
 ``remove_keys`` drops a set of keys (the semi join's emitted left rows).
 The legacy layout (:func:`make_join_buffer` under ``ARROYO_JOIN_STATE=
@@ -53,7 +54,8 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..obs import perf
+from ..obs import perf, profiler
+from ..obs.metrics import join_gather_counter
 from ..types import Batch
 from .tables import BatchBuffer
 
@@ -65,11 +67,22 @@ _PAYLOAD_KINDS = "fiubMm"
 
 
 def _count_gather(dev_rows: int, host_rows: int) -> None:
-    """Account materialized join rows to the device/host gather split."""
+    """Account materialized join rows to the device/host gather split
+    (perf counters and their metric mirrors)."""
     if dev_rows:
         perf.count("join_device_gather_rows", dev_rows)
+        join_gather_counter("device").inc(dev_rows)
     if host_rows:
         perf.count("join_host_gather_rows", host_rows)
+        join_gather_counter("host").inc(host_rows)
+
+
+def _gather_frame():
+    """The profiler's ``gather`` phase around a materialization, charged
+    to the running task's operator, or None when the profiler is off."""
+    prof = profiler.active()
+    return (prof.begin(perf.active_operator_id() or "join", "gather")
+            if prof is not None else None)
 
 
 def _fill_cols(cols: Dict[str, np.ndarray], n: int, sel: Any,
@@ -501,13 +514,21 @@ class PartitionedJoinBuffer(BatchBuffer):
                 pt.demote()
         self._appends += 1
         if self._appends % 16 == 1:
-            # throttled note, one entry per buffer (a join has two sides);
-            # the reader clears the registry and folds it
-            reg = perf.get_note("join_state_registry")
-            if not isinstance(reg, dict):
-                reg = {}
-                perf.note("join_state_registry", reg)
-            reg[self._uid] = self.stats()
+            self.note_stats()  # throttled
+
+    def note_stats(self) -> None:
+        """Note this buffer's ``stats()`` in the ``join_state_registry``
+        perf note, one entry a buffer (a join has two sides); the reader
+        clears the registry and folds it.  The entry also carries
+        ``ring_key_bytes``, the keys-only rings' bytes (their ``hi``/``lo``
+        planes), for the device-memory ledger (obs/latency.py)."""
+        reg = perf.get_note("join_state_registry")
+        if not isinstance(reg, dict):
+            reg = {}
+            perf.note("join_state_registry", reg)
+        key_bytes = sum(part.dev.payload_bytes() for part in self.parts
+                        if part.dev is not None and part.dev.plan is None)
+        reg[self._uid] = {**self.stats(), "ring_key_bytes": key_bytes}
 
     def _rebalance_hot(self) -> None:
         """Deterministic hot-set maintenance: the top-``budget`` partitions
@@ -685,21 +706,26 @@ class PartitionedJoinBuffer(BatchBuffer):
         cols: Dict[str, np.ndarray] = {}
         dev_rows = host_rows = 0
         at = 0
-        for part, spos, dcols, dts in blocks:
-            m = len(spos)
-            sel = slice(at, at + m)
-            kh[sel] = part.skeys[spos]
-            if dcols is not None:
-                ts[sel] = dts
-                pcols = dcols
-                dev_rows += m
-            else:
-                ts[sel] = part.sts[spos]
-                rows = part.order[spos]
-                pcols = {c: v[rows] for c, v in part.cols.items()}
-                host_rows += m
-            _fill_cols(cols, total, sel, pcols)
-            at += m
+        frame = _gather_frame()
+        try:
+            for part, spos, dcols, dts in blocks:
+                m = len(spos)
+                sel = slice(at, at + m)
+                kh[sel] = part.skeys[spos]
+                if dcols is not None:
+                    ts[sel] = dts
+                    pcols = dcols
+                    dev_rows += m
+                else:
+                    ts[sel] = part.sts[spos]
+                    rows = part.order[spos]
+                    pcols = {c: v[rows] for c, v in part.cols.items()}
+                    host_rows += m
+                _fill_cols(cols, total, sel, pcols)
+                at += m
+        finally:
+            if frame is not None:
+                profiler.active().end(frame)
         _count_gather(dev_rows, host_rows)
         return Batch(ts, cols, kh, self.key_cols)
 
@@ -732,23 +758,28 @@ class PartitionedJoinBuffer(BatchBuffer):
         kh = np.empty(n, dtype=np.uint64)
         cols: Dict[str, np.ndarray] = {}
         dev_rows = host_rows = 0
-        for p in np.unique(part_of).tolist():
-            part = self.parts[p]
-            sel = part_of == p
-            spos = pos[sel]
-            kh[sel] = part.skeys[spos]
-            ring = part.dev
-            if ring is not None and ring.plan is not None:
-                gf, gi = dj.gather_ring(ring, spos)
-                pts, pcols = dj.unpack_payload(ring, gf, gi)
-                ts[sel] = pts
-                dev_rows += len(spos)
-            else:
-                ts[sel] = part.sts[spos]
-                rows = part.order[spos]
-                pcols = {c: v[rows] for c, v in part.cols.items()}
-                host_rows += len(spos)
-            _fill_cols(cols, n, sel, pcols)
+        frame = _gather_frame()
+        try:
+            for p in np.unique(part_of).tolist():
+                part = self.parts[p]
+                sel = part_of == p
+                spos = pos[sel]
+                kh[sel] = part.skeys[spos]
+                ring = part.dev
+                if ring is not None and ring.plan is not None:
+                    gf, gi = dj.gather_ring(ring, spos)
+                    pts, pcols = dj.unpack_payload(ring, gf, gi)
+                    ts[sel] = pts
+                    dev_rows += len(spos)
+                else:
+                    ts[sel] = part.sts[spos]
+                    rows = part.order[spos]
+                    pcols = {c: v[rows] for c, v in part.cols.items()}
+                    host_rows += len(spos)
+                _fill_cols(cols, n, sel, pcols)
+        finally:
+            if frame is not None:
+                profiler.active().end(frame)
         _count_gather(dev_rows, host_rows)
         return Batch(ts, cols, kh, self.key_cols)
 

@@ -50,6 +50,7 @@ import numpy as np
 
 from ..device import DeviceLike, resolve_device
 from ..obs import perf
+from ..obs.metrics import session_merge_counter
 
 _SESSION_UIDS = itertools.count()
 
@@ -67,12 +68,15 @@ def session_partitions() -> int:
 
 
 def _count_merge(dev_rows: int, host_rows: int) -> None:
-    """Account merged interval rows to the device/host split — the
-    vectorized-merge share is a measured number, not an assumption."""
+    """Account merged interval rows to the device/host split (perf
+    counters and their metric mirrors) — the vectorized-merge share is a
+    measured number, not an assumption."""
     if dev_rows:
         perf.count("session_device_merge_rows", dev_rows)
+        session_merge_counter("device").inc(dev_rows)
     if host_rows:
         perf.count("session_host_merge_rows", host_rows)
+        session_merge_counter("host").inc(host_rows)
 
 
 class _SessionPartition:

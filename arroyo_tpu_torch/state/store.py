@@ -2,13 +2,19 @@
 ``arroyo_tpu.state.store``).  Tables are registered by descriptor; the
 store snapshots every table at a barrier and restores them from the
 backing store, filtered by the task's key range.  Join-side buffers and session
-interval runs live on the store's device, the runner's."""
+interval runs live on the store's device, the runner's.
+
+At each checkpoint the store refreshes the per-table key-count gauges
+(``arroyo_worker_table_size_keys``) and, with the runtime sanitizer
+armed, checks that no table changed size between the snapshot and its
+persistence (``mutation-during-checkpoint``)."""
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 from ..device import DeviceLike
+from ..obs.metrics import table_size_gauge
 from ..types import SubtaskCheckpointMetadata, TaskInfo
 from .backend import BackingStore, TableSnapshot
 from .tables import (
@@ -33,6 +39,8 @@ class StateStore:
         self.device = device
         self.descriptors: Dict[str, TableDescriptor] = {}
         self.tables: Dict[str, Any] = {}
+        # the runtime sanitizer the engine installs; None unless armed
+        self.sanitizer: Optional[Any] = None
 
     # -- registration -----------------------------------------------------------
 
@@ -139,6 +147,25 @@ class StateStore:
         return self.backend.restore_watermark(self.task_info,
                                               self.restore_epoch)
 
+    def _update_size_gauges(self, snaps: Dict[str, TableSnapshot]) -> None:
+        """Per-table key-count gauges, refreshed at each barrier — the
+        reference's arroyo_worker_table_size_keys with (operator_id,
+        task_id, table_char) labels (arroyo-state/src/metrics.rs)."""
+        for name, table in self.tables.items():
+            if isinstance(table, DeviceTable):
+                # key count from the canonical snapshot just taken
+                # (meta[0] = occupied key slots)
+                meta = (snaps[name].arrays or {}).get("meta")
+                size = int(meta[0]) if meta is not None else None
+            elif hasattr(table, "n_keys"):  # KEY count, not entries
+                size = table.n_keys()
+            elif hasattr(table, "__len__"):
+                size = len(table)
+            else:
+                size = None
+            if size is not None:
+                table_size_gauge(self.task_info, name).set(size)
+
     # -- checkpoint ----------------------------------------------------------------
 
     def checkpoint(self, epoch: int,
@@ -154,5 +181,14 @@ class StateStore:
                 snaps[name] = TableSnapshot(desc, batch=table.snapshot_batch())
             else:
                 snaps[name] = TableSnapshot(desc, entries=table.snapshot())
-        return self.backend.write_subtask_checkpoint(
+        self._update_size_gauges(snaps)
+        san = self.sanitizer
+        fp = (san.checkpoint_begin(self.task_info.task_id, self.tables)
+              if san is not None else None)
+        meta = self.backend.write_subtask_checkpoint(
             self.task_info, epoch, snaps, watermark)
+        if san is not None:
+            # the persisted epoch must hold exactly the snapshot above: a
+            # table mutated while persisting is a torn epoch
+            san.checkpoint_end(self.task_info.task_id, self.tables, fp)
+        return meta

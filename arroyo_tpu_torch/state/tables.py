@@ -69,6 +69,9 @@ class GlobalKeyedState:
                 self._version[k] = int(t)
                 self._data[k] = v
 
+    def __len__(self) -> int:
+        return len(self._data)
+
 
 class TimeKeyMap:
     """time -> key -> value, evicted by time.  Snapshots are the same

@@ -103,6 +103,11 @@ class Batch:
     columns: Dict[str, np.ndarray]
     key_hash: Optional[np.ndarray] = None  # uint64[n]
     key_cols: Tuple[str, ...] = ()
+    # Latency-observatory ingest stamp (obs/latency.py): wall-clock micros
+    # of the oldest sampled record this batch carries, or None.  A side
+    # annotation, never a column, so the coalescer's and the sanitizer's
+    # layout signatures (columns, key_cols, key_hash) never see it.
+    lat_stamp: Optional[int] = None
 
     def __post_init__(self) -> None:
         self.timestamp = np.asarray(self.timestamp, dtype=np.int64)
@@ -113,13 +118,15 @@ class Batch:
     def with_key(self, key_cols: Sequence[str]) -> "Batch":
         """Return a batch keyed by ``key_cols`` (computes key_hash)."""
         kh = hash_columns([self.columns[c] for c in key_cols])
-        return Batch(self.timestamp, dict(self.columns), kh, tuple(key_cols))
+        return Batch(self.timestamp, dict(self.columns), kh, tuple(key_cols),
+                     lat_stamp=self.lat_stamp)
 
     def select(self, mask_or_idx: np.ndarray) -> "Batch":
         """Row subset by boolean mask or integer index array."""
         cols = {k: v[mask_or_idx] for k, v in self.columns.items()}
         kh = self.key_hash[mask_or_idx] if self.key_hash is not None else None
-        return Batch(self.timestamp[mask_or_idx], cols, kh, self.key_cols)
+        return Batch(self.timestamp[mask_or_idx], cols, kh, self.key_cols,
+                     lat_stamp=self.lat_stamp)
 
     @staticmethod
     def concat(batches: Sequence["Batch"]) -> "Batch":
@@ -134,7 +141,11 @@ class Batch:
         kh = None
         if batches[0].key_hash is not None:
             kh = np.concatenate([b.key_hash for b in batches])
-        return Batch(ts, cols, kh, batches[0].key_cols)
+        # the oldest sampled ingest wins: coalescer linger is charged to
+        # latency
+        stamps = [b.lat_stamp for b in batches if b.lat_stamp is not None]
+        return Batch(ts, cols, kh, batches[0].key_cols,
+                     lat_stamp=min(stamps) if stamps else None)
 
 
 # -- updating streams: the retraction data model ------------------------------

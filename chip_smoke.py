@@ -189,11 +189,37 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
     wall, events/s, ``pane_update_rows`` per event (gated: factored
     below unfactored at K = 8), flushes, kernel launches, drains and the
     factor decision printed.
+16. the engine services: q5 (NUM_EVENTS), config5 (C5_EVENTS, 1 s
+    checkpoints, uncoalesced so its launches do not follow arrival
+    times) and 8a (JS_INNER a side) each run four times in turns —
+    disarmed, armed, armed, disarmed, where armed is ``ARROYO_SANITIZE=1``,
+    ``ARROYO_LATENCY_SAMPLE_N=32`` and the phase profiler — and q5 once
+    more under ``ARROYO_TIMING=1`` with the profiler: every run's rows
+    equal the numpy controls of phases 13, 7 and 8 (8a: its certain
+    pairs) and each other, its launches the cell's first run's; armed,
+    the sanitizer records events and no violation, the profiler's work
+    phases on the event loop sum to 0.85-1.5 of the wall (q5's generator,
+    on its prefetch thread beside the loop, at most the wall) with
+    ``source_decode``, ``proc``, ``dispatch`` and ``watermark`` each above
+    0, q5's and 8a's every sink has a p99, ``critical_path()`` has the JAX
+    package's keys,
+    ``device_state_tables()`` sums to the run's state tensors' bytes
+    (at most ``torch.cuda.memory_allocated()``) and the metrics
+    exposition names the reference's record and queue instruments for
+    every task; timed, q5's bin operator has ``device_execute``; no
+    thread is left alive after any run; then q5 armed once more at 2,000
+    events/s in batches of 8,192 (its rows the numpy control's at that
+    rate), where the window fires after nearly every batch, so its sink
+    has at least 100 samples (q5 at bench.py's rate fires once: one
+    sample a run); each run's phase table, sink p50/p99, sampled records,
+    ledger and span count printed, with the armed/disarmed wall ratio a
+    round.
 
 Launch counts are set to 0 just before each main-path run (q5, q8,
 config5, 8a, 8b, hot items, q1, q7, each SQL-planned run of phase 12,
 each card run of phase 13, the legacy q8, 8a and 8b, the semi join and
-the two multi-way joins of phase 14, each card run of phase 15) and read
+the two multi-way joins of phase 14, each card run of phases 15 and 16)
+and read
 just after it; q1, q7 and the union launch no kernel.  It prints a
 ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi gives them, and, last, ``{"ok": true, "device": ...}``.
@@ -211,6 +237,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -299,6 +326,11 @@ from arroyo_tpu_torch.state.join_state import (  # noqa: E402
 from arroyo_tpu_torch.state.session_state import (  # noqa: E402
     aggregate_session_registry)
 from arroyo_tpu_torch.types import hash_columns  # noqa: E402
+from arroyo_tpu_torch.analysis import sanitizer  # noqa: E402
+from arroyo_tpu_torch.config import reset_config  # noqa: E402
+from arroyo_tpu_torch.engine.operators_window import (  # noqa: E402
+    BinAggOperator, JoinWithExpirationOperator)
+from arroyo_tpu_torch.obs import latency, metrics, profiler, tracing  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 F64_OPS_PER_S = 34e12  # H100 SXM FP64 outside the tensor cores, data sheet
@@ -405,7 +437,8 @@ SQL_QUERIES = ("q1", "q5", "q7", "q8", "hot_items", "config5")
 PATHS = ("q5", "q8", "config5", "join_inner", "join_left", "hot_items",
          "q1", "q7", "sql", "q5_ref", "q7_ref", "q16", "union", "q8_legacy",
          "join_inner_legacy", "join_left_legacy", "semi", "mw", "mw_ttl",
-         "cw_2m_fact", "cw_2m_unfact", "cw_8m_fact", "cw_8m_ckpt")
+         "cw_2m_fact", "cw_2m_unfact", "cw_8m_fact", "cw_8m_ckpt",
+         "services_q5", "services_config5", "services_8a")
 
 
 def reset_launches():
@@ -3371,6 +3404,7 @@ def c5_phase():
     t0 = time.perf_counter()
     control = c5_control(C5_EVENTS)
     control_s = time.perf_counter() - t0
+    CONTROLS["config5"] = control  # phase 16's config5 control
     sizes = []  # rows of each union call
     union = session_ops.session_union_buffer
 
@@ -3781,21 +3815,21 @@ def hot_phase():
 Q7_COUNTERS = ("window_argmax_late_rows", "window_argmax_late_hits")
 
 
-def nexmark_bids(num_events, extra=()):
-    """The bids of the port's generator at bench.py's rate and batch, as
-    the q1 and q7 programs read them, and the ``extra`` bid columns:
-    {column: array}."""
+def nexmark_bids(num_events, extra=(), event_rate=1_000_000.0, batch=BATCH):
+    """The bids of the port's generator (at bench.py's rate and batch
+    unless told), as the q1 and q7 programs read them, and the ``extra``
+    bid columns: {column: array}."""
     names = ["bid_auction", "bid_bidder", "bid_datetime", "bid_price",
              *extra]
     cfg = NexmarkConfig(num_events=num_events, rate_limited=False,
-                        event_rate=1_000_000.0, batch_size=BATCH,
+                        event_rate=event_rate, batch_size=batch,
                         projection=names + ["event_type"])
     first, n, num = make_splits(cfg, 0, 1)[0]
     gen = NexmarkGenerator(cfg, 0, first, n, num, seed=0)
     gen.set_rate(cfg.event_rate, 1)
     parts = collections.defaultdict(list)
     while gen.has_next:
-        b, _ = gen.next_batch(BATCH)
+        b, _ = gen.next_batch(batch)
         bid = b.columns["event_type"] == EVENT_BID
         parts["ts"].append(b.timestamp[bid])
         for c in names:
@@ -4102,11 +4136,11 @@ def q5_rows(batches):
                   for b in batches for i in range(len(b)))
 
 
-def q5_control(num_events):
+def q5_control(num_events, event_rate=1_000_000.0, batch=BATCH):
     """Q5 from the generator's bids: per auction and HOP(2 s, 10 s)
     window the bids, per window the largest count, and the (window end -
     1, auction, count) rows that reach it."""
-    bids = nexmark_bids(num_events)
+    bids = nexmark_bids(num_events, event_rate=event_rate, batch=batch)
     first = bids["ts"] // SLIDE_MICROS + 1  # the first window's end, in slides
     panes = WIDTH_MICROS // SLIDE_MICROS
     auction = bids["bid_auction"].astype(np.int64)
@@ -4201,6 +4235,7 @@ def reference_phase():
     t0 = time.perf_counter()
     control = q5_control(NUM_EVENTS)
     control_s = time.perf_counter() - t0
+    CONTROLS["q5"] = control  # phase 16's q5 control
     check(rows and rows == control, f"q5 (reference plan): {len(rows)} rows "
           f"against the numpy control's {len(control)}")
     check(rows == HAND["q5"][0], "q5 (reference plan): rows differ from "
@@ -4840,6 +4875,302 @@ def cw_phase():
     return launches
 
 
+# -- phase 16: the engine services -------------------------------------------------
+
+# "armed": the runtime sanitizer and 1-in-32 latency sampling from the
+# environment, the phase profiler armed by the script
+SERVICE_ENV = {"ARROYO_SANITIZE": "1", "ARROYO_LATENCY_SAMPLE_N": "32"}
+# the JAX package's critical-path stages (arroyo_tpu/obs/latency.py)
+CRITICAL_STAGES = ("source_linger", "queue_wait", "barrier_align",
+                   "watermark_hold", "fire", "emit", "compute")
+CRITICAL_KEYS = {"stages", "total_secs", "dominant", "dominant_share"}
+# the reference's per-task record and queue instruments
+TASK_METRICS = ("arroyo_worker_messages_recv_total",
+                "arroyo_worker_messages_sent_total",
+                "arroyo_worker_bytes_recv_total",
+                "arroyo_worker_bytes_sent_total",
+                "arroyo_worker_tx_queue_size", "arroyo_worker_tx_queue_rem")
+WORK_SHARE = (0.85, 1.5)  # summed work phases over wall (the JAX bound)
+# phases a cell's source records on its prefetch thread, beside the event
+# loop (the nexmark generator): the JAX bound holds for the loop's phases,
+# and one thread's phase for itself can take at most the wall
+OFF_LOOP = {"q5": ("source_decode",), "q5_tail": ("source_decode",)}
+# q5's tail: 2M events at 2,000 events/s in batches of 8,192, so each
+# batch spans 4.1 s of event time and the window fires after nearly every
+# batch (at bench.py's rate and batch, q5 fires once, at the end): one
+# sink sample a fire, at least Q5_TAIL_SAMPLES of them
+Q5_TAIL_RATE, Q5_TAIL_BATCH, Q5_TAIL_SAMPLES = 2_000.0, 8_192, 100
+SERVICE_RUNS = collections.Counter()  # cell -> runs so far (job ids)
+
+
+def state_tensor_bytes(runner):
+    """Bytes of the CUDA tensors the run's keyed-bin planes and join rings
+    hold, read off their storages (one count a storage)."""
+    storages = {}
+    for op, _ctx in runner.engine.members.values():
+        tensors = []
+        if isinstance(op, BinAggOperator):
+            tensors = [op.state.values, op.state.counts]
+        elif isinstance(op, JoinWithExpirationOperator) and op._partitioned:
+            tensors = [part.dev.hi for buf in (op.left, op.right)
+                       for part in buf.parts if part.dev is not None]
+        for t in tensors:
+            if t.is_cuda:
+                st = t.untyped_storage()
+                storages[st.data_ptr()] = st.nbytes()
+    return int(sum(storages.values()))
+
+
+def exposition_gaps(runner, job):
+    """(operator, metric) pairs of the run's tasks missing from the
+    metrics exposition."""
+    lines = metrics.render_metrics().decode().splitlines()
+    have = set()
+    for line in lines:
+        if line.startswith("#") or f'job_id="{job}"' not in line:
+            continue
+        name = line.split("{", 1)[0]
+        op = re.search(r'operator_id="([^"]*)"', line)
+        if op:
+            have.add((op.group(1), name))
+    return [(op, m) for op, _idx in runner.engine.members
+            for m in TASK_METRICS if (op, m) not in have]
+
+
+def svc_run(cell, make, rows_of, armed, ckpt=None, timing=False, env=None):
+    """One run of ``cell`` on the card, launches counted from 0, with the
+    services armed or not; returns (rows, summary, launches)."""
+    SERVICE_RUNS[cell] += 1
+    job = f"svc-{cell}-{SERVICE_RUNS[cell]}"
+    env = {**(env or {}), **(SERVICE_ENV if armed else
+                             {"ARROYO_SANITIZE": "0"})}
+    if timing:
+        env["ARROYO_TIMING"] = "1"
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    reset_config()
+    profiler.disarm()
+    latency.disarm()
+    sanitizer._reset_ring()
+    tracing.reset()
+    program, sink = make()
+    clear_sink(sink)
+    perf.reset()
+    threads = set(threading.enumerate())
+    try:
+        runner = LocalRunner(program, job_id=job)
+        prof = profiler.arm(job) if armed or timing else None
+        reset_launches()
+        if prof is not None:
+            prof.reset()
+        t0 = time.perf_counter()
+        resps = runner.run(checkpoint_interval_secs=ckpt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        rows = rows_of(sink_output(sink))
+        clear_sink(sink)
+        lat = latency.active()
+        san = runner.engine.sanitizer
+        out = {"job": job, "armed": armed, "timing": timing, "wall_s": wall,
+               "epochs": len({r.subtask_metadata.epoch for r in resps
+                              if r.kind == "checkpoint_completed"})}
+        late = [t.name for t in set(threading.enumerate()) - threads]
+        check(not late, f"{job}: threads alive after the run: {late}")
+        if not (armed or timing):
+            check(san is None and lat is None and prof is None,
+                  f"{job}: a service is armed in the disarmed run")
+            return rows, out, launches
+        snap = prof.snapshot()
+        work = sum(snap["phases"].values())
+        beside = sum(snap["phases"].get(p, 0.0)
+                     for p in OFF_LOOP.get(cell, ()))
+        out.update(phases=snap["phases"], waits=snap["waits"],
+                   work_share=work / wall,
+                   loop_share=(work - beside) / wall,
+                   thread_share=beside / wall,
+                   counts=len(snap["counts"]))
+        if timing:
+            return rows, out, launches, prof.work_snapshot(), runner
+        check(san is not None and lat is not None,
+              f"{job}: the sanitizer or the latency observatory is off")
+        events = len(sanitizer.recent_events(256))
+        check(events > 0 and san.violations == 0,
+              f"{job}: {events} sanitizer events, {san.violations} "
+              "violations")
+        lo, hi = WORK_SHARE
+        check(lo <= out["loop_share"] <= hi and out["thread_share"] <= 1.0,
+              f"{job}: work phases {work - beside:.3f} s on the loop and "
+              f"{beside:.3f} s beside it over a {wall:.3f} s wall "
+              f"({out['loop_share']:.3f}, {out['thread_share']:.3f}): "
+              f"{snap['phases']}")
+        for phase in ("source_decode", "proc", "dispatch", "watermark"):
+            check(snap["phases"].get(phase, 0.0) > 0.0,
+                  f"{job}: no {phase} phase: {snap['phases']}")
+        cp = lat.critical_path()
+        check(set(cp) == CRITICAL_KEYS
+              and tuple(cp["stages"]) == CRITICAL_STAGES,
+              f"{job}: critical path {cp}")
+        tables = latency.device_state_tables()
+        device = sum(v for k, v in tables.items() if not k.endswith("_host"))
+        tensors = state_tensor_bytes(runner)
+        allocated = torch.cuda.memory_allocated()
+        check(device == tensors <= allocated,
+              f"{job}: device_state_tables {tables} against {tensors} "
+              f"state tensor bytes, {allocated} allocated")
+        gaps = exposition_gaps(runner, job)
+        check(not gaps, f"{job}: the exposition lacks {gaps[:5]}")
+        trace = tracing.chrome_trace()
+        out.update(sanitizer_events=events,
+                   records_sampled=lat.snapshot()["records_sampled"],
+                   sinks=lat.sink_quantiles(), critical_path=cp,
+                   device_state_tables=tables, state_tensor_bytes=tensors,
+                   memory_allocated=allocated,
+                   trace_spans=len(tracing.spans()),
+                   trace_events=len(trace["traceEvents"]))
+        return rows, out, launches
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        reset_config()
+        profiler.disarm()
+        latency.disarm()
+
+
+def svc_cell(cell, make, rows_of, gate, ckpt=None, env=None):
+    """``cell`` four times in turns (disarmed, armed, armed, disarmed):
+    each run's rows through ``gate``, equal rows and launches across the
+    four; every sink of an armed run with a p99.  Returns (runs, summed
+    launches)."""
+    runs, total = [], collections.Counter()
+    first = None
+    for armed in (False, True, True, False):
+        rows, res, launches = svc_run(cell, make, rows_of, armed, ckpt,
+                                      env=env)
+        gate(rows)
+        if first is None:
+            first = (rows, launches)
+        else:
+            check(svc_same(rows, first[0]), f"{res['job']}: rows differ from "
+                  f"the first {cell} run's")
+            check(launches == first[1], f"{res['job']}: launches {launches} "
+                  f"against the first {cell} run's {first[1]}")
+        res["launches"] = launches
+        runs.append(res)
+        total.update(launches)
+    return runs, total
+
+
+def svc_same(a, b):
+    if isinstance(a, tuple):
+        return all(np.array_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def svc_sinks(runs, program, what):
+    sinks = {n.operator_id for n in program.sinks()}
+    for r in runs:
+        if r["armed"]:
+            check(set(r["sinks"]) == sinks and all(
+                q["p99_ms"] > 0 for q in r["sinks"].values()),
+                f"{what} {r['job']}: sink latency {r['sinks']} for sinks "
+                f"{sorted(sinks)}")
+
+
+def services_phase():
+    """The engine services on q5, config5 and 8a (phase 16)."""
+    out, launches = {}, {}
+
+    def q5():
+        return program_for("q5", NUM_EVENTS, "svc-q5"), "svc-q5"
+
+    def q5_gate(rows):
+        check(rows and rows == CONTROLS["q5"] and rows == HAND["q5"][0],
+              f"services q5: {len(rows)} rows against the numpy control's "
+              f"{len(CONTROLS['q5'])}")
+
+    runs, launches["services_q5"] = svc_cell("q5", q5, q5_rows, q5_gate)
+    svc_sinks(runs, q5()[0], "services q5")
+    check(all(launches["services_q5"][k] > 0
+              for k in ("bin_update", "argmax_fire", "bin_evict")),
+          f"services q5 launched too few kernels: {launches['services_q5']}")
+    rows, timed, tl, work, runner = svc_run("q5", q5, q5_rows, False,
+                                            timing=True)
+    q5_gate(rows)
+    check(tl == runs[0]["launches"], f"services q5 under ARROYO_TIMING: "
+          f"launches {tl} against {runs[0]['launches']}")
+    bin_ops = [op_id for (op_id, _i), (op, _c) in runner.engine.members.items()
+               if isinstance(op, BinAggOperator)]
+    check(bin_ops and all(work.get((o, "device_execute"), 0.0) > 0
+                          for o in bin_ops),
+          f"services q5 under ARROYO_TIMING: no device_execute for {bin_ops}:"
+          f" {sorted(work)}")
+    launches["services_q5"].update(tl)
+    out["q5"] = runs + [timed]
+
+    def q5_tail():
+        return (q5_program(NUM_EVENTS, Q5_TAIL_BATCH, "svc-q5-tail",
+                           event_rate=Q5_TAIL_RATE, base_time_micros=0),
+                "svc-q5-tail")
+
+    control = q5_control(NUM_EVENTS, Q5_TAIL_RATE, Q5_TAIL_BATCH)
+    rows, tail, tail_launches = svc_run("q5_tail", q5_tail, q5_rows, True)
+    check(rows and rows == control, f"services q5 tail: {len(rows)} rows "
+          f"against the numpy control's {len(control)}")
+    svc_sinks([tail], q5_tail()[0], "services q5 tail")
+    check(all(q["count"] >= Q5_TAIL_SAMPLES for q in tail["sinks"].values()),
+          f"services q5 tail: sink samples {tail['sinks']}, fewer than "
+          f"{Q5_TAIL_SAMPLES}")
+    launches["services_q5"].update(tail_launches)
+    out["q5"].append(tail)
+
+    def c5():
+        return (program_for("config5", C5_EVENTS, "svc-c5", broker="c5-big"),
+                "svc-c5")
+
+    def c5_gate(rows):
+        check(rows and rows == CONTROLS["config5"], f"services config5: "
+              f"{len(rows)} rows against the numpy control's "
+              f"{len(CONTROLS['config5'])}")
+
+    # uncoalesced: coalesced merges, and so launches, follow arrival times
+    # and the 1 s barriers (ROADMAP C6)
+    runs, launches["services_config5"] = svc_cell(
+        "config5", c5, c5_table, c5_gate, ckpt=1.0,
+        env={"ARROYO_COALESCE": "0"})
+    check(all(r["epochs"] > 0 for r in runs),
+          f"services config5: epochs {[r['epochs'] for r in runs]}")
+    check(all(launches["services_config5"][k] > 0
+              for k in ("session_union", "segment_agg")),
+          f"services config5 launched too few kernels: "
+          f"{launches['services_config5']}")
+    out["config5"] = runs
+
+    def js():
+        return (join_stress_program(JS_INNER, JoinType.INNER, TTL_MICROS,
+                                    "svc-8a", JS_BATCH), "svc-8a")
+
+    runs, launches["services_8a"] = svc_cell(
+        "8a", js, js_output,
+        lambda rows: CONTROLS["gate_inner"](*rows))
+    svc_sinks(runs, js()[0], "services 8a")
+    check(all(launches["services_8a"][k] > 0
+              for k in ("join_probe", "expand_gather", "ring_merge")),
+          f"services 8a launched too few kernels: {launches['services_8a']}")
+    out["8a"] = runs
+    for cell, rs in out.items():
+        for r in rs:
+            print(f"services {cell} {r['job']}: " + json.dumps(
+                {k: v for k, v in r.items() if k != "job"}))
+        walls = [r["wall_s"] for r in rs[:4]]
+        print(f"services {cell}: armed/disarmed wall in turns "
+              + json.dumps([walls[1] / walls[0], walls[2] / walls[3]]))
+    return {k: dict(v) for k, v in launches.items()}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -4881,6 +5212,7 @@ def main():
     launches.update(timed("legacy", legacy_phase))
     launches.update(timed("semi_mw", semi_mw_phase))
     launches.update(timed("correlated_windows", cw_phase))
+    launches.update(timed("services", services_phase))
     print("phase seconds: " + json.dumps(seconds))
     for r in kernels:
         for path in PATHS:

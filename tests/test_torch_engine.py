@@ -178,14 +178,21 @@ NEW_MODULES = ("arroyo_tpu_torch.q1", "arroyo_tpu_torch.q7",
                "arroyo_tpu_torch.sql.schema_provider",
                "arroyo_tpu_torch.sql.functions",
                "arroyo_tpu_torch.sql.compiler",
-               "arroyo_tpu_torch.sql.planner")
+               "arroyo_tpu_torch.sql.planner",
+               "arroyo_tpu_torch.obs.tracing",
+               "arroyo_tpu_torch.obs.metrics",
+               "arroyo_tpu_torch.obs.logging_setup",
+               "arroyo_tpu_torch.obs.profiler",
+               "arroyo_tpu_torch.obs.latency",
+               "arroyo_tpu_torch.analysis.sanitizer")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """(g) in a fresh interpreter, importing every arroyo_tpu_torch module
-    leaves ``jax``, ``arroyo_tpu``, ``pydantic`` and ``pyarrow`` (the
-    card machine has neither of the last two) out of sys.modules (a
-    subprocess, because this test process imported them already)."""
+    leaves ``jax``, ``arroyo_tpu``, ``pydantic``, ``pyarrow`` and
+    ``prometheus_client`` (the card machine has none of the last three)
+    out of sys.modules (a subprocess, because this test process imported
+    them already)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import arroyo_tpu_torch as pkg\n"
@@ -194,7 +201,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'arroyo_tpu', 'pydantic', 'pyarrow'))\n"
+        "('jax', 'jaxlib', 'arroyo_tpu', 'pydantic', 'pyarrow', "
+        "'prometheus_client'))\n"
         "missing = sorted({" + ", ".join(repr(m) for m in NEW_MODULES)
         + "} - set(names))\n"
         "print(len(names), bad, missing)\n"

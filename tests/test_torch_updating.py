@@ -513,9 +513,19 @@ SQL_SHAPES = [
 def test_updating_sql_rows_match_jax(name, tables, sql, key, monkeypatch):
     """Each key's final row and the column dtypes; with one batch a source
     batch (``ARROYO_COALESCE=0``), every CREATE/UPDATE row.  (Coalesced,
-    how many refinements a key emits follows which batches merge, which
-    follows their arrival times.)"""
-    want, got = _sql_both(tables(), sql)
+    how many refinements a key emits, and so the dtypes of the first
+    ones, follows which batches merge, which follows their arrival times
+    (ROADMAP C6): the coalesced runs take a linger far longer than the
+    run, so every batch below the target merges until a watermark or the
+    end of stream flushes it, in both packages.)"""
+    from arroyo_tpu.config import reset_config as jax_reset_config
+    from arroyo_tpu_torch.config import reset_config
+
+    with monkeypatch.context() as m:
+        m.setenv("COALESCE_LINGER_MICROS", "10000000")
+        reset_config(), jax_reset_config()
+        want, got = _sql_both(tables(), sql)
+    reset_config(), jax_reset_config()
     assert _final(want, key) and _final(got, key) == _final(want, key)
     assert _rows(got)[1] == _rows(want)[1]
     monkeypatch.setenv("ARROYO_COALESCE", "0")
