@@ -213,10 +213,21 @@ class Collector:
             self.metrics.backpressure_time.inc(blocked)
 
     async def broadcast(self, msg: Message) -> None:
-        """Watermarks/barriers/stop go to every downstream subtask."""
+        """Watermarks/barriers/stop go to every downstream subtask.  With
+        the profiler armed each enqueue is a ``send_wait`` wait child, as
+        in ``collect``, so a park on a full queue is not charged to the
+        caller's work phase (the JAX package charges it there)."""
+        prof = self.prof
         for group in self.edge_groups:
             for q in group:
-                await q.send(msg)
+                if prof is None:
+                    await q.send(msg)
+                    continue
+                frame = prof.begin(self.op_id, "send_wait", wait=True)
+                try:
+                    await q.send(msg)
+                finally:
+                    prof.end(frame)
 
 
 class Context:

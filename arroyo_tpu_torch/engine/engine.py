@@ -61,7 +61,7 @@ from ..obs.metrics import (
     gauge_for_task,
     mesh_carried_gauge,
 )
-from ..state.backend import BackingStore, InMemoryBackend
+from ..state.backend import BackingStore, InMemoryBackend, ParquetBackend
 from ..state.store import StateStore
 from ..types import (
     CheckpointBarrier,
@@ -113,6 +113,18 @@ class Engine:
         self.members: Dict[Tuple[str, int], Tuple[Operator, Context]] = {}
         self.resps: List[ControlResp] = []
         self.sanitizer: Optional[Any] = None  # set by start()
+
+    @staticmethod
+    def for_local(program: Program, job_id: str = "local-job",
+                  checkpoint_url: Optional[str] = None,
+                  restore_epoch: Optional[int] = None,
+                  device: DeviceLike = None) -> "Engine":
+        """An engine checkpointing into ``checkpoint_url`` through the
+        Parquet backend (``file://``, a plain path or ``memory://``; the
+        JAX package reads and writes the same files), else in memory."""
+        backend: BackingStore = (ParquetBackend.for_url(checkpoint_url)
+                                 if checkpoint_url else InMemoryBackend())
+        return Engine(program, job_id, backend, restore_epoch, device)
 
     def start(self) -> "RunningEngine":
         """Build the physical graph and spawn all subtask loops: one
@@ -303,16 +315,15 @@ class RunningEngine:
 
 class LocalRunner:
     """Run a bounded pipeline to completion in-process, on the CUDA
-    device unless ``device="cpu"``."""
+    device unless ``device="cpu"``; epochs go to the Parquet directory
+    ``checkpoint_url``, or stay in memory."""
 
     def __init__(self, program: Program, job_id: str = "local-job",
                  device: DeviceLike = None,
-                 backend: Optional[BackingStore] = None,
-                 restore_epoch: Optional[int] = None):
-        self.engine = Engine(program, job_id,
-                             backend if backend is not None
-                             else InMemoryBackend(),
-                             restore_epoch, device)
+                 restore_epoch: Optional[int] = None,
+                 checkpoint_url: Optional[str] = None):
+        self.engine = Engine.for_local(program, job_id, checkpoint_url,
+                                       restore_epoch, device)
 
     async def run_async(self, checkpoint_interval_secs: Optional[float] = None
                         ) -> List[ControlResp]:

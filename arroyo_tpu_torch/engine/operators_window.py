@@ -1600,7 +1600,7 @@ class SessionWindowOperator(Operator):
                 self._min_end = me
         return True
 
-    def _collect_expired(self, watermark: int) -> None:
+    def _collect_expired(self, watermark: int, ctx: Context) -> None:
         """Move every session with end <= watermark into the pending-fire
         list.  Event-time timers only ever fire on watermark advance, so
         scanning the (bounded, active) per-key session map at each
@@ -1613,10 +1613,12 @@ class SessionWindowOperator(Operator):
         if self._device_state:
             # mask-compress every closed session out of the runs in one
             # vector pass per partition — no key iteration
-            fk, fs, fe = self.windows.expire(watermark)
+            fk, fs, fe, removed = self.windows.expire(watermark)
             self._pending_fires.extend(
                 zip((int(k) for k in fk.tolist()), fs.tolist(),
                     fe.tolist()))
+            for kh in removed:
+                ctx.state.note_delete("v", kh)
             self._min_end = self.windows.min_end()
             return
         expired_keys = []
@@ -1639,6 +1641,7 @@ class SessionWindowOperator(Operator):
             self._pending_fires.extend((int(kh), s, e) for (s, e) in fire)
         for kh in expired_keys:
             self.windows.remove(kh)
+            ctx.state.note_delete("v", kh)
         self._min_end = min_end
 
     async def _flush_fires(self, ctx: Context) -> None:
@@ -1714,7 +1717,7 @@ class SessionWindowOperator(Operator):
         with tracing.span("window.session_fire", "window",
                           tid=tracing.ctx_tid(ctx),
                           args={"watermark": int(watermark)}):
-            self._collect_expired(watermark)
+            self._collect_expired(watermark, ctx)
             await self._flush_fires(ctx)
         # evict data older than every live session start
         if self._device_state:

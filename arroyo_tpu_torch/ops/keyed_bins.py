@@ -58,7 +58,8 @@ from ..kernels.emit_compact import (compact_views, emit_count,
                                     emit_gather_buffer, pack_panes,
                                     panes_views)
 from ..kernels.pane_emit import fire_geometry, pane_emit, pane_views
-from ..native import assign_bins
+from .. import native
+from ..native import NativeDir, agg_cells, assign_bins
 
 # f64 extremes: the accumulation channels are float64, so f32 extremes
 # would clip MIN/MAX values beyond +/-3.4e38
@@ -225,11 +226,22 @@ def _merge_cells(slots: np.ndarray, bins: np.ndarray, rowcnt: np.ndarray,
 def directory_insert(state, kh: np.ndarray, ensure_capacity) -> np.ndarray:
     """Vectorized key-hash -> slot lookup over the host directory
     (``key_sorted``, ``slot_of_sorted``, ``next_slot``, ``slot_to_key``),
-    inserting unknown keys (in ascending hash order) with sequential
-    slots.  ``ensure_capacity(total_slots, new_keys)`` is the growth hook.
-    The directory is searched with the batch's sorted distinct keys (a
-    search with sorted needles walks the directory once; one with the
+    inserting unknown keys with sequential slots.
+    ``ensure_capacity(total_slots, new_keys)`` is the growth hook.
+
+    With the host library the state carries a hash directory
+    (``state._ndir``): the lookup is one linear-probe pass and new keys
+    get slots in first-seen order, as in the JAX package; the sorted
+    arrays, which checkpoints and emission read, are kept from the new
+    keys alone.  Without it new keys get slots in ascending hash order,
+    and the directory is searched with the batch's sorted distinct keys
+    (a search with sorted needles walks the directory once; one with the
     batch's own order misses the cache on every key of a large one)."""
+    ndir = getattr(state, "_ndir", None)
+    if ndir is not None:
+        slots, new_keys = ndir.insert(kh, state.next_slot)
+        _append_new_keys(state, new_keys, ensure_capacity)
+        return slots
     uniq, inv = np.unique(kh, return_inverse=True)
     pos = np.searchsorted(state.key_sorted, uniq)
     if len(state.key_sorted):
@@ -238,19 +250,31 @@ def directory_insert(state, kh: np.ndarray, ensure_capacity) -> np.ndarray:
     else:
         new_keys = uniq
     if len(new_keys):
-        n_new = len(new_keys)
-        ensure_capacity(state.next_slot + n_new, new_keys)
-        new_slots = np.arange(state.next_slot, state.next_slot + n_new)
-        state.slot_to_key[new_slots] = new_keys
-        state.next_slot += n_new
-        # new_keys are sorted and absent: inserting each at its place
-        # keeps the directory sorted in one linear pass (a re-sort of the
-        # whole directory a batch dominates once it holds millions)
-        at = np.searchsorted(state.key_sorted, new_keys)
-        state.key_sorted = np.insert(state.key_sorted, at, new_keys)
-        state.slot_of_sorted = np.insert(state.slot_of_sorted, at, new_slots)
+        _append_new_keys(state, new_keys, ensure_capacity)
         pos = np.searchsorted(state.key_sorted, uniq)
     return state.slot_of_sorted[pos][inv.reshape(-1)]
+
+
+def _append_new_keys(state, new_keys: np.ndarray, ensure_capacity) -> None:
+    """Register absent, distinct keys: sequential slots from
+    ``next_slot`` in the order given, ``slot_to_key``, and a sorted
+    insert into ``key_sorted`` / ``slot_of_sorted`` (one linear pass: a
+    re-sort of the whole directory a batch dominates once it holds
+    millions).  Shared by both directory paths, so the checkpointed
+    arrays are built the same way."""
+    n_new = len(new_keys)
+    if not n_new:
+        return
+    ensure_capacity(state.next_slot + n_new, new_keys)
+    new_slots = np.arange(state.next_slot, state.next_slot + n_new)
+    state.slot_to_key[new_slots] = new_keys
+    state.next_slot += n_new
+    order = np.argsort(new_keys, kind="stable")
+    keys_s = new_keys[order]
+    at = np.searchsorted(state.key_sorted, keys_s)
+    state.key_sorted = np.insert(state.key_sorted, at, keys_s)
+    state.slot_of_sorted = np.insert(state.slot_of_sorted, at,
+                                     new_slots[order])
 
 
 class KeyedBinState:
@@ -295,6 +319,9 @@ class KeyedBinState:
         self.slot_of_sorted = np.zeros(0, dtype=np.int64)
         self.next_slot = 0
         self.slot_to_key = np.zeros(self.C, dtype=np.uint64)
+        # the host library's hash directory (None without it): slots in
+        # first-seen order
+        self._ndir = NativeDir.create(self.C)
 
         self.values = self._identity_planes(self.C, self.B)
         self.counts = torch.zeros((self.C, self.B), dtype=torch.int32,
@@ -403,10 +430,16 @@ class KeyedBinState:
         for r, j in enumerate(self._xfer_ch):
             vals[r] = channel_input(self.aggs, self._ch_kinds,
                                     self._valid_of, j, agg_inputs, n)
-        if not live.all():
-            idx = live.nonzero()[0]
-            slots, bins_mod, vals = slots[idx], bins_mod[idx], vals[:, idx]
-        cells = preaggregate(slots, bins_mod, xfer_kinds, vals)
+        if self._ndir is not None:
+            # one hash pass in the library, the liveness filter folded in
+            cells = agg_cells(slots, bins_mod, None if live.all() else live,
+                              self.B, vals, xfer_kinds)
+        else:
+            if not live.all():
+                idx = live.nonzero()[0]
+                slots, bins_mod, vals = \
+                    slots[idx], bins_mod[idx], vals[:, idx]
+            cells = preaggregate(slots, bins_mod, xfer_kinds, vals)
         self._enqueue_cells(*cells)
 
     def _update_merged(self, key_hash: np.ndarray, timestamps: np.ndarray,
@@ -866,6 +899,9 @@ class KeyedBinState:
         self.key_sorted = np.asarray(arrays["key_sorted"]).astype(np.uint64)
         self.slot_of_sorted = np.asarray(
             arrays["slot_of_sorted"]).astype(np.int64)
+        self._ndir = NativeDir.create(max(self.next_slot, 8))
+        if self._ndir is not None:
+            self._ndir.load(self.key_sorted, self.slot_of_sorted)
         self.C = _bucket(max(self.next_slot, 8))
         self.slot_to_key = np.zeros(self.C, dtype=np.uint64)
         self.slot_to_key[:self.next_slot] = np.asarray(

@@ -270,15 +270,17 @@ class SessionRunState:
     # -- watermark fires ---------------------------------------------------
 
     def expire(self, watermark: int
-               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, List[int]]:
         """Mask-compress every session with ``end <= watermark`` out of
         the runs.  Returns ``(keys, starts, ends)`` of the fired
-        sessions.  Remaining rows of partially fired keys take
+        sessions plus the fully-expired keys (for ``note_delete``
+        tombstones).  Remaining rows of partially fired keys take
         ``watermark`` as their update time — the legacy
         ``windows.insert(watermark, kh, remain)`` contract."""
         fk: List[np.ndarray] = []
         fs: List[np.ndarray] = []
         fe: List[np.ndarray] = []
+        removed: List[int] = []
         for part in self.parts:
             if part.n == 0:
                 continue
@@ -290,6 +292,8 @@ class SessionRunState:
             fe.append(part.en[fired])
             kept = ~fired
             kkh = part.kh[kept]
+            gone = np.setdiff1d(part.kh[fired], kkh)
+            removed.extend(int(k) for k in gone.tolist())
             ktm = part.tm[kept]
             if len(kkh):
                 # keys that fired some sessions but keep others
@@ -298,9 +302,9 @@ class SessionRunState:
             part.set_rows(kkh, part.st[kept], part.en[kept], ktm)
         if not fk:
             z = np.zeros(0, dtype=np.int64)
-            return np.zeros(0, dtype=np.uint64), z, z.copy()
+            return np.zeros(0, dtype=np.uint64), z, z.copy(), removed
         return (np.concatenate(fk), np.concatenate(fs),
-                np.concatenate(fe))
+                np.concatenate(fe), removed)
 
     def min_end(self) -> Optional[int]:
         ends = [int(part.en.min()) for part in self.parts if part.n]

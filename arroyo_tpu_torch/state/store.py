@@ -11,12 +11,12 @@ persistence (``mutation-during-checkpoint``)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 from ..device import DeviceLike
 from ..obs.metrics import table_size_gauge
 from ..types import SubtaskCheckpointMetadata, TaskInfo
-from .backend import BackingStore, TableSnapshot
+from .backend import BackingStore, ParquetBackend, TableSnapshot
 from .tables import (
     TABLE_CLASSES,
     BatchBuffer,
@@ -41,6 +41,17 @@ class StateStore:
         self.tables: Dict[str, Any] = {}
         # the runtime sanitizer the engine installs; None unless armed
         self.sanitizer: Optional[Any] = None
+        # key tombstones of KEYED tables for the next checkpoint
+        self._pending_deletes: Dict[str, List[Any]] = {}
+
+    @staticmethod
+    def from_checkpoint_url(task_info: TaskInfo, url: str,
+                            restore_epoch: Optional[int] = None,
+                            device: DeviceLike = None) -> "StateStore":
+        """A store over a Parquet checkpoint directory (``file://``, a
+        plain path or ``memory://``)."""
+        return StateStore(task_info, ParquetBackend.for_url(url),
+                          restore_epoch, device)
 
     # -- registration -----------------------------------------------------------
 
@@ -132,6 +143,11 @@ class StateStore:
                             retention_micros),
             make_join_buffer(self.device, force_partitioned))
 
+    def note_delete(self, table: str, key: Any) -> None:
+        """Record a key tombstone for the next checkpoint (the
+        reference's DataOperation::DeleteKey)."""
+        self._pending_deletes.setdefault(table, []).append(key)
+
     # -- restore ------------------------------------------------------------------
 
     def _restored_snapshot(self, name: str) -> Optional[TableSnapshot]:
@@ -180,7 +196,10 @@ class StateStore:
             elif isinstance(table, BatchBuffer):
                 snaps[name] = TableSnapshot(desc, batch=table.snapshot_batch())
             else:
-                snaps[name] = TableSnapshot(desc, entries=table.snapshot())
+                snaps[name] = TableSnapshot(
+                    desc, entries=table.snapshot(),
+                    deletes=self._pending_deletes.get(name))
+        self._pending_deletes.clear()
         self._update_size_gauges(snaps)
         san = self.sanitizer
         fp = (san.checkpoint_begin(self.task_info.task_id, self.tables)

@@ -9,9 +9,9 @@ the host (device kernels see dense slot ids, never hashes)."""
 from __future__ import annotations
 
 import time as _time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from enum import Enum
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -58,13 +58,22 @@ _SPLITMIX_C2 = np.uint64(0x94D049BB133111EB)
 _GOLDEN = np.uint64(0x9E3779B97F4A7C15)
 
 
-def hash_u64(x: np.ndarray) -> np.ndarray:
-    """splitmix64 finalizer over an integer array -> uint64 hashes."""
+def _py_hash_u64(x: np.ndarray) -> np.ndarray:
+    """numpy splitmix64: the version the host library must equal bit for
+    bit."""
     with np.errstate(over="ignore"):
         z = np.asarray(x).astype(np.uint64) + _GOLDEN
         z = (z ^ (z >> np.uint64(30))) * _SPLITMIX_C1
         z = (z ^ (z >> np.uint64(27))) * _SPLITMIX_C2
         return z ^ (z >> np.uint64(31))
+
+
+def hash_u64(x: np.ndarray) -> np.ndarray:
+    """splitmix64 finalizer over an integer array -> uint64 hashes,
+    through the host library when it is loaded."""
+    from . import native
+
+    return native.hash_u64(x)
 
 
 def hash_any_column(col: np.ndarray) -> np.ndarray:
@@ -82,10 +91,11 @@ def hash_columns(cols: Sequence[np.ndarray]) -> np.ndarray:
     """Combine multiple column hashes into one composite uint64 key hash."""
     if not cols:
         raise ValueError("need at least one key column")
+    from . import native
+
     acc = hash_any_column(cols[0])
-    with np.errstate(over="ignore"):
-        for c in cols[1:]:
-            acc = hash_u64(acc * np.uint64(31) + hash_any_column(c))
+    for c in cols[1:]:
+        acc = native.hash_combine(acc, hash_any_column(c))
     return acc
 
 
@@ -146,6 +156,37 @@ class Batch:
         stamps = [b.lat_stamp for b in batches if b.lat_stamp is not None]
         return Batch(ts, cols, kh, batches[0].key_cols,
                      lat_stamp=min(stamps) if stamps else None)
+
+    # Arrow interop (checkpoints); pyarrow is imported only here
+    def arrow_arrays(self) -> Dict[str, Any]:
+        """Column name -> pyarrow array, with the JAX package's numpy ->
+        arrow rules (checkpoints of either package read alike)."""
+        import pyarrow as pa
+
+        arrays = {"__timestamp": pa.array(self.timestamp, type=pa.int64())}
+        for k, v in self.columns.items():
+            arrays[k] = pa.array(v.tolist() if v.dtype == object else v)
+        return arrays
+
+    def to_arrow(self):
+        import pyarrow as pa
+
+        return pa.table(self.arrow_arrays())
+
+    @staticmethod
+    def from_arrow(table) -> "Batch":
+        cols = {}
+        ts = None
+        for name in table.column_names:
+            arr = table.column(name).combine_chunks().to_numpy(
+                zero_copy_only=False)
+            if name == "__timestamp":
+                ts = arr.astype(np.int64)
+            else:
+                cols[name] = arr
+        if ts is None:
+            raise ValueError("arrow table missing __timestamp")
+        return Batch(ts, cols)
 
 
 # -- updating streams: the retraction data model ------------------------------
@@ -290,6 +331,17 @@ class SubtaskCheckpointMetadata:
     finish_time: int
     bytes: int
     watermark: Optional[int] = None
+    tables: Dict[str, "TableCheckpointMetadata"] = field(default_factory=dict)
+
+
+@dataclass
+class TableCheckpointMetadata:
+    """One table's files of a subtask's checkpoint and its key-hash span."""
+
+    table: str
+    files: Tuple[str, ...] = ()
+    min_key_hash: int = 0
+    max_key_hash: int = int(U64_MAX)
 
 
 @dataclass

@@ -4,7 +4,9 @@
 
 Phases, each of which raises (non-zero exit, no result line) on failure:
 
-1. environment: torch/CUDA versions, the card, its power limit;
+1. environment: torch/CUDA versions, the card, its power limit, and the
+   host library (arroyo_tpu_torch/native/host_ops.cpp, built by g++ at
+   first import): ``HAVE_NATIVE`` and its path, failing unless it loaded;
 2. build: the CUDA kernels from arroyo_tpu_torch/csrc with nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes nexmark q5, q8, config5, join-stress and hot items give it
@@ -198,8 +200,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
     equal the numpy controls of phases 13, 7 and 8 (8a: its certain
     pairs) and each other, its launches the cell's first run's; armed,
     the sanitizer records events and no violation, the profiler's work
-    phases on the event loop sum to 0.85-1.5 of the wall (q5's generator,
-    on its prefetch thread beside the loop, at most the wall) with
+    phases on the event loop sum to 0.85-1.5 of the wall (q5's to at most
+    1.5, and to at least 0.85 with the time the loop idles in its
+    selector, timed beside the profiler, while it waits on the
+    generator's prefetch thread), q5's generator phase to at most the
+    wall, with
     ``source_decode``, ``proc``, ``dispatch`` and ``watermark`` each above
     0, q5's and 8a's every sink has a p99, ``critical_path()`` has the JAX
     package's keys,
@@ -214,11 +219,20 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
     sample a run); each run's phase table, sink p50/p99, sampled records,
     ledger and span count printed, with the armed/disarmed wall ratio a
     round.
+17. the host library: q5 (2,000,000 events in batches of 131,072, key
+    capacity 131,072) and hot items (2,000,000 events) with the library
+    (key directory, cell pre-aggregation, bin assignment, hashing) and
+    with it switched off (the numpy versions), in turns (library, numpy,
+    numpy, library) under the phase profiler — every run's rows equal to
+    its numpy control, the path's kernels launched in every run, each
+    run's wall and ``proc`` seconds printed with the numpy / library
+    ratios.
 
 Launch counts are set to 0 just before each main-path run (q5, q8,
 config5, 8a, 8b, hot items, q1, q7, each SQL-planned run of phase 12,
 each card run of phase 13, the legacy q8, 8a and 8b, the semi join and
-the two multi-way joins of phase 14, each card run of phases 15 and 16)
+the two multi-way joins of phase 14, each card run of phases 15, 16 and
+17)
 and read
 just after it; q1, q7 and the union launch no kernel.  It prints a
 ``{"kernels": [...]}`` line, the card's name and power limit as
@@ -234,6 +248,7 @@ import json
 import math
 import os
 import re
+import selectors
 import statistics
 import subprocess
 import sys
@@ -309,7 +324,8 @@ from arroyo_tpu_torch.kernels.session_union import (  # noqa: E402
 from arroyo_tpu_torch.obs import perf  # noqa: E402
 from arroyo_tpu_torch.ops import join as join_ops  # noqa: E402
 from arroyo_tpu_torch.ops.keyed_bins import (  # noqa: E402
-    ARGMAX_MIN_CAP, KeyedBinState)
+    ARGMAX_MIN_CAP, KeyedBinState, preaggregate)
+from arroyo_tpu_torch import native  # noqa: E402
 from arroyo_tpu_torch.ops.segment import _reduce as segment_reduce  # noqa: E402
 from arroyo_tpu_torch.ops import session as session_ops  # noqa: E402
 from arroyo_tpu_torch.q1 import q1_program  # noqa: E402
@@ -438,7 +454,8 @@ PATHS = ("q5", "q8", "config5", "join_inner", "join_left", "hot_items",
          "q1", "q7", "sql", "q5_ref", "q7_ref", "q16", "union", "q8_legacy",
          "join_inner_legacy", "join_left_legacy", "semi", "mw", "mw_ttl",
          "cw_2m_fact", "cw_2m_unfact", "cw_8m_fact", "cw_8m_ckpt",
-         "services_q5", "services_config5", "services_8a")
+         "services_q5", "services_config5", "services_8a", "native_q5",
+         "native_hot")
 
 
 def reset_launches():
@@ -611,6 +628,10 @@ def environment():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
+    print(f"host library: HAVE_NATIVE {native.HAVE_NATIVE} "
+          f"{native.LIBRARY}")
+    check(native.HAVE_NATIVE, "the host library (arroyo_tpu_torch/native/"
+          "host_ops.cpp) did not build or load")
     t0 = time.perf_counter()
     path = build.build()
     build.load()
@@ -690,8 +711,16 @@ def directory_callers(parent, dev):
     hot keys; the rest drawn from the newest 100,000 keys), each call a
     fresh batch, both sides fed the same batches into their own
     directories; and ``KeyedBinState.snapshot`` of a COUNT(*) state of
-    that capacity on hot items' ring (B = 16) with every key occupied and the live bins filled.  The
-    slots both sides return and the snapshots are held equal first."""
+    that capacity on hot items' ring (B = 16) with every key occupied and the live bins filled.  This
+    tree's directory is the host library's (NativeDir, slots in first-seen
+    order), the parent's the sorted arrays (slots in ascending hash
+    order): this tree's slots are held equal to a numpy first-seen control,
+    both sides' sorted keys to each other and each side's slots to its own
+    keys; the snapshots are held equal first.  Then the cell
+    pre-aggregation of one q5 batch (AGG_ROWS Zipf rows over AGG_KEYS
+    slots and 16 bins, no transferred channel): this tree's ``agg_cells``
+    against the parent's ``preaggregate``, the same cells first, then in
+    turns."""
     from types import SimpleNamespace
     from arroyo_tpu_torch.ops.keyed_bins import directory_insert
     out = {}
@@ -729,16 +758,23 @@ def directory_callers(parent, dev):
         sides = []
         for insert in (directory_insert, parent.keyed_bins.directory_insert):
             st, ensure = directory()
+            if insert is directory_insert:
+                st._ndir = native.NativeDir.create(cap)
+                st._ndir.load(keys, np.arange(n_keys, dtype=np.int64))
             it = iter(batches)
             sides.append((st, lambda st=st, ensure=ensure, it=it,
                           insert=insert: insert(st, next(it), ensure)))
+        control = first_seen_slots(np.sort(keys), np.argsort(keys,
+                                                             kind="stable"),
+                                   batches[0], n_keys)
         first = [call() for _st, call in sides]
-        check(np.array_equal(first[0], first[1])
+        check(np.array_equal(first[0], control)
               and np.array_equal(sides[0][0].key_sorted,
                                  sides[1][0].key_sorted)
-              and np.array_equal(sides[0][0].slot_of_sorted,
-                                 sides[1][0].slot_of_sorted),
-              f"directory_insert differs from the parent's ({shape})")
+              and all(np.array_equal(st.slot_to_key[got], batches[0])
+                      for (st, _c), got in zip(sides, first)),
+              f"directory_insert: slots against the first-seen control or "
+              f"keys against the parent's ({shape})")
         ins_ms, p_ins_ms, ins_turns = in_turns(
             sides[0][1], sides[1][1], pairs=2, reps=5, warm=1)
 
@@ -782,7 +818,46 @@ def directory_callers(parent, dev):
             "snapshot_turns_ms": snap_turns, "snapshot_bytes": snap_bytes,
             **{f"snapshot_{k}": v
                for k, v in turn_factors(snap_turns).items()}}
+    out["agg_cells"] = agg_callers(parent)
     return out
+
+
+def first_seen_slots(key_sorted, slot_of_sorted, kh, next_slot):
+    """numpy control of the host library's directory: known keys keep
+    their slots, new keys take ``next_slot``, ``next_slot + 1``, ... in
+    the order they first appear in ``kh``."""
+    uniq, first, inv = np.unique(kh, return_index=True, return_inverse=True)
+    pos = np.minimum(np.searchsorted(key_sorted, uniq), len(key_sorted) - 1)
+    known = key_sorted[pos] == uniq
+    slots = np.where(known, slot_of_sorted[pos], -1)
+    new = (~known).nonzero()[0]
+    slots[new[np.argsort(first[new])]] = next_slot + np.arange(len(new))
+    return slots[inv.reshape(-1)]
+
+
+AGG_ROWS, AGG_KEYS = 131_072, 20_000  # one q5 batch; Zipf auction slots
+
+
+def agg_callers(parent):
+    """One q5 batch's (slot, bin) cells: ``agg_cells`` (the host
+    library, first-appearance order) against the parent's
+    ``preaggregate`` (sorted), the same cells sorted, then in turns."""
+    rng = np.random.default_rng(21)
+    slots = (rng.zipf(1.3, AGG_ROWS) % AGG_KEYS).astype(np.int64)
+    bins = rng.integers(0, 16, AGG_ROWS).astype(np.int32)
+    vals = np.empty((0, AGG_ROWS))
+    got = native.agg_cells(slots, bins, None, 16, vals, ())
+    want = parent.keyed_bins.preaggregate(slots, bins, (), vals)
+    order = np.lexsort((got[1], got[0]))
+    check(all(np.array_equal(g[..., order], w) for g, w in zip(got, want)),
+          "agg_cells differs from the parent's preaggregate")
+    ms, p_ms, turns = in_turns(
+        lambda: native.agg_cells(slots, bins, None, 16, vals, ()),
+        lambda: parent.keyed_bins.preaggregate(slots, bins, (), vals),
+        pairs=2, reps=5, warm=1)
+    return {"rows": AGG_ROWS, "cells": len(got[0]), "agg_cells_ms": ms,
+            "parent_preaggregate_ms": p_ms, "turns_ms": turns,
+            **turn_factors(turns)}
 
 
 def k1_case(rng, dev, kinds, dup, m, cdt, unique, shape, C=C_Q5,
@@ -4890,10 +4965,13 @@ TASK_METRICS = ("arroyo_worker_messages_recv_total",
                 "arroyo_worker_bytes_recv_total",
                 "arroyo_worker_bytes_sent_total",
                 "arroyo_worker_tx_queue_size", "arroyo_worker_tx_queue_rem")
-WORK_SHARE = (0.85, 1.5)  # summed work phases over wall (the JAX bound)
+WORK_SHARE = (0.85, 1.5)  # work phases over wall (the JAX bound)
 # phases a cell's source records on its prefetch thread, beside the event
-# loop (the nexmark generator): the JAX bound holds for the loop's phases,
-# and one thread's phase for itself can take at most the wall
+# loop (the nexmark generator): they stay under the wall, the loop's own
+# work phases under the JAX upper bound, and those plus the time the loop
+# idles in its selector, waiting on that thread, over the JAX lower bound
+# (with the host library q5's loop waits on the generator, whose wall
+# sets q5's; both spans are wall-clock, so they may overlap)
 OFF_LOOP = {"q5": ("source_decode",), "q5_tail": ("source_decode",)}
 # q5's tail: 2M events at 2,000 events/s in batches of 8,192, so each
 # batch spans 4.1 s of event time and the window fires after nearly every
@@ -4937,6 +5015,36 @@ def exposition_gaps(runner, job):
             for m in TASK_METRICS if (op, m) not in have]
 
 
+class loop_idle:
+    """Seconds the event loop run on the calling thread spends blocked in
+    its selector (waiting on I/O, a timer or another thread's future):
+    the loop's idle time, read beside the profiler, not by it."""
+
+    def __enter__(self):
+        cls = selectors.DefaultSelector
+        self.saved = cls.__dict__.get("select")
+        orig, me = cls.select, threading.get_ident()
+        self.secs = 0.0
+
+        def select(sel, timeout=None):
+            if threading.get_ident() != me:
+                return orig(sel, timeout)
+            t0 = time.perf_counter()
+            try:
+                return orig(sel, timeout)
+            finally:
+                self.secs += time.perf_counter() - t0
+
+        cls.select = select
+        return self
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            del selectors.DefaultSelector.select
+        else:
+            selectors.DefaultSelector.select = self.saved
+
+
 def svc_run(cell, make, rows_of, armed, ckpt=None, timing=False, env=None):
     """One run of ``cell`` on the card, launches counted from 0, with the
     services armed or not; returns (rows, summary, launches)."""
@@ -4964,7 +5072,8 @@ def svc_run(cell, make, rows_of, armed, ckpt=None, timing=False, env=None):
         if prof is not None:
             prof.reset()
         t0 = time.perf_counter()
-        resps = runner.run(checkpoint_interval_secs=ckpt)
+        with loop_idle() as idle:
+            resps = runner.run(checkpoint_interval_secs=ckpt)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches()
@@ -4989,6 +5098,7 @@ def svc_run(cell, make, rows_of, armed, ckpt=None, timing=False, env=None):
                    work_share=work / wall,
                    loop_share=(work - beside) / wall,
                    thread_share=beside / wall,
+                   idle_share=idle.secs / wall,
                    counts=len(snap["counts"]))
         if timing:
             return rows, out, launches, prof.work_snapshot(), runner
@@ -4999,10 +5109,14 @@ def svc_run(cell, make, rows_of, armed, ckpt=None, timing=False, env=None):
               f"{job}: {events} sanitizer events, {san.violations} "
               "violations")
         lo, hi = WORK_SHARE
-        check(lo <= out["loop_share"] <= hi and out["thread_share"] <= 1.0,
-              f"{job}: work phases {work - beside:.3f} s on the loop and "
-              f"{beside:.3f} s beside it over a {wall:.3f} s wall "
-              f"({out['loop_share']:.3f}, {out['thread_share']:.3f}): "
+        covered = out["loop_share"] + (out["idle_share"] if cell in OFF_LOOP
+                                       else 0.0)
+        check(lo <= covered and out["loop_share"] <= hi
+              and out["thread_share"] <= 1.0,
+              f"{job}: work phases {work - beside:.3f} s on the loop, "
+              f"{idle.secs:.3f} s idle and {beside:.3f} s beside it over a "
+              f"{wall:.3f} s wall ({out['loop_share']:.3f}, "
+              f"{out['idle_share']:.3f}, {out['thread_share']:.3f}): "
               f"{snap['phases']}")
         for phase in ("source_decode", "proc", "dispatch", "watermark"):
             check(snap["phases"].get(phase, 0.0) > 0.0,
@@ -5171,6 +5285,100 @@ def services_phase():
     return {k: dict(v) for k, v in launches.items()}
 
 
+# -- phase 17: the host library ------------------------------------------------------
+
+
+class numpy_host_path:
+    """The port's host library switched off for a block: every binding
+    runs its numpy version and new states keep the sorted directory."""
+
+    def __enter__(self):
+        self.saved = native._lib
+        native._lib = None
+
+    def __exit__(self, *exc):
+        native._lib = self.saved
+
+
+def native_run(cell, make, rows_of, library):
+    """One run on the card, the host library on or off, the profiler
+    armed: (rows, wall s, the phase table, launches)."""
+    job = f"native-{cell}-{'lib' if library else 'numpy'}"
+    program, sink = make()
+    clear_sink(sink)
+    profiler.disarm()
+    runner = LocalRunner(program, job_id=job)
+    prof = profiler.arm(job)
+    prof.reset()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        if library:
+            runner.run()
+        else:
+            with numpy_host_path():
+                runner.run()
+        torch.cuda.synchronize()
+    finally:
+        profiler.disarm()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    rows = rows_of(sink_output(sink))
+    clear_sink(sink)
+    return rows, wall, prof.snapshot()["phases"], launches
+
+
+def native_phase():
+    """q5 (NUM_EVENTS in batches of BATCH, C = C_Q5) and hot items
+    (HOT_SMALL) with the host library and without it, in turns (library,
+    numpy, numpy, library): every run's rows equal to its numpy control,
+    each run's wall and the profiler's ``proc`` printed, the kernels of
+    the path launched by every run."""
+    controls = {"q5": q5_control(NUM_EVENTS), "hot": hot_control(HOT_SMALL)}
+    cells = {
+        "q5": (lambda: (q5_program(NUM_EVENTS, BATCH, "native-q5",
+                                   base_time_micros=0), "native-q5"),
+               q5_rows,
+               lambda rows: check(rows == controls["q5"],
+                                  f"phase 17 q5: {len(rows)} rows against "
+                                  f"the control's {len(controls['q5'])}"),
+               ("bin_update", "argmax_fire", "bin_evict")),
+        "hot": (lambda: (hot_items_program(HOT_SMALL, BATCH,
+                                           sink="native-hot",
+                                           base_time_micros=0), "native-hot"),
+                hot_table,
+                lambda rows: hot_gate(rows, controls["hot"]),
+                ("bin_update", "segment_top_k")),
+    }
+    launches, out = {}, {}
+    for cell, (make, rows_of, gate, need) in cells.items():
+        total = collections.Counter()
+        runs = []
+        for library in (True, False, False, True):
+            rows, wall, phases, ln = native_run(cell, make, rows_of, library)
+            gate(rows)
+            check(all(ln[k] > 0 for k in need),
+                  f"phase 17 {cell}: launches {ln}")
+            total.update(ln)
+            runs.append({"library": library, "wall_s": wall,
+                         "proc_s": phases.get("proc", 0.0),
+                         "source_decode_s": phases.get("source_decode", 0.0),
+                         "phases": phases})
+        lib = [r for r in runs if r["library"]]
+        off = [r for r in runs if not r["library"]]
+        out[cell] = {
+            "runs": runs,
+            "wall_numpy_over_library": statistics.fmean(
+                r["wall_s"] for r in off) / statistics.fmean(
+                r["wall_s"] for r in lib),
+            "proc_numpy_over_library": statistics.fmean(
+                r["proc_s"] for r in off) / statistics.fmean(
+                r["proc_s"] for r in lib)}
+        launches[f"native_{cell}"] = dict(total)
+    print("host library: " + json.dumps(out))
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -5213,6 +5421,7 @@ def main():
     launches.update(timed("semi_mw", semi_mw_phase))
     launches.update(timed("correlated_windows", cw_phase))
     launches.update(timed("services", services_phase))
+    launches.update(timed("native", native_phase))
     print("phase seconds: " + json.dumps(seconds))
     for r in kernels:
         for path in PATHS:

@@ -184,7 +184,11 @@ NEW_MODULES = ("arroyo_tpu_torch.q1", "arroyo_tpu_torch.q7",
                "arroyo_tpu_torch.obs.logging_setup",
                "arroyo_tpu_torch.obs.profiler",
                "arroyo_tpu_torch.obs.latency",
-               "arroyo_tpu_torch.analysis.sanitizer")
+               "arroyo_tpu_torch.analysis.sanitizer",
+               "arroyo_tpu_torch.native",
+               "arroyo_tpu_torch.utils",
+               "arroyo_tpu_torch.utils.storage",
+               "arroyo_tpu_torch.state.backend")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

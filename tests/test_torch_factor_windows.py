@@ -29,7 +29,6 @@ from collections import Counter
 import numpy as np
 import pytest
 
-import arroyo_tpu.native as jax_native
 from arroyo_tpu import Stream as JaxStream
 from arroyo_tpu.analysis.plan_validator import (
     validate_program as jax_validate)
@@ -69,10 +68,8 @@ WIDTHS = [10, 4, 20, 6, 16, 8, 30, 14]  # bench.py's correlated widths
 
 @pytest.fixture
 def jax_like_port(monkeypatch):
-    """The JAX package on the port's only paths: numpy host helpers (key
-    slots in hash order) and one device (no mesh state)."""
-    monkeypatch.setattr(jax_native, "_lib", None)
-    monkeypatch.setattr(jax_native, "HAVE_NATIVE", False)
+    """The JAX package on one device (no mesh state), its host library
+    on its default, as the port's."""
     monkeypatch.setenv("ARROYO_MESH", "off")
 
 

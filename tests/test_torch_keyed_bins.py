@@ -6,14 +6,13 @@ i32->i64 counts promotion; identical canonical snapshots; and snapshots
 that restore across the two packages in both directions.
 
 The JAX state is built directly (conftest's 8 CPU devices would make
-``make_bin_state`` pick the mesh state) and runs with its numpy host
-helpers — the port's only path — so both assign key slots in the same
-order."""
+``make_bin_state`` pick the mesh state).  Both packages run on their
+defaults, the host library where it built: key slots in first-seen order
+in both (tests/test_torch_native.py holds both packages' numpy paths)."""
 
 import numpy as np
 import pytest
 
-import arroyo_tpu.native as jax_native
 from arroyo_tpu.graph.logical import AggKind as JAggKind
 from arroyo_tpu.graph.logical import AggSpec as JAggSpec
 from arroyo_tpu.ops.keyed_bins import KeyedBinState as JaxState
@@ -25,13 +24,6 @@ SLIDE, WIDTH = 1_000, 3_000  # W = 3 bins per window, ring B = 16
 DENSE_AGGS = [("count", None, "n"), ("sum", "price", "total"),
               ("min", "price", "lo"), ("max", "price", "hi"),
               ("avg", "price", "mean"), ("count", "price", "cp")]
-
-
-@pytest.fixture
-def numpy_host_helpers(monkeypatch):
-    """Run the JAX state with its numpy host helpers (as the port does)."""
-    monkeypatch.setattr(jax_native, "_lib", None)
-    monkeypatch.setattr(jax_native, "HAVE_NATIVE", False)
 
 
 def _pair(aggs, argmax, capacity=8):
@@ -102,8 +94,7 @@ def _assert_snapshots_equal(a, b):
     (DENSE_AGGS, None, False),
     (DENSE_AGGS, None, True),
 ])
-def test_state_matches_jax_with_cross_restore(numpy_host_helpers,
-                                              monkeypatch, aggs, argmax,
+def test_state_matches_jax_with_cross_restore(monkeypatch, aggs, argmax,
                                               promote):
     """(d) fires identical on every batch; at the midpoint the canonical
     snapshots are identical and each package restores the other's
@@ -155,8 +146,7 @@ def _bits(a):
 
 
 @pytest.mark.parametrize("compact", ["on", "off"])
-def test_flushes_and_fires_match_jax_with_signed_zeros(numpy_host_helpers,
-                                                       monkeypatch, compact):
+def test_flushes_and_fires_match_jax_with_signed_zeros(monkeypatch, compact):
     """Prices of both signs and +/-0.0 under MIN/MAX/SUM, two update runs
     a flush (merged on the host), through both packages' states: every
     fire equal, the canonical snapshots bit for bit equal (MIN/MAX order
@@ -199,8 +189,7 @@ def test_flushes_and_fires_match_jax_with_signed_zeros(numpy_host_helpers,
 
 
 @pytest.mark.parametrize("shape", ["q5", "hot_items"])
-def test_argmax_and_compact_fires_read_back_once(numpy_host_helpers,
-                                                  monkeypatch, shape):
+def test_argmax_and_compact_fires_read_back_once(monkeypatch, shape):
     """The two fires of a COUNT(*) state against the JAX state's on the
     same stream: q5's argmax fire (``_emit_argmax``, one fire forced past
     its capacity) and hot items' compact fire (``_emit_compact``).  Rows
@@ -251,8 +240,7 @@ def test_argmax_and_compact_fires_read_back_once(numpy_host_helpers,
     (120_000, 30, (256, 120)),  # a 120-bin window's final fire
     (3_000, 1_500, (2048, 3)),  # 1,500 bins of data fired at the end
 ])
-def test_argmax_final_fire_of_many_panes_matches_jax(numpy_host_helpers,
-                                                     monkeypatch, width,
+def test_argmax_final_fire_of_many_panes_matches_jax(monkeypatch, width,
                                                      span, shape):
     """q5-shaped argmax states (COUNT(*), local max) whose only fire is
     the final one, over every pane of the stream: rows equal the JAX

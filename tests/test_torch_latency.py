@@ -18,7 +18,6 @@ from hypothesis import strategies as st
 
 import arroyo_tpu as jax_pkg
 import arroyo_tpu.config as jax_config
-import arroyo_tpu.native as jax_native
 from arroyo_tpu.connectors import memory as jax_memory
 from arroyo_tpu.engine.build import build_operator as jax_build
 from arroyo_tpu.engine.engine import LocalRunner as JaxLocalRunner
@@ -289,13 +288,11 @@ def _start(op, info):
     return ctx
 
 
-def test_armed_q5_checkpoint_restores_across_packages(monkeypatch):
+def test_armed_q5_checkpoint_restores_across_packages():
     """q5's aggregate, fed stamped batches in each package, snapshots its
     pending stamp under ``__lat_stamp``; each snapshot restores into the
     other package's operator with that stamp pending and snapshots back
     equal."""
-    monkeypatch.setattr(jax_native, "_lib", None)
-    monkeypatch.setattr(jax_native, "HAVE_NATIVE", False)
     sql = queries.Q5.format(n=1_000, b=500)
     rng = np.random.default_rng(11)
     auctions = rng.integers(0, 40, 300).astype(np.int64)

@@ -15,7 +15,6 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-import arroyo_tpu.native as jax_native
 from arroyo_tpu.graph.logical import AggKind as JAggKind
 from arroyo_tpu.graph.logical import AggSpec as JAggSpec
 from arroyo_tpu.ops.keyed_bins import KeyedBinState as JaxState
@@ -163,8 +162,6 @@ def test_state_planes_match_jax_after_fires_growth_and_restore(monkeypatch):
     ``values`` and ``counts`` planes equal the JAX state's, whose
     eviction rewrites every slot; the fires' keys and counts are equal
     too (tests/test_torch_keyed_bins.py holds every column and branch)."""
-    monkeypatch.setattr(jax_native, "_lib", None)
-    monkeypatch.setattr(jax_native, "HAVE_NATIVE", False)
     monkeypatch.setenv("ARROYO_EMIT_COMPACT", "off")  # the dense fire
 
     def pair():

@@ -181,3 +181,41 @@ def test_off_path_records_nothing():
     for keys in job_operator_summary("prof-off").values():
         assert not any(k.startswith(("phase_seconds.", "wait_seconds."))
                        for k in keys)
+
+
+@pytest.mark.parametrize("armed", [False, True])
+def test_broadcast_park_is_send_wait(armed):
+    """A producer whose watermark broadcast parks on a full downstream
+    queue charges the park to a ``send_wait`` wait child, not to its
+    ``watermark`` work phase (ROADMAP C15: the JAX package charges it to
+    the work phase); the queue receives the same messages armed or not."""
+    from arroyo_tpu_torch.engine.context import Collector, OutQueue
+    from arroyo_tpu_torch.types import Message, Watermark
+
+    prof = profiler.arm("c15") if armed else None
+    q = OutQueue(asyncio.Queue(maxsize=1))
+    col = Collector([[q]], op_id="src")
+    park = 0.2
+
+    async def main():
+        await q.queue.put(Message.stop())  # the queue is full
+
+        async def drain():
+            await asyncio.sleep(park)
+            return [await q.queue.get(), await q.queue.get()]
+
+        task = asyncio.ensure_future(drain())
+        frame = prof.begin("src", "watermark") if armed else None
+        await col.broadcast(Message.wm(Watermark.event_time(1_000)))
+        if armed:
+            prof.end(frame)
+        return await task
+
+    got = asyncio.run(main())
+    assert [m.kind for m in got] == [Message.stop().kind,
+                                    Message.wm(Watermark.event_time(1_000)
+                                               ).kind]
+    assert got[1].watermark == Watermark.event_time(1_000)
+    if armed:
+        assert prof.wait_snapshot()[("src", "send_wait")] >= 0.8 * park
+        assert prof.work_snapshot()[("src", "watermark")] < 0.5 * park

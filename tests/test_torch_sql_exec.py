@@ -32,7 +32,6 @@ from collections import Counter
 import numpy as np
 import pytest
 
-import arroyo_tpu.native as jax_native
 import bench
 from arroyo_tpu.connectors.memory import clear_sink as jax_clear_sink
 from arroyo_tpu.connectors.memory import sink_output as jax_sink_output
@@ -119,10 +118,8 @@ def _providers(tables):
 
 @pytest.fixture
 def jax_like_port(monkeypatch):
-    """The JAX package on the port's only paths: numpy host helpers (key
-    slots in hash order) and one device (no mesh state)."""
-    monkeypatch.setattr(jax_native, "_lib", None)
-    monkeypatch.setattr(jax_native, "HAVE_NATIVE", False)
+    """The JAX package on one device (no mesh state), its host library
+    on its default, as the port's."""
     monkeypatch.setenv("ARROYO_MESH", "off")
 
 

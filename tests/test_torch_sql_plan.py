@@ -354,18 +354,15 @@ def test_sql_planned_operators_have_the_jax_tables(query, median):
         assert got == want, (nid, got, want)
 
 
-def test_sql_planned_q5_state_restores_across_packages(monkeypatch):
+def test_sql_planned_q5_state_restores_across_packages():
     """The JAX KeyedBinState snapshot of q5's aggregate restores into the
     port's SQL-planned q5 aggregate operator, and its snapshot comes
     back equal."""
-    import arroyo_tpu.native as jax_native
     from arroyo_tpu.graph.logical import AggKind as JaxAggKind
     from arroyo_tpu.graph.logical import AggSpec as JaxAggSpec
     from arroyo_tpu.ops.keyed_bins import KeyedBinState as JaxState
     from arroyo_tpu_torch.engine.build import build_operator
 
-    monkeypatch.setattr(jax_native, "_lib", None)
-    monkeypatch.setattr(jax_native, "HAVE_NATIVE", False)
     prog = plan_sql(_pinned(queries.Q5))
     agg_id = next(n for n in prog.topo_order()
                   if prog.node(n).operator.kind

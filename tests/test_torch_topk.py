@@ -15,10 +15,11 @@
   an uninterrupted one, and the fused TopN's tables restoring across the
   two packages in both directions while a TopN window is buffered.
 
-The JAX side runs with its numpy host helpers and one device, as the port
-does: a TopN's ties at the k-th place are decided by row order, which
-follows key-slot order, which the C++ key directory (first-seen order) and
-the mesh state would change."""
+The JAX side runs on one device, as the port does, and both packages on
+their default host paths: a TopN's ties at the k-th place are decided by
+row order, which follows key-slot order (first-seen with the host
+library's key directory in both packages), which the mesh state would
+change."""
 
 import asyncio
 
@@ -26,7 +27,6 @@ import numpy as np
 import pytest
 import torch
 
-import arroyo_tpu.native as jax_native
 from arroyo_tpu.connectors.memory import clear_sink as jax_clear_sink
 from arroyo_tpu.connectors.memory import sink_output as jax_sink_output
 from arroyo_tpu.engine.context import TimerHeap as JaxTimerHeap
@@ -69,10 +69,8 @@ from arroyo_tpu_torch.types import Batch, TaskInfo, hash_columns
 
 @pytest.fixture
 def jax_like_port(monkeypatch):
-    """The JAX package on the port's only paths: numpy host helpers (key
-    slots in hash order) and one device (no mesh state)."""
-    monkeypatch.setattr(jax_native, "_lib", None)
-    monkeypatch.setattr(jax_native, "HAVE_NATIVE", False)
+    """The JAX package on one device (no mesh state), its host library
+    on its default, as the port's."""
     monkeypatch.setenv("ARROYO_MESH", "off")
 
 
