@@ -35,6 +35,9 @@ class Config:
     # sources (0 = off)
     latency_sample_n: int = field(
         default_factory=lambda: _env_int("ARROYO_LATENCY_SAMPLE_N", 0))
+    # the controller the preview sink streams results to
+    controller_addr: str = field(default_factory=lambda: os.environ.get(
+        "CONTROLLER_ADDR") or "http://localhost:9190")
 
 
 _config: Optional[Config] = None

@@ -14,15 +14,23 @@ tests/test_torch_sql_plan.py holds the two equal, node for node:
   -> agg projection (k, med, cnt, window_start, window_end) -> out_sink
 
 Every operator keeps the planner's name and emits the planner's columns,
-so the rows are comparable one for one."""
+so the rows are comparable one for one.
+
+``config5_sql`` is bench.py's text with another sink table (the
+filesystem or the transactional Kafka sink of a deployed pipeline) in
+place of the memory sink, and ``config5_produce`` writes the events as
+JSON or, given the record schema the planner synthesizes from the
+source's DDL, as Avro."""
 
 from __future__ import annotations
 
 import json
+from typing import Any, Dict, Optional
 
 import numpy as np
 
 from .connectors.kafka import InMemoryKafkaBroker
+from .formats import AvroFormat
 from .graph.logical import AggKind, AggSpec, Program, SessionWindow, Stream
 
 GAP_MICROS = 1_000_000  # session(INTERVAL '1' SECOND)
@@ -45,16 +53,41 @@ def config5_events(n: int, t0_micros: int, spacing_micros: int):
 
 
 def config5_produce(broker: str, n: int, t0_micros: int,
-                    spacing_micros: int) -> None:
+                    spacing_micros: int,
+                    avro_schema: Optional[Dict[str, Any]] = None) -> None:
     """Refill the in-process topic ``sess`` of ``broker`` with ``n``
-    JSON events, the payloads bench.py's ``_config5_produce`` writes."""
+    events: JSON, the payloads bench.py's ``_config5_produce`` writes, or
+    Avro records of ``avro_schema``."""
     InMemoryKafkaBroker.reset(broker)
     b = InMemoryKafkaBroker.get(broker)
     b.create_topic(TOPIC, partitions=1)
     keys, vals, ts = config5_events(n, t0_micros, spacing_micros)
-    for k, v, t in zip(keys.tolist(), vals.tolist(), ts.tolist()):
-        b.produce(TOPIC, json.dumps({"k": k, "v": v, "ts": t}).encode(),
-                  partition=0)
+    rows = ({"k": k, "v": v, "ts": t}
+            for k, v, t in zip(keys.tolist(), vals.tolist(), ts.tolist()))
+    if avro_schema is None:
+        payloads = (json.dumps(r).encode() for r in rows)
+    else:
+        payloads = AvroFormat(schema=avro_schema).serialize(list(rows))
+    for p in payloads:
+        b.produce(TOPIC, p, partition=0)
+
+
+def config5_sql(num_events: int, batch_size: int, broker: str = "bench5",
+                fmt: str = "json", sink: Optional[str] = None) -> str:
+    """bench.py's ``CONFIG5_SQL`` over the first ``num_events`` events of
+    ``broker``'s topic in ``fmt``, with the sink table ``sink`` (a
+    ``CREATE TABLE out ...;`` statement) in place of the memory sink."""
+    from .queries import CONFIG5_SQL
+
+    text = CONFIG5_SQL.format(n=num_events, b=batch_size).replace(
+        "memory://bench5", f"memory://{broker}").replace(
+        "format = 'json'", f"format = '{fmt}'")
+    if sink is not None:
+        memory = "CREATE TABLE out WITH (connector = 'memory', " \
+                 "name = 'results');"
+        assert memory in text
+        text = text.replace(memory, sink)
+    return text
 
 
 def _ev_virtual(c):

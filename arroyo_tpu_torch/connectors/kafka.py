@@ -1,22 +1,30 @@
-"""Kafka source over the in-process broker (port of the source half of
-``arroyo_tpu.connectors.kafka``).
+"""Kafka source and transactional sink over the in-process broker (port
+of ``arroyo_tpu.connectors.kafka``).
 
 The source owns the topic partitions ``p % parallelism == task_index``,
 keeps each partition's last-read offset in global table ``s`` and resumes
 after a restore from the offset after it — exactly once, because a
 fetch is decoded and emitted downstream before its offset is recorded
 and before the source looks at its control queue, where checkpoint
-barriers arrive.
+barriers arrive.  A ``read_committed`` source sees only the records of
+committed transactions.
+
+The sink is a two-phase committer (connectors/two_phase.py): its rows go
+into an open transaction, a checkpoint barrier seals that transaction as
+the epoch's pre-commit (the next rows open a new one, so each open
+transaction has its own producer id), and the commit phase commits it.
+Payloads are the rows through ``make_format`` (json, debezium_json, raw,
+avro).
 
 ``bootstrap_servers='memory://<name>'`` selects the process-global
 :class:`InMemoryKafkaBroker` of that name.  It is this package's own
-registry, separate from the JAX package's.  Real brokers (the JAX
-package's aiokafka adapter) and the transactional sink are not ported
-yet."""
+registry, separate from the JAX package's.  Any other bootstrap raises:
+the JAX package's aiokafka adapter for real brokers is not ported."""
 
 from __future__ import annotations
 
 import asyncio
+import itertools
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -29,6 +37,7 @@ from ..obs.latency import maybe_stamp
 from ..state.tables import TableDescriptor, global_table
 from ..types import StopMode
 from .registry import ConnectorMeta, register_connector
+from .two_phase import TwoPhaseCommitterSink
 
 
 @dataclass
@@ -170,8 +179,8 @@ def make_broker(bootstrap_servers: str, client_configs: Dict[str, str]
     if bootstrap_servers.startswith("memory://"):
         return InMemoryKafkaBroker.get(bootstrap_servers[len("memory://"):])
     raise NotImplementedError(
-        f"kafka bootstrap {bootstrap_servers!r}: the port reads only the "
-        "in-process broker (memory://<name>)")
+        f"kafka bootstrap {bootstrap_servers!r}: the port reads and writes "
+        "only the in-process broker (memory://<name>)")
 
 
 # -- source -------------------------------------------------------------------------
@@ -251,9 +260,68 @@ class KafkaSource(SourceOperator):
                 await asyncio.sleep(0)
 
 
+# -- sink (transactional, exactly once) ---------------------------------------------
+
+
+class KafkaSink(TwoPhaseCommitterSink):
+    _txn_counter = itertools.count()
+
+    def __init__(self, cfg: Dict[str, Any]):
+        super().__init__("kafka_sink")
+        self.cfg = KafkaConfig(**cfg)
+        self.fmt = make_format(self.cfg.format, **self.cfg.format_options)
+        self._txn_id: Optional[str] = None
+        self._subtask = 0
+        self._b: Optional[InMemoryKafkaBroker] = None
+
+    def _broker(self) -> InMemoryKafkaBroker:
+        if self._b is None:
+            self._b = make_broker(self.cfg.bootstrap_servers,
+                                  self.cfg.client_configs)
+        return self._b
+
+    async def committer_init(self, recovery_state, ctx: Context) -> None:
+        self._subtask = ctx.task_info.task_index
+
+    def _ensure_txn(self) -> str:
+        if self._txn_id is None:
+            self._txn_id = (f"arroyo-{self.cfg.topic}-{self._subtask}-"
+                            f"{next(self._txn_counter)}")
+            self._broker().begin_txn(self._txn_id)
+        return self._txn_id
+
+    async def insert_batch(self, batch, ctx: Context) -> None:
+        txn = self._ensure_txn()
+        broker = self._broker()
+        for payload in self.fmt.serialize_batch(batch):
+            broker.produce_txn(txn, self.cfg.topic, payload)
+
+    async def committer_checkpoint(self, epoch: int, stopping: bool,
+                                   ctx: Context):
+        # the open transaction is the epoch's pre-commit; the next insert
+        # opens a new one, committed in phase two
+        txn, self._txn_id = self._txn_id, None
+        return None, ({txn: {"txn_id": txn}} if txn is not None else {})
+
+    async def committer_commit(self, epoch: int, pre_commits,
+                               ctx: Context) -> None:
+        broker = self._broker()
+        for pc in pre_commits.values():
+            broker.commit_txn(pc["txn_id"])
+
+    async def on_close(self, ctx: Context) -> None:
+        # the stream ended without a barrier after these rows: commit the
+        # open transaction, as no commit phase will come for it
+        if self._txn_id is not None:
+            self._broker().commit_txn(self._txn_id)
+            self._txn_id = None
+
+
 register_connector(ConnectorMeta(
     name="kafka",
-    description="kafka source over the in-process broker (offset state)",
+    description="kafka source (offset state) / transactional exactly-once "
+                "sink over the in-process broker",
     source_factory=KafkaSource,
+    sink_factory=KafkaSink,
     config_model=KafkaConfig,
 ))

@@ -67,4 +67,5 @@ def make_sink(name: str, config: Dict[str, Any]) -> Operator:
 
 
 def _ensure_builtin() -> None:
-    from . import blackhole, impulse, kafka, memory, nexmark  # noqa: F401  (register)
+    from . import (blackhole, filesystem, impulse, kafka,  # noqa: F401
+                   memory, nexmark, preview, single_file)  # (register)

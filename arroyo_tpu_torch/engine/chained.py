@@ -221,6 +221,10 @@ class ChainedOperator(Operator):
             metas.extend(await member.checkpoint_state(barrier, mctx))
         return metas
 
+    async def handle_commit(self, epoch: int, ctx: Context) -> None:
+        for member, mctx in zip(self.members, self.ctxs):
+            await member.handle_commit(epoch, mctx)
+
     # -- dataflow -----------------------------------------------------------------
 
     async def process_batch(self, batch: Batch, ctx: Context,

@@ -67,6 +67,7 @@ from ..types import (
     CheckpointBarrier,
     ControlMessage,
     ControlResp,
+    StopMode,
     TaskInfo,
     now_micros,
 )
@@ -253,6 +254,13 @@ class RunningEngine:
         return [h.control_tx for h in self.engine.subtasks.values()
                 if h.is_source]
 
+    def sink_controls(self) -> List[asyncio.Queue]:
+        """The control queues of the sinks' subtasks (sinks never
+        chain, so each is the head of its runner)."""
+        sink_ids = {n.operator_id for n in self.engine.program.sinks()}
+        return [h.control_tx for (op_id, _), h in self.engine.subtasks.items()
+                if op_id in sink_ids]
+
     async def checkpoint(self, epoch: int, min_epoch: int = 0,
                          then_stop: bool = False) -> None:
         """Inject a barrier at all sources."""
@@ -292,9 +300,21 @@ class RunningEngine:
         return True
 
     async def commit(self, epoch: int) -> None:
-        """Second phase of checkpoint ``epoch``: a no-op, because none of
-        the port's sinks is two-phase (the JAX package's commit only
-        reaches two-phase committer sinks)."""
+        """Second phase of the sealed checkpoint ``epoch``: a commit
+        message to every sink subtask; two-phase sinks finalize their
+        pre-commits of ``epoch`` and earlier."""
+        for q in self.sink_controls():
+            await q.put(ControlMessage.commit(epoch))
+
+    async def stop(self, mode: StopMode = StopMode.GRACEFUL) -> None:
+        """Stop the run: IMMEDIATE reaches every subtask at once, any
+        other mode the sources, which end the stream."""
+        if mode == StopMode.IMMEDIATE:
+            for h in self.engine.subtasks.values():
+                await h.control_tx.put(ControlMessage.stop(mode))
+        else:
+            for q in self.source_controls():
+                await q.put(ControlMessage.stop(mode))
 
     async def join(self) -> List[ControlResp]:
         """Wait for all subtasks to finish; return the control responses,

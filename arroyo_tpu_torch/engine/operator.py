@@ -77,6 +77,9 @@ class Operator:
     async def on_start(self, ctx: Context) -> None:
         pass
 
+    async def handle_commit(self, epoch: int, ctx: Context) -> None:
+        """Second phase of the two-phase commit of ``epoch`` (sinks)."""
+
     async def process_batch(self, batch: Batch, ctx: Context,
                             side: int = 0) -> None:
         raise NotImplementedError

@@ -8,7 +8,10 @@ barriers, stop and end of data leave from the tail's context.
 
 A barrier arriving on one input parks that input's pump until barriers
 have arrived on all inputs; then state snapshots and the barrier is
-rebroadcast downstream.  Record batches pass through a
+rebroadcast downstream.  A ``commit`` control message runs the
+operator's second commit phase, in the loop and, for a two-phase sink
+whose last pre-commits are still open when its inputs end, while it waits
+for that commit before closing.  Record batches pass through a
 :class:`~arroyo_tpu_torch.engine.coalesce.BatchCoalescer` (unless
 ``ARROYO_COALESCE=0``), which is flushed before any watermark, barrier
 or end of stream is handled and when its linger expires.
@@ -179,6 +182,8 @@ class TaskRunner:
             await self.run_checkpoint(cm.barrier)
             if cm.barrier.then_stop:
                 return ControlMessage.stop(StopMode.IMMEDIATE)
+        elif cm.kind == "commit":
+            await self.operator.handle_commit(cm.epoch, self.ctx)
         return cm
 
     # -- processor ----------------------------------------------------------------
@@ -238,7 +243,9 @@ class TaskRunner:
                     continue
                 if get_control in done:
                     cm = get_control.result()
-                    if (cm.kind == "stop"
+                    if cm.kind == "commit":
+                        await self.operator.handle_commit(cm.epoch, self.ctx)
+                    elif (cm.kind == "stop"
                             and cm.stop_mode == StopMode.IMMEDIATE):
                         return
                 if get_merged not in done:
@@ -319,11 +326,37 @@ class TaskRunner:
                 while not q.empty():
                     q.get_nowait()
 
+        await self._await_pending_commit()
         await self.operator.on_close(self.ctx)
         if then_stop or stop_mode is not None:
             await self.out_ctx.broadcast(Message.stop())
         else:
             await self.out_ctx.broadcast(Message.end_of_data())
+
+    async def _await_pending_commit(self, timeout: float = 30.0) -> None:
+        """A two-phase sink whose pre-commits were sealed by the last
+        checkpoint waits for their commit before it closes, or the last
+        epoch's output would never be finalized.  An IMMEDIATE stop ends
+        the wait (a restore re-commits them), and so does ``timeout``."""
+        has_pending = getattr(self.operator, "has_pending_commits", None)
+        if has_pending is None or not has_pending(self.ctx):
+            return
+        try:
+            while True:
+                cm = await asyncio.wait_for(self.control_rx.get(),
+                                            timeout=timeout)
+                if cm.kind == "commit":
+                    await self.operator.handle_commit(cm.epoch, self.ctx)
+                    if not has_pending(self.ctx):
+                        return
+                elif (cm.kind == "stop"
+                      and cm.stop_mode == StopMode.IMMEDIATE):
+                    return
+        except asyncio.TimeoutError:
+            logger.warning(
+                "task %s closed with uncommitted pre-commits (no commit "
+                "within %.0fs); a restore re-commits them",
+                self.task_info.task_id, timeout)
 
     def _make_coalescer(self) -> Optional[BatchCoalescer]:
         """The input coalescer; None under ``ARROYO_COALESCE=0``."""

@@ -499,6 +499,27 @@ def mesh_carried_gauge(job_id: str) -> Any:
                    ("job_id",), "gauge").labels(job_id=job_id)
 
 
+# -- two-phase commit instruments (connectors/two_phase.py) ------------------
+
+SINK_COMMITS = "arroyo_worker_sink_commits_total"
+SINK_PRECOMMITS_COMMITTED = "arroyo_worker_sink_precommits_committed_total"
+SINK_COMMIT_SECONDS = "arroyo_worker_sink_commit_seconds_total"
+
+
+def sink_commit_counters(task_info) -> Tuple[Any, Any, Any]:
+    """A two-phase sink subtask's (epochs committed, pre-commits finalized,
+    seconds in the commit phase): a pre-commit is one staged part of the
+    filesystem sink, one transaction of the Kafka sink."""
+    return (
+        counter_for_task(task_info, SINK_COMMITS,
+                         "pre-committed epochs this sink finalized"),
+        counter_for_task(task_info, SINK_PRECOMMITS_COMMITTED,
+                         "pre-commits (staged parts, transactions) "
+                         "this sink finalized"),
+        counter_for_task(task_info, SINK_COMMIT_SECONDS,
+                         "cumulative seconds in the sink's commit phase"))
+
+
 # -- latency-observatory instruments (obs/latency.py) ------------------------
 
 SINK_E2E_LATENCY = "arroyo_sink_e2e_latency_seconds"

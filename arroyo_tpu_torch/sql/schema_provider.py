@@ -3,9 +3,9 @@
 (arroyo-sql/src/lib.rs:62-158): connector tables created via CREATE TABLE,
 plus built-in virtual tables (nexmark, impulse).
 
-A CREATE TABLE naming a connector or a format this package has not
-ported raises ``SqlPlanError`` at plan time (ROADMAP A.8), never inside
-a running task."""
+A CREATE TABLE naming a connector this package has not ported raises
+``SqlPlanError`` at plan time (ROADMAP A.8), and so does a Kafka table
+naming a format neither package knows, never inside a running task."""
 
 from __future__ import annotations
 
@@ -118,8 +118,8 @@ def impulse_table(config: Dict[str, Any]) -> TableDef:
                     default_lateness_micros=0)
 
 
-# serde formats the port decodes (formats.py)
-PORTED_FORMATS = {"json"}
+# serde formats (formats.make_format): all of the JAX package's
+PORTED_FORMATS = {"json", "debezium_json", "raw", "raw_string", "avro"}
 
 
 def _check_ported(table: str, connector: str, fmt: str) -> None:
@@ -134,8 +134,8 @@ def _check_ported(table: str, connector: str, fmt: str) -> None:
             "to arroyo_tpu_torch (ROADMAP A.8)") from None
     if connector == "kafka" and fmt not in PORTED_FORMATS:
         raise SqlPlanError(
-            f"CREATE TABLE {table}: format {fmt!r} is not ported to "
-            "arroyo_tpu_torch (ROADMAP A.8)")
+            f"CREATE TABLE {table}: unknown format {fmt!r} (known: "
+            f"{sorted(PORTED_FORMATS)})")
 
 
 class SchemaProvider:

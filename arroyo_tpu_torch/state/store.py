@@ -7,7 +7,10 @@ interval runs live on the store's device, the runner's.
 At each checkpoint the store refreshes the per-table key-count gauges
 (``arroyo_worker_table_size_keys``) and, with the runtime sanitizer
 armed, checks that no table changed size between the snapshot and its
-persistence (``mutation-during-checkpoint``)."""
+persistence (``mutation-during-checkpoint``).  The snapshot of a table
+written with ``WriteBehavior.COMMIT_WRITES`` (a two-phase sink's
+pre-commits) rides the checkpoint metadata as ``committing_data``, for
+the controller that drives the commit phase."""
 
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from .tables import (
     TableDescriptor,
     TableType,
     TimeKeyMap,
+    WriteBehavior,
 )
 
 
@@ -210,4 +214,12 @@ class StateStore:
             # the persisted epoch must hold exactly the snapshot above: a
             # table mutated while persisting is a torn epoch
             san.checkpoint_end(self.task_info.task_id, self.tables, fp)
+        committing = {
+            name: {k: v for _ts, k, v in (snap.entries or [])}
+            for name, snap in snaps.items()
+            if (self.descriptors[name].write_behavior
+                == WriteBehavior.COMMIT_WRITES and snap.entries)
+        }
+        if committing:
+            meta.committing_data = committing
         return meta

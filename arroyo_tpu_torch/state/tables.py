@@ -26,12 +26,18 @@ class TableType(Enum):
     DEVICE = "device"
 
 
+class WriteBehavior(Enum):
+    DEFAULT = "default"
+    COMMIT_WRITES = "commit_writes"  # two-phase-commit sink tables
+
+
 @dataclass
 class TableDescriptor:
     name: str
     table_type: TableType
     description: str = ""
     retention_micros: int = 0
+    write_behavior: WriteBehavior = WriteBehavior.DEFAULT
 
 
 def global_table(name: str, description: str = "") -> TableDescriptor:
@@ -58,6 +64,13 @@ class GlobalKeyedState:
 
     def get(self, key: Any) -> Any:
         return self._data.get(key)
+
+    def get_all(self) -> Dict[Any, Any]:
+        return dict(self._data)
+
+    def remove(self, key: Any) -> None:
+        self._data.pop(key, None)
+        self._version.pop(key, None)
 
     def snapshot(self) -> List[Tuple[int, Any, Any]]:
         return [(self._version.get(k, 0), k, v)

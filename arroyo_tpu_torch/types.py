@@ -309,9 +309,10 @@ class StopMode(Enum):
 
 @dataclass
 class ControlMessage:
-    kind: str  # 'checkpoint' | 'stop'
+    kind: str  # 'checkpoint' | 'stop' | 'commit'
     barrier: Optional[CheckpointBarrier] = None
     stop_mode: Optional[StopMode] = None
+    epoch: Optional[int] = None
 
     @staticmethod
     def checkpoint(barrier: CheckpointBarrier) -> "ControlMessage":
@@ -320,6 +321,10 @@ class ControlMessage:
     @staticmethod
     def stop(mode: StopMode = StopMode.GRACEFUL) -> "ControlMessage":
         return ControlMessage("stop", stop_mode=mode)
+
+    @staticmethod
+    def commit(epoch: int) -> "ControlMessage":
+        return ControlMessage("commit", epoch=epoch)
 
 
 @dataclass
@@ -332,6 +337,8 @@ class SubtaskCheckpointMetadata:
     bytes: int
     watermark: Optional[int] = None
     tables: Dict[str, "TableCheckpointMetadata"] = field(default_factory=dict)
+    # a COMMIT_WRITES table's entries: table -> {key: value}
+    committing_data: Optional[Dict[str, Any]] = None
 
 
 @dataclass

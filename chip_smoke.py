@@ -227,12 +227,32 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
     its numpy control, the path's kernels launched in every run, each
     run's wall and ``proc`` seconds printed with the numpy / library
     ratios.
+18. exactly-once sinks: bench.py's ``CONFIG5_SQL`` over phase 7's
+    C5_EVENTS (batch 4,096, 1 s gap and lateness, median UDAF) with the
+    sink of a deployed pipeline in place of the memory sink, 1 s
+    checkpoints committed by the runner: ``fs c5`` writes JSON part
+    files through the filesystem sink, whose promoted rows equal phase
+    7's memory-sink rows and its numpy control with no part left under
+    ``.staging/``; the same plan cut (``engine/drills.py``: epochs 1 and
+    2 sealed and committed, epoch 3 sealed, an IMMEDIATE stop before its
+    commit with its part staged) and restored from epoch 3 holds every
+    row once; ``kafka c5`` reads the first KAFKA_C5_EVENTS of those events
+    produced as Avro with the record schema the planner synthesizes from
+    the source's DDL (the produce outside the timed run) and writes JSON
+    rows through the transactional Kafka sink, whose ``read_committed``
+    rows equal the numpy control's and, for the key blocks the cut leaves
+    whole, fs c5's, and before the last commit the committed (and, on the
+    in-process broker, the uncommitted) read lacks exactly that
+    transaction's rows; each run's wall, epochs, parts staged and
+    promoted, commit seconds (the sinks' own commit counters,
+    ``obs.metrics.sink_commit_counters``) and launches printed,
+    ``session_union`` and ``segment_agg`` launched in both.
 
 Launch counts are set to 0 just before each main-path run (q5, q8,
 config5, 8a, 8b, hot items, q1, q7, each SQL-planned run of phase 12,
 each card run of phase 13, the legacy q8, 8a and 8b, the semi join and
 the two multi-way joins of phase 14, each card run of phases 15, 16 and
-17)
+17, fs c5's straight run and kafka c5's run)
 and read
 just after it; q1, q7 and the union launch no kernel.  It prints a
 ``{"kernels": [...]}`` line, the card's name and power limit as
@@ -242,6 +262,7 @@ It needs one card and exits non-zero without one.
     python3 chip_smoke.py --parent DIR   # phase 3 also times the parent's"""
 
 import argparse
+import asyncio
 import collections
 import functools
 import json
@@ -249,6 +270,7 @@ import math
 import os
 import re
 import selectors
+import shutil
 import statistics
 import subprocess
 import sys
@@ -267,13 +289,17 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from arroyo_tpu_torch.config5 import (  # noqa: E402
-    GAP_MICROS, config5_events, config5_produce, config5_program)
+    BURST, GAP_MICROS, KEYS_PER_BLOCK, config5_events, config5_produce,
+    config5_program, config5_sql)
+from arroyo_tpu_torch.connectors.kafka import InMemoryKafkaBroker  # noqa: E402
 from arroyo_tpu_torch.connectors.memory import clear_sink, sink_output  # noqa: E402
 from arroyo_tpu_torch.connectors.nexmark import (  # noqa: E402
     EVENT_AUCTION, EVENT_BID, EVENT_PERSON, NexmarkConfig, NexmarkGenerator,
     make_splits)
 from arroyo_tpu_torch.device import to_device, to_host  # noqa: E402
-from arroyo_tpu_torch.engine.engine import LocalRunner  # noqa: E402
+from arroyo_tpu_torch.engine.drills import cut_before_commit  # noqa: E402
+from arroyo_tpu_torch.engine.engine import Engine, LocalRunner  # noqa: E402
+from arroyo_tpu_torch.formats import make_format  # noqa: E402
 from arroyo_tpu_torch.graph.logical import (  # noqa: E402
     AggKind, AggSpec, JoinType, OpKind)
 from arroyo_tpu_torch.hot_items import SLIDE_MICROS as HOT_SLIDE  # noqa: E402
@@ -341,7 +367,7 @@ from arroyo_tpu_torch.state.join_state import (  # noqa: E402
     aggregate_stats_registry)
 from arroyo_tpu_torch.state.session_state import (  # noqa: E402
     aggregate_session_registry)
-from arroyo_tpu_torch.types import hash_columns  # noqa: E402
+from arroyo_tpu_torch.types import StopMode, hash_columns  # noqa: E402
 from arroyo_tpu_torch.analysis import sanitizer  # noqa: E402
 from arroyo_tpu_torch.config import reset_config  # noqa: E402
 from arroyo_tpu_torch.engine.operators_window import (  # noqa: E402
@@ -455,7 +481,7 @@ PATHS = ("q5", "q8", "config5", "join_inner", "join_left", "hot_items",
          "join_inner_legacy", "join_left_legacy", "semi", "mw", "mw_ttl",
          "cw_2m_fact", "cw_2m_unfact", "cw_8m_fact", "cw_8m_ckpt",
          "services_q5", "services_config5", "services_8a", "native_q5",
-         "native_hot")
+         "native_hot", "fs_c5", "kafka_c5")
 
 
 def reset_launches():
@@ -3503,6 +3529,7 @@ def c5_phase():
     check(len(rows) > 0, "config5 emitted no rows on the card")
     check(rows == control, f"config5 rows differ from the numpy control "
           f"({len(rows)} vs {len(control)})")
+    CONTROLS["config5_rows"] = rows  # phase 18's memory-sink rows
     check(launches["session_union"] > 0 and launches["segment_agg"] > 0,
           f"config5 main path did not launch both kernels: {launches}")
     check(counters["session_device_merge_rows"] > 0,
@@ -5379,6 +5406,261 @@ def native_phase():
     return launches
 
 
+# -- phase 18: exactly-once sinks ---------------------------------------------------
+
+SINK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_sinks")
+CUT_POLLS = (100, 200, 300, 301)  # config5's 489 batches: epochs 1-3, stop
+# kafka c5's events, cut from C5_EVENTS: at 2M the phase took 55.5-76.4 s
+# on an NVIDIA H100 80GB HBM3 at 700.00 W (the host's pure-Python Avro
+# encode and decode are the JAX package's design), against a 60 s budget
+KAFKA_C5_EVENTS = 1_000_000
+
+
+def fs_sink(root):
+    return (f"CREATE TABLE out WITH (connector = 'filesystem', path = "
+            f"'file://{root}', format = 'json', type = 'sink');")
+
+
+def part_listing(root):
+    """(final part names, staged part names) under ``root``."""
+    final, staged = [], []
+    for dirpath, _, names in os.walk(root):
+        for n in names:
+            (staged if ".staging" in dirpath else final).append(n)
+    return sorted(final), sorted(staged)
+
+
+def part_rows(root):
+    """The promoted parts' rows as sorted (k, med, cnt, window_start,
+    window_end) tuples."""
+    rows = []
+    for name in part_listing(root)[0]:
+        with open(os.path.join(root, name)) as f:
+            for line in f:
+                r = json.loads(line)
+                rows.append(tuple(r[c] for c in C5_COLS))
+    return sorted(rows)
+
+
+COMMIT_KEYS = {"commits": "sink_commits_total",
+               "parts_promoted": "sink_precommits_committed_total",
+               "commit_s": "sink_commit_seconds_total"}
+
+
+def commit_totals(job_id):
+    """The job's two-phase sink counters (``obs.metrics``'s
+    ``sink_commit_counters``), summed over its sink subtasks: epochs
+    committed, pre-commits finalized (parts for the filesystem sink,
+    transactions for Kafka) and seconds in the commit phase."""
+    out = dict.fromkeys(COMMIT_KEYS, 0.0)
+    for op in metrics.job_operator_summary(job_id).values():
+        for k, name in COMMIT_KEYS.items():
+            out[k] += op.get(name, 0.0)
+    return out
+
+
+def commits_since(job_id, before):
+    now = commit_totals(job_id)
+    return {k: now[k] - before[k] for k in COMMIT_KEYS}
+
+
+def sealed_epochs(resps, n_members):
+    done = collections.Counter(r.subtask_metadata.epoch for r in resps
+                               if r.kind == "checkpoint_completed")
+    return sorted(e for e, c in done.items() if c == n_members)
+
+
+def fs_straight(root):
+    """config5 into the filesystem sink with 1 s checkpoints; (wall s,
+    launches, sealed epochs, commit counters)."""
+    runner = LocalRunner(plan_sql(config5_sql(
+        C5_EVENTS, C5_BATCH, "c5-big", "json", fs_sink(root))),
+        job_id="c5-fs", device="cuda")
+    before = commit_totals("c5-fs")
+    reset_launches()
+    t0 = time.perf_counter()
+    resps = runner.run(checkpoint_interval_secs=1.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    return wall, launches, sealed_epochs(resps, len(runner.engine.members)), \
+        commits_since("c5-fs", before)
+
+
+def fs_cut(root):
+    """Epochs 1 and 2 sealed and committed, epoch 3 sealed, an IMMEDIATE
+    stop before its commit; a fresh engine restored from epoch 3 runs to
+    the end with 1 s checkpoints.  Returns the cut's and the restore's
+    figures."""
+    sql = config5_sql(C5_EVENTS, C5_BATCH, "c5-big", "json", fs_sink(root))
+    before = commit_totals("c5-cut")
+    t0 = time.perf_counter()
+    epoch = asyncio.run(cut_before_commit(
+        lambda: Engine.for_local(plan_sql(sql), "c5-cut", device="cuda"),
+        CUT_POLLS, StopMode.IMMEDIATE))
+    torch.cuda.synchronize()
+    cut_wall = time.perf_counter() - t0
+    cut_commits = commits_since("c5-cut", before)
+    at_cut = part_listing(root)
+    runner = LocalRunner(plan_sql(sql), job_id="c5-cut", device="cuda",
+                         restore_epoch=epoch)
+    before = commit_totals("c5-cut")
+    t0 = time.perf_counter()
+    resps = runner.run(checkpoint_interval_secs=1.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"cut_epoch": epoch, "cut_wall_s": cut_wall,
+            "cut_final_parts": len(at_cut[0]),
+            "cut_staged_parts": len(at_cut[1]),
+            "cut_commits": cut_commits,
+            "restore_wall_s": wall,
+            "restore_epochs": sealed_epochs(resps,
+                                            len(runner.engine.members)),
+            "restore_commits": commits_since("c5-cut", before)}
+
+
+class TxnTap:
+    """Wraps this output broker's ``commit_txn``: the rows a
+    ``read_committed`` and a ``read_uncommitted`` read see before each
+    commit, and the rows ``read_committed`` sees after it."""
+
+    def __init__(self, broker, topic):
+        self.broker, self.topic = broker, topic
+        self.before, self.after = [], []
+
+    def count(self, committed):
+        return len(self.broker.fetch_values(self.topic, 0, 0, 1 << 40,
+                                            committed)[0])
+
+    def __enter__(self):
+        orig = self.broker.commit_txn
+
+        def commit_txn(txn_id):
+            self.before.append((self.count(True), self.count(False)))
+            orig(txn_id)
+            self.after.append(self.count(True))
+
+        self.broker.commit_txn = commit_txn
+        return self
+
+    def __exit__(self, *exc):
+        del self.broker.commit_txn
+
+
+def kafka_c5(n):
+    """config5 over ``n`` Avro events into the transactional Kafka sink
+    (JSON rows) with 1 s checkpoints; the produce outside the timed run."""
+    sink = ("CREATE TABLE out WITH (connector = 'kafka', bootstrap_servers "
+            "= 'memory://c5-out', topic = 'c5', type = 'sink', "
+            "format = 'json');")
+    program = plan_sql(config5_sql(n, C5_BATCH, "c5-avro", "avro", sink))
+    (source,) = [nd for nd in program.nodes()
+                 if nd.operator.kind == OpKind.CONNECTOR_SOURCE]
+    schema = source.operator.spec.config["format_options"]["schema"]
+    t0 = time.perf_counter()
+    config5_produce("c5-avro", n, 0, C5_SPACING, avro_schema=schema)
+    produce_s = time.perf_counter() - t0
+    InMemoryKafkaBroker.reset("c5-out")
+    broker = InMemoryKafkaBroker.get("c5-out")
+    runner = LocalRunner(program, job_id="c5-kafka", device="cuda")
+    before = commit_totals("c5-kafka")
+    reset_launches()
+    with TxnTap(broker, "c5") as tap:
+        t0 = time.perf_counter()
+        resps = runner.run(checkpoint_interval_secs=1.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    t0 = time.perf_counter()
+    payloads, _ = broker.fetch_values("c5", 0, 0, 1 << 40, True)
+    rows = sorted(tuple(r[c] for c in C5_COLS) for r in
+                  make_format("json").deserialize(payloads))
+    read_s = time.perf_counter() - t0
+    return {"events": n, "schema": schema, "produce_s": produce_s,
+            "wall_s": wall, "events_per_s": n / wall, "read_s": read_s,
+            "epochs": sealed_epochs(resps, len(runner.engine.members)),
+            **commits_since("c5-kafka", before),
+            "commits_before": tap.before, "commits_after": tap.after}, \
+        rows, launches
+
+
+def sink_phase():
+    """Phase 18: config5 as deployed, into the filesystem sink (straight,
+    and cut after a sealed epoch and restored) and, over Avro events,
+    into the transactional Kafka sink."""
+    unregister_udfs()
+    register_udaf("median", np.median)
+    shutil.rmtree(SINK_DIR, ignore_errors=True)
+    control = [r[1:] for r in CONTROLS["config5"]]
+    memory = [r[1:] for r in CONTROLS["config5_rows"]]
+    try:
+        root = os.path.join(SINK_DIR, "straight")
+        wall, fs_launches, epochs, commits = fs_straight(root)
+        rows = part_rows(root)
+        final, staged = part_listing(root)
+        check(rows == sorted(memory) == sorted(control),
+              f"fs c5: {len(rows)} promoted rows against phase 7's "
+              f"{len(memory)} and the control's {len(control)}")
+        check(not staged, f"fs c5 left staged parts: {staged}")
+        check(len(epochs) > 0 and commits["parts_promoted"] > 0,
+              f"fs c5 sealed {epochs} and committed {commits}")
+        check(fs_launches["session_union"] > 0
+              and fs_launches["segment_agg"] > 0,
+              f"fs c5 did not launch both kernels: {fs_launches}")
+        fs = {"events": C5_EVENTS, "wall_s": wall,
+              "events_per_s": C5_EVENTS / wall, "rows": len(rows),
+              "epochs": epochs, "parts": len(final),
+              **commits, "launches": fs_launches}
+
+        root = os.path.join(SINK_DIR, "cut")
+        cut = fs_cut(root)
+        cut_rows = part_rows(root)
+        check(cut["cut_epoch"] == 3 and cut["cut_staged_parts"] > 0,
+              f"fs c5 cut: {cut}")
+        check(cut["restore_commits"]["parts_promoted"] >=
+              cut["cut_staged_parts"], f"fs c5 restore: {cut}")
+        check(cut_rows == rows and len(set(cut_rows)) == len(cut_rows),
+              f"fs c5 cut and restored: {len(cut_rows)} rows "
+              f"({len(set(cut_rows))} distinct) against {len(rows)}")
+        check(not part_listing(root)[1], "fs c5 cut left staged parts")
+
+        kafka, kafka_rows, kafka_launches = kafka_c5(KAFKA_C5_EVENTS)
+        want = sorted(r[1:] for r in c5_control(KAFKA_C5_EVENTS))
+        # a key's burst lies in one block: the blocks the cut leaves whole
+        # have fs c5's sessions
+        whole = KAFKA_C5_EVENTS // (KEYS_PER_BLOCK * BURST) * KEYS_PER_BLOCK
+        same = [r for r in kafka_rows if r[0] < whole]
+        check(kafka_rows == want and same == [r for r in rows
+                                              if r[0] < whole],
+              f"kafka c5: {len(kafka_rows)} read_committed rows against "
+              f"the control's {len(want)}; {len(same)} of whole blocks")
+        before, after = kafka.pop("commits_before"), kafka.pop(
+            "commits_after")
+        # the in-process broker holds a transaction's rows outside the log
+        # until its commit: neither reader sees the open one before it
+        check(len(before) > 1 and kafka["commits"] > 0
+              and before[-1][0] < after[-1] == len(kafka_rows)
+              and before[-1][1] == before[-1][0],
+              f"kafka c5: before the last commit {before[-1:]}, after it "
+              f"{after[-1:]} ({len(kafka_rows)} rows in all)")
+        check(kafka_launches["session_union"] > 0
+              and kafka_launches["segment_agg"] > 0,
+              f"kafka c5 did not launch both kernels: {kafka_launches}")
+        kafka.update(rows=len(kafka_rows), launches=kafka_launches,
+                     transactions=len(before),
+                     transactions_committed=kafka.pop("parts_promoted"),
+                     last_commit={"read_committed_rows": before[-1][0],
+                                  "read_uncommitted_rows": before[-1][1],
+                                  "open_txn_rows": after[-1] - before[-1][0]})
+    finally:
+        shutil.rmtree(SINK_DIR, ignore_errors=True)
+        unregister_udfs()
+    print("exactly-once sinks: " + json.dumps(
+        {"fs_c5": fs, "fs_c5_cut": cut, "kafka_c5": kafka}))
+    return {"fs_c5": fs_launches, "kafka_c5": kafka_launches}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -5422,6 +5704,7 @@ def main():
     launches.update(timed("correlated_windows", cw_phase))
     launches.update(timed("services", services_phase))
     launches.update(timed("native", native_phase))
+    launches.update(timed("sinks", sink_phase))
     print("phase seconds: " + json.dumps(seconds))
     for r in kernels:
         for path in PATHS:

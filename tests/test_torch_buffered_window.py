@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 from arroyo_tpu import Stream as JaxStream
+from arroyo_tpu.config import reset_config as jax_reset_config
 from arroyo_tpu.connectors.memory import clear_sink as jax_clear_sink
 from arroyo_tpu.connectors.memory import sink_output as jax_sink_output
 from arroyo_tpu.engine.context import TimerHeap as JaxTimerHeap
@@ -42,6 +43,7 @@ from arroyo_tpu.sql.functions import unregister_udfs as jax_unregister_udfs
 from arroyo_tpu.sql.planner import Planner as JaxPlanner
 from arroyo_tpu.state.tables import BatchBuffer as JaxBatchBuffer
 from arroyo_tpu.types import Batch as JaxBatch
+from arroyo_tpu_torch.config import reset_config
 from arroyo_tpu_torch.connectors.memory import clear_sink, sink_output
 from arroyo_tpu_torch.engine.context import TimerHeap
 from arroyo_tpu_torch.engine.engine import LocalRunner
@@ -330,11 +332,34 @@ def _et_providers(tables):
     return jp, pp
 
 
+@pytest.fixture
+def pin_late_rows(request):
+    """``COALESCE_LINGER_MICROS=0`` in both packages for the ``late_rows``
+    case only; every other case runs at the default linger."""
+    if request.getfixturevalue("name") != "late_rows":
+        yield
+        return
+    mp = pytest.MonkeyPatch()
+    mp.setenv("COALESCE_LINGER_MICROS", "0")
+    reset_config(), jax_reset_config()
+    yield
+    mp.undo()
+    reset_config(), jax_reset_config()
+
+
 @pytest.mark.parametrize("name", sorted(RAW_Q7))
-def test_q7_shape_fused_and_unfused_match_jax(name, monkeypatch):
+def test_q7_shape_fused_and_unfused_match_jax(name, monkeypatch,
+                                              pin_late_rows):
     """The fused plan's rows (ARROYO_ARGMAX on) equal the unfused plan's
     (a TTL join with the keyless tumbling maximum) in the port, and each
-    equals the JAX package's."""
+    equals the JAX package's.
+
+    A joined row is stamped with the probing batch's latest time, so the
+    unfused plan's stamp of a late row follows which join input reaches
+    the join first: the tumbling maximum or the late rows (ROADMAP C6,
+    in both packages).  So ``late_rows`` runs with no coalescing linger:
+    no wall-clock deadline decides its interleaving, and both packages
+    run the same one.  ``rawbids`` is steady at the default linger."""
     tables, sql = RAW_Q7[name]
     out = {}
     for fused in ("1", "0"):

@@ -1886,3 +1886,64 @@ def test_factored_windows_cuda_match_cpu(cuda_device, monkeypatch):
     want = run("cpu")
     assert all(want) and got == want
     assert launched[0] > 0 and launched[1] > 0
+
+
+@pytest.mark.cuda
+def test_config5_filesystem_cut_and_restore_cuda(cuda_device, tmp_path):
+    """tests/test_torch_connectors.py's config5 cut on the card: epochs 1
+    and 2 committed, epoch 3 sealed and cut before its commit, restored
+    from epoch 3; the promoted parts hold the CPU run's rows, each once,
+    and no part stays staged.  The session union and the segment reduce
+    run their kernels."""
+    import asyncio
+    import json
+    import os
+
+    from arroyo_tpu_torch.config5 import config5_produce, config5_sql
+    from arroyo_tpu_torch.engine.drills import cut_before_commit
+    from arroyo_tpu_torch.engine.engine import Engine, LocalRunner
+    from arroyo_tpu_torch.kernels.segment_agg import segment_agg
+    from arroyo_tpu_torch.kernels.session_union import session_union
+    from arroyo_tpu_torch.sql import plan_sql, register_udaf, unregister_udfs
+    from arroyo_tpu_torch.types import StopMode
+
+    def sql(root):
+        return config5_sql(20_000, 1_024, "c5-cuda", "json", (
+            f"CREATE TABLE out WITH (connector = 'filesystem', path = "
+            f"'file://{root}', format = 'json', type = 'sink');"))
+
+    def rows(root):
+        out, staged = [], []
+        for dirpath, _, names in os.walk(root):
+            for n in names:
+                path = os.path.join(dirpath, n)
+                if ".staging" in path:
+                    staged.append(n)
+                    continue
+                with open(path) as f:
+                    out += [tuple(json.loads(line).values()) for line in f]
+        return sorted(out), staged
+
+    unregister_udfs()
+    register_udaf("median", np.median)
+    try:
+        config5_produce("c5-cuda", 20_000, 0, 1_000)
+        cut = str(tmp_path / "cut")
+        before = (session_union.launches, segment_agg.launches)
+        epoch = asyncio.run(cut_before_commit(
+            lambda: Engine(plan_sql(sql(cut)), "c5-cuda-cut",
+                           device=cuda_device),
+            (4, 8, 12, 13), StopMode.IMMEDIATE))
+        assert rows(cut)[1]  # epoch 3's part is staged, not promoted
+        LocalRunner(plan_sql(sql(cut)), job_id="c5-cuda-cut",
+                    device=cuda_device, restore_epoch=epoch).run()
+        launched = (session_union.launches - before[0],
+                    segment_agg.launches - before[1])
+        straight = str(tmp_path / "straight")
+        LocalRunner(plan_sql(sql(straight)), device="cpu").run()
+    finally:
+        unregister_udfs()
+    got, staged = rows(cut)
+    want, _ = rows(straight)
+    assert got == want and len(set(got)) == len(got) == 256
+    assert not staged and launched[0] > 0 and launched[1] > 0

@@ -188,14 +188,20 @@ NEW_MODULES = ("arroyo_tpu_torch.q1", "arroyo_tpu_torch.q7",
                "arroyo_tpu_torch.native",
                "arroyo_tpu_torch.utils",
                "arroyo_tpu_torch.utils.storage",
-               "arroyo_tpu_torch.state.backend")
+               "arroyo_tpu_torch.state.backend",
+               "arroyo_tpu_torch.connectors.two_phase",
+               "arroyo_tpu_torch.connectors.filesystem",
+               "arroyo_tpu_torch.connectors.single_file",
+               "arroyo_tpu_torch.connectors.preview",
+               "arroyo_tpu_torch.connectors.schema_registry")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """(g) in a fresh interpreter, importing every arroyo_tpu_torch module
-    leaves ``jax``, ``arroyo_tpu``, ``pydantic``, ``pyarrow`` and
-    ``prometheus_client`` (the card machine has none of the last three)
-    out of sys.modules (a subprocess, because this test process imported
+    leaves ``jax``, ``arroyo_tpu``, ``pydantic``, ``pyarrow``,
+    ``prometheus_client``, ``fsspec``, ``aiokafka``, ``aiohttp`` and
+    ``grpc`` (the card machine has none of the last seven) out of
+    sys.modules (a subprocess, because this test process imported
     them already)."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -206,7 +212,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'arroyo_tpu', 'pydantic', 'pyarrow', "
-        "'prometheus_client'))\n"
+        "'prometheus_client', 'fsspec', 'aiokafka', 'aiohttp', 'grpc'))\n"
         "missing = sorted({" + ", ".join(repr(m) for m in NEW_MODULES)
         + "} - set(names))\n"
         "print(len(names), bad, missing)\n"

@@ -14,6 +14,7 @@
   ``jax`` and ``arroyo_tpu`` stay out of ``sys.modules``."""
 
 import asyncio
+import json
 import os
 import subprocess
 import sys
@@ -458,3 +459,72 @@ def test_restore_of_a_jax_epoch_imports_no_jax(tmp_path):
     assert ast.literal_eval(bad_line) == []
     after = Counter(ast.literal_eval(rows_line))
     assert after and before + after == _reference("q5")
+
+
+# -- a sealed epoch's pre-commits across the packages -----------------------------------
+
+
+def _lines_file(path, n=600):
+    rng = np.random.default_rng(13)
+    with open(path, "w") as f:
+        for i in range(n):
+            f.write(f'{{"i": {i}, "ts": {i * 1_000}, '
+                    f'"v": {float(rng.normal())!r}}}\n')
+
+
+def _fs_pipeline(jax, src, out):
+    from arroyo_tpu_torch.graph.logical import Stream
+
+    return (JaxStream if jax else Stream).source("single_file", {
+        "path": src, "timestamp_field": "ts"}).sink(
+        "filesystem", {"path": f"file://{out}", "format": "json"})
+
+
+def _parts(out):
+    final, staged = [], []
+    for dirpath, _, names in os.walk(out):
+        for n in sorted(names):
+            (staged if ".staging" in dirpath else final).append(n)
+    return sorted(final), sorted(staged)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_sealed_precommits_restore_across_packages(writer, tmp_path,
+                                                   monkeypatch):
+    """One package's filesystem sink seals epoch 1 (its part staged, the
+    pre-commit in table ``p`` of a Parquet checkpoint) and the run is cut
+    by an IMMEDIATE stop before the commit; the other package restores
+    epoch 1, promotes that part once and writes the rest: every line of
+    the input once."""
+    from arroyo_tpu.types import StopMode as JaxStopMode
+    from arroyo_tpu_torch.engine.drills import cut_before_commit
+    from arroyo_tpu_torch.types import StopMode
+
+    monkeypatch.setenv("BATCH_SIZE", "64")
+    reset_config(), jax_reset_config()
+    src, out = str(tmp_path / "in.jsonl"), str(tmp_path / "out")
+    _lines_file(src)
+    url, job = f"file://{tmp_path}/ckpt", f"pc-{writer}"
+    jax_first = writer == "jax"
+    epoch = asyncio.run(cut_before_commit(
+        lambda: _engine(jax_first, _fs_pipeline(jax_first, src, out), job,
+                        url),
+        (3, 4), JaxStopMode.IMMEDIATE if jax_first else StopMode.IMMEDIATE))
+    assert epoch == 1
+    assert _parts(out) == ([], ["part-0000-000000.json"])
+
+    async def restore():
+        await _engine(not jax_first, _fs_pipeline(not jax_first, src, out),
+                      job, url, restore_epoch=1).start().join()
+
+    asyncio.run(restore())
+    final, staged = _parts(out)
+    assert staged == [] and final == ["part-0000-000000.json",
+                                      "part-0000-000001.json"]
+    lines = []
+    for name in final:
+        with open(os.path.join(out, name)) as f:
+            lines += [json.loads(line)["i"] for line in f]
+    assert sorted(lines) == list(range(600))
+    with open(os.path.join(out, final[0])) as f:
+        assert len(f.readlines()) == 3 * 64
