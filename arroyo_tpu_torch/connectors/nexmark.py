@@ -57,6 +57,17 @@ HOT_URLS = [
 
 EVENT_PERSON, EVENT_AUCTION, EVENT_BID = 0, 1, 2
 
+# a bid's channel and url by channel number (hot: HOT_CHANNELS' index, cold:
+# the number itself), made once: indexing them gives the strings the
+# reference builds by concatenation
+_HOT_CHANNELS = np.array(HOT_CHANNELS, dtype=object)
+_HOT_URLS = np.array(HOT_URLS, dtype=object)
+_COLD_CHANNELS = np.array([f"channel-{i}" for i in range(CHANNELS_NUMBER)],
+                          dtype=object)
+_COLD_URLS = np.array(
+    ["https://www.nexmark.com/item.htm?query=1&channel_id=" + str(i)
+     for i in range(CHANNELS_NUMBER)], dtype=object)
+
 @dataclass
 class NexmarkConfig:
     """NexmarkConfig defaults (the reference generator's)."""
@@ -226,8 +237,10 @@ class NexmarkGenerator:
             dtype="S1")
         maxl = int(lengths.max())
         chars = alphabet[rng.integers(0, 62, (n, maxl))]
-        flat = chars.view(f"S{maxl}").reshape(n).astype(str)
-        return np.array([s[:l] for s, l in zip(flat, lengths)], dtype=object)
+        # NUL past each string's length: the bytes dtype drops trailing
+        # NULs, so each row reads as its first `length` characters
+        chars[np.arange(maxl)[None, :] >= lengths[:, None]] = b""
+        return chars.view(f"S{maxl}").reshape(n).astype(str).astype(object)
 
     # -- batch generation ---------------------------------------------------
 
@@ -380,12 +393,9 @@ class NexmarkGenerator:
                 hot_ch = (rng_bs.random(nb) * HOT_CHANNELS_RATIO).astype(np.int64) > 0
                 hidx = rng_bs.integers(0, 4, nb)
                 cold_id = rng_bs.integers(0, CHANNELS_NUMBER, nb)
-                ch = np.where(hot_ch, np.array(HOT_CHANNELS, dtype=object)[hidx],
-                              np.char.add("channel-", cold_id.astype(str)).astype(object))
-                u = np.where(hot_ch, np.array(HOT_URLS, dtype=object)[hidx],
-                             np.char.add(
-                                 "https://www.nexmark.com/item.htm?query=1&channel_id=",
-                                 cold_id.astype(str)).astype(object))
+                ch = np.where(hot_ch, _HOT_CHANNELS[hidx],
+                              _COLD_CHANNELS[cold_id])
+                u = np.where(hot_ch, _HOT_URLS[hidx], _COLD_URLS[cold_id])
                 channel[nb_idx] = ch
                 url[nb_idx] = u
                 # padding to avg_bid_byte_size=100 (mod.rs:571-575)

@@ -11,7 +11,11 @@
   with one :func:`~arroyo_tpu_torch.kernels.bin_update`
   launch;
 * pane emission on watermark advance runs one device pass over all
-  pending panes: the q5 argmax branch through
+  pending panes: under ``ARROYO_RING=on`` (or ``auto`` with a long
+  window and several cards) the ring branch,
+  :func:`~arroyo_tpu_torch.kernels.ring_emit.ring_emit` — one sweep of
+  each occupied row's bin span, one launch, one readback; else the q5
+  argmax branch through
   :func:`~arroyo_tpu_torch.kernels.argmax_fire.argmax_fire_buffer` (one
   upload, one launch, one readback); every other fire through the
   compact branch (:func:`~arroyo_tpu_torch.kernels.emit_count` +
@@ -20,8 +24,9 @@
   dense branch,
   :func:`~arroyo_tpu_torch.kernels.pane_emit` — the JAX package's choice,
   fire for fire.  A fire's geometry is a few scalars (first bin, live
-  range, W, k); the dense branch passes them to its kernel, the other
-  branches take ring arrays built from them by ``fire_geometry``;
+  range, W, k); the ring and dense branches pass them to their kernels,
+  the other branches take ring arrays built from them by
+  ``fire_geometry``;
 * a derived window of a factor-window rewrite runs the ring in
   merge-input mode (``set_merge_inputs``): its rows are fired factor
   panes, each channel reads its partial column and the row mass rides
@@ -37,8 +42,7 @@
 
 Snapshots use the canonical, topology-independent numpy format of the
 JAX package, so a checkpoint taken by either package restores in the
-other.  The ring-parallel emission branch exists only across devices in
-the JAX package and is not ported."""
+other."""
 
 from __future__ import annotations
 
@@ -58,6 +62,7 @@ from ..kernels.emit_compact import (compact_views, emit_count,
                                     emit_gather_buffer, pack_panes,
                                     panes_views)
 from ..kernels.pane_emit import fire_geometry, pane_emit, pane_views
+from ..kernels.ring_emit import ring_emit
 from .. import native
 from ..native import NativeDir, agg_cells, assign_bins
 
@@ -571,13 +576,40 @@ class KeyedBinState:
 
     # -- pane emission --------------------------------------------------------
 
-    def _check_ring_mode(self) -> None:
-        """The ring-parallel emission branch of the JAX package shards
-        bins across devices; it never triggers on one device and is not
-        ported, so forcing it is an error rather than a silent no-op."""
-        if os.environ.get("ARROYO_RING", "auto") == "on":
-            raise NotImplementedError(
-                "ARROYO_RING=on: ring-parallel emission is not ported")
+    def _use_ring(self) -> bool:
+        """The ring branch of a fire, as the JAX package chooses it:
+        ``ARROYO_RING=on`` always, ``off`` never, ``auto`` (the default)
+        for windows of at least ``ARROYO_RING_MIN_W`` bins (64) when there
+        is more than one device of the state's kind.  It sweeps each row's
+        bin span once instead of folding W bins a pane."""
+        mode = os.environ.get("ARROYO_RING", "auto")
+        if mode == "off":
+            return False
+        if mode == "on":
+            return True
+        w_min = int(os.environ.get("ARROYO_RING_MIN_W", 64))
+        n_dev = (torch.cuda.device_count() if self.device.type == "cuda"
+                 else 1)
+        return self.W >= w_min and n_dev > 1
+
+    def _emit_ring(self, first_bin: int, lo: int, hi: int, k: int
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """The ring branch's read: one device call sweeps the occupied
+        rows' span of every transferred channel and of the counts plane
+        (trailing-W cumsum differences, van Herk's extrema) into one
+        buffer, read back in one copy; (outs f64[n_xfer, rows, k], cnts
+        [rows, k] in the plane's dtype)."""
+        from ..obs import perf
+
+        perf.count("bin_ring_fires")
+        rows = self.next_slot
+        buf = perf.timed_device(
+            ring_emit, self.values, self.counts, first_bin, lo, hi, self.W,
+            k, self._ch_kinds, self._xfer_ch, rows)
+        outs, cnts = pane_views(torch.from_numpy(to_host(buf)),
+                                len(self._xfer_ch), rows, k,
+                                self.counts.dtype)
+        return outs.numpy(), cnts.numpy()
 
     def set_argmax_local(self, agg_out: str, minmax: str) -> None:
         """Enable candidate-only emission for the given COUNT(*) agg (the
@@ -631,7 +663,6 @@ class KeyedBinState:
         time is (e+1)*slide.  Returns (keys, {agg_output: values},
         window_end, counts) flattened over (pane, key-with-data), or None.
         """
-        self._check_ring_mode()
         if self.max_bin is None or self.next_slot == 0:
             return None
         if final:
@@ -653,7 +684,11 @@ class KeyedBinState:
         lo = int(self.min_bin) if self.min_bin is not None else 0
         hi = int(self.max_bin)
 
-        if self._argmax_local is not None and not self._xfer_ch:
+        if self._use_ring():
+            outs, cnts = self._emit_ring(first_bin, lo, hi, k)
+            key_idx, pane_idx, cnt_sel, ch_sel = self._flatten_dense(
+                outs, cnts, k)
+        elif self._argmax_local is not None and not self._xfer_ch:
             # every output column derives from the counts plane
             key_idx, pane_idx, cnt_sel, ch_sel = self._emit_argmax(
                 *fire_geometry(first_bin, lo, hi, self.W, k, self.B,

@@ -19,7 +19,15 @@ semi join; ``MW_BIDDERS``, q8 extended by each person's bids as bidder
 key, planned as one multi-way join); and ``MW_TTL``, a three-way
 self-join of the bids above 50,000,000 on the auction with TTL state (the
 multi-way join's TTL mode).  The last two are tests/test_join_state.py's
-``MW_SQL`` and ``MW_TTL_SQL`` over ``SRC``."""
+``MW_SQL`` and ``MW_TTL_SQL`` over ``SRC``.
+
+``HOP_CHANNELS`` is a per-channel dashboard over the last five minutes
+(HOP(1 s, 300 s): count, sum and maximum of the bid prices, 4 hot
+channels and 10,000 cold ones), the long-window shape the ring emission
+serves, over ``SRC`` at the Beam Nexmark suite's default first-event
+rate of 10,000 events/s, so a few million events
+span more than one window (at ``SRC``'s 1,000,000 events/s, 300 s would
+take 300,000,000)."""
 
 from .hot_items import HOT_ITEMS_SQL  # noqa: F401
 
@@ -155,4 +163,12 @@ INSERT INTO out
 SELECT k, median(v) as med, count(*) as cnt,
        session(INTERVAL '1' SECOND) as window
 FROM ev GROUP BY 1, 4
+"""
+
+HOP_CHANNELS = SRC.replace("event_rate = '1000000'",
+                           "event_rate = '10000'") + """
+SELECT bid.channel AS channel,
+       HOP(INTERVAL '1' SECOND, INTERVAL '300' SECOND) AS window,
+       count(*) AS num, sum(bid.price) AS total, max(bid.price) AS top
+FROM nexmark WHERE bid is not null GROUP BY 1, 2
 """

@@ -247,12 +247,31 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
     promoted, commit seconds (the sinks' own commit counters,
     ``obs.metrics.sink_commit_counters``) and launches printed,
     ``session_union`` and ``segment_agg`` launched in both.
+19. long windows: ``queries.HOP_CHANNELS`` (per channel, HOP(1 s, 300 s)
+    count, sum and maximum of the bid prices; the nexmark source at
+    10,000 events/s in batches of 8,192) planned by ``plan_sql`` with
+    W = 300 bins, at 4,000,000 events (400 s of event time: eviction
+    after the first 300 s) on the card under ``ARROYO_RING=on``, ``off``,
+    ``off``, ``on`` (each run under ``ARROYO_TIMING=1`` for its device
+    ms a kernel) — every run's rows equal to each other and to a numpy
+    control from the bids the generator made in the first run (per
+    channel and window end the count, the integer sum of prices and the
+    maximum), the ring runs launching ``ring_emit`` once a fire and no
+    ``pane_emit``, ``emit_count``, ``emit_gather`` or ``argmax_fire``,
+    the off runs no ``ring_emit``; at 200,000 events the card's ring rows
+    equal to the CPU's; and q5 (phase 5's size) under ``ARROYO_RING=on``,
+    its ring fires feeding the argmax stage, its rows phase 13's control's
+    and phase 5's; each run's wall, fires, launches and device ms
+    printed.  Phase 3 holds ``ring_emit`` to its plain version and to a
+    PyTorch composition (an index gather, ``cumsum`` differences,
+    ``max_pool1d``) at phase 19's median fire and at 262,144 rows, W =
+    300, k = 1 and 64, timed in turns with the composition.
 
 Launch counts are set to 0 just before each main-path run (q5, q8,
 config5, 8a, 8b, hot items, q1, q7, each SQL-planned run of phase 12,
 each card run of phase 13, the legacy q8, 8a and 8b, the semi join and
 the two multi-way joins of phase 14, each card run of phases 15, 16 and
-17, fs c5's straight run and kafka c5's run)
+17, fs c5's straight run and kafka c5's run, each card run of phase 19)
 and read
 just after it; q1, q7 and the union launch no kernel.  It prints a
 ``{"kernels": [...]}`` line, the card's name and power limit as
@@ -280,6 +299,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -294,8 +314,8 @@ from arroyo_tpu_torch.config5 import (  # noqa: E402
 from arroyo_tpu_torch.connectors.kafka import InMemoryKafkaBroker  # noqa: E402
 from arroyo_tpu_torch.connectors.memory import clear_sink, sink_output  # noqa: E402
 from arroyo_tpu_torch.connectors.nexmark import (  # noqa: E402
-    EVENT_AUCTION, EVENT_BID, EVENT_PERSON, NexmarkConfig, NexmarkGenerator,
-    make_splits)
+    CHANNELS_NUMBER, EVENT_AUCTION, EVENT_BID, EVENT_PERSON, HOT_CHANNELS,
+    NexmarkConfig, NexmarkGenerator, make_splits)
 from arroyo_tpu_torch.device import to_device, to_host  # noqa: E402
 from arroyo_tpu_torch.engine.drills import cut_before_commit  # noqa: E402
 from arroyo_tpu_torch.engine.engine import Engine, LocalRunner  # noqa: E402
@@ -335,6 +355,8 @@ from arroyo_tpu_torch.kernels.join_sort import (  # noqa: E402
 from arroyo_tpu_torch.kernels.pane_emit import (  # noqa: E402
     fire_geometry, pane_emit, pane_emit_reference, pane_views)
 from arroyo_tpu_torch.kernels import pane_emit as pane_emit_mod  # noqa: E402
+from arroyo_tpu_torch.kernels.ring_emit import (  # noqa: E402
+    ring_emit, ring_emit_reference)
 from arroyo_tpu_torch.kernels import ring_gather as ring_gather_mod  # noqa: E402
 from arroyo_tpu_torch.kernels.ring_gather import (  # noqa: E402
     ring_gather, ring_gather_reference)
@@ -463,10 +485,26 @@ K15_REPLACES = "arroyo_tpu/ops/join.py:66 _sort_kernel"
 K13_SOURCE = K14_SOURCE = "arroyo_tpu_torch/csrc/emit_compact.cu"
 K13_REPLACES = "arroyo_tpu/ops/keyed_bins.py:198 _emit_count_kernel"
 K14_REPLACES = "arroyo_tpu/ops/keyed_bins.py:213 _emit_compact_kernel"
+K16_SOURCE = "arroyo_tpu_torch/csrc/ring_emit.cu"
+K16_REPLACES = ("arroyo_tpu/ops/keyed_bins.py:242 _linearize_kernel + "
+                "arroyo_tpu/parallel/ring_panes.py:106 _ring_step_2d "
+                "(:39 _ring_step)")
+# phase 19's state: COUNT(*) (the counts plane), SUM(price), MAX(price)
+# and their validity counts; its key capacity and ring
+HOP_KINDS = ("count", "sum", "max", "sum", "sum")
+HOP_XFER = (1, 2, 3, 4)
+HOP_W = 300  # HOP(1 s, 300 s): bins a window
+C_HOP, B_HOP = 16_384, 1_024
+# its median ring fire at HOP_EVENTS (a CPU run: 400 fires, 399 of one
+# pane, the final flush of 300): 10,004 occupied slots, pane 200 of the
+# bins -99 .. 200, live 0 .. 201; (first_bin, lo, hi, k)
+HOP_ROWS, HOP_FIRE = 10_004, (-99, 0, 201, 1)
+C_RING_BIG = 262_144
 
 KERNELS = (bin_update, argmax_fire, pane_emit, bin_evict, ring_merge,
            ring_gather, session_union, segment_agg, join_probe, join_expand,
-           expand_gather, segment_top_k, emit_count, emit_gather, join_sort)
+           expand_gather, segment_top_k, emit_count, emit_gather, join_sort,
+           ring_emit)
 # phase 12 compares each SQL-planned run with the hand-built run of the
 # same query at the same size that an earlier phase made: query -> (rows,
 # launches, wall s)
@@ -481,7 +519,8 @@ PATHS = ("q5", "q8", "config5", "join_inner", "join_left", "hot_items",
          "join_inner_legacy", "join_left_legacy", "semi", "mw", "mw_ttl",
          "cw_2m_fact", "cw_2m_unfact", "cw_8m_fact", "cw_8m_ckpt",
          "services_q5", "services_config5", "services_8a", "native_q5",
-         "native_hot", "fs_c5", "kafka_c5")
+         "native_hot", "fs_c5", "kafka_c5", "hop_on_1", "hop_off_1",
+         "hop_off_2", "hop_on_2", "hop_small", "q5_ring")
 
 
 def reset_launches():
@@ -1421,6 +1460,113 @@ def k3_case(rng, dev, kinds, xfer, C, B, W, k, c_slice, cdt, geometry,
                                  "device_us_cold", "allocations_per_call",
                                  "syncs_per_call", "host_split", "parent")
                   if key in r}))
+    return r
+
+
+def ring_library(values, counts, span, W, k, kinds, xfer, rows):
+    """The PyTorch composition of ring_emit's function: per plane an index
+    gather of the span's ring columns (dead positions then set to the
+    identity), a ``torch.cumsum`` difference for the additive planes and
+    the counts, ``F.max_pool1d`` for MAX (for MIN on the negation)."""
+    cols, ok = span
+    outs = []
+    for j in xfer:
+        g = values[j, :rows].index_select(1, cols)
+        if ok is not None:
+            g = torch.where(ok, g, channel_identity(kinds[j]))
+        if kinds[j] == "max":
+            outs.append(F.max_pool1d(g.unsqueeze(1), W, 1).squeeze(1))
+        elif kinds[j] == "min":
+            outs.append(-F.max_pool1d(-g.unsqueeze(1), W, 1).squeeze(1))
+        else:
+            c = torch.cumsum(g, 1)
+            outs.append(c[:, W - 1:] - F.pad(c[:, :k - 1], (1, 0)))
+    g = counts[:rows].index_select(1, cols)
+    if ok is not None:
+        g = torch.where(ok, g, 0)
+    c = torch.cumsum(g, 1)
+    return outs, c[:, W - 1:] - F.pad(c[:, :k - 1], (1, 0))
+
+
+def ring_planes(dev, kinds, C, B, cdt):
+    """Bin-ring planes made on the card (a seeded generator): integer
+    prices in 3 of 4 cells, identities elsewhere; counts Poisson(2)."""
+    gen = torch.Generator(device=dev).manual_seed(C + B)
+    values = torch.empty((len(kinds), C, B), dtype=torch.float64, device=dev)
+    for j, kind in enumerate(kinds):
+        torch.randint(100, 100_000, (C, B), generator=gen, device=dev,
+                      dtype=torch.float64, out=values[j])
+        dead = torch.rand((C, B), generator=gen, device=dev) < 0.25
+        values[j].masked_fill_(dead, channel_identity(kind))
+    counts = torch.poisson(torch.full((C, B), 2.0, device=dev),
+                           generator=gen).to(cdt)
+    return values, counts
+
+
+def k16_case(dev, C, B, rows, geometry, cdt, shape):
+    """K16 on one fire: ``geometry`` (first_bin, lo, hi, W, k) as
+    fire_panes passes it.  Exact against the plain version and the
+    library composition (integer-valued planes), one launch, one
+    allocation and no host sync a call; timed in turns with the library
+    composition; device µs warm and cold."""
+    values, counts = ring_planes(dev, HOP_KINDS, C, B, cdt)
+    first_bin, lo, hi, W, k = geometry
+    args = (values, counts, first_bin, lo, hi, W, k, HOP_KINDS, HOP_XFER,
+            rows)
+    before = ring_emit.launches
+    got = pane_views(ring_emit(*args), len(HOP_XFER), rows, k, cdt)
+    launches = ring_emit.launches - before
+    want = ring_emit_reference(*args)
+    L = k + W - 1
+    bins = first_bin + torch.arange(L, device=dev)
+    ok = (bins >= lo) & (bins <= hi)
+    span = (bins % B, None if bool(ok.all()) else ok)
+    lib = ring_library(values, counts, span, W, k, HOP_KINDS, HOP_XFER,
+                       rows)
+    torch.cuda.synchronize()
+    check(launches == 1, f"ring_emit made {launches} launches ({shape})")
+    check(torch.equal(got[1], want[1]) and torch.equal(got[1], lib[1].to(
+        cdt)), f"ring_emit counts differ ({shape})")
+    for r in range(len(HOP_XFER)):
+        check(torch.equal(got[0][r], want[0][r])
+              and torch.equal(got[0][r], lib[0][r]),
+              f"ring_emit channel {HOP_XFER[r]} ({HOP_KINDS[HOP_XFER[r]]}) "
+              f"differs ({shape})")
+
+    def kernel():
+        return ring_emit(*args)
+
+    def library():
+        return ring_library(values, counts, span, W, k, HOP_KINDS, HOP_XFER,
+                            rows)
+
+    ms, lib_ms, turns = in_turns(kernel, library)
+    plain = cuda_ms(lambda: ring_emit_reference(*args), reps=5, warm=1)
+    meas = measured(kernel, "ring_emit")
+    check(meas["allocations_per_call"] == 1 and meas["syncs_per_call"] == 0,
+          f"ring_emit made {meas['allocations_per_call']} allocations and "
+          f"{meas['syncs_per_call']} host syncs ({shape})")
+    live = int(ok.sum())
+    item = counts.element_size()
+    n_read = rows * (len(HOP_XFER) * run_sectors(8 * live)
+                     + run_sectors(item * live))
+    n_write = (run_sectors(8 * len(HOP_XFER) * rows * k)
+               + run_sectors(item * rows * k))
+    ops = rows * L * (1 + len(HOP_XFER))
+    r = row("ring_emit", K16_SOURCE, K16_REPLACES, shape, 0.0, ms, plain,
+            n_read + n_write, ops, lib_ms, "index_select + torch.where + "
+            "cumsum difference a sum plane, max_pool1d a max plane")
+    r.update(turns_ms=turns, launches_per_call=launches,
+             bound_bytes=n_read + n_write, live_positions=live,
+             library_device_us=profile_kernels(library),
+             library_turns=turn_factors(turns), **meas)
+    print(f"ring_emit {shape}: " + json.dumps(
+        {key: r[key] for key in ("ms", "library_ms", "plain_ms", "turns_ms",
+                                 "library_turns", "bound_ms", "bound_bytes",
+                                 "live_positions", "library_device_us",
+                                 "host_us_per_call", "device_us_per_call",
+                                 "device_us_cold", "allocations_per_call",
+                                 "syncs_per_call")}))
     return r
 
 
@@ -2946,6 +3092,18 @@ def kernel_phase(parent=None):
                         (hot_bin, hot_bin, hot_bin + W_HOT - 1),
                         f"hot items COUNT(*) C={C_HOT} B={B_HOT} W={W_HOT} "
                         f"k=1 c_slice={C_SLICE_HOT} int32", parent))
+    first_bin, lo, hi, k = HOP_FIRE
+    rows.append(k16_case(dev, C_HOP, B_HOP, HOP_ROWS,
+                         (first_bin, lo, hi, HOP_W, k), torch.int32,
+                         f"long windows median fire C={C_HOP} B={B_HOP} "
+                         f"W={HOP_W} k={k} rows={HOP_ROWS} int32"))
+    for k in (1, 64):  # every span position live
+        base = 1_024 * 7 + 900
+        rows.append(k16_case(dev, C_RING_BIG, B_HOP, C_RING_BIG,
+                             (base, base, base + k + HOP_W - 2, HOP_W, k),
+                             torch.int32,
+                             f"C={C_RING_BIG} B={B_HOP} W={HOP_W} k={k} "
+                             f"rows={C_RING_BIG} int32"))
     rows.append(k4_case(rng, dev, ("count",), C_Q8, B_Q8, 8 * 5_000 + 3, 1,
                         C_SLICE_Q8, torch.int32,
                         f"q8 COUNT(*) C={C_Q8} B={B_Q8} 1 column "
@@ -4502,15 +4660,15 @@ def legacy_phase():
     return launches
 
 
-def sql_cell(text, num_events, sink, device, env=None):
-    """``text`` (queries.py) at ``num_events`` in batches of BATCH, event
-    time pinned, planned by ``plan_sql`` and run on ``device`` with the
-    environment ``env`` set; (wall s, the runner, the program).  The
+def sql_cell(text, num_events, sink, device, env=None, batch=BATCH):
+    """``text`` (queries.py) at ``num_events`` in batches of ``batch``,
+    event time pinned, planned by ``plan_sql`` and run on ``device`` with
+    the environment ``env`` set; (wall s, the runner, the program).  The
     sink's batches stay in ``sink``."""
     saved = {k: os.environ.get(k) for k in env or {}}
     os.environ.update(env or {})
     try:
-        program = plan_sql(_pin(text.format(n=num_events, b=BATCH), BATCH))
+        program = plan_sql(_pin(text.format(n=num_events, b=batch), batch))
         for node in program.nodes():
             if node.operator.kind == OpKind.CONNECTOR_SINK:
                 node.operator.spec.config["name"] = sink
@@ -5661,6 +5819,261 @@ def sink_phase():
     return {"fs_c5": fs_launches, "kafka_c5": kafka_launches}
 
 
+# -- phase 19: long windows ---------------------------------------------------
+
+HOP_EVENTS = 4_000_000  # 400 s of event time at 10,000 events/s
+HOP_SMALL = 200_000
+HOP_BATCH = 8_192
+HOP_COLS = ("channel", "num", "total", "top", "window_start", "window_end")
+# every channel a bid can name: the 4 hot ones, then channel-0 ..
+# channel-9999 (connectors/nexmark.py)
+HOP_CHANNEL_ID = {name: i for i, name in enumerate(
+    list(HOT_CHANNELS) + [f"channel-{i}" for i in range(CHANNELS_NUMBER)])}
+FIRE_KERNELS = ("pane_emit", "emit_count", "emit_gather", "argmax_fire")
+
+
+class recorded_bids:
+    """Within the block, every batch the port's nexmark generator makes
+    leaves its bids' channel, timestamp and price in ``parts``: the
+    control reads the very events a run read."""
+
+    def __enter__(self):
+        self.parts = []
+        self.orig = orig = NexmarkGenerator.next_batch
+        parts = self.parts
+
+        def next_batch(gen, size):
+            b, nums = orig(gen, size)
+            bid = b.columns["event_type"] == EVENT_BID
+            parts.append((b.columns["bid_channel"][bid], b.timestamp[bid],
+                          b.columns["bid_price"][bid]))
+            return b, nums
+
+        NexmarkGenerator.next_batch = next_batch
+        return self
+
+    def __exit__(self, *exc):
+        NexmarkGenerator.next_batch = self.orig
+
+
+def channel_ids(names):
+    return np.fromiter(map(HOP_CHANNEL_ID.__getitem__, names), np.int64,
+                       count=len(names))
+
+
+def sliding_max(x, w):
+    """Row j of the result: the column-wise maximum of rows j - w + 1 ..
+    j of ``x`` (van Herk's blocks), for j >= w - 1."""
+    n, m = x.shape
+    nb = -(-n // w)
+    pad = np.full((nb * w - n, m), x.min(initial=0) - 1, dtype=x.dtype)
+    blocks = np.concatenate([x, pad]).reshape(nb, w, m)
+    pre = np.maximum.accumulate(blocks, axis=1).reshape(-1, m)
+    suf = np.maximum.accumulate(blocks[:, ::-1], axis=1)[:, ::-1].reshape(
+        -1, m)
+    j = np.arange(w - 1, n)
+    return np.maximum(suf[j - w + 1], pre[j])
+
+
+def hop_control(parts):
+    """queries.HOP_CHANNELS from the generator's bids: per window end
+    (in seconds) and channel the bids, the integer sum of their prices
+    and the largest; grids [window ends, channels], count 0 where no
+    bid."""
+    ch = channel_ids(np.concatenate([p[0] for p in parts]))
+    sec = np.concatenate([p[1] for p in parts]) // 1_000_000
+    price = np.concatenate([p[2] for p in parts]).astype(np.int64)
+    check(sec.min() >= 0, "long windows: negative event time")
+    n_ch, n_s = len(HOP_CHANNEL_ID), int(sec.max()) + 1
+    cell = sec * n_ch + ch
+    size = n_s * n_ch
+    cnt = np.bincount(cell, minlength=size).reshape(n_s, n_ch)
+    tot = np.zeros(size, dtype=np.int64)
+    np.add.at(tot, cell, price)
+    top = np.full(size, -1, dtype=np.int64)
+    np.maximum.at(top, cell, price)
+    # window e covers the seconds e - W + 1 .. e, e < n_s + W - 1: with
+    # W - 1 empty seconds before and after, padded rows e .. e + W - 1
+    n_w = n_s + HOP_W - 1
+    edge = np.zeros((HOP_W - 1, n_ch), dtype=np.int64)
+
+    def trailing_sums(x):
+        c = np.cumsum(np.concatenate([edge, x.reshape(n_s, n_ch), edge]),
+                      axis=0)
+        c = np.concatenate([np.zeros((1, n_ch), np.int64), c])
+        return c[HOP_W:HOP_W + n_w] - c[:n_w]
+
+    win_top = sliding_max(np.concatenate(
+        [edge - 1, top.reshape(n_s, n_ch), edge - 1]), HOP_W)
+    return trailing_sums(cnt), trailing_sums(tot), win_top
+
+
+def hop_columns(sink):
+    """The sink's rows as {column: array}, in the order they came; the
+    sink cleared."""
+    batches = sink_output(sink)
+    cols = {c: np.concatenate([b.columns[c] for b in batches])
+            for c in HOP_COLS}
+    clear_sink(sink)
+    return cols
+
+
+def hop_grid(cols, shape):
+    """Rows as grids like ``hop_control``'s: each (window end, channel) at
+    most once, window_start its end less 300 s."""
+    e = cols["window_end"] // 1_000_000 - 1
+    check(np.array_equal(cols["window_end"] - cols["window_start"],
+                         np.full(len(e), HOP_W * 1_000_000)),
+          "long windows: a window that is not 300 s wide")
+    check(len(e) == 0 or (e.min() >= 0 and e.max() < shape[0]),
+          f"long windows: window ends outside the control's "
+          f"{shape[0]} seconds")
+    cell = e * shape[1] + channel_ids(cols["channel"])
+    check(len(cell) == 0 or np.bincount(cell).max() == 1, "long windows: "
+          "a (window, channel) emitted twice")
+    grids = []
+    for c, dtype in (("num", np.int64), ("total", np.float64),
+                     ("top", np.float64)):
+        g = np.zeros(shape[0] * shape[1], dtype=dtype)
+        g[cell] = cols[c]
+        grids.append(g.reshape(shape))
+    return grids
+
+
+def hop_same(grids, control, what):
+    """Rows against the control: every (window, channel) with bids, its
+    count, its sum of prices (exact in f64) and its largest price."""
+    cnt, tot, top = grids
+    want_cnt, want_tot, want_top = control
+    live = want_cnt > 0
+    check(np.array_equal(cnt, want_cnt)
+          and np.array_equal(tot[live], want_tot[live].astype(np.float64))
+          and np.array_equal(top[live], want_top[live].astype(np.float64)),
+          f"long windows ({what}): rows differ from the numpy control")
+
+
+def hop_run(num_events, sink, device, ring, timing=False):
+    """queries.HOP_CHANNELS at ``num_events`` in batches of HOP_BATCH,
+    event time pinned, under ARROYO_RING=``ring`` on ``device``; (wall s,
+    launches, perf counters); the rows stay in ``sink``."""
+    env = {"ARROYO_RING": ring}
+    if timing:
+        env["ARROYO_TIMING"] = "1"
+    perf.reset()
+    reset_launches()
+    dt, runner, program = sql_cell(queries.HOP_CHANNELS, num_events, sink,
+                                   device, env, batch=HOP_BATCH)
+    launches = read_launches()
+    aggs = [n.operator.spec for n in program.nodes()
+            if n.operator.kind == OpKind.SLIDING_WINDOW_AGGREGATOR]
+    check(len(aggs) == 1 and aggs[0].width_micros
+          == HOP_W * aggs[0].slide_micros == HOP_W * 1_000_000,
+          f"long windows: planned {aggs}")
+    counters = {k: perf.counter(k) for k in (
+        "bin_ring_fires", "kernel_dispatches", "device_ns",
+        "device_ns:ring_emit", "device_ns:pane_emit",
+        "device_ns:emit_count", "device_ns:emit_gather")}
+    return dt, launches, counters
+
+
+def hop_launched(launches, ring, fires, what):
+    mine = launches["ring_emit"]
+    others = sum(launches[k] for k in FIRE_KERNELS)
+    if ring == "on":
+        check(mine > 0 and mine == fires and others == 0,
+              f"long windows ({what}): {mine} ring_emit launches for "
+              f"{fires} ring fires, {others} other fire launches")
+    else:
+        check(mine == 0 and launches["pane_emit"] + launches["emit_count"]
+              > 0, f"long windows ({what}): launches {launches}")
+    check(launches["bin_update"] > 0 and launches["bin_evict"] > 0,
+          f"long windows ({what}): launches {launches}")
+
+
+def hop_phase():
+    """Phase 19: the per-channel five-minute dashboard on the ring branch
+    and on the dense/compact branches, in turns, against a numpy control;
+    the CPU's ring rows; q5 with its fires on the ring."""
+    out, launches = {}, {}
+    control, first = None, None
+    for name in ("hop_on_1", "hop_off_1", "hop_off_2", "hop_on_2"):
+        ring = name.split("_")[1]
+        if control is None:
+            with recorded_bids() as rec:
+                dt, l, counters = hop_run(HOP_EVENTS, "hop", None, ring,
+                                          timing=True)
+            t0 = time.perf_counter()
+            control = hop_control(rec.parts)
+            out["control_s"] = time.perf_counter() - t0
+        else:
+            dt, l, counters = hop_run(HOP_EVENTS, "hop", None, ring,
+                                      timing=True)
+        fires = counters["bin_ring_fires"]
+        hop_launched(l, ring, fires, name)
+        t0 = time.perf_counter()
+        cols = hop_columns("hop")
+        # rows in the first run's order are its rows; the first run and
+        # any run in another order are held to the control
+        in_order = first is not None and same_columns(cols, first)
+        if not in_order:
+            hop_same(hop_grid(cols, control[0].shape), control, name)
+        if first is None:
+            first = cols
+        launches[name] = l
+        fire_ms = {k.split(":")[1]: counters[k] / 1e6 for k in counters
+                   if k.startswith("device_ns:") and counters[k]}
+        out[name] = {"events": HOP_EVENTS, "wall_s": dt,
+                     "events_per_s": HOP_EVENTS / dt,
+                     "rows": len(cols["num"]), "ring_fires": fires,
+                     "launches": {k: v for k, v in l.items() if v},
+                     "device_ms_by_call": fire_ms,
+                     "device_ms": counters["device_ns"] / 1e6,
+                     "kernel_dispatches": counters["kernel_dispatches"],
+                     "in_first_runs_order": in_order,
+                     "compare_s": time.perf_counter() - t0}
+    del first, cols
+    out["windows_x_channels"] = list(control[0].shape)
+    out["control_rows"] = int((control[0] > 0).sum())
+
+    small = {}
+    for device in (None, "cpu"):
+        dt, l, counters = hop_run(HOP_SMALL, "hop-small", device, "on")
+        small[device] = (hop_columns("hop-small"), dt, l,
+                         counters["bin_ring_fires"])
+    (card, dt_card, l_card, f_card), (cpu, dt_cpu, _l, f_cpu) = (
+        small[None], small["cpu"])
+    if not same_columns(card, cpu):  # another order: sort both
+        card, cpu = (sorted_columns({**c, "channel": channel_ids(
+            c["channel"])}, ("window_end", "channel")) for c in (card, cpu))
+    check(len(card["num"]) > 0 and same_columns(card, cpu),
+          f"long windows at {HOP_SMALL} events: rows differ between card "
+          f"and cpu ({len(card['num'])} vs {len(cpu['num'])})")
+    hop_launched(l_card, "on", f_card, "hop_small")
+    launches["hop_small"] = l_card
+    out["hop_small"] = {"events": HOP_SMALL, "wall_s": dt_card,
+                        "cpu_wall_s": dt_cpu, "rows": len(card["num"]),
+                        "ring_fires": f_card, "cpu_ring_fires": f_cpu}
+
+    os.environ["ARROYO_RING"] = "on"
+    perf.reset()
+    reset_launches()
+    try:
+        dt, rows, _tasks = run_q5("q5-ring", None)
+    finally:
+        del os.environ["ARROYO_RING"]
+    l = read_launches()
+    check(rows and rows == CONTROLS["q5"] and rows == HAND["q5"][0],
+          f"q5 on the ring: {len(rows)} rows against the control's "
+          f"{len(CONTROLS['q5'])}")
+    hop_launched(l, "on", perf.counter("bin_ring_fires"), "q5_ring")
+    launches["q5_ring"] = l
+    out["q5_ring"] = {"events": NUM_EVENTS, "wall_s": dt, "rows": len(rows),
+                      "ring_fires": perf.counter("bin_ring_fires"),
+                      "launches": {k: v for k, v in l.items() if v}}
+    print("long windows: " + json.dumps(out))
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -5705,6 +6118,7 @@ def main():
     launches.update(timed("services", services_phase))
     launches.update(timed("native", native_phase))
     launches.update(timed("sinks", sink_phase))
+    launches.update(timed("long_windows", hop_phase))
     print("phase seconds: " + json.dumps(seconds))
     for r in kernels:
         for path in PATHS:

@@ -56,6 +56,7 @@ from arroyo_tpu_torch.kernels.pane_emit import (
     pane_emit_reference,
     pane_views,
 )
+from arroyo_tpu_torch.kernels.ring_emit import ring_emit, ring_emit_reference
 from arroyo_tpu_torch.kernels.ring_gather import (
     ring_gather,
     ring_gather_reference,
@@ -1947,3 +1948,155 @@ def test_config5_filesystem_cut_and_restore_cuda(cuda_device, tmp_path):
     want, _ = rows(straight)
     assert got == want and len(set(got)) == len(got) == 256
     assert not staged and launched[0] > 0 and launched[1] > 0
+
+
+# -- ring_emit: the long-window fire ------------------------------------------
+
+RING_KINDS = ("count", "sum", "sum", "min", "max", "sum", "sum")
+RING_XFER = (1, 2, 3, 4, 5, 6)  # channel 0 is a COUNT(*): the counts plane
+
+
+def _ring_case(values, counts, geometry, kinds, xfer, rows, cdt):
+    """The kernel's buffer against the plain version run on CPU copies:
+    counts, min and max exact, NaN and signed zeros included; f64 sums
+    (a warp scan in the kernel, a sequential cumsum in the plain version)
+    within 1e-12 of the rows' absolute mass."""
+    first_bin, lo, hi, W, k = geometry
+    args = (first_bin, lo, hi, W, k, kinds, xfer, rows)
+    before = ring_emit.launches
+    buf = ring_emit(values, counts, *args)
+    torch.cuda.synchronize()
+    assert ring_emit.launches == before + 1
+    n_f = 8 * len(xfer) * rows * k
+    outs = buf[:n_f].view(torch.float64).view(len(xfer), rows, k).cpu()
+    want_o, want_c = ring_emit_reference(
+        values.cpu(), None if counts is None else counts.cpu(), *args)
+    if counts is not None:
+        cnts = buf[n_f:].view(cdt).view(rows, k).cpu()
+        assert cnts.dtype == counts.dtype and torch.equal(cnts, want_c)
+    mass = values.abs().nan_to_num(0.0).sum(-1).max().item()
+    for r, j in enumerate(xfer):
+        if kinds[j] in ("min", "max"):
+            torch.testing.assert_close(outs[r], want_o[r], rtol=0, atol=0,
+                                       equal_nan=True)
+            assert torch.equal(torch.signbit(outs[r]),
+                               torch.signbit(want_o[r]))
+        else:
+            torch.testing.assert_close(outs[r], want_o[r], rtol=0,
+                                       atol=1e-12 * mass)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first_bin,lo,hi,W,k", [
+    (1024 * 3 + 900, 1024 * 3 + 900, 1024 * 4 + 199, 300, 1),  # steady
+    (1024 * 3 + 900, 1024 * 3 + 920, 1024 * 4 + 240, 300, 64),  # wraps
+    (-299, 0, 40, 300, 1),  # the first fire: negative bins, 41 live
+    (1024 * 5, 1024 * 5 + 10, 1024 * 5 + 400, 300, 700),  # final flush
+    (7, 9, 12, 300, 3),  # past the newest bin
+    (100, 300, 299, 5, 8),  # no live bin
+    (1024 * 2 + 5, 1024 * 2 + 5, 1024 * 2 + 30, 1, 26),  # W = 1
+])
+@pytest.mark.parametrize("cdt", [torch.int32, torch.int64])
+def test_ring_emit_cuda_matches_plain(cuda_device, first_bin, lo, hi, W, k,
+                                      cdt):
+    """HOP(1 s, 300 s) fires over a ring of B = 1,024 bins: the steady
+    fire (k = 1), a 64-pane fire whose span wraps the ring, the first
+    fire, a final flush of 700 panes (k > W, so several van Herk
+    blocks), panes past the newest bin, no live bin, W = 1."""
+    rng = np.random.default_rng(W + k)
+    C, B, rows = 2048, 1024, 1500
+    values, counts = _planes(rng, cuda_device, RING_KINDS, C, B, cdt)
+    _ring_case(values, counts, (first_bin, lo, hi, W, k), RING_KINDS,
+               RING_XFER, rows, cdt)
+
+
+@pytest.mark.cuda
+def test_ring_emit_cuda_signed_zeros_nan_and_no_counts(cuda_device):
+    """MIN/MAX over +/-0.0, +/-inf and NaN in XLA's order (NaN wins, -0.0
+    below +0.0), exact; the counts part left out (``counts=None``, the
+    1-D and 2-D aggregates' form)."""
+    rng = np.random.default_rng(21)
+    kinds = ("min", "max", "sum")
+    v = rng.choice([0.0, -0.0, 1.0, -1.0, np.inf, -np.inf], (3, 512, 128))
+    v[rng.random(v.shape) < 0.01] = np.nan
+    v[2] = rng.integers(-9, 9, (512, 128))
+    values = torch.tensor(v, device=cuda_device)
+    for W, k in ((1, 128), (7, 100), (33, 96), (128, 1)):
+        _ring_case(values, None, (1 - W, 0, 127, W, k), kinds, (0, 1, 2),
+                   512, None)
+
+
+@pytest.mark.cuda
+def test_ring_emit_cuda_one_allocation_no_sync(cuda_device):
+    rng = np.random.default_rng(23)
+    values, counts = _planes(rng, cuda_device, RING_KINDS, 4096, 1024,
+                             torch.int32)
+    def call():
+        return ring_emit(values, counts, 3000, 3000, 3299, 300, 1,
+                         RING_KINDS, RING_XFER, 4000)
+
+    assert _allocs_and_syncs(call) == (1, 0)
+
+
+@pytest.mark.cuda
+def test_ring_pane_aggregate_cuda_matches_cpu(cuda_device):
+    """The 1-D and 2-D aggregates swept on the card equal the CPU's: a
+    tensor stays on the card, a numpy array goes there and comes back."""
+    from arroyo_tpu_torch.parallel.ring_panes import (
+        ring_pane_aggregate, ring_pane_aggregate_2d)
+
+    rng = np.random.default_rng(29)
+    bins = rng.integers(-50, 100, (6, 256)).astype(np.float64)
+    for kind in ("sum", "count", "min", "max"):
+        for W in (1, 33, 256):
+            want = ring_pane_aggregate_2d(bins, W, kind, 8, device="cpu")
+            got = ring_pane_aggregate_2d(torch.tensor(bins,
+                                                      device=cuda_device),
+                                         W, kind, 8)
+            assert got.device.type == "cuda"
+            np.testing.assert_array_equal(got.cpu().numpy(), want)
+            np.testing.assert_array_equal(
+                ring_pane_aggregate(bins[0], W, kind, 4), want[0])
+
+
+@pytest.mark.cuda
+def test_keyed_bins_cuda_ring_fires_match_cpu(cuda_device, monkeypatch):
+    """KeyedBinState under ``ARROYO_RING=on`` on the card: every fire one
+    ``ring_emit`` launch and no other fire kernel, the fires equal the
+    CPU state's, with eviction over 700 s of a 300 s window."""
+    from arroyo_tpu_torch.graph.logical import AggKind, AggSpec
+    from arroyo_tpu_torch.ops.keyed_bins import KeyedBinState
+
+    monkeypatch.setenv("ARROYO_RING", "on")
+    aggs = (AggSpec(AggKind.COUNT, None, "n"),
+            AggSpec(AggKind.SUM, "p", "s"), AggSpec(AggKind.MAX, "p", "m"))
+    sec = 1_000_000
+    card = KeyedBinState(aggs, sec, 300 * sec, capacity=1024)
+    host = KeyedBinState(aggs, sec, 300 * sec, capacity=1024, device="cpu")
+    rng = np.random.default_rng(31)
+    before = (ring_emit.launches, pane_emit.launches, emit_count.launches,
+              argmax_fire.launches)
+    fires = 0
+    for i in range(14):
+        n = 4000
+        keys = rng.integers(0, 3000, n).astype(np.uint64) * np.uint64(
+            0x9E3779B97F4A7C15)
+        ts = (i * 50 + rng.integers(0, 50, n)) * sec
+        p = rng.integers(1, 10_000, n).astype(np.float64)
+        p[rng.random(n) < 0.1] = np.nan
+        outs = []
+        for st in (card, host):
+            st.update(keys, ts.astype(np.int64), {"p": p})
+            outs.append(st.fire_panes((i + 1) * 50 * sec))
+        a, b = outs
+        assert (a is None) == (b is None)
+        if a is not None:
+            fires += 1
+            for x, y in zip(a[:1] + a[2:], b[:1] + b[2:]):
+                np.testing.assert_array_equal(x, y)
+            for c in a[1]:
+                np.testing.assert_array_equal(a[1][c], b[1][c])
+    assert fires >= 12 and card.min_bin > 300
+    assert ring_emit.launches - before[0] == fires
+    assert (pane_emit.launches, emit_count.launches,
+            argmax_fire.launches) == before[1:]

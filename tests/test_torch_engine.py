@@ -43,10 +43,13 @@ def _rows(batches):
 
 
 @pytest.mark.parametrize("projection", [None, ["bid_auction", "bid_datetime",
-                                               "event_type"]])
+                                               "event_type"],
+                                        ["bid_channel", "bid_price",
+                                         "event_type"]])
 def test_nexmark_batches_match_jax_generator(projection):
     """(e) the first batches are identical column for column, timestamps
-    included, with and without projection pushdown."""
+    included, with and without projection pushdown (the bid channel's
+    family: channels, urls and padding strings)."""
     kw = dict(num_events=5000, rate_limited=False, event_rate=1_000_000.0,
               projection=projection)
     gens = [cls(cfg(**kw), 123, 1, 5000, 1, seed=0)
@@ -193,7 +196,10 @@ NEW_MODULES = ("arroyo_tpu_torch.q1", "arroyo_tpu_torch.q7",
                "arroyo_tpu_torch.connectors.filesystem",
                "arroyo_tpu_torch.connectors.single_file",
                "arroyo_tpu_torch.connectors.preview",
-               "arroyo_tpu_torch.connectors.schema_registry")
+               "arroyo_tpu_torch.connectors.schema_registry",
+               "arroyo_tpu_torch.kernels.ring_emit",
+               "arroyo_tpu_torch.parallel",
+               "arroyo_tpu_torch.parallel.ring_panes")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -125,17 +125,6 @@ def test_state_matches_jax_with_cross_restore(monkeypatch, aggs, argmax,
     _assert_snapshots_equal(j.snapshot(), p.snapshot())
 
 
-def test_ring_mode_on_is_refused(monkeypatch):
-    """The ring-parallel emission branch is not ported: forcing it raises
-    instead of silently taking another branch."""
-    p = PortState((AggSpec(AggKind.COUNT, None, "n"),), SLIDE, WIDTH,
-                  device="cpu")
-    p.update(np.arange(4, dtype=np.uint64), np.arange(4) * 1000, {})
-    monkeypatch.setenv("ARROYO_RING", "on")
-    with pytest.raises(NotImplementedError):
-        p.fire_panes(10_000)
-
-
 SIGNED_AGGS = [("count", None, "n"), ("min", "price", "lo"),
                ("max", "price", "hi"), ("sum", "price", "total")]
 
