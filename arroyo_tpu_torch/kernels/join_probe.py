@@ -1,6 +1,6 @@
 """K9 ``join_probe``: the match ranges of sorted query keys in a sorted key
 plane — per query its lower bound in the plane, its match count, and the
-inclusive prefix sum of the counts.  Two forms, one templated kernel:
+inclusive prefix sum of the counts.  Two forms, two kernels:
 
 * i32 keys: a hot join partition's ring — the queries' i32 ``hi`` images
   in the ring's sorted ``hi`` plane (candidate ranges on the top 32 hash
@@ -21,18 +21,34 @@ and ``cum``); it is kept so that the kernel's outputs stay those of the
 JAX kernel and are held against them output for output, at 4 bytes
 written per query.
 
-On the H100 a probe at join-stress's shapes is bound by its launch (the
-bytes are kilobytes) and by the latency of its searches.  The CUDA
-kernel (``csrc/join_probe.cu``) stages the plane's live rows in shared
-memory (all of them up to 32 KB — 8,192 i32 or 4,096 u64 rows — and 16
-a query, else evenly spaced samples, so only the last levels of a search
-read global memory), answers a query above the plane's last row (every
-sentinel padding query) without a search, and finds the upper bound by
-galloping from the lower bound.  It scans the counts per 1,024-query
-tile: one launch for up to 1,024 queries, three (tile scan, carry scan,
-fix-up) beyond.  The three outputs are views of ONE buffer (the tile
-totals' scratch after them only when there are several tiles): one
-allocation and no host sync a call.
+The i32 form (csrc/join_probe.cu ``probe_tile``) serves join-stress's
+hot rings, where a probe is bound by its launch (the bytes are
+kilobytes) and by the latency of its searches: it stages the ring's live
+rows in shared memory (all of them up to 32 KB — 8,192 rows — and 16 a
+query, else evenly spaced samples, so only the last levels of a search
+read global memory), answers a query above the plane's last row without
+a search, gallops from the lower bound to the upper, and scans the
+counts per 1,024-query tile: one launch up to 1,024 queries, three (tile
+scan, carry scan, fix-up) beyond.
+
+The u64 form (``probe_u64``) is a merge-path probe: both inputs are
+sorted, so a block's tile of consecutive queries (:func:`u64_tile`:
+1,024 or 2,048, or 64 on a plane of over four rows a query) matches the
+plane window ``[lower_bound(first query), upper_bound(last real
+query))``, found by two warp searches a tile.  The block stages the
+window in shared memory (16-byte ``cp.async`` copies) and answers each
+query there, merging each thread's consecutive queries into it by
+gallops; a window over the staging budget (:func:`u64_stage_rows`)
+stages every 2^shift-th row of it and finishes each search in global
+memory within the window, still exact.  The counts' prefix sum is
+scanned in the same launch by a decoupled look-back over the tiles'
+totals: one launch for one tile, a memset of the ticket and status
+words and one launch beyond.  ``tests/test_torch_probe_tiles.py``
+writes its tile co-ranking in plain PyTorch.
+
+The three outputs are views of ONE buffer (the scratch words after them
+only when there are several tiles): one allocation and no host sync a
+call.
 
 ``join_probe_reference`` is the plain PyTorch version (the same bisection,
 vectorized over the queries, on the keys' unsigned order for the u64
@@ -51,7 +67,28 @@ import torch
 from . import build
 from .join_sort import unsigned_order
 
-TILE = 1024  # queries per block of the tile scan (csrc/join_probe.cu)
+TILE = 1024  # queries per block (csrc/join_probe.cu)
+BIG_TILE, WIDE_TILES = 2048, 512  # the u64 form's tile past 512 of TILE
+SPARSE_TILE, SPARSE_RATIO = 64, 4  # and on sparse probes
+U64_STAGE_MIN, U64_STAGE_MAX = 256, 4096  # u64 rows a block stages
+
+
+def u64_tile(mq: int, n_valid: int) -> int:
+    """The u64 form's queries a block (csrc/join_probe.cu ``tile_of``):
+    64 when the plane holds over four rows a query, else 1,024 up to
+    524,288 queries and 2,048 above."""
+    if n_valid > SPARSE_RATIO * mq:
+        return SPARSE_TILE
+    return TILE if mq <= WIDE_TILES * TILE else BIG_TILE
+
+
+def u64_stage_rows(m: int, n_valid: int, tile: int) -> int:
+    """The u64 form's staging budget in rows (csrc/join_probe.cu
+    ``stage_rows``): twice the plane window a tile of ``tile`` real
+    queries expects, plus 64, within [256, 4,096], even.  A larger window
+    is sampled."""
+    expect = -(-tile * n_valid // m) if m > 0 else 0
+    return min(max(2 * expect + 64, U64_STAGE_MIN), U64_STAGE_MAX) & ~1
 
 
 def _check(q_hi: torch.Tensor, hi: torch.Tensor, m: int,
@@ -127,19 +164,22 @@ def join_probe(q_hi: torch.Tensor, hi: torch.Tensor, m: int, n_valid: int
         return join_probe_reference(q_hi, hi, m, n_valid)
     if dev.type != "cuda":
         raise ValueError(f"join_probe: unsupported device {dev}")
-    n_tiles = (mq + TILE - 1) // TILE
-    buf = torch.empty(2 * mq + (n_tiles if n_tiles > 1 else 0),
-                      dtype=torch.int64, device=dev)
-    cum, tile_sum = buf[:mq], buf[2 * mq:]
+    u64 = hi.dtype == torch.int64
+    tile = u64_tile(mq, n_valid) if u64 else TILE
+    n_tiles = (mq + tile - 1) // tile
+    # scratch: the i32 form's tile totals, the u64 form's ticket and
+    # status words
+    scratch = 0 if n_tiles == 1 else n_tiles + u64
+    buf = torch.empty(2 * mq + scratch, dtype=torch.int64, device=dev)
+    cum, ws = buf[:mq], buf[2 * mq:]
     keys = buf[mq:2 * mq].view(torch.int32)
     start, counts = keys[:mq], keys[mq:]
     if mq == 0:
         return start, counts, cum  # nothing to launch
-    u64 = hi.dtype == torch.int64
     build.launch("join_probe", _c_fn(u64), dev, q_hi.data_ptr(), mq,
                  hi.data_ptr(), cap, m, n_valid, start.data_ptr(),
                  counts.data_ptr(), cum.data_ptr(),
-                 tile_sum.data_ptr() if n_tiles > 1 else 0)
+                 ws.data_ptr() if scratch else 0)
     join_probe.launches += 1
     join_probe.u64_launches += u64
     return start, counts, cum

@@ -19,20 +19,32 @@ positions reading as each plane's identity, and:
   cumsum difference ``P[p + W - 1] - P[p - 1]`` of the running sum P
   (counts in int64, then the plane's dtype: exact);
 * min and max fold the pane's W positions in XLA's order (a NaN wins,
-  -0.0 is below +0.0), which is total, so the CUDA kernel's van Herk
-  grouping and the plain version's give the same bits as the JAX
+  -0.0 is below +0.0), which is total, so the CUDA kernel's grouping
+  and the plain version's van Herk blocks give the same bits as the JAX
   package's.
 
 An f64 sum differs in the last bits only where its values are not
-integers, because the running sums associate differently: the plain
-version's ``torch.cumsum`` is sequential on the CPU, the kernel's a warp
-scan over chunks of 32, ``jnp.cumsum`` neither.  Integer-valued data
-(every Nexmark price and count) is exact.
+integers, because the kernel groups its additions otherwise than the
+plain version's cumsum difference (sequential on the CPU) and
+``jnp.cumsum`` (neither): :func:`grouped_sums` writes the kernel's
+grouping in plain PyTorch, tests/test_torch_ring_panes.py holds it to the
+plain version and the JAX package within 1e-12 of a row's absolute mass,
+and the card's tests hold the kernel to it bit for bit.  Integer-valued
+data (every Nexmark price and count) is exact.
 
-On the H100 it is bound by memory: each live span cell of a row read
+On the H100 it is bound by memory — each live span cell of a row read
 once, (count itemsize + 8 per transferred channel) bytes written a (slot,
-pane).  The kernel (``csrc/ring_emit.cu``) runs one warp per (plane,
-slot), walking its row's span once in coalesced chunks of 32 positions.
+pane) — once few instructions are spent a cell.  The kernel
+(``csrc/ring_emit.cu``) takes the panes in groups of at most W + 1 (and
+512): every pane of a group holds the group's middle positions, which one
+warp per (plane, slot) reduces — each lane folds the cells 32 apart,
+then one butterfly — and only the head and tail parts that the panes do
+not share are warp scans (none at k = 1); the loads of 10 coalesced
+chunks of the middle and 2 of the head and the tail are in flight at
+once.  ``tools/ring_emit_variants`` times it against a
+block staging a tile of rows in shared memory, a thread a row.  A narrow
+window (W <= 64, as q5's W = 5 fire on the ring) takes another form: a
+thread a (slot, pane), folding its W cells in order.
 :func:`ring_emit` returns ONE buffer laid out as ``pane_emit``'s
 (``pane_views`` splits it); ``counts=None`` computes the channels
 alone.  ``ring_emit_reference`` is
@@ -54,6 +66,9 @@ from .pane_emit import _xfer_spec
 
 _NAN_KEY = {"max": torch.iinfo(torch.int64).max,
             "min": torch.iinfo(torch.int64).min}
+CELLS = 512  # panes the kernel takes in one group, at most
+DIRECT_W = 64  # W up to which the kernel folds each pane in a thread
+LANES = 32
 
 
 def _check(values: torch.Tensor, counts: Optional[torch.Tensor], W: int,
@@ -147,6 +162,70 @@ def ring_emit_reference(values: torch.Tensor,
         return out, None
     cg = torch.where(ok, counts[:rows][:, cols].long(), 0)
     return out, _prefix_difference(cg, W, k).to(counts.dtype)
+
+
+def grouped_sums(g: torch.Tensor, W: int, k: int) -> torch.Tensor:
+    """The CUDA kernel's sums of the k panes of each row of ``g`` [rows,
+    L] (f64, dead positions 0), grouped as it groups them: panes in groups
+    of g' = min(W + 1, 512) from p0 = 0; pane p0 + i is (H[i] + M) + T[i]
+    with M the group's middle x[p0 + g' - 1 .. p0 + W - 1] — 32 lane sums
+    of the cells 32 apart, then a butterfly (xor 16, 8, 4, 2, 1) — H[i]
+    the head x[p0 + i .. p0 + g' - 2] by suffix scans of 32-cell chunks
+    from its end, each plus the later chunks' sum, and T[i] the tail
+    x[p0 + W .. p0 + W + i - 1] by prefix scans of chunks from its start,
+    each the earlier chunks' sum plus the chunk's scan (Hillis-Steele
+    steps 1, 2, 4, 8, 16, as the warp's shuffles).  When W <= DIRECT_W
+    each pane is the sequential sum of its W cells from 0.0."""
+    rows, L = g.shape
+    if W <= DIRECT_W:
+        acc = g.new_zeros((rows, k))
+        for w in range(W):
+            acc = acc + g[:, w:w + k]
+        return acc
+    lanes = torch.arange(LANES, device=g.device)
+    out = torch.empty((rows, k), dtype=g.dtype, device=g.device)
+    gmax = min(k, W + 1, CELLS)
+
+    def at(j, ok):  # [rows, 32]: cells at positions j, 0 where not ok
+        return torch.where(ok, g[:, j.clamp(0, max(L - 1, 0))], 0.0)
+
+    for p0 in range(0, k, gmax):
+        gg = min(gmax, k - p0)
+        acc = g.new_zeros((rows, LANES))
+        a, b = p0 + gg - 1, p0 + W - 1
+        for base in range(a, b + 1, LANES):
+            acc = acc + at(base + lanes, base + lanes <= b)
+        for d in (16, 8, 4, 2, 1):
+            acc = acc + acc[:, lanes ^ d]
+        mid = acc[:, :1]
+        cells = g.new_zeros((rows, gg))
+        carry = g.new_zeros((rows, 1))
+        for top in range(p0 + gg - 2, p0 - 1, -LANES):
+            j = top - LANES + 1 + lanes
+            ok = j >= p0
+            suf = at(j, ok)
+            for d in (1, 2, 4, 8, 16):
+                y = suf[:, (lanes + d).clamp(max=LANES - 1)]
+                suf = torch.where(lanes + d < LANES, suf + y, suf)
+            suf = suf + carry
+            carry = suf[:, :1]
+            cells[:, j[ok] - p0] = (suf + mid)[:, ok]
+        cells[:, gg - 1] = mid[:, 0]
+        carry = g.new_zeros((rows, 1))
+        t0, t1 = p0 + W, p0 + W + gg - 2
+        for base in range(t0, t1 + 1, LANES):
+            j = base + lanes
+            ok = j <= t1
+            pre = at(j, ok)
+            for d in (1, 2, 4, 8, 16):
+                y = pre[:, (lanes - d).clamp(min=0)]
+                pre = torch.where(lanes >= d, y + pre, pre)
+            pre = carry + pre
+            carry = pre[:, LANES - 1:]
+            i = j[ok] - t0 + 1
+            cells[:, i] = cells[:, i] + pre[:, ok]
+        out[:, p0:p0 + gg] = cells
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -32,9 +32,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    paths are split into their host steps.  With ``--parent DIR`` (a ``git
    archive`` of the parent commit unpacked at DIR) the parent's
    pane_emit, bin_evict, segment_agg, expand_gather, ring_merge,
-   join_probe, session_union, join_expand, bin_update, argmax_fire,
-   join_sort, emit_count and emit_gather are built from DIR and timed in
-   turns with
+   join_probe (both forms), session_union, join_expand, bin_update,
+   argmax_fire, join_sort, ring_emit, emit_count and emit_gather are
+   built from DIR and timed in turns with
    this tree's at the same shapes (the parent's ring_merge given its own
    resident positions), and so are the callers: the reads the segment
    reduce and the join's emission make, ``ops/join.merge_ring``,
@@ -265,7 +265,16 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
     printed.  Phase 3 holds ``ring_emit`` to its plain version and to a
     PyTorch composition (an index gather, ``cumsum`` differences,
     ``max_pool1d``) at phase 19's median fire and at 262,144 rows, W =
-    300, k = 1 and 64, timed in turns with the composition.
+    300, k = 1 and 64, timed in turns with the composition; and at its
+    edge fires (a span wrapping the ring with dead positions at both
+    ends, W = 37, MIN/MAX over NaN and +/-0.0 with k > W, q5's ring
+    fire), bit for bit; one device launch, one allocation and no host
+    sync a call.  The u64 join_probe is held to its plain version at
+    every legacy bucket and at one key over half of a 2^20 plane, 8b's
+    8,192 queries against 400,000 rows, all padding, and tiles of one key
+    or one real query whose window is the whole plane, with at most two
+    device launches (a memset and the probe), one allocation and no host
+    sync a call.
 
 Launch counts are set to 0 just before each main-path run (q5, q8,
 config5, 8a, 8b, hot items, q1, q7, each SQL-planned run of phase 12,
@@ -349,7 +358,7 @@ from arroyo_tpu_torch.kernels.expand_gather import (  # noqa: E402
 from arroyo_tpu_torch.kernels.join_expand import (  # noqa: E402
     join_expand, join_expand_buffer, join_expand_reference, pair_views)
 from arroyo_tpu_torch.kernels.join_probe import (  # noqa: E402
-    join_probe, join_probe_reference)
+    join_probe, join_probe_reference, u64_tile)
 from arroyo_tpu_torch.kernels.join_sort import (  # noqa: E402
     ONE_BLOCK_MAX, join_sort, join_sort_reference, unsigned_order)
 from arroyo_tpu_torch.kernels.pane_emit import (  # noqa: E402
@@ -401,6 +410,7 @@ F64_OPS_PER_S = 34e12  # H100 SXM FP64 outside the tensor cores, data sheet
 NUM_EVENTS = 2_000_000  # bench.py:35
 BATCH = 131_072  # bench.py:38
 C_Q5, B_Q5 = 131_072, 16  # q5's key capacity and ring at that size
+Q5_RING_ROWS = 119_938  # q5's occupied slots at its ring fire (phase 19)
 Q8_EVENTS = 40_000_000  # four 10 s windows at bench.py's rate
 Q7_EVENTS = 40_000_000  # four 10 s windows, as q8 and hot items use
 Q8_SMALL = 2_000_000
@@ -1297,10 +1307,10 @@ def parent_kernels(parent):
     ``parent_torch``, its kernels built from its own csrc/ into its own
     build/ directory.  Returns a namespace of its pane_emit, bin_evict,
     segment_agg, expand_gather, join_probe, ring_merge, session_union,
-    join_expand, bin_update, argmax_fire, join_sort, emit_count and
-    emit_gather, its ``ops.join``, ``ops.session`` and ``ops.keyed_bins``
-    modules (the callers), its ``graph.logical`` (their aggregate specs)
-    and the build seconds."""
+    join_expand, bin_update, argmax_fire, join_sort, ring_emit, emit_count
+    and emit_gather, its ``ops.join``, ``ops.session`` and
+    ``ops.keyed_bins`` modules (the callers), its ``graph.logical``
+    (their aggregate specs) and the build seconds."""
     import importlib
     import importlib.util
     pkg = os.path.join(os.path.abspath(parent), "arroyo_tpu_torch")
@@ -1315,7 +1325,7 @@ def parent_kernels(parent):
     secs = time.perf_counter() - t0
     names = ("pane_emit", "bin_evict", "segment_agg", "expand_gather",
              "join_probe", "ring_merge", "session_union", "join_expand",
-             "bin_update", "argmax_fire", "join_sort")
+             "bin_update", "argmax_fire", "join_sort", "ring_emit")
     return argparse.Namespace(
         build_s=secs, join=importlib.import_module("parent_torch.ops.join"),
         session=importlib.import_module("parent_torch.ops.session"),
@@ -1503,12 +1513,13 @@ def ring_planes(dev, kinds, C, B, cdt):
     return values, counts
 
 
-def k16_case(dev, C, B, rows, geometry, cdt, shape):
+def k16_case(dev, C, B, rows, geometry, cdt, shape, parent=None):
     """K16 on one fire: ``geometry`` (first_bin, lo, hi, W, k) as
     fire_panes passes it.  Exact against the plain version and the
-    library composition (integer-valued planes), one launch, one
-    allocation and no host sync a call; timed in turns with the library
-    composition; device µs warm and cold."""
+    library composition (integer-valued planes), one launch (one on the
+    device), one allocation and no host sync a call; timed in turns with
+    the library composition and, with ``parent``, with the parent
+    commit's kernel; device µs warm and cold."""
     values, counts = ring_planes(dev, HOP_KINDS, C, B, cdt)
     first_bin, lo, hi, W, k = geometry
     args = (values, counts, first_bin, lo, hi, W, k, HOP_KINDS, HOP_XFER,
@@ -1546,6 +1557,10 @@ def k16_case(dev, C, B, rows, geometry, cdt, shape):
     check(meas["allocations_per_call"] == 1 and meas["syncs_per_call"] == 0,
           f"ring_emit made {meas['allocations_per_call']} allocations and "
           f"{meas['syncs_per_call']} host syncs ({shape})")
+    check(len(meas["device_us_per_call"]) == 1,
+          f"ring_emit made {len(meas['device_us_per_call'])} device "
+          f"launches ({shape}); 0: torch.profiler recorded no device "
+          "activity")
     live = int(ok.sum())
     item = counts.element_size()
     n_read = rows * (len(HOP_XFER) * run_sectors(8 * live)
@@ -1560,14 +1575,134 @@ def k16_case(dev, C, B, rows, geometry, cdt, shape):
              bound_bytes=n_read + n_write, live_positions=live,
              library_device_us=profile_kernels(library),
              library_turns=turn_factors(turns), **meas)
+    if parent is not None:
+        r["parent"] = ring_emit_parent(args, kernel, parent, shape)
     print(f"ring_emit {shape}: " + json.dumps(
         {key: r[key] for key in ("ms", "library_ms", "plain_ms", "turns_ms",
                                  "library_turns", "bound_ms", "bound_bytes",
                                  "live_positions", "library_device_us",
                                  "host_us_per_call", "device_us_per_call",
                                  "device_us_cold", "allocations_per_call",
-                                 "syncs_per_call")}))
+                                 "syncs_per_call", "parent")
+         if key in r}))
     return r
+
+
+def ring_emit_parent(args, kernel, parent, shape):
+    """The parent commit's ring_emit on the same fire: bit-equal (the
+    same association), timed in turns with this tree's, device µs warm
+    and cold."""
+    pr = parent.ring_emit
+    check(torch.equal(pr(*args), kernel()),
+          f"ring_emit differs from the parent's ({shape})")
+    c_ms, p_ms, p_turns = in_turns(kernel, lambda: pr(*args))
+    p_meas = measured(lambda: pr(*args), "ring_emit")
+    return {"ms": p_ms, "kernel_ms_beside_it": c_ms, "turns_ms": p_turns,
+            "turns": turn_factors(p_turns),
+            "device_us_per_call": p_meas["device_us_per_call"],
+            "device_us_cold": p_meas["device_us_cold"],
+            "host_us_per_call": p_meas["host_us_per_call"]}
+
+
+def edge_planes(rng, dev, kinds, C, B, cdt, signed=False):
+    """Bin-ring planes for ring_emit's edge fires: integer values in 3 of
+    4 cells, each channel's identity elsewhere; with ``signed``, the
+    MIN/MAX channels hold +/-0.0, +/-inf, +/-1 and 1% NaN."""
+    values = np.empty((len(kinds), C, B))
+    for j, kind in enumerate(kinds):
+        if signed and kind in ("min", "max"):
+            values[j] = rng.choice([0.0, -0.0, 1.0, -1.0, np.inf, -np.inf],
+                                   (C, B))
+            values[j][rng.random((C, B)) < 0.01] = np.nan
+        else:
+            values[j] = rng.integers(-1_000, 100_000, (C, B))
+        values[j][rng.random((C, B)) < 0.25] = channel_identity(kind)
+    counts = rng.poisson(2.0, (C, B))
+    return (torch.tensor(values, device=dev),
+            torch.tensor(counts, dtype=cdt, device=dev))
+
+
+# ring_emit's edge fires: (what, kinds, xfer, C, B, rows, (first_bin, lo,
+# hi, W, k), signed values); rows of 10,004 as phase 19's median fire
+EDGE_MIXED = ("count", "sum", "min", "max", "sum")
+K16_EDGES = (
+    ("span wrapping the ring, dead at both ends", HOP_KINDS, HOP_XFER,
+     C_HOP, B_HOP, HOP_ROWS, (1_024 * 5 + 900, 1_024 * 5 + 905,
+                              1_024 * 5 + 900 + 352, HOP_W, 64), False),
+    ("W=37 k=5", HOP_KINDS, HOP_XFER, C_HOP, B_HOP, HOP_ROWS,
+     (1_024 * 3 + 20, 1_024 * 3 + 22, 1_024 * 3 + 58, 37, 5), False),
+    ("NaN and +/-0.0 MIN/MAX, W=33 k=70", EDGE_MIXED, (1, 2, 3, 4), C_HOP,
+     B_HOP, HOP_ROWS, (1_024 * 2 + 1_000, 1_024 * 2 + 1_003,
+                       1_024 * 2 + 1_000 + 100, 33, 70), True),
+    # phase 19's q5 on the ring: its one fire, COUNT(*) alone
+    ("q5's ring fire", ("count",), (), C_Q5, B_Q5, Q5_RING_ROWS,
+     (-4, 0, 0, 5, 5), False),
+)
+
+
+def k16_edges(rng, dev, parent=None):
+    """K16 at its edge fires (K16_EDGES): exact against the plain version
+    (counts and integer sums; MIN/MAX bit for bit, NaN and signed zeros
+    included), one launch (one on the device), one allocation and no
+    host sync a call; timed beside its plain version and, with
+    ``parent``, in turns with the parent commit's kernel."""
+    rows = []
+    for what, kinds, xfer, C, B, n_rows, geometry, signed in K16_EDGES:
+        values, counts = edge_planes(rng, dev, kinds, C, B, torch.int32,
+                                     signed)
+        first_bin, lo, hi, W, k = geometry
+        shape = (f"{what} C={C} B={B} W={W} k={k} rows={n_rows} "
+                 f"first_bin={first_bin} lo={lo} hi={hi} int32")
+        args = (values, counts, first_bin, lo, hi, W, k, kinds, xfer,
+                n_rows)
+        before = ring_emit.launches
+        got = pane_views(ring_emit(*args), len(xfer), n_rows, k,
+                         torch.int32)
+        launches = ring_emit.launches - before
+        want = ring_emit_reference(*args)
+        torch.cuda.synchronize()
+        check(launches == 1, f"ring_emit made {launches} launches ({shape})")
+        check(torch.equal(got[1], want[1]),
+              f"ring_emit counts differ ({shape})")
+        for r, j in enumerate(xfer):
+            a, b = got[0][r], want[0][r]
+            if kinds[j] in ("min", "max"):  # bit for bit: NaN, signed zeros
+                a, b = a.view(torch.int64), b.view(torch.int64)
+            check(torch.equal(a, b),
+                  f"ring_emit channel {j} ({kinds[j]}) differs ({shape})")
+
+        def kernel(args=args):
+            return ring_emit(*args)
+
+        ms = cuda_ms(kernel)
+        plain = cuda_ms(lambda: ring_emit_reference(*args), reps=5, warm=1)
+        meas = measured(kernel, "ring_emit")
+        check(meas["allocations_per_call"] == 1
+              and meas["syncs_per_call"] == 0
+              and len(meas["device_us_per_call"]) == 1,
+              f"ring_emit made {meas['allocations_per_call']} allocations, "
+              f"{meas['syncs_per_call']} host syncs and "
+              f"{len(meas['device_us_per_call'])} device launches ({shape})")
+        L = k + W - 1
+        live = max(0, min(hi - first_bin, L - 1) - max(lo - first_bin, 0) + 1)
+        nbytes = n_rows * (len(xfer) * run_sectors(8 * live)
+                           + run_sectors(4 * live)) \
+            + run_sectors(8 * len(xfer) * n_rows * k) \
+            + run_sectors(4 * n_rows * k)
+        r = row("ring_emit", K16_SOURCE, K16_REPLACES, shape, 0.0, ms, plain,
+                nbytes, n_rows * L * (1 + len(xfer)), None, None)
+        r.update(launches_per_call=launches, bound_bytes=nbytes,
+                 live_positions=live, **meas)
+        if parent is not None:
+            r["parent"] = ring_emit_parent(args, kernel, parent, shape)
+        print(f"ring_emit {shape}: " + json.dumps(
+            {key: r[key] for key in ("ms", "plain_ms", "bound_ms",
+                                     "device_us_per_call", "device_us_cold",
+                                     "host_us_per_call", "parent")
+             if key in r}))
+        rows.append(r)
+        del values, counts
+    return rows
 
 
 def k4_case(rng, dev, kinds, C, B, first_bin, n_bins, rows, cdt, shape,
@@ -2457,13 +2592,11 @@ def k15_case(rng, dev, n, kind, parent=None):
     return r
 
 
-def k9_u64_case(rng, dev, n):
+def k9_u64_case(rng, dev, n, parent=None):
     """The u64 form of K9 on one legacy probe: the sorted left bucket of
     ``n`` (an eighth SENTINEL) against a sorted right bucket of ``n`` keys
     drawn from the left's (a fifth SENTINEL, a third of them absent from
-    the left): outputs bit-equal to the plain version, one buffer, 1
-    allocation and no host sync a call; timed in turns with
-    ``searchsorted`` x2 + ``cumsum`` on the unsigned-order views."""
+    the left)."""
     m, n_valid = n - n // 8, n - n // 5
     pool = rng.integers(0, 2**64 - 1, max(m // 2, 1), dtype=np.uint64)
     lk = np.full(n, SENTINEL64, np.uint64)
@@ -2472,9 +2605,74 @@ def k9_u64_case(rng, dev, n):
     rk[:n_valid] = np.sort(np.concatenate([
         rng.choice(pool, n_valid - n_valid // 3),
         rng.integers(0, 2**64 - 1, n_valid // 3, dtype=np.uint64)]))
+    return k9_u64_run(lk, rk, m, n_valid, dev,
+                      f"u64 legacy probe n={n} m={m} n_valid={n_valid}",
+                      parent)
+
+
+# (m, n_valid, what): u64 probes whose tiles hold one key (or one real
+# query) while the window is the whole plane, which fits the staging
+# budget: the smallest device join_pairs (1 row against 2,047), a tail
+# tile of one query, a small batch of one hot key
+ONE_KEY_WHOLE_PLANE = ((1, 2_047, "one query against 2,047 rows"),
+                       (1_025, 1_023, "1,025 queries against 1,023 rows"),
+                       (100, 3_000, "100 equal keys against 3,000 rows"))
+
+
+def k9_u64_adversarial(rng, dev, parent=None):
+    """The u64 probe where its windows are not a tile's share of the
+    plane: one key over half of a 2^20 plane (a 2,048-query tile's window
+    is 524,288 rows: sampled), 8b's probe (8,192 queries against 524,288
+    rows: sampled windows of ~64 rows a query), all padding (no search at
+    all), and tiles of one key or one real query whose window is the
+    whole plane (ONE_KEY_WHOLE_PLANE)."""
+    n = 1 << 20
+    hot = rng.integers(0, 2**64 - 1, dtype=np.uint64)
+    rk = np.full(n, SENTINEL64, np.uint64)
+    rk[:n - n // 5] = np.sort(np.concatenate([
+        np.full(n // 2, hot, np.uint64),
+        rng.integers(0, 2**64 - 1, n - n // 5 - n // 2, dtype=np.uint64)]))
+    lk = np.full(n, SENTINEL64, np.uint64)
+    m = n - n // 8
+    lk[:m] = np.sort(np.concatenate([
+        np.full(m // 4, hot, np.uint64), rng.choice(rk[:n - n // 5],
+                                                    m - m // 4)]))
+    rows = [k9_u64_run(lk, rk, m, n - n // 5, dev,
+                       f"u64 hot key over half the plane n={n} m={m}",
+                       parent)]
+    nl, nr = 8_192, 400_000  # 8b's batch against its side (PAIR_CASES)
+    rk = np.full(524_288, SENTINEL64, np.uint64)
+    rk[:nr] = np.sort(rng.integers(0, 2**64 - 1, nr, dtype=np.uint64))
+    lk = np.full(nl, SENTINEL64, np.uint64)
+    lk[:8_000] = np.sort(rng.choice(rk[:nr], 8_000))
+    rows.append(k9_u64_run(lk, rk, 8_000, nr, dev,
+                           f"u64 8b probe mq={nl} m=8000 cap=524288 "
+                           f"n_valid={nr}", parent))
+    lk = np.full(n, SENTINEL64, np.uint64)
+    rows.append(k9_u64_run(lk, rk, 0, nr, dev,
+                           f"u64 all padding mq={n} m=0 n_valid={nr}",
+                           parent))
+    for m, nr, what in ONE_KEY_WHOLE_PLANE:
+        key = rng.integers(0, 2**64 - 1, dtype=np.uint64)
+        rk = np.full(1 << (nr - 1).bit_length(), SENTINEL64, np.uint64)
+        rk[:nr] = np.sort(np.concatenate([
+            np.full(3, key, np.uint64),
+            rng.integers(0, 2**64 - 1, nr - 3, dtype=np.uint64)]))
+        lk = (np.full(m, key, np.uint64) if m in (1, 100)
+              else np.sort(rng.choice(rk[:nr], m)))
+        rows.append(k9_u64_run(lk, rk, m, nr, dev,
+                               f"u64 {what} mq={m} cap={len(rk)}", parent))
+    return rows
+
+
+def k9_u64_run(lk, rk, m, n_valid, dev, shape, parent=None):
+    """The u64 form of K9 on sorted u64 keys: outputs bit-equal to the
+    plain version, one buffer, 1 allocation, no host sync and at most two
+    device launches (a memset and the probe) a call; timed in turns with
+    ``searchsorted`` x2 + ``cumsum`` on the unsigned-order views and, with
+    ``parent``, with the parent commit's kernel."""
     q = torch.tensor(lk.view(np.int64), device=dev)
     r_ = torch.tensor(rk.view(np.int64), device=dev)
-    shape = f"u64 legacy probe n={n} m={m} n_valid={n_valid}"
     before = join_probe.u64_launches
     got = join_probe(q, r_, m, n_valid)
     launches = join_probe.u64_launches - before
@@ -2484,6 +2682,8 @@ def k9_u64_case(rng, dev, n):
     check(all(g.dtype == w.dtype and torch.equal(g, w)
               for g, w in zip(got, want)),
           f"join_probe u64 differs from its plain version ({shape})")
+    check(len({g.untyped_storage().data_ptr() for g in got}) == 1,
+          "join_probe's outputs are not views of one buffer")
     qu, ru = unsigned_order(q), unsigned_order(r_)
 
     def kernel():
@@ -2496,26 +2696,53 @@ def k9_u64_case(rng, dev, n):
 
     ms, lib, turns = in_turns(kernel, library)
     plain = cuda_ms(lambda: join_probe_reference(q, r_, m, n_valid), reps=5)
-    meas = measured(kernel, ("probe_",))
+    meas = measured(kernel, ("probe_", "emset"))
     check(meas["allocations_per_call"] == 1 and meas["syncs_per_call"] == 0,
           f"join_probe u64 made {meas['allocations_per_call']} allocations "
           f"and {meas['syncs_per_call']} host syncs ({shape})")
+    device_launches = len(meas["device_us_per_call"])
+    n_tiles = -(-len(lk) // u64_tile(len(lk), n_valid))
+    check(device_launches == (1 if n_tiles == 1 else 2),
+          f"join_probe u64 made {device_launches} device launches "
+          f"({shape}); 0: torch.profiler recorded no device activity")
     n_q = int(torch.unique(q).numel())
-    nbytes = 8 * n + searched(8 * n, n_valid, 2 * n_q) + 16 * n
+    nbytes = 8 * len(lk) + searched(8 * len(rk), n_valid, 2 * n_q) \
+        + 16 * len(lk)
     r = row("join_probe", K9_SOURCE, K9_REPLACES, shape, 0.0, ms, plain,
             nbytes, 0, lib, "searchsorted x2 + cumsum")
     dev_warm, dev_cold = device_sum(meas)
     r.update(turns_ms=turns, library_turns=turn_factors(turns),
-             launches_per_call=launches, bound_bytes=nbytes,
+             launches_per_call=launches,
+             device_launches_per_call=device_launches, bound_bytes=nbytes,
              device_us_warm_total=dev_warm, device_us_cold_total=dev_cold,
              library_device_us=profile_kernels(library), **meas)
+    if parent is not None:
+        pp = parent.join_probe
+        check(all(torch.equal(g, w) for g, w in zip(
+            pp(q, r_, m, n_valid), got)),
+            f"join_probe u64 differs from the parent's ({shape})")
+
+        def parent_call():
+            return pp(q, r_, m, n_valid)
+
+        c_ms, p_ms, p_turns = in_turns(kernel, parent_call)
+        p_meas = measured(parent_call, ("probe_",))
+        p_warm, p_cold = device_sum(p_meas)
+        r["parent"] = {"ms": p_ms, "kernel_ms_beside_it": c_ms,
+                       "turns_ms": p_turns, "turns": turn_factors(p_turns),
+                       "device_us_warm_total": p_warm,
+                       "device_us_cold_total": p_cold,
+                       "device_us_per_call": p_meas["device_us_per_call"],
+                       "host_us_per_call": p_meas["host_us_per_call"]}
     print(f"join_probe {shape}: " + json.dumps(
         {key: r[key] for key in ("ms", "library_ms", "plain_ms", "turns_ms",
                                  "library_turns", "bound_ms",
                                  "device_us_warm_total",
-                                 "device_us_cold_total", "library_device_us",
-                                 "host_us_per_call", "allocations_per_call",
-                                 "syncs_per_call")}))
+                                 "device_us_cold_total",
+                                 "device_launches_per_call",
+                                 "library_device_us", "host_us_per_call",
+                                 "allocations_per_call", "syncs_per_call",
+                                 "parent") if key in r}))
     return r
 
 
@@ -2556,12 +2783,14 @@ def legacy_kernel_cases(rng, dev, parent=None):
     """Phase 3's cases of the legacy join layout: join_sort at every
     bucket and key kind (with ``parent``, in turns with the parent's, and
     the caller join_pairs with the parent's), the u64 probe at every
-    bucket."""
+    bucket and at its adversarial windows (with ``parent``, in turns with
+    the parent's)."""
     rows = [k15_case(rng, dev, n, kind, parent) for n in SORT_BUCKETS
             for kind in SORT_KINDS]
     if parent is not None:
         pairs_callers(rng, dev, parent)
-    rows += [k9_u64_case(rng, dev, n) for n in SORT_BUCKETS]
+    rows += [k9_u64_case(rng, dev, n, parent) for n in SORT_BUCKETS]
+    rows += k9_u64_adversarial(rng, dev, parent)
     return rows
 
 
@@ -3096,14 +3325,15 @@ def kernel_phase(parent=None):
     rows.append(k16_case(dev, C_HOP, B_HOP, HOP_ROWS,
                          (first_bin, lo, hi, HOP_W, k), torch.int32,
                          f"long windows median fire C={C_HOP} B={B_HOP} "
-                         f"W={HOP_W} k={k} rows={HOP_ROWS} int32"))
+                         f"W={HOP_W} k={k} rows={HOP_ROWS} int32", parent))
     for k in (1, 64):  # every span position live
         base = 1_024 * 7 + 900
         rows.append(k16_case(dev, C_RING_BIG, B_HOP, C_RING_BIG,
                              (base, base, base + k + HOP_W - 2, HOP_W, k),
                              torch.int32,
                              f"C={C_RING_BIG} B={B_HOP} W={HOP_W} k={k} "
-                             f"rows={C_RING_BIG} int32"))
+                             f"rows={C_RING_BIG} int32", parent))
+    rows += k16_edges(rng, dev, parent)
     rows.append(k4_case(rng, dev, ("count",), C_Q8, B_Q8, 8 * 5_000 + 3, 1,
                         C_SLICE_Q8, torch.int32,
                         f"q8 COUNT(*) C={C_Q8} B={B_Q8} 1 column "
@@ -6080,7 +6310,8 @@ def main():
         "--parent", help="a directory holding a git archive of the parent "
         "commit: phase 3 also times its pane_emit, bin_evict, segment_agg, "
         "expand_gather, ring_merge, join_probe, session_union, join_expand, "
-        "bin_update, argmax_fire, join_sort, emit_count and emit_gather, "
+        "bin_update, argmax_fire, join_sort, ring_emit, emit_count and "
+        "emit_gather, "
         "and the join's (join_pairs too), the session union's and the "
         "keyed-bin state's callers (its key directory and snapshot too), "
         "in turns with this tree's")

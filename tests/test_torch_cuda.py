@@ -56,7 +56,8 @@ from arroyo_tpu_torch.kernels.pane_emit import (
     pane_emit_reference,
     pane_views,
 )
-from arroyo_tpu_torch.kernels.ring_emit import ring_emit, ring_emit_reference
+from arroyo_tpu_torch.kernels.ring_emit import (
+    grouped_sums, ring_emit, ring_emit_reference)
 from arroyo_tpu_torch.kernels.ring_gather import (
     ring_gather,
     ring_gather_reference,
@@ -1815,6 +1816,186 @@ def test_join_probe_u64_cuda_matches_plain(cuda_device, nl, nr):
     assert int(got[2][-1]) > 0
 
 
+def _u64_probe_case(rng, case):
+    """(queries, plane, m, n_valid) of one adversarial u64 probe, as
+    numpy u64 arrays: sorted, SENTINEL past m and n_valid."""
+    if case == "hot key":  # one key over half of a 2^20 plane
+        n = 1 << 20
+        hot = np.uint64(2**63 + 12_345)
+        rk = np.sort(np.concatenate([
+            np.full(n // 2, hot, np.uint64),
+            rng.integers(0, 2**64 - 1, n // 2 - 4_096, dtype=np.uint64)]))
+        lk = np.sort(np.concatenate([np.full(200_000, hot, np.uint64),
+                                     rng.choice(rk, 700_000)]))
+        mq, cap = n, n
+    elif case == "8b probe":  # 8,192 queries against 400,000 rows
+        rk = np.sort(rng.integers(0, 2**64 - 1, 400_000, dtype=np.uint64))
+        lk = np.sort(rng.choice(rk, 8_000))
+        mq, cap = 8_192, 524_288
+    elif case == "all padding":
+        rk = np.sort(rng.integers(0, 2**64 - 1, 3_000, dtype=np.uint64))
+        lk = rk[:0]
+        mq, cap = 5_000, 4_096
+    elif case == "empty plane":
+        lk = np.sort(rng.integers(0, 2**64 - 1, 3_000, dtype=np.uint64))
+        rk = lk[:0]
+        mq, cap = 4_096, 4_096
+    elif case in ONE_KEY_WHOLE_PLANE:  # a tile's window is the plane
+        m, n_valid = ONE_KEY_WHOLE_PLANE[case]
+        key = rng.integers(0, 2**64 - 1, dtype=np.uint64)
+        rk = np.sort(np.concatenate([
+            np.full(3, key, np.uint64),
+            rng.integers(0, 2**64 - 1, n_valid - 3, dtype=np.uint64)]))
+        lk = (np.full(m, key, np.uint64) if m in (1, 100)
+              else np.sort(rng.choice(rk, m)))
+        mq, cap = m, 1 << (n_valid - 1).bit_length()
+    else:  # keys straddling 2^63, SENTINEL among the real keys
+        pool = np.concatenate([np.uint64(2**63) - np.uint64(40) + rng.integers(
+            0, 80, 60).astype(np.uint64), [SENTINEL64]])
+        rk = np.sort(rng.choice(pool, 30_000))
+        lk = np.sort(rng.choice(pool, 9_000))
+        mq, cap = 10_000, 32_768
+    q = np.full(mq, SENTINEL64, np.uint64)
+    h = np.full(cap, SENTINEL64, np.uint64)
+    q[:len(lk)], h[:len(rk)] = lk, rk
+    return q, h, len(lk), len(rk)
+
+
+# (m, n_valid): probes whose tiles hold one key (or one real query) and
+# whose window is the whole plane, which fits the staging budget
+ONE_KEY_WHOLE_PLANE = {"one query against 2,047 rows": (1, 2_047),
+                       "1,025 queries against 1,023 rows": (1_025, 1_023),
+                       "100 equal keys against 3,000 rows": (100, 3_000)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hot key", "8b probe", "all padding",
+                                  "empty plane", "keys at and above 2^63",
+                                  *ONE_KEY_WHOLE_PLANE])
+def test_join_probe_u64_cuda_adversarial_windows(cuda_device, case):
+    """The u64 probe where a tile's window is not its share of the plane
+    (a hot key, sparse queries: sampled windows), or there is none (all
+    padding, an empty plane), or the keys straddle 2^63 with SENTINEL
+    among them (padding at the plane's last row), or a tile holds one key
+    or one real query while its window is the whole plane (no search
+    bounds it: its queries still merge): bit-equal to the plain
+    version."""
+    rng = np.random.default_rng(len(case))
+    q_np, h_np, m, n_valid = _u64_probe_case(rng, case)
+    q = torch.tensor(q_np.view(np.int64), device=cuda_device)
+    h = torch.tensor(h_np.view(np.int64), device=cuda_device)
+    got = join_probe(q, h, m, n_valid)
+    want = join_probe_reference(q, h, m, n_valid)
+    assert all(g.dtype == w.dtype and torch.equal(g, w)
+               for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mq", [1_024, 1 << 20])
+def test_join_probe_u64_cuda_launches_allocations_syncs(cuda_device, mq):
+    """One wrapper launch, one allocation and no host sync a call (the
+    device launches: test_device_launches_per_call_in_a_fresh_process)."""
+    rng = np.random.default_rng(mq)
+    keys = np.sort(rng.integers(0, 2**64 - 1, mq, dtype=np.uint64))
+    q = torch.tensor(keys.view(np.int64), device=cuda_device)
+    h = torch.tensor(np.sort(rng.choice(keys, mq)).view(np.int64),
+                     device=cuda_device)
+
+    def call():
+        return join_probe(q, h, mq, mq)
+
+    before = join_probe.u64_launches
+    call()
+    assert join_probe.u64_launches == before + 1
+    assert _allocs_and_syncs(call) == (1, 0)
+
+
+# Device launches a call, read by torch.profiler in a process of its own:
+# late in a long test session its profiles now and then hold no device
+# activity for seconds on end, while a fresh process records every launch.
+_LAUNCH_SCRIPT = r"""
+import json, sys, time, warnings
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+from arroyo_tpu_torch.kernels.join_probe import join_probe
+from arroyo_tpu_torch.kernels.ring_emit import ring_emit
+
+warnings.simplefilter("ignore")
+REPS = 10
+
+
+def launches(fn):
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(6):
+        if attempt >= 3:
+            time.sleep(1.0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA),
+            key=lambda e: e.time_range.start)]
+        if names and len(names) % REPS == 0:
+            break
+    return names[:len(names) // REPS]
+
+
+rng = np.random.default_rng(7)
+out = {}
+for mq, nv, cap in ((1_024, 1_000, 1_024), (1 << 20, 838_861, 1 << 20),
+                    (8_192, 400_000, 524_288)):
+    q = torch.tensor(np.sort(rng.integers(0, 2**64 - 1, mq,
+                                          dtype=np.uint64)).view(np.int64),
+                     device="cuda")
+    h = torch.tensor(np.sort(rng.integers(0, 2**64 - 1, cap,
+                                          dtype=np.uint64)).view(np.int64),
+                     device="cuda")
+    out[f"join_probe {mq}"] = launches(lambda: join_probe(q, h, mq, nv))
+kinds = ("count", "sum", "sum", "min", "max")
+v = torch.tensor(rng.normal(size=(5, 4096, 1024)), device="cuda")
+c = torch.tensor(rng.integers(0, 50, (4096, 1024)), dtype=torch.int32,
+                 device="cuda")
+for k in (1, 64, 700):
+    out[f"ring_emit {k}"] = launches(lambda: ring_emit(
+        v, c, 3000, 3000, 3000 + k + 298, 300, k, kinds, (1, 2, 3, 4),
+        4000))
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.cuda
+def test_device_launches_per_call_in_a_fresh_process(cuda_device):
+    """On the device, per call: the u64 probe for one tile (1,024
+    queries) is its kernel alone, for several tiles (2^20, and 8b's
+    8,192 queries on 64-query tiles) a memset of the ticket and status
+    words and its kernel; ring_emit is its kernel alone, with one group of
+    panes (k = 1, 64) or three (k = 700)."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parent.parent)
+    run = subprocess.run([sys.executable, "-c", _LAUNCH_SCRIPT, root],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    for case, names in got.items():
+        if case.startswith("join_probe"):
+            assert len(names) == (1 if case.endswith(" 1024") else 2), (
+                case, names)
+            assert "probe_u64" in names[-1], (case, names)
+        else:
+            assert len(names) == 1 and "ring_emit" in names[0], (case, names)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nl,nr", [(3_000, 7_000), (100_000, 300_000)])
 def test_join_pairs_cuda_matches_host(cuda_device, nl, nr, monkeypatch):
@@ -1959,8 +2140,9 @@ RING_XFER = (1, 2, 3, 4, 5, 6)  # channel 0 is a COUNT(*): the counts plane
 def _ring_case(values, counts, geometry, kinds, xfer, rows, cdt):
     """The kernel's buffer against the plain version run on CPU copies:
     counts, min and max exact, NaN and signed zeros included; f64 sums
-    (a warp scan in the kernel, a sequential cumsum in the plain version)
-    within 1e-12 of the rows' absolute mass."""
+    (the kernel's grouping, a sequential cumsum in the plain version)
+    within 1e-12 of the rows' absolute mass, and bit-equal to
+    ``grouped_sums``, the kernel's grouping in plain PyTorch."""
     first_bin, lo, hi, W, k = geometry
     args = (first_bin, lo, hi, W, k, kinds, xfer, rows)
     before = ring_emit.launches
@@ -1984,6 +2166,11 @@ def _ring_case(values, counts, geometry, kinds, xfer, rows, cdt):
         else:
             torch.testing.assert_close(outs[r], want_o[r], rtol=0,
                                        atol=1e-12 * mass)
+            bins = first_bin + torch.arange(k + W - 1)
+            live = (bins >= lo) & (bins <= hi)
+            g = torch.where(live, values[j, :rows].cpu()[
+                :, bins % values.shape[2]], 0.0)
+            assert torch.equal(outs[r], grouped_sums(g, W, k))
 
 
 @pytest.mark.cuda
@@ -1995,14 +2182,22 @@ def _ring_case(values, counts, geometry, kinds, xfer, rows, cdt):
     (7, 9, 12, 300, 3),  # past the newest bin
     (100, 300, 299, 5, 8),  # no live bin
     (1024 * 2 + 5, 1024 * 2 + 5, 1024 * 2 + 30, 1, 26),  # W = 1
+    (1024 * 6 + 1000, 1024 * 6 + 1003, 1024 * 6 + 1030, 37, 5),  # W = 37
+    (1024 * 4 + 12, 1024 * 4 + 16, 1024 * 4 + 16, 5, 5),  # q5's: one live
+    (1024 + 1020, 1024 + 1021, 1024 * 2 + 40, 64, 40),  # W = 64, wrapping
+    (1024 + 1000, 1024 + 1001, 1024 * 2 + 60, 65, 70),  # W = 65: groups
 ])
 @pytest.mark.parametrize("cdt", [torch.int32, torch.int64])
 def test_ring_emit_cuda_matches_plain(cuda_device, first_bin, lo, hi, W, k,
                                       cdt):
     """HOP(1 s, 300 s) fires over a ring of B = 1,024 bins: the steady
     fire (k = 1), a 64-pane fire whose span wraps the ring, the first
-    fire, a final flush of 700 panes (k > W, so several van Herk
-    blocks), panes past the newest bin, no live bin, W = 1."""
+    fire, a final flush of 700 panes (k > W, so several groups), panes
+    past the newest bin, no live bin, W = 1, W = 37 (no multiple of 32)
+    wrapping with dead positions at both ends (W = 1, 5 and 37 fold a
+    pane a thread), q5's W = 5 fire with one live bin, W = 64 (the widest
+    folded by a thread) wrapping, and W = 65 (the narrowest in groups)
+    with k > W + 1."""
     rng = np.random.default_rng(W + k)
     C, B, rows = 2048, 1024, 1500
     values, counts = _planes(rng, cuda_device, RING_KINDS, C, B, cdt)
@@ -2035,6 +2230,26 @@ def test_ring_emit_cuda_one_allocation_no_sync(cuda_device):
         return ring_emit(values, counts, 3000, 3000, 3299, 300, 1,
                          RING_KINDS, RING_XFER, 4000)
 
+    assert _allocs_and_syncs(call) == (1, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 64, 700])
+def test_ring_emit_cuda_launches_allocations_syncs(cuda_device, k):
+    """One wrapper launch, one allocation and no host sync a call, one
+    group of panes (k = 1, 64) or three (k = 700; the device launches:
+    test_device_launches_per_call_in_a_fresh_process)."""
+    rng = np.random.default_rng(k)
+    values, counts = _planes(rng, cuda_device, RING_KINDS, 4096, 1024,
+                             torch.int32)
+
+    def call():
+        return ring_emit(values, counts, 3000, 3000, 3000 + k + 298, 300, k,
+                         RING_KINDS, RING_XFER, 4000)
+
+    before = ring_emit.launches
+    call()
+    assert ring_emit.launches == before + 1
     assert _allocs_and_syncs(call) == (1, 0)
 
 

@@ -15,11 +15,22 @@ package's on the CPU, on the same seeded numpy inputs:
   rows under ``off``; the long-window text of ``queries.py`` plans with
   W = 300 bins.
 
+* the CUDA kernel's grouping of its sums (``kernels.ring_emit.
+  grouped_sums``: the panes in groups of at most W + 1 sharing a middle,
+  lane sums and a butterfly, head and tail scans; up to W = 64 a
+  sequential sum a pane) against the plain version and the JAX
+  ``_ring_step_2d`` at the fires the kernel treats apart (k = 1, one
+  group, several groups, W = 1, W = 5, W on both sides of 64, W not a
+  multiple of 32, dead positions at both ends).
+
 Tolerances: integer-valued data (counts, integer prices) is bit-equal,
 and so is every MIN/MAX (NaN and -0.0 included: both packages order
 -0.0 below +0.0 and let NaN win).  A float sum is the difference of two
-running sums; ``jnp.cumsum`` is not a sequential sum on the CPU, so
-non-integer sums agree to 1e-12 of the row's absolute mass (PERF.md)."""
+running sums; ``jnp.cumsum`` is not a sequential sum on the CPU, and the
+kernel groups its additions otherwise again, so non-integer sums agree
+to 1e-12 of the row's absolute mass (PERF.md): the bound of any
+grouping of n <= 1,000 terms, (n - 1) x 2^-53 of the mass, is under a
+tenth of it."""
 
 import numpy as np
 import pytest
@@ -38,6 +49,8 @@ from arroyo_tpu_torch import queries
 from arroyo_tpu_torch.connectors.memory import clear_sink, sink_output
 from arroyo_tpu_torch.engine.engine import LocalRunner
 from arroyo_tpu_torch.graph.logical import AggKind, AggSpec, OpKind
+from arroyo_tpu_torch.kernels.ring_emit import (grouped_sums,
+                                                ring_emit_reference)
 from arroyo_tpu_torch.ops.keyed_bins import KeyedBinState as PortState
 from arroyo_tpu_torch.parallel import ring_panes as port_ring
 from arroyo_tpu_torch.sql import SchemaProvider, plan_sql
@@ -104,6 +117,39 @@ def test_ring_pane_aggregate_2d_matches_jax(kind):
             got = port_ring.ring_pane_aggregate_2d(bins, W, kind, 8,
                                                    device="cpu")
             _same(got, want, kind, what, bins)
+
+
+@pytest.mark.parametrize("W,k,dead", [
+    (300, 1, (99, 0)),     # phase 19's median fire: 201 live of 300
+    (300, 64, (5, 10)),    # one group, dead positions at both ends
+    (300, 300, (0, 0)),    # a final flush: one group of 300
+    (300, 700, (3, 40)),   # groups of 301, 301 and 98
+    (37, 5, (2, 2)),       # W not a multiple of 32: a thread a pane
+    (33, 70, (0, 1)),      # k > W + 1, a thread a pane
+    (1, 26, (0, 0)),       # W = 1
+    (5, 5, (4, 4)),        # q5's ring fire: one live position
+    (64, 40, (3, 5)),      # the widest W a thread folds
+    (65, 70, (1, 0)),      # the narrowest a group takes: groups of 66, 4
+])
+@pytest.mark.parametrize("what", ["int", "float"])
+def test_kernel_grouping_matches_plain_and_jax(W, k, dead, what):
+    import torch
+
+    rng = np.random.default_rng(W * 1_000 + k)
+    rows, L = 6, k + W - 1
+    B = L + 8
+    values = torch.tensor(_data(rng, what, (1, rows, B)))
+    j0, j1 = dead[0], L - 1 - dead[1]
+    want, _ = ring_emit_reference(values, None, 0, j0, j1, W, k, ("sum",),
+                                  (0,), rows)
+    live = (torch.arange(L) >= j0) & (torch.arange(L) <= j1)
+    g = torch.where(live, values[0, :, :L], 0.0)
+    got = grouped_sums(g, W, k)
+    jax_want = jax_ring.ring_pane_aggregate_2d(g.numpy(), W, "sum",
+                                               1)[:, W - 1:W - 1 + k]
+    bins = g.numpy()
+    for other in (want[0].numpy(), jax_want):
+        _same(got.numpy(), other, "sum", what, bins)
 
 
 def test_ring_pane_aggregate_keeps_a_tensor_on_its_device():
