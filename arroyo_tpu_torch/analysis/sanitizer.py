@@ -19,11 +19,10 @@ arms invariant assertions at the runtime's protocol choke points:
   batches on one edge must stay stable (a silent layout change
   corrupts the data-plane continuation-frame cache and coalescer);
 - **per-edge sharding stability**: an operator's OUTPUT sharding spec
-  on one shuffle edge must not flip mid-stream (device all_to_all one
-  batch, host route the next).  The hook (:meth:`Sanitizer.on_sharding`)
-  is ported, but no one-device path calls it: the JAX package calls it
-  from its device shuffle, which comes with the multi-device port
-  (ROADMAP A.10);
+  on one shuffle edge must not flip mid-stream (device exchange one
+  batch, host route the next): the collector reports each keyed
+  multi-destination batch's route (:meth:`Sanitizer.on_sharding`,
+  ``keys@n`` or ``host@n``);
 - **checkpoint completeness**: each epoch sees exactly one completion
   per distinct (member operator, subtask) — a duplicate means two
   snapshots raced for the same slot.

@@ -4,16 +4,25 @@
 the CUDA device.  A caller who wants the host passes ``device="cpu"``
 (the CPU tests do).  Asking for CUDA on a machine without it raises: the
 port never moves to the CPU on its own, so a run that claims the card
-really ran there."""
+really ran there.
+
+``LocalRunner`` also takes a sequence of devices: the devices of its key
+mesh (``parallel/mesh_window.py``), one key shard on each entry, the first
+the runner's device for everything else.  A device may repeat — the port's
+counterpart of the JAX tests' forced host device count — so the CPU tests
+run the mesh at 2, 4 and 8 shards and one card holds four."""
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
+# a device, or the devices of a key mesh (``LocalRunner(device=...)``)
+DevicesLike = Union[DeviceLike, Sequence[Union[str, torch.device]]]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -28,6 +37,43 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def is_sequence(device: DevicesLike) -> bool:
+    return isinstance(device, (list, tuple))
+
+
+def resolve_devices(device: DevicesLike = None) -> List[torch.device]:
+    """A device or a sequence of devices as a list of devices, each
+    checked as :func:`resolve_device` checks one.  An entry may repeat:
+    the mesh then holds several logical shards on that device."""
+    if not is_sequence(device):
+        return [resolve_device(device)]
+    if not device:
+        raise ValueError("an empty device sequence")
+    return [resolve_device(d) for d in device]
+
+
+def mesh_devices(device: DevicesLike = None) -> List[torch.device]:
+    """The devices of a runner's key mesh: the sequence itself when one
+    is given, else the distinct visible devices of the device's type
+    (every CUDA card; the CPU once)."""
+    if is_sequence(device):
+        return resolve_devices(device)
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def on_device(dev: torch.device):
+    """The context under which launches for ``dev`` run: the card made
+    current (``build.launch`` refuses tensors on another card), nothing
+    on the CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
 
 
 # a readback at least this large goes through pinned host memory

@@ -1,10 +1,14 @@
 """Logical operator -> physical operator construction (port of
 ``arroyo_tpu.engine.build``).  Builders take the resolved device so
-device-state operators place their tensors there."""
+device-state operators place their tensors there; the bin aggregates'
+builders (``register_builder(kind, mesh=True)``) also take the runner's
+key mesh, the devices their state may shard over."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Sequence, Set
+
+import torch
 
 from ..connectors.registry import make_sink, make_source
 from ..device import DeviceLike, resolve_device
@@ -38,21 +42,31 @@ def validate_before_build(program) -> None:
 
 
 _BUILDERS: Dict[OpKind, Builder] = {}
+# kinds whose builder also takes the key mesh (``mesh=`` keyword)
+_MESH_KINDS: Set[OpKind] = set()
 
 
-def register_builder(kind: OpKind):
+def register_builder(kind: OpKind, mesh: bool = False):
     def deco(fn: Builder) -> Builder:
         _BUILDERS[kind] = fn
+        if mesh:
+            _MESH_KINDS.add(kind)
         return fn
     return deco
 
 
-def build_operator(op: LogicalOperator, device: DeviceLike) -> Operator:
+def build_operator(op: LogicalOperator, device: DeviceLike,
+                   mesh: Optional[Sequence[torch.device]] = None
+                   ) -> Operator:
+    """The physical operator of ``op`` on ``device``; a bin aggregate's
+    state may shard over ``mesh`` (None: the device's visible devices)."""
     from . import operators_window  # noqa: F401  (registers its builders)
 
     builder = _BUILDERS.get(op.kind)
     if builder is None:
         raise NotImplementedError(f"no physical operator for {op.kind}")
+    if op.kind in _MESH_KINDS:
+        return builder(op, device, mesh=mesh)
     return builder(op, device)
 
 

@@ -2,9 +2,13 @@
 collection/partitioning and timers (port of ``arroyo_tpu.engine.context``).
 
 The collector partitions whole columnar batches by vectorized key-range
-routing on the host.  The JAX package can carry a co-located shuffle as
-one on-device all_to_all; with one device per operator the route is the
-identity, and that path is not ported.
+routing on the host or, when a shuffle edge's destinations are
+co-located and ``parallel/shuffle.device_shuffle_enabled`` says so (a
+key mesh of at least that many shards), by one device exchange over the
+runner's mesh (``DeviceShuffle``), whose rows per destination are the
+host route's.  The choice is made once an edge and holds for its life;
+with the runtime sanitizer armed, every keyed multi-destination batch
+reports it (``on_sharding``), so a flip fails the run.
 
 The collector counts records sent and backpressure into the task's
 metrics and, with the phase profiler armed, charges its partition and
@@ -138,14 +142,37 @@ class Collector:
     one queue per downstream subtask for shuffle edges."""
 
     def __init__(self, edge_groups: List[List[OutQueue]],
-                 metrics: Optional[Any] = None, op_id: str = ""):
+                 metrics: Optional[Any] = None, op_id: str = "",
+                 sanitizer: Optional[Any] = None, subtask: int = 0,
+                 mesh: Sequence[Any] = ()):
         self.edge_groups = edge_groups
         self.metrics = metrics
         self.op_id = op_id
+        # the sanitizer's per-edge sharding stability (None unless armed);
+        # the edge key carries the producing subtask
+        self.sanitizer = sanitizer
+        self.subtask = subtask
+        # the runner's key mesh: the devices a device shuffle exchanges
+        # over
+        self.mesh = list(mesh)
         # phase profiler: None unless armed at engine build
         self.prof = profiler.active()
         self._rr = [0] * len(edge_groups)  # round-robin cursor per group
         self._local_qs = [q.queue for g in edge_groups for q in g]
+        # decided at a group's first keyed batch: a DeviceShuffle, or None
+        # for the host route for the edge's life
+        self._dev_shuffle: Dict[int, Optional[Any]] = {}
+
+    def _device_shuffle_for(self, gi: int, n: int) -> Optional[Any]:
+        if gi in self._dev_shuffle:
+            return self._dev_shuffle[gi]
+        from ..parallel import shuffle as _shuffle
+
+        ds = (_shuffle.DeviceShuffle(n, self.mesh, op_id=self.op_id)
+              if self.mesh and _shuffle.device_shuffle_enabled(n, self.mesh)
+              else None)
+        self._dev_shuffle[gi] = ds
+        return ds
 
     def _update_queue_gauges(self) -> None:
         # backpressure visibility: capacity and remaining slots across
@@ -197,8 +224,25 @@ class Collector:
                     await (send(q, m) if send else q.send(m))
                     self._rr[gi] += 1
                 else:
+                    ds = self._device_shuffle_for(gi, n)
+                    parts = ds.route(batch) if ds is not None else None
+                    if self.sanitizer is not None:
+                        self.sanitizer.on_sharding(
+                            (self.op_id, self.subtask, gi),
+                            f"keys@{n}" if parts is not None
+                            else f"host@{n}")
+                    if parts is not None:
+                        # the device exchange ran; destinations get their
+                        # rows in the host route's order
+                        for i, sub in parts:
+                            q, m = group[i], Message.record(sub)
+                            await (send(q, m) if send else q.send(m))
+                        continue
                     from ..native import partition_route
+                    from ..obs import perf as _perf
+                    from ..parallel.shuffle import HOST_ROUTES
 
+                    _perf.count(HOST_ROUTES)
                     _, order, bounds = partition_route(batch.key_hash, n)
                     for i in range(n):
                         lo, hi = bounds[i], bounds[i + 1]

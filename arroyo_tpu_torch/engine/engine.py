@@ -47,7 +47,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from ..analysis.sanitizer import maybe_sanitizer
 from ..config import config
-from ..device import DeviceLike, resolve_device
+from ..device import DevicesLike, is_sequence, mesh_devices, resolve_device
 from ..graph.chaining import plan_chains, validate_chain_plan
 from ..graph.factor_windows import apply_factor_windows
 from ..graph.logical import EdgeType, OpKind, Program
@@ -95,7 +95,7 @@ class Engine:
     job_id: str = "local-job"
     backend: BackingStore = field(default_factory=InMemoryBackend)
     restore_epoch: Optional[int] = None
-    device: DeviceLike = None
+    device: DevicesLike = None
 
     def __post_init__(self) -> None:
         # factor-window sharing for Stream-API programs, before validation
@@ -105,7 +105,11 @@ class Engine:
         if errors:
             raise ValueError("; ".join(errors))
         validate_before_build(self.program)
-        self.device = resolve_device(self.device)
+        # the key mesh: a device sequence as given (its first entry the
+        # device of everything else), else the device's visible devices
+        self.mesh = mesh_devices(self.device)
+        self.device = (self.mesh[0] if is_sequence(self.device)
+                       else resolve_device(self.device))
         self.control_resp: asyncio.Queue = asyncio.Queue()
         # runners by (head operator id, subtask index)
         self.subtasks: Dict[Tuple[str, int], SubtaskHandle] = {}
@@ -119,7 +123,7 @@ class Engine:
     def for_local(program: Program, job_id: str = "local-job",
                   checkpoint_url: Optional[str] = None,
                   restore_epoch: Optional[int] = None,
-                  device: DeviceLike = None) -> "Engine":
+                  device: DevicesLike = None) -> "Engine":
         """An engine checkpointing into ``checkpoint_url`` through the
         Parquet backend (``file://``, a plain path or ``memory://``; the
         JAX package reads and writes the same files), else in memory."""
@@ -141,9 +145,13 @@ class Engine:
         plan = plan_chains(prog)
         validate_chain_plan(prog, plan)
         # set unconditionally: the gauges are process-wide per job_id, so
-        # a re-plan must drop them back to 0.  One device carries no
-        # shuffle edge on a mesh
-        mesh_carried_gauge(self.job_id).set(0)
+        # a re-plan must drop them back to 0.  The chain-interior shuffle
+        # edges the key mesh carries as its device route (0 with one shard)
+        from ..parallel.mesh_window import mesh_key_shards
+
+        mesh_carried_gauge(self.job_id).set(
+            len(plan.shuffle_edges)
+            if plan.shuffle_edges and mesh_key_shards(self.mesh) > 1 else 0)
         kinds = [n.operator.kind for n in prog.nodes()]
         factor_shared_panes_gauge(self.job_id).set(
             kinds.count(OpKind.WINDOW_FACTOR))
@@ -213,14 +221,16 @@ class Engine:
         infos = [TaskInfo(self.job_id, m, prog.node(m).operator.name, idx,
                           par) for m in ms]
         metrics = [TaskMetrics(info) for info in infos]
-        ops = [build_operator(prog.node(m).operator, self.device)
+        ops = [build_operator(prog.node(m).operator, self.device, self.mesh)
                for m in ms]
-        collector = Collector(edge_groups, metrics[-1], op_id=tail)
+        collector = Collector(edge_groups, metrics[-1], op_id=tail,
+                              sanitizer=self.sanitizer, subtask=idx,
+                              mesh=self.mesh)
         ctxs: List[Context] = []
         operator = ops[0] if len(ms) == 1 else ChainedOperator(infos, ops)
         for i, info in enumerate(infos):
             store = StateStore(info, self.backend, self.restore_epoch,
-                               self.device)
+                               self.device, mesh=self.mesh)
             store.sanitizer = self.sanitizer
             coll = (collector if i == len(ms) - 1
                     else operator.make_link(i))
@@ -336,10 +346,18 @@ class RunningEngine:
 class LocalRunner:
     """Run a bounded pipeline to completion in-process, on the CUDA
     device unless ``device="cpu"``; epochs go to the Parquet directory
-    ``checkpoint_url``, or stay in memory."""
+    ``checkpoint_url``, or stay in memory.
+
+    ``device`` may be a sequence: the devices of the key mesh, one key
+    shard of each bin aggregate on each entry (``ARROYO_MESH`` picks how
+    many), and its first entry the device of everything else.  An entry
+    may repeat — the port's counterpart of the JAX tests' forced host
+    device count: ``device=("cpu",) * 8`` runs the mesh at 8 shards on
+    the CPU, ``("cuda:0",) * 4`` four shards on one card.  A single
+    device's mesh is its type's distinct visible devices."""
 
     def __init__(self, program: Program, job_id: str = "local-job",
-                 device: DeviceLike = None,
+                 device: DevicesLike = None,
                  restore_epoch: Optional[int] = None,
                  checkpoint_url: Optional[str] = None):
         self.engine = Engine.for_local(program, job_id, checkpoint_url,

@@ -3,7 +3,9 @@
 ``arroyo_tpu.engine.operators_window``).
 
 * :class:`BinAggOperator` — sliding/tumbling two-phase window aggregate
-  over :class:`~arroyo_tpu_torch.ops.keyed_bins.KeyedBinState`; panes are
+  over :class:`~arroyo_tpu_torch.ops.keyed_bins.KeyedBinState`, or over
+  :class:`~arroyo_tpu_torch.parallel.mesh_window.MeshKeyedBinState` when
+  its key mesh has more than one shard (``make_bin_state``); panes are
   emitted on watermark advance by one device pass over all pending panes.
   With ``top_n`` (a fused sliding TopN) each emission keeps only the
   top rows per window through ``ops/topk.py``;
@@ -57,7 +59,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, DevicesLike, resolve_device
 from ..graph.logical import (
     AggKind,
     AggSpec,
@@ -73,7 +75,7 @@ from ..graph.logical import (
 from ..obs import latency as _latency
 from ..obs import perf, tracing
 from ..ops.expr import CompiledExpr, eval_record_expr
-from ..ops.keyed_bins import KeyedBinState, filter_canonical_snapshot
+from ..ops.keyed_bins import filter_canonical_snapshot
 from ..ops.segment import segment_aggregate
 from ..ops.topk import segment_top_k
 from ..state.join_state import PartitionedJoinBuffer
@@ -169,17 +171,24 @@ class BinAggOperator(Operator):
                  projection: Optional[ColumnExpr] = None,
                  argmax_local: Optional[Tuple[str, str]] = None,
                  top_n: Optional[Tuple[Tuple[str, ...], str, int]] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 mesh: Optional[DevicesLike] = None):
         super().__init__(name)
+        from ..parallel.mesh_window import make_bin_state
+
         self.width = width_micros
         self.slide = slide_micros
         self.aggs = aggs
-        self.state = KeyedBinState(aggs, slide_micros, width_micros,
-                                   device=device)
+        # key-sharded over ``mesh`` (default: the device's visible
+        # devices) when it gives more than one shard, else one device
+        self.state = make_bin_state(aggs, slide_micros, width_micros,
+                                    device=device, mesh=mesh)
         # (partition_cols, sort_column, max_elements) of a fused TopN
         self.top_n = top_n
-        if argmax_local is not None:
+        if argmax_local is not None and hasattr(self.state,
+                                                "set_argmax_local"):
             # emission pre-filters to local per-pane argmax candidates
+            # (the mesh state has no such fire: it emits dense panes)
             self.state.set_argmax_local(*argmax_local)
         self.keyvals = _SlotKeyValues()
         self.projection = (CompiledExpr(projection.name, projection.fn,
@@ -199,6 +208,16 @@ class BinAggOperator(Operator):
         return self.state.device.type != "cpu"
 
     async def on_start(self, ctx: Context) -> None:
+        par = ctx.task_info.parallelism
+        if par > 1 and hasattr(self.state, "set_route_shift"):
+            # subtask key ranges consume the TOP hash bits; the mesh must
+            # route on the bits below them or this subtask's key slice
+            # funnels onto ~nk/parallelism shards.  Before register_device:
+            # a restore re-shards by the shift
+            from ..types import route_shift_for
+
+            self.state.set_route_shift(route_shift_for(par))
+
         def snap():
             out = self.state.snapshot() | self.keyvals.snapshot()
             if self._lat_pending is not None:
@@ -304,9 +323,10 @@ class FactorPaneOperator(BinAggOperator):
     checkpoint restores into an unfactored plan."""
 
     def __init__(self, name: str, pane_micros: int,
-                 aggs: Tuple[AggSpec, ...], device: DeviceLike = None):
+                 aggs: Tuple[AggSpec, ...], device: DeviceLike = None,
+                 mesh: Optional[DevicesLike] = None):
         super().__init__(name, pane_micros, pane_micros, aggs,
-                         device=device)
+                         device=device, mesh=mesh)
 
     async def pre_checkpoint(self, barrier, ctx: Context) -> None:
         if self._offload_transfers():
@@ -331,13 +351,14 @@ class DerivedWindowOperator(BinAggOperator):
     def __init__(self, name: str, width_micros: int, slide_micros: int,
                  pane_micros: int, aggs: Tuple[AggSpec, ...],
                  projection: Optional[ColumnExpr] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 mesh: Optional[DevicesLike] = None):
         from ..graph.factor_windows import ROWS_COLUMN, derived_channel_cols
 
         if slide_micros % pane_micros:
             raise ValueError("the factor pane must divide the derived slide")
         super().__init__(name, width_micros, slide_micros, aggs, projection,
-                         device=device)
+                         device=device, mesh=mesh)
         self.state.set_merge_inputs(derived_channel_cols(aggs), ROWS_COLUMN)
 
 
@@ -1904,45 +1925,49 @@ class NonWindowAggOperator(Operator):
 # -- builder registration -----------------------------------------------------------
 
 
-@register_builder(OpKind.SLIDING_WINDOW_AGGREGATOR)
-def _build_sliding(op: LogicalOperator, device: DeviceLike) -> Operator:
+@register_builder(OpKind.SLIDING_WINDOW_AGGREGATOR, mesh=True)
+def _build_sliding(op: LogicalOperator, device: DeviceLike,
+                   mesh: Optional[DevicesLike] = None) -> Operator:
     s = op.spec
     return BinAggOperator(op.name, s.width_micros, s.slide_micros, s.aggs,
                           s.projection, argmax_local=s.argmax_local,
-                          device=device)
+                          device=device, mesh=mesh)
 
 
-@register_builder(OpKind.TUMBLING_WINDOW_AGGREGATOR)
-def _build_tumbling(op: LogicalOperator, device: DeviceLike) -> Operator:
+@register_builder(OpKind.TUMBLING_WINDOW_AGGREGATOR, mesh=True)
+def _build_tumbling(op: LogicalOperator, device: DeviceLike,
+                    mesh: Optional[DevicesLike] = None) -> Operator:
     s = op.spec
     return BinAggOperator(op.name, s.width_micros, s.width_micros, s.aggs,
                           s.projection, argmax_local=s.argmax_local,
-                          device=device)
+                          device=device, mesh=mesh)
 
 
-@register_builder(OpKind.WINDOW_FACTOR)
-def _build_window_factor(op: LogicalOperator, device: DeviceLike
-                         ) -> Operator:
+@register_builder(OpKind.WINDOW_FACTOR, mesh=True)
+def _build_window_factor(op: LogicalOperator, device: DeviceLike,
+                         mesh: Optional[DevicesLike] = None) -> Operator:
     s = op.spec
-    return FactorPaneOperator(op.name, s.pane_micros, s.aggs, device=device)
+    return FactorPaneOperator(op.name, s.pane_micros, s.aggs, device=device,
+                              mesh=mesh)
 
 
-@register_builder(OpKind.DERIVED_WINDOW)
-def _build_derived_window(op: LogicalOperator, device: DeviceLike
-                          ) -> Operator:
+@register_builder(OpKind.DERIVED_WINDOW, mesh=True)
+def _build_derived_window(op: LogicalOperator, device: DeviceLike,
+                          mesh: Optional[DevicesLike] = None) -> Operator:
     s = op.spec
     return DerivedWindowOperator(op.name, s.width_micros, s.slide_micros,
                                  s.pane_micros, s.aggs, s.projection,
-                                 device=device)
+                                 device=device, mesh=mesh)
 
 
-@register_builder(OpKind.SLIDING_AGGREGATING_TOP_N)
-def _build_sliding_topn(op: LogicalOperator, device: DeviceLike) -> Operator:
+@register_builder(OpKind.SLIDING_AGGREGATING_TOP_N, mesh=True)
+def _build_sliding_topn(op: LogicalOperator, device: DeviceLike,
+                        mesh: Optional[DevicesLike] = None) -> Operator:
     s = op.spec
     return BinAggOperator(op.name, s.width_micros, s.slide_micros, s.aggs,
                           s.projection,
                           top_n=(s.partition_cols, s.sort_column,
-                                 s.max_elements), device=device)
+                                 s.max_elements), device=device, mesh=mesh)
 
 
 @register_builder(OpKind.TUMBLING_TOP_N)

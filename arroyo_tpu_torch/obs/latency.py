@@ -21,8 +21,9 @@ survives:
 - coalescing: ``Batch.concat`` keeps the **oldest** stamp (linger is
   charged to latency, never hidden);
 - shuffles: ``Batch.select`` carries it through host partition routes
-  (the JAX package's device shuffle and network data plane, which also
-  carry it, are not ported);
+  and the device shuffle hands it to every destination's sub-batch (the
+  JAX package's network data plane, which also carries it, is not
+  ported);
 - window fires: a fired pane inherits the **max** stamp of the sampled
   batches that contributed since the last fire (the freshest sampled
   record still waiting in the pane bounds the watermark hold from
@@ -464,8 +465,8 @@ def device_state_tables() -> Dict[str, int]:
     the join buffers' rings (``join_state_registry``: payload rings, the
     keys-only rings' key planes, and the cold partitions' host bytes) and
     the window pane planes (``pane_state_registry``, noted by
-    ``BinAggOperator``).  The JAX package also counts its device
-    shuffle's column stacks; the port has no device shuffle."""
+    ``BinAggOperator``) and the device shuffle's staged column stacks
+    of its last batch (``shuffle_stack_bytes``)."""
     from . import perf
 
     out: Dict[str, int] = {}
@@ -481,6 +482,9 @@ def device_state_tables() -> Dict[str, int]:
     panes = perf.get_note("pane_state_registry")
     if isinstance(panes, dict) and panes:
         out["panes"] = int(sum(int(v) for v in panes.values()))
+    stacks = perf.get_note("shuffle_stack_bytes")
+    if stacks:
+        out["shuffle_stacks"] = int(stacks)
     return out
 
 

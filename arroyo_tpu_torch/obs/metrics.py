@@ -435,13 +435,34 @@ def event_loop_stalls_counter(job_id: str) -> Any:
 
 # -- process-level counters --------------------------------------------------
 
-# the JAX package's resharding and on-device shuffle counters measure
-# device meshes (ROADMAP A.10); no one-device path has them
 
 
 def _plain_counter(name: str, help_: str, job_id: str = "") -> Any:
     return _family(name, help_, ("job_id",), "counter").labels(
         job_id=job_id)
+
+
+# the sharded data plane (parallel/shuffle.py): shard tensors re-placed off
+# their shard's device (0 while the invariant holds) and device exchanges
+# that replaced a host shuffle
+RESHARDS_TOTAL = "arroyo_worker_reshards_total"
+SHUFFLE_COLLECTIVES = "arroyo_worker_shuffle_collectives_total"
+
+
+def reshard_counter(job_id: str = "") -> Any:
+    """Shard tensors moved because they were off their shard's device —
+    the sharded data plane's zero-in-steady-state invariant."""
+    return _plain_counter(
+        RESHARDS_TOTAL,
+        "device arrays resharded at a kernel boundary (0 = invariant holds)",
+        job_id)
+
+
+def shuffle_collective_counter(job_id: str = "") -> Any:
+    """Device exchanges carrying co-located SHUFFLE edges (each one a host
+    shuffle that never happened)."""
+    return _plain_counter(SHUFFLE_COLLECTIVES,
+                          "on-device all_to_all shuffle exchanges", job_id)
 
 
 JOIN_DEVICE_GATHER = "arroyo_worker_join_device_gather_rows"
@@ -492,8 +513,9 @@ def factor_derived_windows_gauge(job_id: str) -> Any:
 
 
 def mesh_carried_gauge(job_id: str) -> Any:
-    """Chain-interior SHUFFLE edges a device mesh carries: always 0 on
-    one device."""
+    """Chain-interior SHUFFLE edges whose keyed exchange rides the mesh
+    state's device route (graph/chaining.py ``shuffle_edges`` when the
+    mesh has more than one key shard): 0 on one device."""
     return _family(MESH_CARRIED_SHUFFLES,
                    "chain-interior shuffle edges carried by the device mesh",
                    ("job_id",), "gauge").labels(job_id=job_id)

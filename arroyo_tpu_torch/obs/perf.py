@@ -15,7 +15,12 @@ Two tiers, as in the JAX package:
   That serializes dispatch: it is for measurement runs, not production.
 
 With the phase profiler armed, each call is also a ``dispatch`` phase
-(``device_execute`` under ``ARROYO_TIMING=1``) nested in the caller's."""
+(``device_execute`` under ``ARROYO_TIMING=1``) nested in the caller's.
+
+The sharded data plane counts here under the JAX package's keys
+(``parallel/shuffle.py``): ``reshard_transfers``, ``shuffle_collectives``,
+``shuffle_collective_rows``, ``shuffle_host_routes`` and
+``mesh_ingest_transfers``; ``shuffle.shuffle_stats()`` reads them."""
 
 from __future__ import annotations
 

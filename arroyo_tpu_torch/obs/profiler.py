@@ -32,17 +32,20 @@ phase               measured where
 ``emit_encode``     sink-side encode (single_file JSON lines, ...)
 ``frame_encode``    data-plane Arrow IPC encode per frame
 ``frame_decode``    data-plane decode on the receiving worker
+``reshard``         shard tensors moved because they were off their
+                    shard's device (parallel/shuffle.ensure_sharded —
+                    steady state shows NO such phase at all)
+``shuffle_collective``  the device exchange carrying a co-located SHUFFLE
+                    edge (parallel/shuffle.py: route, exchange and the
+                    per-destination readback)
 ``gather``          join payload materialization per emitted match set
                     (state/join_state.py — device-ring gather or host
                     fancy-index, whichever path ran; the device/host row
                     split rides the ``join_*_gather_rows`` counters)
 ==================  =========================================================
 
-The JAX package's ``reshard`` and ``shuffle_collective`` phases measure
-device meshes and on-device shuffles (ROADMAP A.10); no one-device path
-has them, so the port leaves them out.  ``emit_encode``, ``frame_*`` and
-``session_merge`` keep their names for the sinks, data plane and staged
-session partitions still to port.
+``emit_encode``, ``frame_*`` and ``session_merge`` keep their names for
+the sinks, data plane and staged session partitions still to port.
 
 plus overlapping **wait** phases (reported separately, never summed into
 the work table): ``queue_wait``, ``coalesce_wait``, ``send_wait``
@@ -106,8 +109,8 @@ __all__ = [
 
 WORK_PHASES = ("source_decode", "proc", "dispatch", "device_execute",
                "shuffle_prep", "coalesce_merge", "watermark", "checkpoint",
-               "emit_encode", "frame_encode", "frame_decode", "gather",
-               "session_merge")
+               "emit_encode", "frame_encode", "frame_decode", "reshard",
+               "shuffle_collective", "gather", "session_merge")
 WAIT_PHASES = ("queue_wait", "coalesce_wait", "send_wait", "net_flush")
 
 

@@ -9,8 +9,8 @@ expiration.
 * TTL eviction is a **valid-range advance**; dead rows are compacted
   only when they outnumber live rows;
 * **hot partitions** (EWMA of rows per operation, with hysteresis) keep
-  their sorted key run and payload columns on the buffer's device in a
-  power-of-two ring (``ops/join.py``), maintained by one merge launch
+  their sorted key run and payload columns on the buffer's device (or,
+  with a key mesh, round robin over its devices) in a power-of-two ring (``ops/join.py``), maintained by one merge launch
   per append; window fires gather matched rows from the ring in
   one launch (``join_device_gather_rows`` vs ``join_host_gather_rows``
   count the split).  Object (string) columns flip the buffer's STICKY
@@ -48,12 +48,12 @@ from __future__ import annotations
 
 import itertools
 import os
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, on_device, resolve_device
 from ..obs import perf, profiler
 from ..obs.metrics import join_gather_counter
 from ..types import Batch
@@ -276,8 +276,9 @@ class _Partition:
             if want_plan is None and ring.plan is not None:
                 self.promote()
                 return
-        merged = dj.merge_ring(ring, n_res, dkeys, dpos, delta_ts=dts,
-                               delta_cols=dcols)
+        with on_device(self.dev_device):
+            merged = dj.merge_ring(ring, n_res, dkeys, dpos, delta_ts=dts,
+                                   delta_cols=dcols)
         if merged is None:  # delta hit the top-32 sentinel: exactness
             self.demote()   # over speed — the host mirror takes over
             return
@@ -302,8 +303,9 @@ class _Partition:
         if self.payload_on:
             order = self.order[:n]
             cols = {c: v[:n][order] for c, v in self.cols.items()}
-        ring = dj.stage_ring(self.skeys[:n], self.dev_device,
-                             sorted_ts=self.sts[:n], sorted_cols=cols)
+        with on_device(self.dev_device):
+            ring = dj.stage_ring(self.skeys[:n], self.dev_device,
+                                 sorted_ts=self.sts[:n], sorted_cols=cols)
         if ring is None:
             # a key's top-32 bits collide with the ring sentinel: this
             # partition stays host — exactness first
@@ -390,8 +392,9 @@ class _Partition:
             return z, z
         self.touches = 0.9 * self.touches + 0.1 * len(qkeys_sorted) * 10
         if self.dev is not None:
-            hit = dj.probe_ring(self.dev, qkeys_sorted, n)
-            qidx, sidx = dj.expand_hit(self.dev, hit)
+            with on_device(self.dev_device):
+                hit = dj.probe_ring(self.dev, qkeys_sorted, n)
+                qidx, sidx = dj.expand_hit(self.dev, hit)
             if not len(qidx):
                 return z, z
             # full-key verify on the host mirror: the candidates are
@@ -434,8 +437,9 @@ class _Partition:
         if n == 0 or len(qkeys_sorted) == 0:
             return z, z, None, None
         self.touches = 0.9 * self.touches + 0.1 * len(qkeys_sorted) * 10
-        hit = dj.probe_ring(ring, qkeys_sorted, n)
-        qidx, sidx, valid, gf, gi = dj.expand_gather(ring, hit)
+        with on_device(self.dev_device):
+            hit = dj.probe_ring(ring, qkeys_sorted, n)
+            qidx, sidx, valid, gf, gi = dj.expand_gather(ring, hit)
         if not len(qidx):
             return z, z, None, None
         keep = valid
@@ -460,13 +464,17 @@ class _Partition:
 
 
 class PartitionedJoinBuffer(BatchBuffer):
-    """Drop-in BatchBuffer replacement for window-join sides on one device
-    (``device`` None means CUDA, as everywhere in the port)."""
+    """Drop-in BatchBuffer replacement for window-join sides on ``device``
+    (None means CUDA, as everywhere in the port).  With a key ``mesh`` of
+    more than one shard, hot partition p's ring lives on its device p mod
+    nk (``parallel/shuffle.partition_device``), as the JAX package places
+    rings over its mesh."""
 
     def __init__(self, n_partitions: Optional[int] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh: Sequence[Any] = ()):
         super().__init__()
         self.device = resolve_device(device)
+        self.mesh = list(mesh)
         self.P = n_partitions or join_partitions()
         self.parts = [_Partition() for _ in range(self.P)]
         self.key_cols: Tuple[str, ...] = ()
@@ -545,9 +553,14 @@ class PartitionedJoinBuffer(BatchBuffer):
                if self.parts[p].touches >= floor}
         # rank-based demotion with 2-slot hysteresis
         grace = set(ranked[: budget + 2])
+        from ..parallel.shuffle import partition_device
+
         for p, part in enumerate(self.parts):
             if p in hot and part.dev is None:
-                part.promote(device=self.device,
+                # round robin over the key mesh (deterministic: promotion
+                # stays a function of the data); payload planes ride along
+                part.promote(device=partition_device(p, self.mesh)
+                             or self.device,
                              payload=not self._payload_sticky_host)
             elif part.dev is not None and p not in hot and (
                     part.touches < floor / 2 or p not in grace):
@@ -767,7 +780,8 @@ class PartitionedJoinBuffer(BatchBuffer):
                 kh[sel] = part.skeys[spos]
                 ring = part.dev
                 if ring is not None and ring.plan is not None:
-                    gf, gi = dj.gather_ring(ring, spos)
+                    with on_device(part.dev_device):
+                        gf, gi = dj.gather_ring(ring, spos)
                     pts, pcols = dj.unpack_payload(ring, gf, gi)
                     ts[sel] = pts
                     dev_rows += len(spos)
@@ -885,7 +899,8 @@ def aggregate_stats_registry(reg: Optional[Dict[Any, Dict[str, Any]]]
 
 
 def make_join_buffer(device: DeviceLike = None,
-                     force_partitioned: bool = False) -> BatchBuffer:
+                     force_partitioned: bool = False,
+                     mesh: Sequence[Any] = ()) -> BatchBuffer:
     """The join side buffer for the configured state layout on
     ``device``: the partitioned layout, or under ``ARROYO_JOIN_STATE=
     legacy`` a flat host buffer whose joins re-sort both sides
@@ -893,5 +908,5 @@ def make_join_buffer(device: DeviceLike = None,
     ``force_partitioned`` is for the multi-way join, whose probes need
     the sorted runs."""
     if force_partitioned or partitioned_join_enabled():
-        return PartitionedJoinBuffer(device=device)
+        return PartitionedJoinBuffer(device=device, mesh=mesh)
     return BatchBuffer()

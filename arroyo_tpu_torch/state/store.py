@@ -2,7 +2,8 @@
 ``arroyo_tpu.state.store``).  Tables are registered by descriptor; the
 store snapshots every table at a barrier and restores them from the
 backing store, filtered by the task's key range.  Join-side buffers and session
-interval runs live on the store's device, the runner's.
+interval runs live on the store's device, the runner's; a join buffer's
+hot rings spread over the runner's key mesh.
 
 At each checkpoint the store refreshes the per-table key-count gauges
 (``arroyo_worker_table_size_keys``) and, with the runtime sanitizer
@@ -14,7 +15,7 @@ the controller that drives the commit phase."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 from ..device import DeviceLike
 from ..obs.metrics import table_size_gauge
@@ -36,11 +37,13 @@ from .tables import (
 class StateStore:
     def __init__(self, task_info: TaskInfo, backend: BackingStore,
                  restore_epoch: Optional[int] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh: Sequence[Any] = ()):
         self.task_info = task_info
         self.backend = backend
         self.restore_epoch = restore_epoch
         self.device = device
+        # the runner's key mesh: hot join rings spread over it
+        self.mesh = list(mesh)
         self.descriptors: Dict[str, TableDescriptor] = {}
         self.tables: Dict[str, Any] = {}
         # the runtime sanitizer the engine installs; None unless armed
@@ -145,7 +148,7 @@ class StateStore:
         return self.register(
             TableDescriptor(name, TableType.BATCH_BUFFER, desc,
                             retention_micros),
-            make_join_buffer(self.device, force_partitioned))
+            make_join_buffer(self.device, force_partitioned, self.mesh))
 
     def note_delete(self, table: str, key: Any) -> None:
         """Record a key tombstone for the next checkpoint (the

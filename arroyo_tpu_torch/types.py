@@ -43,6 +43,15 @@ def server_for_hash_array(x: np.ndarray, n: int) -> np.ndarray:
     return np.minimum(idx, n - 1)
 
 
+def route_shift_for(parallelism: int) -> int:
+    """Key-hash bits a mesh route must skip at operator parallelism
+    ``P``: subtask key ranges (:func:`server_for_hash`) consume the top
+    ``ceil(log2(P))`` bits, so the mesh routes on the bits below them, or
+    every subtask's key slice funnels onto ~``nk/P`` shards."""
+    p = int(parallelism)
+    return (p - 1).bit_length() if p > 1 else 0
+
+
 def range_for_server(i: int, n: int) -> Tuple[int, int]:
     """Inclusive [start, end] u64 key range owned by shard ``i`` of ``n``."""
     range_size = int(U64_MAX) // n

@@ -218,7 +218,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
     has at least 100 samples (q5 at bench.py's rate fires once: one
     sample a run); each run's phase table, sink p50/p99, sampled records,
     ledger and span count printed, with the armed/disarmed wall ratio a
-    round.
+    round.  Before each run the script collects the earlier runs'
+    garbage and freezes its own heap, so no full collection of either
+    falls in a run's wall; each run's seconds in the garbage collector
+    are printed, and named when the work-share gate fails.
 17. the host library: q5 (2,000,000 events in batches of 131,072, key
     capacity 131,072) and hot items (2,000,000 events) with the library
     (key directory, cell pre-aggregation, bin assignment, hashing) and
@@ -275,14 +278,41 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
     or one real query whose window is the whole plane, with at most two
     device launches (a memset and the probe), one allocation and no host
     sync a call.
+20. the keyed mesh: bench.py's q5 (NUM_EVENTS, batches of 131,072)
+    through ``LocalRunner`` over four key shards of the card
+    (``device=("cuda:0",) * 4``: ``MeshKeyedBinState``, whose update
+    routes, exchanges, sorts, merges, re-lays and scatters each batch's
+    cells and whose fire is a dense ``pane_emit`` a shard) — rows equal to
+    phase 5's single-device rows and phase 13's numpy control, overflow
+    counters (0, 0), no reshard, ``mesh_route``, ``mesh_merge``,
+    ``mesh_remap``, ``bin_update`` and ``pane_emit`` launched (with more
+    than one visible card the run is repeated over distinct cards, else
+    the phase says the shards were logical shards of one card); q5
+    planned at parallelism 2 on that mesh with the device shuffle on and
+    off (``ARROYO_SHUFFLE_DEVICE``, the sanitizer armed) — equal rows, the
+    device route replacing every host route of the edge, route shift 1 in
+    both subtasks; and q5 at 100,000 events/s (so that windows fire
+    before the cut) on four shards, checkpointed and stopped at its 8th
+    batch, restored from that epoch on one device (``KeyedBinState``) —
+    rows on both sides of the cut, the two runs' rows together the same
+    program's straight run's on one device, each once, and the restored
+    state's ``next_slot`` and summed count planes those of the mesh
+    state's snapshot.  Phase 3
+    holds the three mesh kernels to their plain versions (bit for bit),
+    timed in turns with a PyTorch composition, at q5's mesh shapes (a
+    slice of N = 2,048, a shard's merge of R = 8,192 routed rows into C =
+    65,536, its re-layout and roll), at 2^20 rows, and on every row to one
+    shard, both route rules' boundary hashes, all padding and a merge
+    that fills C; one launch (after memsets), one allocation and no host
+    sync a call.
 
 Launch counts are set to 0 just before each main-path run (q5, q8,
 config5, 8a, 8b, hot items, q1, q7, each SQL-planned run of phase 12,
 each card run of phase 13, the legacy q8, 8a and 8b, the semi join and
 the two multi-way joins of phase 14, each card run of phases 15, 16 and
-17, fs c5's straight run and kafka c5's run, each card run of phase 19)
-and read
-just after it; q1, q7 and the union launch no kernel.  It prints a
+17, fs c5's straight run and kafka c5's run, each card run of phase 19,
+phase 20's q5 on the mesh and its device-shuffle run) and read just
+after it; q1, q7 and the union launch no kernel.  It prints a
 ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi gives them, and, last, ``{"ok": true, "device": ...}``.
 It needs one card and exits non-zero without one.
@@ -293,6 +323,7 @@ import argparse
 import asyncio
 import collections
 import functools
+import gc
 import json
 import math
 import os
@@ -326,7 +357,8 @@ from arroyo_tpu_torch.connectors.nexmark import (  # noqa: E402
     CHANNELS_NUMBER, EVENT_AUCTION, EVENT_BID, EVENT_PERSON, HOT_CHANNELS,
     NexmarkConfig, NexmarkGenerator, make_splits)
 from arroyo_tpu_torch.device import to_device, to_host  # noqa: E402
-from arroyo_tpu_torch.engine.drills import cut_before_commit  # noqa: E402
+from arroyo_tpu_torch.engine.drills import (  # noqa: E402
+    cut_before_commit, hold_sources)
 from arroyo_tpu_torch.engine.engine import Engine, LocalRunner  # noqa: E402
 from arroyo_tpu_torch.formats import make_format  # noqa: E402
 from arroyo_tpu_torch.graph.logical import (  # noqa: E402
@@ -363,6 +395,13 @@ from arroyo_tpu_torch.kernels.join_sort import (  # noqa: E402
     ONE_BLOCK_MAX, join_sort, join_sort_reference, unsigned_order)
 from arroyo_tpu_torch.kernels.pane_emit import (  # noqa: E402
     fire_geometry, pane_emit, pane_emit_reference, pane_views)
+from arroyo_tpu_torch.kernels.mesh_merge import (  # noqa: E402
+    merge_views, mesh_merge, mesh_merge_reference)
+from arroyo_tpu_torch.kernels.mesh_remap import (  # noqa: E402
+    mesh_remap, mesh_remap_reference)
+from arroyo_tpu_torch.kernels.mesh_route import (  # noqa: E402
+    RULE_MESH, RULE_SHUFFLE, destinations, mesh_route, mesh_route_reference,
+    route_views)
 from arroyo_tpu_torch.kernels import pane_emit as pane_emit_mod  # noqa: E402
 from arroyo_tpu_torch.kernels.ring_emit import (  # noqa: E402
     ring_emit, ring_emit_reference)
@@ -382,6 +421,8 @@ from arroyo_tpu_torch.obs import perf  # noqa: E402
 from arroyo_tpu_torch.ops import join as join_ops  # noqa: E402
 from arroyo_tpu_torch.ops.keyed_bins import (  # noqa: E402
     ARGMAX_MIN_CAP, KeyedBinState, preaggregate)
+from arroyo_tpu_torch.parallel.mesh_window import (  # noqa: E402
+    MeshKeyedBinState)
 from arroyo_tpu_torch import native  # noqa: E402
 from arroyo_tpu_torch.ops.segment import _reduce as segment_reduce  # noqa: E402
 from arroyo_tpu_torch.ops import session as session_ops  # noqa: E402
@@ -514,7 +555,7 @@ C_RING_BIG = 262_144
 KERNELS = (bin_update, argmax_fire, pane_emit, bin_evict, ring_merge,
            ring_gather, session_union, segment_agg, join_probe, join_expand,
            expand_gather, segment_top_k, emit_count, emit_gather, join_sort,
-           ring_emit)
+           ring_emit, mesh_route, mesh_merge, mesh_remap)
 # phase 12 compares each SQL-planned run with the hand-built run of the
 # same query at the same size that an earlier phase made: query -> (rows,
 # launches, wall s)
@@ -530,7 +571,8 @@ PATHS = ("q5", "q8", "config5", "join_inner", "join_left", "hot_items",
          "cw_2m_fact", "cw_2m_unfact", "cw_8m_fact", "cw_8m_ckpt",
          "services_q5", "services_config5", "services_8a", "native_q5",
          "native_hot", "fs_c5", "kafka_c5", "hop_on_1", "hop_off_1",
-         "hop_off_2", "hop_on_2", "hop_small", "q5_ring")
+         "hop_off_2", "hop_on_2", "hop_small", "q5_ring", "mesh_q5",
+         "mesh_shuffle")
 
 
 def reset_launches():
@@ -3276,6 +3318,288 @@ def gather_case(values, cnt, ring, ok, offsets, nnz, lib_gather, shape,
     return r
 
 
+# -- phase 3: the keyed mesh's kernels -------------------------------------------------
+
+KA_SOURCE = "arroyo_tpu_torch/csrc/mesh_route.cu"
+KA_REPLACES = ("arroyo_tpu/parallel/mesh_window.py:119 _update_step (route "
+               "half); arroyo_tpu/parallel/shuffle.py:193 _route_step")
+KB_SOURCE = "arroyo_tpu_torch/csrc/mesh_merge.cu"
+KB_REPLACES = "arroyo_tpu/parallel/mesh_window.py:119 _update_step (merge half)"
+KC_SOURCE = "arroyo_tpu_torch/csrc/mesh_remap.cu"
+KC_REPLACES = ("arroyo_tpu/parallel/mesh_window.py:376 _roll_step; :119 "
+               "_update_step (re-layout half)")
+# q5's mesh steps at NUM_EVENTS over four shards (a CPU run of phase 20's
+# path): ~7,946 cells a batch, slices of N = 2,048, so R = 8,192 routed
+# rows a shard; per-shard capacity 65,536 at the last steps, ~29,500 keys
+# a shard before them and ~1,990 new ones a step; B = 16; COUNT(*) is one
+# channel, so a routed row is F = 5 words
+MESH_NK, MESH_N, MESH_CELLS = 4, 2_048, 7_946
+MESH_C, MESH_KEYS, MESH_NEW, MESH_B = 65_536, 29_500, 1_990, 16
+MESH_F = 5
+U64_TOP = (1 << 64) - 1
+
+
+def mesh_boundary_keys(nk):
+    """Keys at both route rules' range edges: k * (U64_MAX // nk) and
+    k * 2**(64 - lg), each -1, 0, +1."""
+    lg = nk.bit_length() - 1
+    out = []
+    for k in range(nk + 1):
+        for base in (k * (U64_TOP // nk), k << (64 - lg)):
+            out += [(base + d) & U64_TOP for d in (-1, 0, 1)]
+    return np.array(out, dtype=np.uint64)
+
+
+def mesh_route_rows(rng, N, m, nk, case):
+    """A source slice [MESH_F, N]: key bits, validity, bin, row count, one
+    channel; ``case`` hash keys, "one shard" (top bits fixed), "boundary"
+    (the rules' edges) or "padding" (no valid row)."""
+    keys = rng.integers(0, 2**64 - 1, N, dtype=np.uint64)
+    if case == "one shard":
+        keys = (keys >> np.uint64(4)) | np.uint64(0xF << 60)
+    elif case == "boundary":
+        b = mesh_boundary_keys(nk)
+        keys = b[rng.integers(0, len(b), N)]
+    keys[keys == np.uint64(U64_TOP)] = np.uint64(U64_TOP - 1)
+    rows = np.zeros((MESH_F, N), np.int64)
+    rows[0] = -1
+    if m:
+        rows[0, :m] = keys[:m].view(np.int64)
+        rows[1, :m] = 1
+        rows[2, :m] = rng.integers(0, MESH_B, m)
+        rows[3:, :m] = rng.integers(1, 30, (MESH_F - 3, m)).astype(
+            np.float64).view(np.int64)
+    return rows
+
+
+def mesh_route_case(rng, dev, N, m, case, rule=RULE_MESH):
+    """K-a on one source slice: buckets and drop counter bit-equal to the
+    plain version, one launch, one allocation and no host sync a call;
+    timed in turns with ``argsort(stable)`` + ``index_select`` of the same
+    rows by their destinations (computed once, outside the call)."""
+    nk = MESH_NK
+    shape = (f"{case} keys, {'mesh' if rule == RULE_MESH else 'shuffle'} "
+             f"rule, nk={nk} N={N} m={m} F={MESH_F}")
+    rows = torch.tensor(mesh_route_rows(rng, N, m, nk, case), device=dev)
+    before = mesh_route.launches
+    buf = mesh_route(rows, nk, rule)
+    torch.cuda.synchronize()
+    check(mesh_route.launches == before + 1, f"mesh_route launches ({shape})")
+    got, drop = route_views(buf, MESH_F, nk, N)
+    want, dropped = mesh_route_reference(rows, nk, rule)
+    check(torch.equal(got, want) and int(drop.item()) == dropped == 0,
+          f"mesh_route differs from its plain version ({shape})")
+    dest = torch.where(rows[1] != 0, destinations(rows[0], nk, rule), nk)
+
+    def kernel():
+        return mesh_route(rows, nk, rule)
+
+    def library():
+        return rows.index_select(1, torch.argsort(dest, stable=True))
+
+    ms, lib, turns = in_turns(kernel, library)
+    plain = cuda_ms(lambda: mesh_route_reference(rows, nk, rule), reps=5)
+    meas = measured(kernel, "mesh_route")
+    check(meas["allocations_per_call"] == 1 and meas["syncs_per_call"] == 0,
+          f"mesh_route made {meas['allocations_per_call']} allocations and "
+          f"{meas['syncs_per_call']} host syncs ({shape})")
+    nbytes = (1 + nk) * MESH_F * N * 8
+    r = row("mesh_route", KA_SOURCE, KA_REPLACES, shape, 0.0, ms, plain,
+            nbytes, 0, lib, "argsort(dest, stable) + index_select")
+    dev_warm, dev_cold = device_sum(meas)
+    r.update(turns_ms=turns, library_turns=turn_factors(turns),
+             bound_bytes=nbytes, device_us_warm_total=dev_warm,
+             device_us_cold_total=dev_cold,
+             library_device_us=profile_kernels(library), **meas)
+    print(f"mesh_route {shape}: " + json.dumps(
+        {k: r[k] for k in ("ms", "library_ms", "plain_ms", "bound_ms",
+                           "device_us_warm_total", "device_us_cold_total",
+                           "device_us_per_call", "host_us_per_call",
+                           "allocations_per_call", "syncs_per_call")}))
+    return r
+
+
+def mesh_merge_inputs(rng, dev, C, n_old, R, n_new, n_ch=1):
+    """A shard's table of ``n_old`` sorted keys and R routed rows (a fifth
+    padding) drawing from its keys and ``n_new`` new ones, sorted by
+    join_sort as the path sorts them."""
+    pool = np.unique(rng.integers(0, 2**64 - 2, n_old + n_new,
+                                  dtype=np.uint64))
+    rng.shuffle(pool)
+    old = np.full(C, U64_TOP, np.uint64)
+    old[:n_old] = np.sort(pool[:n_old])
+    m = R - R // 5
+    inc = np.zeros((4 + n_ch, R), np.int64)
+    inc[0] = -1
+    inc[0, :m] = rng.choice(pool, m).view(np.int64)
+    inc[1, :m] = 1
+    inc[2, :m] = rng.integers(0, MESH_B, m)
+    inc[3:, :m] = rng.integers(1, 30, (1 + n_ch, m)).astype(
+        np.float64).view(np.int64)
+    t_old = torch.tensor(old.view(np.int64), device=dev)
+    t_inc = torch.tensor(inc, device=dev)
+    order, keys = join_sort(t_inc[0])
+    return t_old, keys.clone(), order.clone(), t_inc, m
+
+
+def mesh_merge_case(rng, dev, C, n_old, R, n_new, what):
+    """K-b on one shard: merged table, source map and cells bit-equal to
+    the plain version, the key-drop count equal, one launch, one
+    allocation and no host sync a call; timed in turns with ``cat`` +
+    ``sort`` + ``unique_consecutive`` + ``searchsorted`` of the
+    top-bit-flipped keys (flipped once, outside the call)."""
+    shape = f"{what} C={C} n_old={n_old} R={R} new={n_new} n_ch=1"
+    old, keys, order, inc, _ = mesh_merge_inputs(rng, dev, C, n_old, R,
+                                                 n_new)
+    before = mesh_merge.launches
+    buf = mesh_merge(old, keys, order, inc)
+    torch.cuda.synchronize()
+    check(mesh_merge.launches == before + 1, f"mesh_merge launches ({shape})")
+    got = merge_views(buf, C, R, 1)
+    want = mesh_merge_reference(old, keys, order, inc)
+    check(all(torch.equal(g, w) for g, w in zip(got[:3], want[:3]))
+          and int(got[3].item()) == want[3],
+          f"mesh_merge differs from its plain version ({shape})")
+    u_old, u_in = unsigned_order(old), unsigned_order(keys)
+
+    def kernel():
+        return mesh_merge(old, keys, order, inc)
+
+    def library():
+        u = torch.unique_consecutive(torch.sort(torch.cat([u_old, u_in]))
+                                     .values)
+        return torch.searchsorted(u, u_in)
+
+    ms, lib, turns = in_turns(kernel, library)
+    plain = cuda_ms(lambda: mesh_merge_reference(old, keys, order, inc),
+                    reps=5)
+    meas = measured(kernel, "mesh_merge")
+    check(meas["allocations_per_call"] == 1 and meas["syncs_per_call"] == 0,
+          f"mesh_merge made {meas['allocations_per_call']} allocations and "
+          f"{meas['syncs_per_call']} host syncs ({shape})")
+    # reads, once each: the table, the sorted keys and rows, the gathered
+    # routed words (bin, row count, channel); writes: the merged table and
+    # map, the cells. A merge of two sorted sequences reads each once; the
+    # kernel's binary searches are its own design and add nothing here.
+    nbytes = 8 * (C + 2 * R + 3 * R) + 8 * (2 * C + 3 * R)
+    r = row("mesh_merge", KB_SOURCE, KB_REPLACES, shape, 0.0, ms, plain,
+            nbytes, 0, lib, "cat + sort + unique_consecutive + searchsorted "
+            "(top-bit-flipped keys)")
+    dev_warm, dev_cold = device_sum(meas)
+    r.update(turns_ms=turns, library_turns=turn_factors(turns),
+             bound_bytes=nbytes, device_us_warm_total=dev_warm,
+             device_us_cold_total=dev_cold, keys_dropped=want[3],
+             library_device_us=profile_kernels(library), **meas)
+    print(f"mesh_merge {shape}: " + json.dumps(
+        {k: r[k] for k in ("ms", "library_ms", "plain_ms", "bound_ms",
+                           "device_us_warm_total", "device_us_cold_total",
+                           "device_us_per_call", "host_us_per_call",
+                           "allocations_per_call", "syncs_per_call",
+                           "keys_dropped")}))
+    return r
+
+
+def mesh_remap_case(rng, dev, C, B, what, label, cdt=torch.int32):
+    """K-c on one shard's planes (COUNT(*): one channel): the update's
+    re-layout through a merge's map (``what`` "update": old rows moved
+    down by the new keys below them, a new key's row empty) or the roll
+    (``what`` "roll": the columns shifted left by 4), bit-equal to the
+    plain version, one launch, one allocation and no host sync a call;
+    timed in turns with ``index_select`` + ``where`` (update) or
+    ``narrow`` + ``cat`` (roll) of both planes."""
+    kinds = ("count",)
+    shape = f"{label} {what} C={C} B={B} n_ch=1 {cdt}"
+    values = torch.tensor(rng.integers(0, 30, (1, C, B)).astype(np.float64),
+                          device=dev)
+    counts = values[0].to(cdt).contiguous()
+    src, shift, n_src = None, 0, C
+    if what == "update":
+        n_src = int(C * 0.45)
+        keep = np.sort(rng.choice(int(C * 0.48), n_src, replace=False))
+        src_np = np.full(C, -1, np.int64)
+        src_np[keep] = np.arange(n_src)
+        src = torch.tensor(src_np, device=dev)
+    else:
+        shift = 4
+    before = mesh_remap.launches
+    v, c = mesh_remap(values, counts, src, shift, C, B, kinds)
+    torch.cuda.synchronize()
+    check(mesh_remap.launches == before + 1, f"mesh_remap launches ({shape})")
+    wv, wc = mesh_remap_reference(values, counts, src, shift, C, B, kinds)
+    check(torch.equal(v, wv) and torch.equal(c, wc),
+          f"mesh_remap differs from its plain version ({shape})")
+    if src is not None:
+        idx, ok = src.clamp(min=0), (src >= 0)[:, None]
+
+        def library():
+            return (torch.where(ok, values[0].index_select(0, idx), 0.0),
+                    torch.where(ok, counts.index_select(0, idx), 0))
+        call = "index_select + where (both planes)"
+    else:
+        def library():
+            return (torch.cat([values[0].narrow(1, shift, B - shift),
+                               torch.zeros((C, shift), dtype=torch.float64,
+                                           device=dev)], 1),
+                    torch.cat([counts.narrow(1, shift, B - shift),
+                               torch.zeros((C, shift), dtype=cdt,
+                                           device=dev)], 1))
+        call = "narrow + cat (both planes)"
+
+    def kernel():
+        return mesh_remap(values, counts, src, shift, C, B, kinds)
+
+    ms, lib, turns = in_turns(kernel, library)
+    plain = cuda_ms(lambda: mesh_remap_reference(values, counts, src, shift,
+                                                 C, B, kinds), reps=5)
+    meas = measured(kernel, "mesh_remap")
+    check(meas["allocations_per_call"] == 1 and meas["syncs_per_call"] == 0,
+          f"mesh_remap made {meas['allocations_per_call']} allocations and "
+          f"{meas['syncs_per_call']} host syncs ({shape})")
+    cell = 8 + counts.element_size()
+    read_cells = n_src * B if src is not None else C * (B - shift)
+    nbytes = cell * (read_cells + C * B) + (8 * C if src is not None else 0)
+    r = row("mesh_remap", KC_SOURCE, KC_REPLACES, shape, 0.0, ms, plain,
+            nbytes, 0, lib, call)
+    dev_warm, dev_cold = device_sum(meas)
+    r.update(turns_ms=turns, library_turns=turn_factors(turns),
+             bound_bytes=nbytes, device_us_warm_total=dev_warm,
+             device_us_cold_total=dev_cold,
+             library_device_us=profile_kernels(library), **meas)
+    print(f"mesh_remap {shape}: " + json.dumps(
+        {k: r[k] for k in ("ms", "library_ms", "plain_ms", "bound_ms",
+                           "device_us_warm_total", "device_us_cold_total",
+                           "device_us_per_call", "host_us_per_call",
+                           "allocations_per_call", "syncs_per_call")}))
+    return r
+
+
+def mesh_cases(rng, dev):
+    """The three mesh kernels at q5's mesh shapes, at 2^20 rows, and on
+    the adversarial inputs: every row to one shard, the route rules'
+    boundary hashes (both rules), all padding, a merge that fills C."""
+    rows = [mesh_route_case(rng, dev, MESH_N, MESH_CELLS // MESH_NK,
+                            "q5 hash")]
+    for case, rule in (("one shard", RULE_MESH), ("boundary", RULE_MESH),
+                       ("boundary", RULE_SHUFFLE), ("padding", RULE_MESH)):
+        rows.append(mesh_route_case(rng, dev, MESH_N,
+                                    0 if case == "padding" else MESH_N - 48,
+                                    case, rule))
+    rows.append(mesh_route_case(rng, dev, 1 << 20, (1 << 20) - (1 << 14),
+                                "2^20 hash"))
+    R = MESH_NK * MESH_N
+    rows.append(mesh_merge_case(rng, dev, MESH_C, MESH_KEYS, R, MESH_NEW,
+                                "q5 step"))
+    rows.append(mesh_merge_case(rng, dev, 4_096, 3_600, R, MESH_NEW,
+                                "fills C"))
+    rows.append(mesh_merge_case(rng, dev, 1 << 20, 1 << 19, 1 << 20,
+                                1 << 17, "2^20 rows"))
+    for what in ("update", "roll"):
+        rows.append(mesh_remap_case(rng, dev, MESH_C, MESH_B, what, "q5"))
+    rows.append(mesh_remap_case(rng, dev, 1 << 20, MESH_B, "update",
+                                "2^20 rows", torch.int64))
+    return rows
+
+
 def kernel_phase(parent=None):
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
@@ -3397,6 +3721,7 @@ def kernel_phase(parent=None):
                               f"hot items COUNT(*) C={C_HOT} B={B_HOT} "
                               f"W={W_HOT} k={k} rows=3000000 int32", parent)
     rows += legacy_kernel_cases(rng, dev, parent)
+    rows += mesh_cases(rng, dev)
     return rows
 
 
@@ -5460,6 +5785,26 @@ class loop_idle:
             selectors.DefaultSelector.select = self.saved
 
 
+class gc_pauses:
+    """Seconds the garbage collector runs while the block runs (on any
+    thread), read beside the profiler."""
+
+    def __enter__(self):
+        self.secs, self._t0 = 0.0, None
+        gc.callbacks.append(self._tick)
+        return self
+
+    def _tick(self, phase, _info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.secs += time.perf_counter() - self._t0
+            self._t0 = None
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._tick)
+
+
 def svc_run(cell, make, rows_of, armed, ckpt=None, timing=False, env=None):
     """One run of ``cell`` on the card, launches counted from 0, with the
     services armed or not; returns (rows, summary, launches)."""
@@ -5480,6 +5825,11 @@ def svc_run(cell, make, rows_of, armed, ckpt=None, timing=False, env=None):
     clear_sink(sink)
     perf.reset()
     threads = set(threading.enumerate())
+    # the earlier runs' engines are freed, and the script's own heap (its
+    # controls and results) frozen, before the wall starts: a full
+    # collection inside the run then scans only what the run made
+    gc.collect()
+    gc.freeze()
     try:
         runner = LocalRunner(program, job_id=job)
         prof = profiler.arm(job) if armed or timing else None
@@ -5487,7 +5837,7 @@ def svc_run(cell, make, rows_of, armed, ckpt=None, timing=False, env=None):
         if prof is not None:
             prof.reset()
         t0 = time.perf_counter()
-        with loop_idle() as idle:
+        with loop_idle() as idle, gc_pauses() as pauses:
             resps = runner.run(checkpoint_interval_secs=ckpt)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -5497,6 +5847,7 @@ def svc_run(cell, make, rows_of, armed, ckpt=None, timing=False, env=None):
         lat = latency.active()
         san = runner.engine.sanitizer
         out = {"job": job, "armed": armed, "timing": timing, "wall_s": wall,
+               "gc_s": pauses.secs,
                "epochs": len({r.subtask_metadata.epoch for r in resps
                               if r.kind == "checkpoint_completed"})}
         late = [t.name for t in set(threading.enumerate()) - threads]
@@ -5531,7 +5882,8 @@ def svc_run(cell, make, rows_of, armed, ckpt=None, timing=False, env=None):
               f"{job}: work phases {work - beside:.3f} s on the loop, "
               f"{idle.secs:.3f} s idle and {beside:.3f} s beside it over a "
               f"{wall:.3f} s wall ({out['loop_share']:.3f}, "
-              f"{out['idle_share']:.3f}, {out['thread_share']:.3f}): "
+              f"{out['idle_share']:.3f}, {out['thread_share']:.3f}), "
+              f"{pauses.secs:.3f} s in the garbage collector: "
               f"{snap['phases']}")
         for phase in ("source_decode", "proc", "dispatch", "watermark"):
             check(snap["phases"].get(phase, 0.0) > 0.0,
@@ -5559,6 +5911,7 @@ def svc_run(cell, make, rows_of, armed, ckpt=None, timing=False, env=None):
                    trace_events=len(trace["traceEvents"]))
         return rows, out, launches
     finally:
+        gc.unfreeze()
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -6304,6 +6657,232 @@ def hop_phase():
     return launches
 
 
+# -- phase 20: the keyed mesh ------------------------------------------------------
+
+# four key shards of q5's aggregate on the one card (ROADMAP A.10: the
+# smoke host has one card; distinct cards run the same code)
+MESH_DEVICES = ("cuda:0",) * MESH_NK
+MESH_SINGLE = "cuda:0"
+MESH_COUNTERS = ("reshard_transfers", "shuffle_collectives",
+                 "shuffle_collective_rows", "shuffle_host_routes",
+                 "mesh_ingest_transfers", "pane_update_dispatches")
+MESH_PATH_KERNELS = ("mesh_route", "mesh_merge", "mesh_remap", "bin_update",
+                     "pane_emit")
+MESH_CUT_POLL = 8  # q5's batches before the cut's barrier
+# the cut's event rate: 2M events span 20 s of event time, so q5's
+# windows ending at 2-10 s fire before the cut (at bench.py's 1M events/s
+# every window fires at the end of the stream)
+MESH_CUT_RATE = 100_000.0
+
+
+def q5_sorted_rows(sink):
+    return sorted((int(b.timestamp[i]), int(b.columns["auction"][i]),
+                   int(b.columns["num"][i]))
+                  for b in sink_output(sink) for i in range(len(b)))
+
+
+def mesh_run(program, sink, device):
+    """``program`` through LocalRunner on ``device`` with the launch and
+    perf counts set to 0 first: (wall s, rows, launches, counters, the
+    mesh states)."""
+    clear_sink(sink)
+    perf.reset()
+    reset_launches()
+    dt, runner = run_program(program, device)
+    launches = read_launches()
+    states = [op.state for _id, op in operators(runner)
+              if isinstance(getattr(op, "state", None), MeshKeyedBinState)]
+    return (dt, q5_sorted_rows(sink), launches,
+            {k: perf.counter(k) for k in MESH_COUNTERS}, states)
+
+
+def mesh_par2(mode):
+    """q5 planned at parallelism 2 on the mesh, the device shuffle
+    ``mode`` (on/off), the sanitizer armed."""
+    program = plan_sql(sql_text("q5", NUM_EVENTS), parallelism=2)
+    for node in program.nodes():
+        if node.operator.kind == OpKind.CONNECTOR_SINK:
+            node.operator.spec.config["name"] = "mesh-par2"
+    os.environ.update(ARROYO_SHUFFLE_DEVICE=mode, ARROYO_SANITIZE="1")
+    try:
+        return mesh_run(program, "mesh-par2", MESH_DEVICES)
+    finally:
+        del os.environ["ARROYO_SHUFFLE_DEVICE"], os.environ["ARROYO_SANITIZE"]
+
+
+def mesh_cut_program():
+    return q5_program(NUM_EVENTS, BATCH, "mesh-cut", event_rate=MESH_CUT_RATE,
+                      base_time_micros=0)
+
+
+def record_bin_state(engine, method, into):
+    """After each call of ``method`` on a bin state that the started
+    ``engine`` built, append (state type, next_slot, count mass) to
+    ``into``: the mass is the snapshot's ``bin_counts`` summed where the
+    call returns a snapshot, else the state's count planes summed on the
+    device."""
+    for op, _ctx in engine.members.values():
+        st = getattr(op, "state", None)
+        if not hasattr(st, "total_rows"):
+            continue
+
+        def wrapped(*args, _st=st, _f=getattr(st, method), **kwargs):
+            out = _f(*args, **kwargs)
+            if isinstance(out, dict):
+                mass = int(np.asarray(out["bin_counts"]).sum())
+            else:
+                planes = getattr(_st, "d_counts", None) or [_st.counts]
+                mass = int(sum(int(c.sum()) for c in planes))
+            into.append((type(_st).__name__, _st.next_slot, mass))
+            return out
+
+        setattr(st, method, wrapped)
+
+
+async def mesh_cut(job, at_cut):
+    """The cut's q5 on the mesh, checkpointed at MESH_CUT_POLL's barrier
+    and stopped there (the checkpoint's then_stop); the epoch.  The mesh
+    state's slots and count mass at its snapshot go into ``at_cut``."""
+    engine = Engine.for_local(mesh_cut_program(), job, device=MESH_DEVICES)
+    running = engine.start()
+    record_bin_state(engine, "snapshot", at_cut)
+    held, = hold_sources(engine, (MESH_CUT_POLL,))
+    await held.wait()
+    await running.checkpoint(1, then_stop=True)
+    await running.join()
+    return 1
+
+
+async def mesh_resume(job, epoch, restored):
+    """The cut's q5 restored from ``epoch`` on one device and run to its
+    end; the restored state's slots and count mass go into
+    ``restored``."""
+    engine = Engine.for_local(mesh_cut_program(), job, restore_epoch=epoch,
+                              device=MESH_SINGLE)
+    running = engine.start()
+    record_bin_state(engine, "restore", restored)
+    await running.join()
+    return engine
+
+
+def mesh_restore():
+    """A 4-shard epoch restored on one device: the cut run's rows plus the
+    restored run's, each row once, against the same program's straight
+    run on one device; the restored state's slots and count mass those of
+    the mesh state's snapshot at the cut."""
+    clear_sink("mesh-cut")
+    _dt, _runner = run_program(mesh_cut_program(), MESH_SINGLE)
+    straight = q5_sorted_rows("mesh-cut")
+    clear_sink("mesh-cut")
+    at_cut, restored = [], []
+    t0 = time.perf_counter()
+    epoch = asyncio.run(mesh_cut("mesh-cut", at_cut))
+    if MESH_SINGLE != "cpu":
+        torch.cuda.synchronize()
+    cut_wall = time.perf_counter() - t0
+    before = q5_sorted_rows("mesh-cut")
+    clear_sink("mesh-cut")
+    t0 = time.perf_counter()
+    engine = asyncio.run(mesh_resume("mesh-cut", epoch, restored))
+    if MESH_SINGLE != "cpu":
+        torch.cuda.synchronize()
+    after = q5_sorted_rows("mesh-cut")
+    kinds = sorted({type(op.state).__name__
+                    for op, _ctx in engine.members.values()
+                    if hasattr(op, "state")})
+    return before, after, straight, {
+        "cut_epoch": epoch, "cut_wall_s": cut_wall,
+        "restore_wall_s": time.perf_counter() - t0,
+        "event_rate": MESH_CUT_RATE, "rows_straight": len(straight),
+        "rows_before_cut": len(before), "rows_after_restore": len(after),
+        "restored_states": kinds, "at_cut": at_cut, "restored": restored}
+
+
+def mesh_phase():
+    """Phase 20: q5 over four key shards of the card against the
+    single-device rows and the control; the device shuffle at parallelism
+    2 against the host route; a 4-shard epoch restored on one device."""
+    out, launches = {}, {}
+    control, single = CONTROLS["q5"], HAND["q5"][0]
+    dt, rows, l, counters, states = mesh_run(
+        program_for("q5", NUM_EVENTS, "mesh-q5"), "mesh-q5", MESH_DEVICES)
+    check(rows and rows == control and rows == single,
+          f"q5 on {MESH_NK} shards: {len(rows)} rows against the control's "
+          f"{len(control)} and one device's {len(single)}")
+    check(len(states) == 1 and states[0].nk == MESH_NK,
+          f"q5 on the mesh built {states}")
+    st = states[0]
+    check(st.overflow_counters() == (0, 0) and counters["reshard_transfers"]
+          == 0, f"q5 mesh: overflow {st.overflow_counters()}, {counters}")
+    check(all(l[k] > 0 for k in MESH_PATH_KERNELS),
+          f"q5 mesh did not launch every kernel of its path: {l}")
+    launches["mesh_q5"] = l
+    out["mesh_q5"] = {"events": NUM_EVENTS, "batch": BATCH, "wall_s": dt,
+                      "events_per_s": NUM_EVENTS / dt, "rows": len(rows),
+                      "shards": st.nk, "C": st.C, "B": st.B,
+                      "shard_keys": st.shard_counts.tolist(),
+                      "launches": {k: v for k, v in l.items() if v},
+                      "counters": counters}
+    cards = torch.cuda.device_count() if MESH_SINGLE != "cpu" else 1
+    if cards > 1:
+        devs = tuple(f"cuda:{i % cards}" for i in range(MESH_NK))
+        dt2, rows2, _l, counters2, _s = mesh_run(
+            program_for("q5", NUM_EVENTS, "mesh-q5"), "mesh-q5", devs)
+        check(rows2 == rows and counters2["reshard_transfers"] == 0,
+              f"q5 over {devs}: {len(rows2)} rows, {counters2}")
+        out["mesh_q5_cards"] = {"devices": devs, "wall_s": dt2}
+    else:
+        print("mesh: one visible card; the shards ran as logical shards of "
+              "cuda:0")
+
+    runs = {}
+    for mode in ("on", "off"):
+        runs[mode] = mesh_par2(mode)
+    (dt_on, rows_on, l_on, c_on, st_on), (dt_off, rows_off, _l, c_off,
+                                          _st) = runs["on"], runs["off"]
+    check(rows_on and rows_on == rows_off,
+          f"q5 at parallelism 2: {len(rows_on)} rows with the device "
+          f"shuffle, {len(rows_off)} with the host route")
+    # the mesh states' routes count as collectives in both runs; the
+    # device shuffle's exchanges replace every host route of the edge
+    check(c_on["shuffle_collectives"] > c_off["shuffle_collectives"]
+          and c_on["shuffle_host_routes"] == 0
+          and c_off["shuffle_host_routes"] > 0
+          and c_on["reshard_transfers"] == 0,
+          f"q5 at parallelism 2: on {c_on}, off {c_off}")
+    check(sorted(s.route_shift for s in st_on) == [1, 1],
+          f"q5 at parallelism 2: route shifts "
+          f"{[s.route_shift for s in st_on]}")
+    launches["mesh_shuffle"] = l_on
+    out["mesh_shuffle"] = {"wall_s_on": dt_on, "wall_s_off": dt_off,
+                           "rows": len(rows_on), "equals_control":
+                               rows_on == control,
+                           "counters_on": c_on, "counters_off": c_off,
+                           "launches_on": {k: v for k, v in l_on.items()
+                                           if v}}
+
+    before, after, straight, info = mesh_restore()
+    every = before + after
+    check(before and after and sorted(every) == straight
+          and len(set(every)) == len(every),
+          f"4 -> 1 restore: {len(before)} rows before the cut and "
+          f"{len(after)} after, {len(straight)} in the straight run")
+    check(cards > 1 or info["restored_states"] == ["KeyedBinState"],
+          f"4 -> 1 restore built {info['restored_states']}")
+    # one snapshot of the mesh state (the cut's checkpoint), one restore
+    # of the single-device state: the same slots, and the snapshot's row
+    # counts all on the card (a restore's total_rows is that mass too)
+    cut, back = info["at_cut"], info["restored"]
+    check(len(cut) == 1 and cut[0][0] == "MeshKeyedBinState"
+          and len(back) == 1 and cut[0][1:] == back[0][1:]
+          and cut[0][1] > 0,
+          f"4 -> 1 restore: (state, next_slot, total_rows) {cut} at the "
+          f"cut, {back} restored")
+    out["mesh_restore"] = info
+    print("mesh: " + json.dumps(out))
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -6350,6 +6929,7 @@ def main():
     launches.update(timed("native", native_phase))
     launches.update(timed("sinks", sink_phase))
     launches.update(timed("long_windows", hop_phase))
+    launches.update(timed("mesh", mesh_phase))
     print("phase seconds: " + json.dumps(seconds))
     for r in kernels:
         for path in PATHS:

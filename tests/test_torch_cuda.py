@@ -50,6 +50,12 @@ from arroyo_tpu_torch.kernels.join_expand import (
 from arroyo_tpu_torch.kernels.join_probe import join_probe, join_probe_reference
 from arroyo_tpu_torch.kernels.join_sort import (
     ONE_BLOCK_MAX, join_sort, join_sort_reference)
+from arroyo_tpu_torch.kernels.mesh_merge import (
+    merge_views, mesh_merge, mesh_merge_reference)
+from arroyo_tpu_torch.kernels.mesh_remap import (
+    mesh_remap, mesh_remap_reference)
+from arroyo_tpu_torch.kernels.mesh_route import (
+    RULE_MESH, RULE_SHUFFLE, mesh_route, mesh_route_reference, route_views)
 from arroyo_tpu_torch.kernels.pane_emit import (
     fire_geometry,
     pane_emit,
@@ -2315,3 +2321,179 @@ def test_keyed_bins_cuda_ring_fires_match_cpu(cuda_device, monkeypatch):
     assert ring_emit.launches - before[0] == fires
     assert (pane_emit.launches, emit_count.launches,
             argmax_fire.launches) == before[1:]
+
+
+# -- the keyed mesh: mesh_route, mesh_merge, mesh_remap ----------------------
+
+U64_MAX = (1 << 64) - 1
+
+
+def _boundary_keys(nk):
+    """Keys at both destination rules' range edges: k * (U64_MAX // nk)
+    and k * 2**(64 - lg), each -1, 0, +1."""
+    lg = nk.bit_length() - 1
+    out = []
+    for k in range(nk + 1):
+        for base in (k * (U64_MAX // nk), k << (64 - lg)):
+            out += [(base + d) & U64_MAX for d in (-1, 0, 1)]
+    return out
+
+
+def _route_rows(rng, N, m, nk, case, stack=3):
+    keys = rng.integers(0, 2**64 - 1, N, dtype=np.uint64)
+    if case == "one shard":
+        keys = (keys >> np.uint64(4)) | np.uint64(0xF << 60)
+    elif case == "boundary":
+        b = np.array(_boundary_keys(nk), dtype=np.uint64)
+        keys = b[rng.integers(0, len(b), N)]
+    rows = np.zeros((2 + stack, N), np.int64)
+    rows[0] = -1
+    rows[0, :m] = keys[:m].view(np.int64)
+    rows[1, :m] = 1
+    rows[2:, :m] = rng.integers(-2**62, 2**62, (stack, m))
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk", [1, 2, 4, 8])
+@pytest.mark.parametrize("rule", [RULE_MESH, RULE_SHUFFLE])
+@pytest.mark.parametrize("case", ["hash", "one shard", "boundary",
+                                  "padding"])
+def test_mesh_route_cuda_matches_plain(cuda_device, nk, rule, case):
+    """Buckets and drop counter bit-equal to the plain version, at a slice
+    of several tiles and one of less than a tile."""
+    rng = np.random.default_rng(nk * 10 + rule)
+    for N in (300, 20_000):
+        m = 0 if case == "padding" else N - N // 7
+        rows = torch.tensor(_route_rows(rng, N, m, nk, case),
+                            device=cuda_device)
+        counter = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+        before = mesh_route.launches
+        buf = mesh_route(rows, nk, rule, shift=3 if rule == RULE_MESH else 0,
+                         counter=counter)
+        assert mesh_route.launches == before + 1
+        out, drop = route_views(buf, rows.shape[0], nk, N)
+        want, dropped = mesh_route_reference(
+            rows, nk, rule, 3 if rule == RULE_MESH else 0)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        assert int(counter.item()) == dropped == 0 and int(drop.item()) == 0
+
+
+def _merge_inputs(rng, C, n_old, R, n_new_pool, dev, n_ch=2):
+    pool = np.unique(rng.integers(0, 2**64 - 2, n_old + n_new_pool,
+                                  dtype=np.uint64))
+    rng.shuffle(pool)
+    old_keys = np.sort(pool[:n_old])
+    old = np.full(C, U64_MAX, np.uint64)
+    old[:n_old] = old_keys
+    m = R - R // 5
+    inc_keys = np.full(R, U64_MAX, np.uint64)
+    inc_keys[:m] = rng.choice(pool, m)
+    inc = np.zeros((4 + n_ch, R), np.int64)
+    inc[0] = inc_keys.view(np.int64)
+    inc[1, :m] = 1
+    inc[2, :m] = rng.integers(0, 16, m)
+    inc[3:, :m] = rng.normal(size=(1 + n_ch, m)).view(np.int64)
+    t_old = torch.tensor(old.view(np.int64), device=dev)
+    t_inc = torch.tensor(inc, device=dev)
+    order, keys_sorted = join_sort_reference(t_inc[0].cpu())
+    return t_old, keys_sorted.to(dev), order.to(dev), t_inc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,n_old,R,pool", [
+    (256, 100, 512, 80),          # a small merge, one tile each
+    (8192, 3000, 40_000, 4000),   # several tiles of routed keys
+    (256, 250, 512, 300),         # new keys past C: cut and counted
+    (1024, 0, 4096, 500),         # an empty table
+])
+def test_mesh_merge_cuda_matches_plain(cuda_device, C, n_old, R, pool):
+    rng = np.random.default_rng(C + R)
+    old, keys, order, inc = _merge_inputs(rng, C, n_old, R, pool,
+                                          cuda_device)
+    counter = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    before = mesh_merge.launches
+    buf = mesh_merge(old, keys, order, inc, counter=counter)
+    assert mesh_merge.launches == before + 1
+    got = merge_views(buf, C, R, inc.shape[0] - 4)
+    want = mesh_merge_reference(old.cpu(), keys.cpu(), order.cpu(),
+                                inc.cpu())
+    torch.cuda.synchronize()
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g.cpu(), w)
+    assert int(counter.item()) == want[3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.int32, torch.int64])
+@pytest.mark.parametrize("what", ["merge map", "roll", "rebase", "grow"])
+def test_mesh_remap_cuda_matches_plain(cuda_device, cdt, what):
+    rng = np.random.default_rng(5)
+    kinds = ("count", "sum", "min", "max")
+    C, B = 2048, 16
+    values = torch.tensor(rng.normal(size=(4, C, B)), device=cuda_device)
+    counts = torch.tensor(rng.integers(0, 50, (C, B)), dtype=cdt,
+                          device=cuda_device)
+    src, shift, C_out, B_out = None, 0, C, B
+    if what == "merge map":
+        src = torch.tensor(np.where(rng.random(C) < 0.3, -1,
+                                    rng.permutation(C)), device=cuda_device)
+    elif what == "roll":
+        shift = 5
+    elif what == "rebase":
+        shift, B_out = -3, 32
+    else:
+        C_out = 2 * C
+    before = mesh_remap.launches
+    v, c = mesh_remap(values, counts, src, shift, C_out, B_out, kinds)
+    assert mesh_remap.launches == before + 1
+    wv, wc = mesh_remap_reference(values.cpu(), counts.cpu(),
+                                  None if src is None else src.cpu(), shift,
+                                  C_out, B_out, kinds)
+    torch.cuda.synchronize()
+    assert torch.equal(v.cpu(), wv) and torch.equal(c.cpu(), wc)
+    assert c.dtype == cdt
+
+
+@pytest.mark.cuda
+def test_mesh_state_cuda_matches_cpu(cuda_device):
+    """Four logical shards of one card against four on the CPU: every
+    fire, the overflow counters and the snapshot equal, the three mesh
+    kernels launched."""
+    from arroyo_tpu_torch.graph.logical import AggKind, AggSpec
+    from arroyo_tpu_torch.parallel.mesh_window import MeshKeyedBinState
+
+    aggs = (AggSpec(AggKind.COUNT, None, "cnt"),
+            AggSpec(AggKind.SUM, "v", "total"),
+            AggSpec(AggKind.MIN, "v", "lo"), AggSpec(AggKind.MAX, "v", "hi"))
+    sec = 1_000_000
+    states = [MeshKeyedBinState(aggs, sec, 2 * sec, capacity=256,
+                                n_shards=4, device=(dev,) * 4)
+              for dev in ("cuda", "cpu")]
+    rng = np.random.default_rng(8)
+    before = (mesh_route.launches, mesh_merge.launches, mesh_remap.launches)
+    for i in range(6):
+        n = 3000
+        kh = rng.integers(0, 2000, n).astype(np.uint64) * np.uint64(
+            0x9E3779B97F4A7C15)
+        ts = np.sort(i * 2 * sec + rng.integers(0, 2 * sec, n))
+        v = rng.integers(-50, 50, n).astype(np.float64)
+        fires = []
+        for st in states:
+            st.update(kh, ts.astype(np.int64), {"v": v})
+            fires.append(st.fire_panes(int(ts[-1])))
+        a, b = fires
+        assert (a is None) == (b is None)
+        if a is not None:
+            for x, y in zip(a[:1] + a[2:], b[:1] + b[2:]):
+                np.testing.assert_array_equal(x, y)
+            for c in a[1]:
+                np.testing.assert_array_equal(a[1][c], b[1][c])
+    snaps = [st.snapshot() for st in states]
+    for k in snaps[1]:
+        np.testing.assert_array_equal(snaps[0][k], snaps[1][k], err_msg=k)
+    assert states[0].overflow_counters() == (0, 0)
+    assert all(now > was for now, was in zip(
+        (mesh_route.launches, mesh_merge.launches, mesh_remap.launches),
+        before))

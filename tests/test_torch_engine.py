@@ -199,7 +199,12 @@ NEW_MODULES = ("arroyo_tpu_torch.q1", "arroyo_tpu_torch.q7",
                "arroyo_tpu_torch.connectors.schema_registry",
                "arroyo_tpu_torch.kernels.ring_emit",
                "arroyo_tpu_torch.parallel",
-               "arroyo_tpu_torch.parallel.ring_panes")
+               "arroyo_tpu_torch.parallel.ring_panes",
+               "arroyo_tpu_torch.kernels.mesh_route",
+               "arroyo_tpu_torch.kernels.mesh_merge",
+               "arroyo_tpu_torch.kernels.mesh_remap",
+               "arroyo_tpu_torch.parallel.mesh_window",
+               "arroyo_tpu_torch.parallel.shuffle")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
